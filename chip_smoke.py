@@ -6,22 +6,30 @@
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi) and build the
      kernels from csrc/ (one nvcc per source, all at once, into build/);
-  2. kernels: each of K1-K4 at GPT-J-6B shapes against its plain PyTorch
+  2. kernels: each of K1-K6 at GPT-J-6B shapes against its plain PyTorch
      version on the card, its device time (torch.profiler) beside its bound
      and a PyTorch yardstick the port never calls;
-  3. main path: InferenceEngine on GPT-J-6B at full width (28 layers,
-     random Q4 weights from seed 0, bf16 compute) with int8 and with int4
-     KV, serving prompts of 8, 100 and 300 tokens (64 new tokens, greedy)
-     and one sampled request; every kernel's launch count must grow;
-  4. card against CPU: GPT-J width at depth 2, f32 greedy streams must be
-     identical, bf16 return_logits must agree within the stated tolerance.
-Prints a JSON line {"kernels": [...]} and, last, the device line.  Details
-go to build/chip_smoke.json.  Exits non-zero, printing no result,
+  3. InferenceEngine on GPT-J-6B at full width (28 layers, random Q4
+     weights from seed 0, bf16 compute) with int8 and with int4 KV, serving
+     prompts of 8, 100 and 300 tokens (64 new tokens, greedy) and one
+     sampled request; the launch counts of K1-K4 must grow;
+  4. ServingEngine on the same params, max_batch 8, int8 and int4 KV: 12
+     requests (seeded prompt lengths 8-300, 32 or 64 new tokens, greedy,
+     chunks of 8 steps) and one submitted mid-flight; every request returns
+     its token count; the launch counts of K1, K4, K5 and K6 must grow;
+  5. card against CPU: GPT-J width at depth 2, f32 greedy streams must be
+     identical (InferenceEngine, and ServingEngine card vs CPU vs the
+     card's InferenceEngine), bf16 return_logits must agree within the
+     stated tolerance.
+Each path's launch counts are set to 0 just before it runs and read just
+after.  Prints a JSON line {"kernels": [...]} and, last, the device line.
+Details go to build/chip_smoke.json.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
 """
 
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import math
@@ -34,7 +42,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Tolerances, relative to max|plain| on the same inputs.
 TOL_Q4 = 1e-4     # K1/K2: only the order of the f32 sums differs
-TOL_DECODE = 1e-3  # K3: only the exp and sum order differ
+TOL_DECODE = 1e-3  # K3, K5: only the exp and sum order differ
 TOL_FLASH_BF16 = 1e-2  # K4 bf16: the output is rounded to bf16
 TOL_FLASH_F32 = 1e-4   # K4 f32: sum order only
 # bf16 logits card vs CPU, relative to max|logit|: every activation rounds
@@ -108,9 +116,10 @@ def phase_kernels(peaks):
     from vsim_tpu_torch.ops import _build
     from vsim_tpu_torch.ops.attention import (flash_attention_fwd,
                                               flash_attention_plain)
-    from vsim_tpu_torch.ops.decode_attention import (decode_attention_plain,
-                                                     decode_attention_q,
-                                                     kv_int)
+    from vsim_tpu_torch.ops.decode_attention import (
+        decode_attention_fresh, decode_attention_fresh_plain,
+        decode_attention_plain, decode_attention_q, kv_int, scatter_rows,
+        scatter_rows_plain)
     from vsim_tpu_torch.ops.q4_cuda import (q4_gemv_ps, q4_gemv_ps_plain,
                                             q4_matmul_ps, q4_matmul_ps_plain)
     from vsim_tpu_torch.quant.q4 import Q4Tensor, dequantize_km
@@ -230,6 +239,109 @@ def phase_kernels(peaks):
                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, library_ms=lib_ms))
 
+    # K5 (fresh-mode decode attention) and K6 (the all-layer row writer):
+    # one ragged serving step at B=8, each row at its own n_past (2048 = S
+    # is the inactive-slot sentinel: K5 reads all S rows, K6 writes none)
+    B = 8  # noqa: N806
+    n_list = [0, 1, 127, 128, 300, 1500, 2047, 2048]
+    npv = torch.tensor(n_list, dtype=torch.int32, device=dev)
+    n_keys = [min(n, S) for n in n_list]
+    live = [b for b, n in enumerate(n_list) if n < S]
+    for kv in ("int8", "int4"):
+        Dp = D // 2 if kv == "int4" else D  # noqa: N806
+        vdt = torch.uint8 if kv == "int4" else torch.int8
+        lo, hi = (0, 256) if kv == "int4" else (-127, 128)
+
+        def side(shape):
+            vals = torch.randint(lo, hi, shape, generator=g, device=dev,
+                                 dtype=vdt)
+            sc = (torch.rand(shape[:-1], generator=g, device=dev)
+                  * 0.05).to(torch.bfloat16)
+            return vals, sc
+
+        k_store, v_store = side((L, B, H, S, Dp)), side((L, B, H, S, Dp))
+        fresh = (*side((B, H, Dp)), *side((B, H, Dp)))
+        q = torch.randn((B, H, D), generator=g, device=dev)
+        got = decode_attention_fresh(q, k_store, v_store, 1, npv, fresh,
+                                     scale=scale)
+        ref = decode_attention_fresh_plain(q, k_store, v_store, 1, npv, fresh,
+                                           scale=scale)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        if not torch.isfinite(got).all() or rel > TOL_DECODE:
+            fail(f"decode_attention_fresh {kv}: max|err| {err:.3g} "
+                 f"(rel {rel:.3g} > {TOL_DECODE})")
+        ms = timed(lambda: decode_attention_fresh(
+            q, k_store, v_store, 1, npv, fresh, scale=scale), reps=50)
+        plain_ms = timed(lambda: decode_attention_fresh_plain(
+            q, k_store, v_store, 1, npv, fresh, scale=scale), reps=5,
+            warmup=1)
+        # yardstick: SDPA over the dequantized layer and the fresh row as
+        # one more key, masked to rows < n_past[b] and that row
+        def deq(vals, sc):
+            return kv_int(vals) * sc.float()[..., None]
+
+        kd = torch.cat([deq(k_store[0][1], k_store[1][1]),
+                        deq(*fresh[:2])[:, :, None]], dim=2).to(torch.bfloat16)
+        vd = torch.cat([deq(v_store[0][1], v_store[1][1]),
+                        deq(*fresh[2:])[:, :, None]], dim=2).to(torch.bfloat16)
+        s_idx = torch.arange(S + 1, device=dev)
+        mask = ((s_idx[None, :] < npv[:, None]) | (s_idx[None, :] == S))
+        mask = mask[:, None, None, :]
+        qb = q.to(torch.bfloat16)[:, :, None, :]
+        lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qb, kd, vd, attn_mask=mask, scale=scale), reps=50)
+        del kd, vd
+        rows_read = sum(n_keys) + B  # cache rows and the fresh ones, per head
+        nbytes = (2 * H * rows_read * (Dp + 2) + B * H * D * (2 + 4))
+        b_ms, b_by = bound(nbytes, 4 * H * rows_read * D, bf16_peak)
+        rows.append(dict(kernel="decode_attention_fresh",
+                         shape=f"{kv} B={B} H={H} D={D} S={S} n_past={n_list}",
+                         max_abs_err=err, rel_err=rel, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms))
+        del k_store, v_store
+
+        # K6 over the whole GPT-J-6B cache, 28 layers
+        L6 = 28  # noqa: N806
+        k_store, v_store = side((L6, B, H, S, Dp)), side((L6, B, H, S, Dp))
+        new = (*side((L6, B, H, Dp)), *side((L6, B, H, Dp)))
+        k_ref, v_ref = (tuple(t.clone() for t in st)
+                        for st in (k_store, v_store))
+        scatter_rows(k_store, v_store, new, npv)
+        scatter_rows_plain(k_ref, v_ref, new, npv)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((*k_store, *v_store),
+                                                     (*k_ref, *v_ref))):
+            fail(f"scatter_rows {kv}: differs from its plain version")
+        del k_ref, v_ref
+        ms = timed(lambda: scatter_rows(k_store, v_store, new, npv), reps=50)
+        plain_ms = timed(lambda: scatter_rows_plain(k_store, v_store, new,
+                                                    npv), reps=5, warmup=1)
+        # yardstick: index_put_ of the rows that land (the host picks them)
+        lv = torch.tensor(live, device=dev)
+        ix = (torch.arange(L6, device=dev)[:, None, None], lv[None, :, None],
+              torch.arange(H, device=dev)[None, None, :],
+              npv.long()[lv][None, :, None])
+        sel = [t[:, lv] for t in new]
+
+        def index_put():
+            for (vals, sc), (rq, rs) in ((k_store, sel[:2]),
+                                         (v_store, sel[2:])):
+                vals.index_put_(ix, rq)
+                sc.index_put_(ix, rs)
+
+        lib_ms = timed(index_put, reps=50)
+        nbytes = 2 * 2 * L6 * len(live) * H * (Dp + 2)  # read + write
+        b_ms, b_by = bound(nbytes, 0, bf16_peak)
+        rows.append(dict(kernel="scatter_rows",
+                         shape=f"{kv} L={L6} B={B} H={H} Dp={Dp} S={S} "
+                         f"n_past={n_list}", max_abs_err=0.0, rel_err=0.0,
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms))
+        del k_store, v_store, new, sel
+        torch.cuda.empty_cache()
+
     # K4: prefill flash attention, H=16, D=256
     for dt in (torch.bfloat16, torch.float32):
         for T in (16, 512):  # noqa: N806
@@ -264,8 +376,13 @@ def phase_kernels(peaks):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path at full width
+# phase 3: InferenceEngine at full width
 # ---------------------------------------------------------------------------
+
+INFERENCE_KERNELS = ("q4_gemv_ps", "q4_matmul_ps", "decode_attention",
+                     "flash_attention")
+SERVING_KERNELS = ("q4_gemv_ps", "flash_attention", "decode_attention_fresh",
+                   "scatter_rows")
 
 
 def phase_model(peaks):
@@ -316,9 +433,9 @@ def phase_model(peaks):
             fail(f"{kv} sampled request returned {len(r.token_ids)} tokens")
         results[f"{kv} sampled"] = dict(tokens=r.token_ids[:8])
     launches = dict(_build.launch_counts)
-    for name in _build.SOURCES:
+    for name in INFERENCE_KERNELS:
         if launches.get(name, 0) == 0:
-            fail(f"the main path never launched {name}: {launches}")
+            fail(f"InferenceEngine never launched {name}: {launches}")
 
     # one bf16 decode step at n_past=300, timed alone: launches per step,
     # host enqueue time, and wall time to completion
@@ -346,11 +463,121 @@ def phase_model(peaks):
                 enqueue_ms_median=enq[10] * 1e3, wall_ms_median=wall[10] * 1e3,
                 bound_ms_per_token=bound_ms, weight_bytes_per_step=step_bytes)
     return dict(setup_s=setup_s, weight_gb=weight_gb, requests=results,
-                step=step), launches
+                step=step), launches, cfg, p
 
 
 # ---------------------------------------------------------------------------
-# phase 4: card against CPU
+# phase 4: ServingEngine at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_serving(cfg, params):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vsim_tpu_torch import monitor
+    from vsim_tpu_torch.decode_profile import busy_us
+    from vsim_tpu_torch.engine.serving import ServingEngine
+    from vsim_tpu_torch.models.transformer import forward
+    from vsim_tpu_torch.ops import _build
+
+    rng = torch.Generator().manual_seed(1)
+    lens = torch.randint(8, 301, (13,), generator=rng).tolist()
+    prompts = [torch.randint(0, cfg.n_vocab, (n,), generator=rng).tolist()
+               for n in lens]
+    n_pred = [64 if i % 2 == 0 else 32 for i in range(13)]
+    out, launches = {}, {}
+    for kv in ("int8", "int4"):
+        srv = ServingEngine(cfg, params, max_batch=8, kv_dtype=kv)
+        warmup_s = srv.warmup()
+        monitor.reset()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        for p, n in zip(prompts[:12], n_pred[:12]):
+            srv.submit(p, n, stop_tokens=())
+        chunks = 0
+        while srv._queue or srv._active:
+            if chunks == 2:  # joins while the first eight decode
+                srv.submit(prompts[12], n_pred[12], stop_tokens=())
+            srv.step_chunk(8)
+            chunks += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[kv] = run_counts = dict(_build.launch_counts)
+        for name in SERVING_KERNELS:
+            if run_counts.get(name, 0) == 0:
+                fail(f"ServingEngine ({kv}) never launched {name}: "
+                     f"{run_counts}")
+        reqs = [srv._results[i] for i in sorted(srv._results)]
+        if len(reqs) != 13:
+            fail(f"serving {kv}: {len(reqs)} of 13 requests finished")
+        for r, n in zip(reqs, n_pred):
+            if len(r.generated) != n or not all(
+                    0 <= t < cfg.n_vocab for t in r.generated):
+                fail(f"serving {kv} request {r.request_id}: "
+                     f"{len(r.generated)} tokens of {n}")
+        st = monitor.stats()  # read now: later spans add to these entries
+        chunk_calls, chunk_s = st["serve/step_chunk"].calls, \
+            st["serve/step_chunk"].wall_s
+        admit_calls, admit_s = (st["serve/admit"].calls,
+                                st["serve/admit"].wall_s)
+        n_tok = sum(len(r.generated) for r in reqs)
+
+        # one B=8 decode step alone, every slot live at its own n_past
+        for p in prompts[:8]:
+            srv.submit(p[:100], 4, stop_tokens=())
+        srv._admit()
+        tok, npv = srv.tokens[:, None].clone(), srv.n_past.clone()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        forward(cfg, srv.params, tok, srv.cache, npv)
+        per_step = dict(_build.launch_counts)
+        enq, wall_step = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            forward(cfg, srv.params, tok, srv.cache, npv)
+            b = time.perf_counter()
+            torch.cuda.synchronize()
+            enq.append(b - a)
+            wall_step.append(time.perf_counter() - a)
+        enq.sort()
+        wall_step.sort()
+        # the same step under torch.profiler: device busy time (the union
+        # of kernel and copy intervals) and device time by kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                forward(cfg, srv.params, tok, srv.cache, npv)
+            torch.cuda.synchronize()
+        intervals, by_name = [], collections.Counter()
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                s, e = ev.time_range.start, ev.time_range.end
+                intervals.append((s, e))
+                by_name[ev.name[:60]] += (e - s) / 1e3 / 5
+        busy_ms = busy_us(intervals) / 1e3 / 5 if intervals else None
+        out[kv] = dict(
+            warmup_s=warmup_s, wall_s=wall, requests=len(reqs),
+            generated_tokens=n_tok, tokens_per_s=n_tok / wall,
+            ttft_ms=[(r.first_token_s - r.submitted_s) * 1e3 for r in reqs],
+            chunks=chunk_calls,
+            ms_per_chunk_step=chunk_s * 1e3 / (chunk_calls * 8),
+            admit_ms_total=admit_s * 1e3, admissions=admit_calls,
+            launches_per_decode_step=per_step,
+            step_b8_enqueue_ms_median=enq[5] * 1e3,
+            step_b8_wall_ms_median=wall_step[5] * 1e3,
+            step_b8_device_busy_ms=busy_ms,
+            step_b8_device_idle_share=(None if busy_ms is None else
+                                       1 - busy_ms / (wall_step[5] * 1e3)),
+            step_b8_device_ms_by_kernel=dict(by_name.most_common(8)))
+        del srv
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: card against CPU
 # ---------------------------------------------------------------------------
 
 
@@ -359,6 +586,7 @@ def phase_card_vs_cpu():
 
     from vsim_tpu_torch.engine.generate import InferenceEngine
     from vsim_tpu_torch.engine.sampling import SamplingParams
+    from vsim_tpu_torch.engine.serving import ServingEngine
     from vsim_tpu_torch.models.config import PRESETS
     from vsim_tpu_torch.models.init import random_q4_params
 
@@ -376,6 +604,25 @@ def phase_card_vs_cpu():
         fail(f"f32 greedy streams differ: card {streams['cuda']} "
              f"cpu {streams['cpu']}")
     out["f32_greedy_tokens"] = streams["cuda"]
+    # serving: 4 prompts on 3 slots (one waits for a slot), 12 tokens each.
+    # Random weights give the odd near-tie, where card and CPU f32 sums may
+    # pick different tokens (range(300, 320) has a top-2 logit margin of
+    # 3e-4 of max|logit| at its third step): every greedy step of these
+    # prompts has a margin above 2e-3 on the CPU.
+    prompts = [prompt, list(range(7, 10)), list(range(1000, 1020)), [42]]
+    served = {}
+    for dev in ("cuda", "cpu"):
+        srv = ServingEngine(cfg, params, max_batch=3, kv_dtype="int8",
+                            device=dev)
+        res = srv.run(prompts, 12, stop_tokens=(), chunk_steps=4)
+        served[dev] = [res[i].generated for i in sorted(res)]
+    eng = InferenceEngine(cfg, params, kv_dtype="int8", device="cuda")
+    single = [eng.generate(p, 12, SamplingParams(greedy=True)).token_ids
+              for p in prompts]
+    if not served["cuda"] == served["cpu"] == single:
+        fail(f"f32 serving streams differ: card {served['cuda']} cpu "
+             f"{served['cpu']} card InferenceEngine {single}")
+    out["f32_serving_tokens"] = served["cuda"]
     cfg = base.replace(compute_dtype="bfloat16")
     logits = {}
     for dev in ("cuda", "cpu"):
@@ -404,15 +651,24 @@ KERNEL_META = {
     "flash_attention": ("vsim_tpu_torch/csrc/flash_attention.cu",
                         "vsim_tpu/ops/attention.py:62",
                         "T=512 H=16 D=256 bfloat16"),
+    "decode_attention_fresh": ("vsim_tpu_torch/csrc/decode_attention.cu",
+                               "vsim_tpu/ops/decode_attention.py:82",
+                               "int8 B=8 H=16 D=256 S=2048"),
+    "scatter_rows": ("vsim_tpu_torch/csrc/kv_scatter_rows.cu",
+                     "vsim_tpu/ops/decode_attention.py:370",
+                     "int8 L=28 B=8 H=16 Dp=256 S=2048"),
 }
 ROW_KERNEL = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
               "decode_attention_q": "decode_attention",
-              "flash_attention_fwd": "flash_attention"}
+              "flash_attention_fwd": "flash_attention",
+              "decode_attention_fresh": "decode_attention_fresh",
+              "scatter_rows": "scatter_rows"}
 
 
 def kernel_line(rows, launches):
     """One entry per kernel, at the representative shape named in
-    KERNEL_META (every shape is in build/chip_smoke.json)."""
+    KERNEL_META (every shape is in build/chip_smoke.json); ``launches``
+    sums the launch counts of the driven paths."""
     out = []
     for name, (src, replaces, shape) in KERNEL_META.items():
         mine = [r for r in rows if ROW_KERNEL[r["kernel"]] == name]
@@ -457,21 +713,32 @@ def main() -> None:
     print(f"kernel phase: {len(rows)} cases pass in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    model, launches = phase_model(peaks)
-    print(f"main path in {time.perf_counter() - t0:.1f} s: "
+    model, launches, cfg, params = phase_model(peaks)
+    print(f"InferenceEngine in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps(model['step'])}", flush=True)
     for k, v in model["requests"].items():
+        print(f"  {k}: {json.dumps(v)}", flush=True)
+    t0 = time.perf_counter()
+    serving, serve_launches = phase_serving(cfg, params)
+    del params
+    print(f"ServingEngine in {time.perf_counter() - t0:.1f} s", flush=True)
+    for k, v in serving.items():
         print(f"  {k}: {json.dumps(v)}", flush=True)
     t0 = time.perf_counter()
     vs_cpu = phase_card_vs_cpu()
     print(f"card vs cpu in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps(vs_cpu)}", flush=True)
 
+    total = collections.Counter(launches)
+    for counts in serve_launches.values():
+        total.update(counts)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernel_rows=rows, model=model,
-                       card_vs_cpu=vs_cpu, ptxas=reports), f, indent=1)
-    print(json.dumps({"kernels": kernel_line(rows, launches)}))
+                       launches_inference=launches, serving=serving,
+                       launches_serving=serve_launches, card_vs_cpu=vs_cpu,
+                       ptxas=reports), f, indent=1)
+    print(json.dumps({"kernels": kernel_line(rows, total)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

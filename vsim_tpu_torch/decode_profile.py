@@ -23,7 +23,7 @@ import subprocess
 import time
 
 
-def _busy_us(intervals):
+def busy_us(intervals):
     """Length of the union of [start, end) intervals, in µs."""
     total, end = 0.0, float("-inf")
     for s, e in sorted(intervals):
@@ -97,7 +97,7 @@ def main(argv=None) -> dict:
             intervals.append((s, e))
             by_name[ev.name[:80]] += (e - s) / 1e3
             counts[ev.name[:80]] += 1
-    busy_ms = _busy_us(intervals) / 1e3 / steps if intervals else None
+    busy_ms = busy_us(intervals) / 1e3 / steps if intervals else None
     wall_ms = sorted(wall)[len(wall) // 2] * 1e3
     out = dict(
         card=card, kv=kv, n_past=n_past,

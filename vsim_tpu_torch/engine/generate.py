@@ -1,10 +1,11 @@
 """Inference engine: prefill + token-at-a-time decode (port of
 vsim_tpu/engine/generate.py).
 
-Load-time transforms, as in the JAX engine: pad a misaligned Q4 lm head to
-a multiple of 1024 (the kernels' column tiles need aligned O; logits are
-sliced back to n_vocab), fuse q/k/v into one head-interleaved weight, split
-the layers and repack every weight with K % 64 == 0 to plane-split.
+Load-time transforms (``engine_params``, shared with the serving engine), as
+in the JAX engine: pad a misaligned Q4 lm head to a multiple of 1024 (the
+kernels' column tiles need aligned O; logits are sliced back to n_vocab),
+fuse q/k/v into one head-interleaved weight, split the layers and repack
+every weight with K % 64 == 0 to plane-split.
 
 ``generate`` prefills the whole prompt from an empty cache (attending over
 its own full-precision k/v), then decodes in a Python loop with sampling on
@@ -40,6 +41,26 @@ from vsim_tpu_torch.quant.q4 import Q4Tensor
 LM_HEAD_ALIGN = 1024
 
 
+def engine_params(cfg: ModelConfig, params, device: torch.device):
+    """The engines' params on ``device``: lm head padded, qkv fused, every
+    Q4 weight plane-split, layers split into a per-layer list.  An engine's
+    params (layers already a list) are shared as they are."""
+    params = params_to(params, device)
+    if isinstance(params["layers"], list):
+        return params
+    lm = params.get("lm_head")
+    if isinstance(lm, Q4Tensor) and lm.out_features % LM_HEAD_ALIGN:
+        params = dict(params, lm_head=lm.pad_out(LM_HEAD_ALIGN))
+        b = params.get("lm_head_b")
+        if b is not None:
+            pad = params["lm_head"].out_features - b.shape[-1]
+            params["lm_head_b"] = F.pad(b.to(torch.float32), (0, pad))
+    if cfg.fuse_qkv:
+        params = fuse_qkv_params(cfg, params)
+    params = prepare_unrolled_params(params)
+    return dict(params, layers=per_layer(params["layers"], cfg.n_layer))
+
+
 @dataclasses.dataclass
 class GenerationResult:
     token_ids: List[int]  # generated tokens (prompt excluded)
@@ -61,23 +82,7 @@ class InferenceEngine:
         if decode_chunk < 1:
             raise ValueError("decode_chunk must be >= 1")
         self.decode_chunk = decode_chunk
-
-        params = params_to(params, self.device)
-        if isinstance(params["layers"], list):  # another engine's params,
-            self.params = params  # already transformed: share them
-            return
-        lm = params.get("lm_head")
-        if isinstance(lm, Q4Tensor) and lm.out_features % LM_HEAD_ALIGN:
-            params = dict(params, lm_head=lm.pad_out(LM_HEAD_ALIGN))
-            b = params.get("lm_head_b")
-            if b is not None:
-                pad = params["lm_head"].out_features - b.shape[-1]
-                params["lm_head_b"] = F.pad(b.to(torch.float32), (0, pad))
-        if cfg.fuse_qkv:
-            params = fuse_qkv_params(cfg, params)
-        params = prepare_unrolled_params(params)
-        self.params = dict(params,
-                           layers=per_layer(params["layers"], cfg.n_layer))
+        self.params = engine_params(cfg, params, self.device)
 
     def new_cache(self, batch: int = 1):
         return init_cache(self.cfg, batch, n_ctx=self.n_ctx,

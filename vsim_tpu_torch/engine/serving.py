@@ -1,0 +1,325 @@
+"""Continuous-batching serving engine (port of vsim_tpu/engine/serving.py,
+without the speculative drafter).
+
+Many concurrent requests share one weights-resident model: each decode step
+is one batched forward over ``max_batch`` slots, every slot at its own cache
+length (ragged ``n_past``, models/transformer.py), so one sweep of the Q4
+weights serves up to ``max_batch`` tokens.  The cache is one dense
+head-major [L, max_batch, H, n_ctx, D] block, one slot per request.
+
+  * ``submit()`` queues a request.
+  * Admission claims a free slot for every queued request it can and
+    prefills them together: only the admitted rows, at the longest admitted
+    prompt, into a scratch cache of that length whose rows are then copied
+    into the claimed slots.  Slots past a prompt's end hold padding that is
+    never read: a decode step attends rows < n_past only.
+  * ``step()`` / ``step_chunk(n)`` advance every active slot by one / up to
+    n tokens.  The slot state (next token, n_past, repeat window) lives on
+    the device.  A chunk runs its steps with no host sync and brings its
+    tokens back in one transfer at its end.  Within a chunk a slot stops on
+    the device when it emits a stop id that all active requests share or
+    spends its token budget; from then on it carries n_past = n_ctx, the
+    write-nothing sentinel, and its token, n_past and window stay as they
+    are.  Request-specific stop ids are honoured on the host.
+  * ``run()`` serves a list of prompts to completion.
+
+The JAX engine's recompile guards have no counterpart here (PyTorch runs
+eagerly): kv-length buckets, the fixed-width stop-id vector, admission
+padded to [max_batch, 16 * 2^k] with sentinel rows, and warmup's per-bucket
+builds.  Monitor spans: ``serve/admit``, ``serve/step``,
+``serve/step_chunk``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from vsim_tpu_torch import monitor
+from vsim_tpu_torch.device import DeviceLike, resolve_device
+from vsim_tpu_torch.engine.generate import engine_params
+from vsim_tpu_torch.engine.sampling import SamplingParams, sample_torch
+from vsim_tpu_torch.models.config import ModelConfig
+from vsim_tpu_torch.models.transformer import forward, init_cache
+from vsim_tpu_torch.ops import _build
+
+
+@dataclasses.dataclass
+class Request:
+    request_id: int
+    prompt_ids: List[int]
+    n_predict: int
+    stop_tokens: frozenset
+    streaming_token_hook: Optional[Callable[[int], None]] = None
+    # filled during serving
+    slot: int = -1
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    submitted_s: float = 0.0
+    first_token_s: float = 0.0
+    finished_s: float = 0.0
+
+
+class ServingEngine:
+    """Continuous batching over ``max_batch`` cache slots on one device
+    (the CUDA card by default).  ``params`` may be another engine's
+    already-transformed params; they are then shared, not copied."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
+                 n_ctx: Optional[int] = None,
+                 sampling: Optional[SamplingParams] = None, seed: int = 0,
+                 repeat_window: int = 64, kv_dtype=None,
+                 device: DeviceLike = None):
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        self.device = dev = resolve_device(device)
+        self.cfg = cfg
+        self.params = engine_params(cfg, params, dev)
+        self.max_batch = max_batch
+        self.n_ctx = n_ctx or cfg.n_ctx
+        self.kv_dtype = kv_dtype or cfg.kv_dtype
+        self.sampling = sp = sampling or SamplingParams(greedy=True)
+        self._sample_kw = dict(top_k=sp.top_k, top_p=sp.top_p,
+                               temperature=sp.temperature,
+                               repeat_penalty=sp.repeat_penalty,
+                               greedy=sp.greedy)
+        self.repeat_window = W = max(repeat_window, 1)  # noqa: N806
+
+        self.cache = init_cache(cfg, max_batch, n_ctx=self.n_ctx,
+                                dtype=self.kv_dtype, device=dev)
+        # device-resident per-slot state
+        self.tokens = torch.zeros(max_batch, dtype=torch.long, device=dev)
+        self.n_past = torch.zeros(max_batch, dtype=torch.int32, device=dev)
+        self.last_tokens = torch.full((max_batch, W), -1, dtype=torch.long,
+                                      device=dev)
+        self.generator = torch.Generator(device=dev)
+        self.generator.manual_seed(seed)
+
+        # host-side bookkeeping
+        self._free: List[int] = list(range(max_batch))
+        self._active: Dict[int, Request] = {}  # slot -> request
+        self._queue: List[Request] = []
+        self._results: Dict[int, Request] = {}
+        self._ids = itertools.count()
+
+    # ------------------------------------------------------------------
+    # device work
+
+    def _prefill(self, ids: torch.Tensor, last: torch.Tensor,
+                 windows: torch.Tensor, slots: Optional[torch.Tensor],
+                 generator: torch.Generator) -> torch.Tensor:
+        """Prefill ids [n, T] from empty into a scratch cache, copy its
+        rows into cache slots ``slots`` (none when None) and sample each
+        row's first token from its logits at position ``last``."""
+        n, T = ids.shape  # noqa: N806
+        scratch = init_cache(self.cfg, n, n_ctx=T, dtype=self.kv_dtype,
+                             device=self.device)
+        logits, scratch = forward(self.cfg, self.params, ids, scratch, 0,
+                                  fresh_kv=True)
+        if slots is not None:
+            for side in ("k", "v"):
+                dst, src = self.cache[side], scratch[side]
+                if not isinstance(dst, tuple):
+                    dst, src = (dst,), (src,)
+                for d, s in zip(dst, src):
+                    d[:, slots, :, :T] = s
+        sel = logits[torch.arange(n, device=self.device), last]
+        return sample_torch(sel, windows, generator, **self._sample_kw)
+
+    def _run_steps(self, n_steps: int, active: torch.Tensor,
+                   remaining: torch.Tensor, stop_ids: torch.Tensor,
+                   generator: torch.Generator):
+        """``n_steps`` batched decode steps, all on the device.  Returns the
+        tokens [n_steps, B] and the active mask each step started with."""
+        tokens, n_past, last = self.tokens, self.n_past, self.last_tokens
+        toks, actives = [], []
+        for _ in range(n_steps):
+            np_eff = torch.where(active, n_past, self.n_ctx)
+            logits, _ = forward(self.cfg, self.params, tokens[:, None],
+                                self.cache, np_eff)
+            nxt = sample_torch(logits[:, -1, :], last, generator,
+                               **self._sample_kw)
+            nxt = torch.where(active, nxt, tokens)
+            last = torch.where(active[:, None],
+                               torch.cat([last[:, 1:], nxt[:, None]], dim=1),
+                               last)
+            n_past = torch.where(active, n_past + 1, n_past)
+            remaining = torch.where(active, remaining - 1, remaining)
+            toks.append(nxt)
+            actives.append(active)
+            hit_stop = (nxt[:, None] == stop_ids[None, :]).any(dim=1)
+            active = active & ~hit_stop & (remaining > 0)
+            tokens = nxt
+        self.tokens, self.n_past, self.last_tokens = tokens, n_past, last
+        return torch.stack(toks), torch.stack(actives)
+
+    # ------------------------------------------------------------------
+
+    def warmup(self) -> float:
+        """Build the kernels and run the serving loop's device work once:
+        one all-sentinel admission (a prefill of max_batch rows whose cache
+        rows go nowhere) and one all-inactive step (every slot at the
+        sentinel n_past, so nothing is written).  Slots, cache and the
+        seeded generator are left as they were.  Returns its seconds."""
+        t0 = time.perf_counter()
+        dev, B = self.device, self.max_batch  # noqa: N806
+        if dev.type == "cuda":
+            _build.build_all()
+        throwaway = torch.Generator(device=dev)
+        throwaway.manual_seed(0)
+        T = min(16, self.n_ctx)  # noqa: N806
+        self._prefill(torch.zeros((B, T), dtype=torch.long, device=dev),
+                      torch.full((B,), T - 1, device=dev),
+                      torch.full((B, self.repeat_window), -1,
+                                 dtype=torch.long, device=dev),
+                      None, throwaway)
+        self._run_steps(1, torch.zeros(B, dtype=torch.bool, device=dev),
+                        torch.zeros(B, dtype=torch.int32, device=dev),
+                        torch.zeros(0, dtype=torch.long, device=dev),
+                        throwaway)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    def submit(self, prompt_ids: Sequence[int], n_predict: int = 100, *,
+               stop_tokens: Sequence[int] = (2,),  # reference EOS
+               streaming_token_hook: Optional[Callable[[int], None]] = None
+               ) -> int:
+        ids = [int(t) for t in prompt_ids]
+        if not ids:
+            raise ValueError("empty prompt")
+        if not all(0 <= t < self.cfg.n_vocab for t in ids):
+            raise ValueError(f"prompt token outside [0, {self.cfg.n_vocab})")
+        if len(ids) + n_predict > self.n_ctx:
+            raise ValueError(f"prompt({len(ids)}) + n_predict({n_predict}) "
+                             f"exceeds n_ctx={self.n_ctx}")
+        req = Request(request_id=next(self._ids), prompt_ids=ids,
+                      n_predict=n_predict,
+                      stop_tokens=frozenset(int(t) for t in stop_tokens),
+                      streaming_token_hook=streaming_token_hook,
+                      submitted_s=time.perf_counter())
+        self._queue.append(req)
+        return req.request_id
+
+    def _admit(self) -> None:
+        """Claim free slots for queued requests and prefill them in one
+        batched forward."""
+        if not (self._queue and self._free):
+            return
+        with monitor.span("serve/admit"):
+            self._admit_batch()
+
+    def _admit_batch(self) -> None:
+        admitted: List[Request] = []
+        while self._queue and self._free:
+            req = self._queue.pop(0)
+            req.slot = self._free.pop(0)
+            admitted.append(req)
+        W, dev = self.repeat_window, self.device  # noqa: N806
+        n = len(admitted)
+        T = max(len(r.prompt_ids) for r in admitted)  # noqa: N806
+        ids = torch.zeros((n, T), dtype=torch.long)
+        windows = torch.full((n, W), -1, dtype=torch.long)
+        for i, r in enumerate(admitted):
+            ids[i, :len(r.prompt_ids)] = torch.tensor(r.prompt_ids)
+            tail = r.prompt_ids[-W:]
+            windows[i, W - len(tail):] = torch.tensor(tail)
+        last = torch.tensor([len(r.prompt_ids) - 1 for r in admitted])
+        slots = torch.tensor([r.slot for r in admitted], device=dev)
+        windows = windows.to(dev)
+        toks = self._prefill(ids.to(dev), last.to(dev), windows, slots,
+                             self.generator)
+        self.tokens[slots] = toks
+        self.n_past[slots] = (last + 1).to(device=dev, dtype=torch.int32)
+        self.last_tokens[slots] = torch.cat([windows[:, 1:], toks[:, None]],
+                                            dim=1)
+        toks_host = toks.tolist()
+        now = time.perf_counter()
+        for r, tok in zip(admitted, toks_host):
+            self._active[r.slot] = r
+            r.first_token_s = now
+            self._emit(r, tok)
+
+    def _emit(self, req: Request, tok: int) -> None:
+        req.generated.append(tok)
+        if req.streaming_token_hook is not None:
+            req.streaming_token_hook(tok)
+        if tok in req.stop_tokens or len(req.generated) >= req.n_predict:
+            self._finish(req)
+
+    def _finish(self, req: Request) -> None:
+        req.done = True
+        req.finished_s = time.perf_counter()
+        self._results[req.request_id] = req
+        if req.slot >= 0:
+            del self._active[req.slot]
+            self._free.append(req.slot)
+            req.slot = -1
+
+    def _advance(self, n_steps: int) -> List[int]:
+        """Up to ``n_steps`` tokens for every active slot, one host
+        transfer; returns the request ids that finished."""
+        B, dev = self.max_batch, self.device  # noqa: N806
+        active, remaining = [False] * B, [0] * B
+        stop_common = None
+        for slot, req in self._active.items():
+            active[slot] = True
+            remaining[slot] = max(req.n_predict - len(req.generated), 0)
+            stop_common = (set(req.stop_tokens) if stop_common is None
+                           else stop_common & req.stop_tokens)
+        toks, actives = self._run_steps(
+            n_steps, torch.tensor(active, device=dev),
+            torch.tensor(remaining, dtype=torch.int32, device=dev),
+            torch.tensor(sorted(stop_common or ()), dtype=torch.long,
+                         device=dev),
+            self.generator)
+        toks_h, act_h = torch.stack([toks, actives.long()]).tolist()
+        finished = []
+        for slot, req in list(self._active.items()):
+            for j in range(n_steps):
+                if not act_h[j][slot] or req.done:
+                    break
+                self._emit(req, toks_h[j][slot])
+            if req.done:
+                finished.append(req.request_id)
+        return finished
+
+    def step(self) -> List[int]:
+        """Admit queued requests, advance all active slots one token.
+        Returns the request ids that finished this step."""
+        self._admit()
+        if not self._active:
+            return []
+        with monitor.span("serve/step"):
+            return self._advance(1)
+
+    def step_chunk(self, n_steps: int = 8) -> List[int]:
+        """Admit, then advance every active slot by up to ``n_steps`` tokens
+        with one host round trip.  A slot may compute past a stop id of its
+        own request within the chunk; those tokens are dropped."""
+        if n_steps < 1:
+            raise ValueError("n_steps must be >= 1")
+        self._admit()
+        if not self._active:
+            return []
+        with monitor.span("serve/step_chunk"):
+            return self._advance(n_steps)
+
+    def run(self, prompts: Sequence[Sequence[int]], n_predict: int = 100, *,
+            stop_tokens: Sequence[int] = (2,),
+            chunk_steps: int = 8) -> Dict[int, Request]:
+        """Serve prompts to completion; returns every request finished
+        since the last ``run`` by id."""
+        for p in prompts:
+            self.submit(p, n_predict, stop_tokens=stop_tokens)
+        while self._queue or self._active:
+            if chunk_steps > 1:
+                self.step_chunk(chunk_steps)
+            else:
+                self.step()
+        out, self._results = self._results, {}
+        return out

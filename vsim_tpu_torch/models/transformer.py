@@ -7,13 +7,24 @@ head-major [L, B, H, S, D] and is updated in place: a float tensor, or a
 pair (values, bf16 scales [L, B, H, S]) with int8 values, or plane-packed
 uint8 int4 values [L, B, H, S, D/2] (byte c = dims c | c + D/2).
 
+``n_past`` is an int (every row at one cache length: InferenceEngine) or
+an int32 [B] device tensor (ragged: each row at its own length, the
+continuous-batching serving step).  A ragged row whose slots fall outside
+[0, S) writes nothing, so n_past = S marks an inactive serving slot.
+
 Attention routes:
-  * one new token over an int8/int4 cache → K3 (ops/decode_attention.py);
+  * one new token over an int8/int4 cache, uniform n_past → write the row,
+    then K3 over rows <= n_past (ops/decode_attention.py);
+  * one new token over an int8/int4 cache, ragged n_past → the deferred
+    write: each layer quantizes its row and K5 attends rows < n_past[b]
+    plus that row; after the layer loop K6 writes every layer's rows at
+    once (one launch a step, not one a layer);
   * a prefill over its own full-precision k/v (``fresh_kv``, or no cache)
     → K4 (ops/attention.py), for every T;
   * anything else (a float cache, a multi-token step over the cache) →
-    the plain einsum over the dequantized cache prefix.
-Every Q4 matmul goes through ops/matmul.py:q4_matmul.
+    the plain einsum over the dequantized cache.
+Every Q4 matmul goes through ops/matmul.py:q4_matmul.  On the ragged path
+``n_past`` never becomes a Python int, so a step makes no host sync.
 """
 
 from __future__ import annotations
@@ -27,7 +38,13 @@ from vsim_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
 from vsim_tpu_torch.models.config import ModelConfig
 from vsim_tpu_torch.models.init import layer_of
 from vsim_tpu_torch.ops.attention import flash_attention_fwd
-from vsim_tpu_torch.ops.decode_attention import NEG_INF, decode_attention_q, kv_int
+from vsim_tpu_torch.ops.decode_attention import (
+    NEG_INF,
+    decode_attention_fresh,
+    decode_attention_q,
+    kv_int,
+    scatter_rows,
+)
 from vsim_tpu_torch.ops.layers import get_activation, layer_norm
 from vsim_tpu_torch.ops.matmul import q4_matmul
 from vsim_tpu_torch.ops.rope import apply_rope
@@ -77,23 +94,41 @@ def _is_packed4(store) -> bool:
     return isinstance(store, tuple) and store[0].dtype == torch.uint8
 
 
-def _kv_write(store, new: torch.Tensor, il: int, n_past: int) -> None:
+def _kv_write(store, new: torch.Tensor, il: int, n_past) -> None:
     """Write a [B, T, H, D] slice into layer ``il`` at slots
-    [n_past, n_past + T), in place, quantizing for an int8/int4 cache."""
-    T = new.shape[1]  # noqa: N806
+    [n_past, n_past + T), in place, quantizing for an int8/int4 cache.
+    A ragged ``n_past`` ([B] tensor) drops the slots outside [0, S)."""
+    B, T, H = new.shape[:3]  # noqa: N806
     S = (store[0] if isinstance(store, tuple) else store).shape[3]  # noqa: N806
-    if n_past < 0 or n_past + T > S:
-        raise ValueError(f"cache write [{n_past}, {n_past + T}) outside "
-                         f"[0, {S})")
     new = new.transpose(1, 2)  # [B, H, T, D]
     if isinstance(store, tuple):
-        vals, scales = store
         quantize = _kv_quantize4 if _is_packed4(store) else _kv_quantize
-        q, s = quantize(new, scales.dtype)
-        vals[il, :, :, n_past:n_past + T] = q
-        scales[il, :, :, n_past:n_past + T] = s
+        pairs = tuple(zip(store, quantize(new, store[1].dtype)))
     else:
-        store[il, :, :, n_past:n_past + T] = new.to(store.dtype)
+        pairs = ((store, new.to(store.dtype)),)
+    if not isinstance(n_past, torch.Tensor):
+        if n_past < 0 or n_past + T > S:
+            raise ValueError(f"cache write [{n_past}, {n_past + T}) outside "
+                             f"[0, {S})")
+        for dst, x in pairs:
+            dst[il, :, :, n_past:n_past + T] = x
+        return
+    # Ragged: every chunk position t targets slot clamp(n_past + t, 0, S-1).
+    # A target that is a real slot of the chunk takes that slot's value
+    # (several writers of one slot all carry it); any other keeps the
+    # cache's value, so dropped rows write nothing, with no host sync.
+    dev = new.device
+    npl = n_past.long()[:, None]
+    slot = (npl + torch.arange(T, device=dev)).clamp(0, S - 1)  # [B, T]
+    rel = slot - npl
+    real = ((rel >= 0) & (rel < T))[:, None, :]  # [B, 1, T]
+    ix = (torch.arange(B, device=dev)[:, None, None],
+          torch.arange(H, device=dev)[None, :, None], slot[:, None, :])
+    src = ix[:2] + (rel.clamp(0, T - 1)[:, None, :],)
+    for dst, x in pairs:
+        layer = dst[il]  # [B, H, S(, Dp)], a view
+        keep = real if x.dim() == 3 else real[..., None]
+        layer[ix] = torch.where(keep, x[src], layer[ix])
 
 
 def _kv_read(store, il: int, n: int, dtype) -> torch.Tensor:
@@ -109,8 +144,9 @@ def _linear(x, w, b, cdt):
     return q4_matmul(x, w, bias=b, compute_dtype=cdt).to(cdt)
 
 
-def _attend_plain(q, keys, values, n_past: int, slopes, cdt):
-    """The einsum path: materialized scores over the cache prefix."""
+def _attend_plain(q, keys, values, n_past, slopes, cdt):
+    """The einsum path: materialized scores over the cache prefix; query t
+    of row b sees key s iff s <= n_past (or n_past[b]) + t."""
     T, S = q.shape[1], keys.shape[2]  # noqa: N806
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bthd,bhsd->bhts", q.to(torch.float32),
@@ -118,17 +154,24 @@ def _attend_plain(q, keys, values, n_past: int, slopes, cdt):
     s_idx = torch.arange(S, device=q.device)
     if slopes is not None:
         s = s + slopes[None, :, None, None] * s_idx.to(torch.float32)
-    t_idx = n_past + torch.arange(T, device=q.device)
-    s = torch.where(s_idx[None, :] <= t_idx[:, None], s, NEG_INF)
+    if isinstance(n_past, torch.Tensor):
+        n_past = n_past.long()[:, None]
+    t_idx = (n_past + torch.arange(T, device=q.device)).reshape(-1, T)
+    mask = s_idx[None, None, :] <= t_idx[:, :, None]  # [B or 1, T, S]
+    s = torch.where(mask[:, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(cdt).to(torch.float32)
     ctx = torch.einsum("bhts,bhsd->bthd", p, values.to(cdt).to(torch.float32))
     return ctx.to(cdt)
 
 
 def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
-              k_all, v_all, il: int, positions: torch.Tensor, n_past: int,
+              k_all, v_all, il: int, positions: torch.Tensor, n_past,
               n_past_vec: Optional[torch.Tensor], slopes: Optional[torch.Tensor],
-              fresh_kv: bool = False) -> torch.Tensor:
+              fresh_kv: bool = False,
+              pending: Optional[list] = None) -> torch.Tensor:
+    """``pending`` (a list) selects the deferred ragged decode step: this
+    layer's quantized k/v rows are appended to it, for the caller's one
+    all-layer K6 write after the loop."""
     B, T, E = h.shape  # noqa: N806
     H, D = cfg.n_head, cfg.head_dim  # noqa: N806
     cdt = h.dtype
@@ -146,6 +189,17 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                        interleaved=cfg.rotary_interleaved, base=cfg.rope_base)
     scale = 1.0 / math.sqrt(D)
 
+    if pending is not None:
+        quantize = _kv_quantize4 if _is_packed4(k_all) else _kv_quantize
+        sdt = k_all[1].dtype
+        kq, ks = quantize(k.transpose(1, 2), sdt)  # [B, H, 1, Dp], [B, H, 1]
+        vq, vs = quantize(v.transpose(1, 2), sdt)
+        rows = (kq[:, :, 0], ks[:, :, 0], vq[:, :, 0], vs[:, :, 0])
+        pending.append(rows)
+        ctx = decode_attention_fresh(q[:, 0], k_all, v_all, il, n_past_vec,
+                                     rows, scale=scale, slopes=slopes)
+        ctx = ctx.to(cdt).reshape(B, 1, E)
+        return _linear(ctx, lp["wo"], lp.get("bo"), cdt)
     if k_all is not None:
         _kv_write(k_all, k, il, n_past)
         _kv_write(v_all, v, il, n_past)
@@ -161,8 +215,10 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
             slopes=slopes)
         ctx = out.transpose(1, 2).to(cdt).reshape(B, T, E)
     else:
-        keys = _kv_read(k_all, il, n_past + T, cdt)
-        values = _kv_read(v_all, il, n_past + T, cdt)
+        n = (k_all[0] if isinstance(k_all, tuple) else k_all).shape[3] \
+            if isinstance(n_past, torch.Tensor) else n_past + T
+        keys = _kv_read(k_all, il, n, cdt)
+        values = _kv_read(v_all, il, n, cdt)
         ctx = _attend_plain(q, keys, values, n_past, slopes, cdt).reshape(B, T, E)
     return _linear(ctx, lp["wo"], lp.get("bo"), cdt)
 
@@ -175,13 +231,14 @@ def mlp(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
 
 
 def decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, k_all,
-                  v_all, il: int, positions: torch.Tensor, n_past: int,
-                  n_past_vec, slopes, fresh_kv: bool = False) -> torch.Tensor:
+                  v_all, il: int, positions: torch.Tensor, n_past,
+                  n_past_vec, slopes, fresh_kv: bool = False,
+                  pending: Optional[list] = None) -> torch.Tensor:
     """One block; residual topology per arch (NeoX parallel, GPT-J parallel
     with one shared LN, BLOOM/GPT-2 sequential)."""
     h1 = layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps)
     attn_out = attention(cfg, lp, h1, k_all, v_all, il, positions, n_past,
-                         n_past_vec, slopes, fresh_kv)
+                         n_past_vec, slopes, fresh_kv, pending)
     if cfg.parallel_residual:
         h2 = h1 if cfg.shared_layernorm else layer_norm(
             x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps)
@@ -208,31 +265,48 @@ def per_layer(layers, n_layer: int) -> List[Params]:
 
 
 def forward(cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
-            cache: Optional[Dict[str, Any]], n_past: int = 0,
+            cache: Optional[Dict[str, Any]], n_past=0,
             fresh_kv: bool = False
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Token ids [B, T] → (logits [B, T, n_vocab] f32, cache).
 
-    ``n_past`` is the uniform cache length before this chunk.  The cache is
+    ``n_past`` is the cache length before this chunk: an int for every row,
+    or an int32 [B] tensor on the tokens' device (ragged).  The cache is
     updated in place and returned.  ``fresh_kv`` (a prefill from an empty
-    cache) attends over the chunk's own full-precision k/v."""
+    cache, n_past = 0) attends over the chunk's own full-precision k/v."""
     cdt = torch_dtype(cfg.compute_dtype)
     B, T = token_ids.shape  # noqa: N806
     dev = token_ids.device
-    positions = (n_past + torch.arange(T, device=dev))[None, :].expand(B, T)
+    ragged = isinstance(n_past, torch.Tensor)
+    if ragged and fresh_kv:
+        raise ValueError("fresh_kv prefills from an empty cache: n_past = 0")
+    if ragged:
+        positions = n_past.long()[:, None] + torch.arange(T, device=dev)
+    else:
+        positions = (n_past + torch.arange(T, device=dev))[None, :].expand(
+            B, T)
     x = embed(cfg, params, token_ids, cdt)
-    if cfg.learned_pos:
-        x = x + params["wpe"][positions].to(cdt)
+    if cfg.learned_pos:  # a sentinel row's position is past the table
+        wpe = params["wpe"]
+        x = x + wpe[positions.clamp(max=wpe.shape[0] - 1)].to(cdt)
     if "emb_ln_w" in params:
         x = layer_norm(x, params["emb_ln_w"], params["emb_ln_b"], cfg.ln_eps)
     slopes = alibi_slopes(cfg.n_head, dev) if cfg.alibi else None
     k_all = cache["k"] if cache is not None else None
     v_all = cache["v"] if cache is not None else None
-    n_past_vec = (torch.full((B,), n_past, dtype=torch.int32, device=dev)
-                  if k_all is not None and T == 1 else None)
+    if ragged:
+        n_past_vec = n_past
+    else:
+        n_past_vec = (torch.full((B,), n_past, dtype=torch.int32, device=dev)
+                      if k_all is not None and T == 1 else None)
+    deferred = ragged and T == 1 and isinstance(k_all, tuple)
+    pending: Optional[list] = [] if deferred else None
     for il, lp in enumerate(per_layer(params["layers"], cfg.n_layer)):
         x = decoder_layer(cfg, lp, x, k_all, v_all, il, positions, n_past,
-                          n_past_vec, slopes, fresh_kv)
+                          n_past_vec, slopes, fresh_kv, pending)
+    if deferred:  # every layer's rows at once, after the last K5 read
+        rows = tuple(torch.stack(r) for r in zip(*pending))
+        scatter_rows(k_all, v_all, rows, n_past)
     x = layer_norm(x, params["ln_f_w"], params["ln_f_b"], cfg.ln_eps)
     logits = q4_matmul(x, params["lm_head"], bias=params.get("lm_head_b"),
                        compute_dtype=cdt)

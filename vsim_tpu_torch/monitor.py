@@ -4,6 +4,10 @@ A process-global registry of named, nestable spans with wall and CPU time
 and call counts, reported as an indented table (the reference's
 show_time_sep, monitor.c:196-262).  Spans time the host: a span around
 device work is a device time only if the work ends in a synchronize.
+
+Spans the port opens: ``prefill`` and ``decode`` (engine/generate.py);
+``serve/admit``, ``serve/step`` and ``serve/step_chunk``
+(engine/serving.py, as in the JAX engine).
 """
 
 from __future__ import annotations

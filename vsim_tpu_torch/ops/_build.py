@@ -7,9 +7,10 @@ includes PyTorch's headers, so a build takes seconds.  Libraries go to
 so an edited source is rebuilt at its first use.  ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them.
 
-Every kernel wrapper counts its launches in ``launch_counts`` (one per
-kernel launch, nowhere else), so a run can show which kernels it went
-through.
+Every kernel wrapper counts its launches in ``launch_counts`` under the
+kernel's name in ``KERNELS`` (one per kernel launch, nowhere else), so a run
+can show which kernels it went through.  A source may hold more than one
+kernel: K3 and K5 are two modes of ``decode_attention.cu``.
 """
 
 from __future__ import annotations
@@ -25,8 +26,13 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("q4_gemv_ps", "q4_matmul_ps", "decode_attention",
-           "flash_attention")
+# kernel (its launch-count name) -> the csrc/<source>.cu it is built from
+KERNELS = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
+           "decode_attention": "decode_attention",
+           "decode_attention_fresh": "decode_attention",
+           "flash_attention": "flash_attention",
+           "scatter_rows": "kv_scatter_rows"}
+SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -117,11 +123,12 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def launch(name: str, symbol: str, argtypes, *args) -> None:
-    """Call a launcher, raise on a CUDA error, count the launch."""
-    err = function(name, symbol, argtypes)(*args)
-    check(load(name), err, symbol)
-    launch_counts[name] += 1
+def launch(kernel: str, symbol: str, argtypes, *args) -> None:
+    """Call ``kernel``'s launcher, raise on a CUDA error, count the launch."""
+    source = KERNELS[kernel]
+    err = function(source, symbol, argtypes)(*args)
+    check(load(source), err, symbol)
+    launch_counts[kernel] += 1
 
 
 def ptr(t) -> ctypes.c_void_p:

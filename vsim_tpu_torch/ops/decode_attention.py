@@ -1,5 +1,6 @@
-"""Single-token attention over the quantized KV cache (port of
-vsim_tpu/ops/decode_attention.py, non-fresh mode).
+"""Single-token attention over the quantized KV cache, and the all-layer
+row writer of the ragged serving step (port of
+vsim_tpu/ops/decode_attention.py).
 
 K3 ``decode_attention_q`` (csrc/decode_attention.cu) attends one query per
 (b, h) over layer ``il`` of the stacked cache, keys s <= n_past[b]:
@@ -11,8 +12,16 @@ K3 ``decode_attention_q`` (csrc/decode_attention.cu) attends one query per
   n_past   [B] int32
   out      [B, H, D] f32
 
-A CPU tensor goes through ``decode_attention_plain``; a CUDA tensor launches
-the kernel or raises.
+K5 ``decode_attention_fresh`` (the same source, fresh mode) attends keys
+s < min(n_past[b], S) of the cache plus this step's own quantized row
+``fresh_rows = (knq [B, H, Dp], kns [B, H] bf16, vnq, vns)``, which the
+cache does not hold yet.  K6 ``scatter_rows`` (csrc/kv_scatter_rows.cu)
+then writes every layer's rows ``(kq [L, B, H, Dp], ks [L, B, H], vq, vs)``
+at slot n_past[b], in place; a row with n_past[b] outside [0, S) writes
+nothing (n_past = S is the serving engine's inactive-slot sentinel).
+
+A CPU tensor goes through the plain version beside each kernel; a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -29,8 +38,11 @@ _MAX_DP = 512  # packed columns a K3 block covers (csrc/decode_attention.cu)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          ctypes.c_float, _P)
+_FRESH_ARGS = (_P,) * 12 + (_I,) * 6 + (ctypes.c_float, _P)
+_SCATTER_ARGS = (_P,) * 9 + (_I,) * 5 + (_P,)
 
 Store = Tuple[torch.Tensor, torch.Tensor]
+Rows = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def kv_int(vals: torch.Tensor) -> torch.Tensor:
@@ -71,7 +83,59 @@ def decode_attention_plain(q: torch.Tensor, k_store: Store, v_store: Store,
     return ctx / torch.where(l > 0, l, 1.0)
 
 
-def _check(q, k_store, v_store, il, n_past, slopes):
+def decode_attention_fresh_plain(q: torch.Tensor, k_store: Store,
+                                 v_store: Store, il: int, n_past: torch.Tensor,
+                                 fresh_rows: Rows, *, scale: float,
+                                 slopes: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """Plain version of K5: the masked scores of cache rows
+    s < min(n_past[b], S) and the fresh row's score (ALiBi at position
+    n_past[b]) in one softmax.  Materialized over all S rows, so it makes
+    no host sync."""
+    k_q, k_s = k_store
+    v_q, v_s = v_store
+    knq, kns, vnq, vns = fresh_rows
+    S = k_q.shape[3]  # noqa: N806
+    qf = q.to(torch.bfloat16).to(torch.float32)
+    s = torch.einsum("bhd,bhsd->bhs", qf, kv_int(k_q[il])) \
+        * k_s[il].to(torch.float32) * scale
+    s_new = (qf * kv_int(knq)).sum(-1) * kns.to(torch.float32) * scale
+    s_idx = torch.arange(S, device=q.device)
+    if slopes is not None:
+        sl = slopes.to(torch.float32)[None, :]
+        s = s + sl[..., None] * s_idx.to(torch.float32)
+        s_new = s_new + sl * n_past.to(torch.float32)[:, None]
+    mask = (s_idx[None, :] < n_past[:, None].to(s_idx.dtype))[:, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = torch.maximum(s.amax(dim=-1), s_new)[..., None]  # [B, H, 1]
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    p_new = torch.exp(s_new[..., None] - m)
+    l = p.sum(dim=-1, keepdim=True) + p_new  # noqa: E741
+    pw = p * v_s[il].to(torch.float32)
+    ctx = torch.einsum("bhs,bhsd->bhd", pw, kv_int(v_q[il])) \
+        + p_new * vns.to(torch.float32)[..., None] * kv_int(vnq)
+    return ctx / l
+
+
+def scatter_rows_plain(k_store: Store, v_store: Store, rows: Rows,
+                       n_past: torch.Tensor) -> None:
+    """Plain version of K6: index assignment of every layer's rows at slot
+    n_past[b], in place; a row outside [0, S) keeps the cache's bytes."""
+    kq, ks, vq, vs = rows
+    L, B, H = ks.shape  # noqa: N806
+    S = k_store[0].shape[3]  # noqa: N806
+    dev = ks.device
+    keep = ((n_past >= 0) & (n_past < S))[None, :, None]  # [1, B, 1]
+    ix = (torch.arange(L, device=dev)[:, None, None],
+          torch.arange(B, device=dev)[None, :, None],
+          torch.arange(H, device=dev)[None, None, :],
+          n_past.long().clamp(0, S - 1)[None, :, None])  # -> [L, B, H]
+    for (vals, scales), (rq, rs) in ((k_store, (kq, ks)), (v_store, (vq, vs))):
+        vals[ix] = torch.where(keep[..., None], rq, vals[ix])
+        scales[ix] = torch.where(keep, rs, scales[ix])
+
+
+def _check(what, q, k_store, v_store, il, n_past, slopes, fresh_rows=None):
     k_q, k_s = k_store
     v_q, v_s = v_store
     dev = q.device
@@ -79,36 +143,45 @@ def _check(q, k_store, v_store, il, n_past, slopes):
                "n_past": n_past}
     if slopes is not None:
         tensors["slopes"] = slopes
+    if fresh_rows is not None:
+        tensors.update(zip(("knq", "kns", "vnq", "vns"), fresh_rows))
     for name, t in tensors.items():
         if t.device != dev:
-            raise ValueError(f"decode_attention_q: {name} on {t.device}, "
-                             f"q on {dev}")
+            raise ValueError(f"{what}: {name} on {t.device}, q on {dev}")
         if not t.is_contiguous():
-            raise ValueError(f"decode_attention_q: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
     B, H, D = q.shape  # noqa: N806
     L, B2, H2, S, Dp = k_q.shape  # noqa: N806
     packed4 = k_q.dtype == torch.uint8
     if k_q.dtype not in (torch.int8, torch.uint8) or v_q.dtype != k_q.dtype:
-        raise ValueError("decode_attention_q: cache values must be int8 or "
-                         "plane-packed uint8 (int4)")
+        raise ValueError(f"{what}: cache values must be int8 or plane-packed "
+                         "uint8 (int4)")
     if (B2, H2) != (B, H) or Dp != (D // 2 if packed4 else D) or D % 2:
-        raise ValueError(f"decode_attention_q: cache {tuple(k_q.shape)} does "
-                         f"not fit q {tuple(q.shape)}")
+        raise ValueError(f"{what}: cache {tuple(k_q.shape)} does not fit q "
+                         f"{tuple(q.shape)}")
     if Dp > _MAX_DP:
-        raise ValueError(f"decode_attention_q: packed head dim {Dp} > "
-                         f"{_MAX_DP}")
+        raise ValueError(f"{what}: packed head dim {Dp} > {_MAX_DP}")
     if tuple(v_q.shape) != tuple(k_q.shape) or tuple(k_s.shape) != (
             L, B, H, S) or tuple(v_s.shape) != (L, B, H, S):
-        raise ValueError("decode_attention_q: k/v shapes disagree")
+        raise ValueError(f"{what}: k/v shapes disagree")
     if k_s.dtype != torch.bfloat16 or v_s.dtype != torch.bfloat16:
-        raise ValueError("decode_attention_q: cache scales must be bf16")
+        raise ValueError(f"{what}: cache scales must be bf16")
     if n_past.dtype != torch.int32 or tuple(n_past.shape) != (B,):
-        raise ValueError("decode_attention_q: n_past must be int32 [B]")
+        raise ValueError(f"{what}: n_past must be int32 [B]")
     if slopes is not None and (slopes.dtype != torch.float32
                                or tuple(slopes.shape) != (H,)):
-        raise ValueError("decode_attention_q: slopes must be f32 [H]")
+        raise ValueError(f"{what}: slopes must be f32 [H]")
     if not 0 <= il < L:
-        raise ValueError(f"decode_attention_q: layer {il} outside [0, {L})")
+        raise ValueError(f"{what}: layer {il} outside [0, {L})")
+    if fresh_rows is not None:
+        knq, kns, vnq, vns = fresh_rows
+        if knq.dtype != k_q.dtype or vnq.dtype != k_q.dtype or tuple(
+                knq.shape) != (B, H, Dp) or tuple(vnq.shape) != (B, H, Dp):
+            raise ValueError(f"{what}: fresh rows must be [B, H, Dp] of the "
+                             "cache's value dtype")
+        if kns.dtype != torch.bfloat16 or vns.dtype != torch.bfloat16 or \
+                tuple(kns.shape) != (B, H) or tuple(vns.shape) != (B, H):
+            raise ValueError(f"{what}: fresh scales must be bf16 [B, H]")
     return packed4, B, H, S, D
 
 
@@ -121,8 +194,8 @@ def decode_attention_q(q: torch.Tensor, k_store: Store, v_store: Store,
         return decode_attention_plain(q, k_store, v_store, il, n_past,
                                       scale=scale, slopes=slopes)
     qb = q.to(torch.bfloat16).contiguous()
-    packed4, B, H, S, D = _check(qb, k_store, v_store, il, n_past,  # noqa: N806
-                                 slopes)
+    packed4, B, H, S, D = _check(  # noqa: N806
+        "decode_attention_q", qb, k_store, v_store, il, n_past, slopes)
     out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     p = _build.ptr
     _build.launch("decode_attention", "decode_attention_launch", _ARGS,
@@ -131,6 +204,75 @@ def decode_attention_q(q: torch.Tensor, k_store: Store, v_store: Store,
                   int(il), B, H, S, D, float(scale),
                   _build.stream_ptr(q.device))
     return out
+
+
+def decode_attention_fresh(q: torch.Tensor, k_store: Store, v_store: Store,
+                           il: int, n_past: torch.Tensor, fresh_rows: Rows, *,
+                           scale: float,
+                           slopes: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """K5: attention of q [B, H, D] over layer ``il``'s rows < n_past[b]
+    and this step's ``fresh_rows`` → [B, H, D] f32."""
+    if q.device.type == "cpu":
+        return decode_attention_fresh_plain(q, k_store, v_store, il, n_past,
+                                            fresh_rows, scale=scale,
+                                            slopes=slopes)
+    qb = q.to(torch.bfloat16).contiguous()
+    rows = tuple(r.contiguous() for r in fresh_rows)
+    packed4, B, H, S, D = _check(  # noqa: N806
+        "decode_attention_fresh", qb, k_store, v_store, il, n_past, slopes,
+        rows)
+    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    p = _build.ptr
+    _build.launch("decode_attention_fresh", "decode_attention_fresh_launch",
+                  _FRESH_ARGS, p(qb), p(k_store[0]), p(k_store[1]),
+                  p(v_store[0]), p(v_store[1]), p(n_past), p(slopes),
+                  *(p(r) for r in rows), p(out), int(packed4), int(il), B, H,
+                  S, D, float(scale), _build.stream_ptr(q.device))
+    return out
+
+
+def scatter_rows(k_store: Store, v_store: Store, rows: Rows,
+                 n_past: torch.Tensor) -> None:
+    """K6: write rows (kq [L, B, H, Dp], ks [L, B, H], vq, vs) into every
+    layer of the cache at slot n_past[b], in place, on the current stream
+    (after the layer loop whose K5 calls read the cache)."""
+    if n_past.device.type == "cpu":
+        scatter_rows_plain(k_store, v_store, rows, n_past)
+        return
+    k_q, k_s = k_store
+    v_q, v_s = v_store
+    kq, ks, vq, vs = rows
+    what = "scatter_rows"
+    tensors = {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s, "kq": kq,
+               "ks": ks, "vq": vq, "vs": vs, "n_past": n_past}
+    for name, t in tensors.items():
+        if t.device != n_past.device:
+            raise ValueError(f"{what}: {name} on {t.device}, n_past on "
+                             f"{n_past.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    L, B, H, S, Dp = k_q.shape  # noqa: N806
+    if k_q.dtype not in (torch.int8, torch.uint8) or any(
+            t.dtype != k_q.dtype for t in (v_q, kq, vq)):
+        raise ValueError(f"{what}: cache values and rows must share one dtype,"
+                         " int8 or uint8")
+    if any(t.dtype != torch.bfloat16 for t in (k_s, v_s, ks, vs)):
+        raise ValueError(f"{what}: scales must be bf16")
+    if tuple(v_q.shape) != (L, B, H, S, Dp) or any(
+            tuple(t.shape) != (L, B, H, S) for t in (k_s, v_s)):
+        raise ValueError(f"{what}: k/v cache shapes disagree")
+    if any(tuple(t.shape) != (L, B, H, Dp) for t in (kq, vq)) or any(
+            tuple(t.shape) != (L, B, H) for t in (ks, vs)):
+        raise ValueError(f"{what}: rows must be [L, B, H, Dp] and [L, B, H] "
+                         f"for a cache {tuple(k_q.shape)}")
+    if n_past.dtype != torch.int32 or tuple(n_past.shape) != (B,):
+        raise ValueError(f"{what}: n_past must be int32 [B]")
+    p = _build.ptr
+    _build.launch("scatter_rows", "scatter_rows_launch", _SCATTER_ARGS,
+                  p(kq), p(ks), p(vq), p(vs), p(n_past), p(k_q), p(k_s),
+                  p(v_q), p(v_s), L, B, H, S, Dp,
+                  _build.stream_ptr(n_past.device))
 
 
 def decode_attention_oracle(q: torch.Tensor, k_store: Store, v_store: Store,
