@@ -7,8 +7,9 @@ Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi) and build the
      kernels from csrc/ (one nvcc per source, all at once, into build/);
   2. kernels: each of K1-K6 at GPT-J-6B shapes against its plain PyTorch
-     version on the card, its device time (torch.profiler) beside its bound
-     and a PyTorch yardstick the port never calls;
+     version on the card, its device time (CUDA events, the calls held
+     back to back) beside its bound and a PyTorch yardstick the port never
+     calls;
   3. InferenceEngine on GPT-J-6B at full width (28 layers, random Q4
      weights from seed 0, bf16 compute) with int8 and with int4 KV, serving
      prompts of 8, 100 and 300 tokens (64 new tokens, greedy) and one
@@ -55,6 +56,10 @@ TOL_LOGITS_BF16 = 5e-2
 PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12),
          "H100": (3.35e12, 989e12, 67e12),
          "H200": (4.8e12, 989e12, 67e12)}
+# Cycles per second that sizes timed()'s spin: at or above the SM clock
+# (H100 boost 1.98 GHz), so the spin lasts at least as long as asked.
+SPIN_HZ = 2.0e9
+UNHELD = [0]  # timed() calls whose spin ended before the calls were queued
 
 
 def fail(msg: str) -> None:
@@ -70,26 +75,38 @@ def card_peaks(name: str):
 
 
 def timed(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device ms per call of fn(): the summed durations of the kernels and
-    copies fn() puts on the card, from a torch.profiler trace over ``reps``
-    calls.  A wall clock around the calls would time the host's launches
-    instead, which take longer than a small kernel runs."""
+    """Device ms per call of fn(), from CUDA events around ``reps`` calls
+    that the host enqueues while a spin kernel holds the stream, so they
+    run back to back on the card.  Events around calls on a free stream
+    would time the host's launches instead, which take longer than a small
+    kernel runs.  The spin is sized from the host's own enqueue time; a
+    call that waits on the host cannot be held, and its time then includes
+    the host's gaps (counted in ``UNHELD``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # device activity only: with CPU ops traced too, an op's kernels count
-    # twice in key_averages (once on the op, once on the kernel)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    a = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - a
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for spin_s in (2 * host_s + 2e-3, 8 * host_s + 20e-3):
+        torch.cuda._sleep(int(spin_s * SPIN_HZ))
+        start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        held = not start.query()  # the spin still ran when all were queued
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    if us <= 0:
-        fail("torch.profiler recorded no device time")
-    return us / 1e3 / reps
+        if held:
+            break
+    else:
+        UNHELD[0] += 1
+    return start.elapsed_time(end) / reps
 
 
 def rel_err(got, ref) -> tuple:
@@ -544,7 +561,8 @@ def phase_serving(cfg, params):
         enq.sort()
         wall_step.sort()
         # the same step under torch.profiler: device busy time (the union
-        # of kernel and copy intervals) and device time by kernel
+        # of kernel and copy intervals) and device time by kernel; None
+        # where the profiler records no device activity
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
@@ -737,7 +755,8 @@ def main() -> None:
         json.dump(dict(card=smi, kernel_rows=rows, model=model,
                        launches_inference=launches, serving=serving,
                        launches_serving=serve_launches, card_vs_cpu=vs_cpu,
-                       ptxas=reports), f, indent=1)
+                       timings_unheld=UNHELD[0], ptxas=reports), f,
+                  indent=1)
     print(json.dumps({"kernels": kernel_line(rows, total)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
