@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi) and build the
      kernels from csrc/ (one nvcc per source, all at once, into build/);
-  2. kernels: each of K1-K6 at GPT-J-6B shapes against its plain PyTorch
+  2. kernels: each of K1-K6 at GPT-J-6B shapes, and K7/K8 (the flash
+     backward) at Pythia-410M and GPT-J shapes, against its plain PyTorch
      version on the card, its device time (CUDA events, the calls held
      back to back) beside its bound and a PyTorch yardstick the port never
      calls;
@@ -21,7 +22,14 @@ Phases, each fatal on failure:
   5. card against CPU: GPT-J width at depth 2, f32 greedy streams must be
      identical (InferenceEngine, and ServingEngine card vs CPU vs the
      card's InferenceEngine), bf16 return_logits must agree within the
-     stated tolerance.
+     stated tolerance; Pythia-410M width at depth 2, three f32 training
+     steps: losses and every leaf's step-0 gradient must agree;
+  6. training: Pythia-410M at full width and depth, dense f32 weights from
+     seed 0, make_train_step with the default AdamW, 5 steps on one seeded
+     batch of 4 x 2049 tokens: finite losses, the last below the first, and
+     K4, K7 and K8 launched once per layer in every step; then
+     evaluate.perplexity on random Q4 params over a seeded 4096-token
+     stream at window 2048.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Prints a JSON line {"kernels": [...]} and, last, the device line.
 Details go to build/chip_smoke.json.  Exits non-zero, printing no result,
@@ -46,6 +54,17 @@ TOL_Q4 = 1e-4     # K1/K2: only the order of the f32 sums differs
 TOL_DECODE = 1e-3  # K3, K5: only the exp and sum order differ
 TOL_FLASH_BF16 = 1e-2  # K4 bf16: the output is rounded to bf16
 TOL_FLASH_F32 = 1e-4   # K4 f32: sum order only
+# K7/K8 as K4: bf16 gradients are rounded to bf16 at the store, f32 ones
+# differ from the plain version's cuBLAS products in sum order only
+TOL_BWD_BF16 = 1e-2
+TOL_BWD_F32 = 1e-4
+# training card vs CPU, f32: the step-0 loss, each leaf's step-0 gradient
+# (relative to that leaf's max|grad|, plus 1e-6 of the largest gradient of
+# any leaf: a leaf whose true gradient is 0, such as the key bias of the
+# unrotated dims, holds only rounding noise), the losses after AdamW steps
+TOL_TRAIN_LOSS0 = 1e-5
+TOL_TRAIN_GRAD = 1e-3
+TOL_TRAIN_LOSS = 1e-4
 # bf16 logits card vs CPU, relative to max|logit|: every activation rounds
 # to bf16 (~4e-3 relative) and a rounding that flips between the two
 # devices' sum orders propagates through the 2-layer stack.
@@ -131,7 +150,10 @@ def phase_kernels(peaks):
     import torch
 
     from vsim_tpu_torch.ops import _build
-    from vsim_tpu_torch.ops.attention import (flash_attention_fwd,
+    from vsim_tpu_torch.ops.attention import (flash_attention_bwd_dkv,
+                                              flash_attention_bwd_dq,
+                                              flash_attention_bwd_plain,
+                                              flash_attention_fwd,
                                               flash_attention_plain)
     from vsim_tpu_torch.ops.decode_attention import (
         decode_attention_fresh, decode_attention_fresh_plain,
@@ -388,6 +410,61 @@ def phase_kernels(peaks):
                              max_abs_err=err, rel_err=rel, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=lib_ms))
+
+    # K7/K8: the flash backward at Pythia-410M (T=S=2048, D=64) and GPT-J
+    # (T=S=512, D=256) shapes, H=16, B=1, against the plain backward; the
+    # yardstick is the backward of scaled_dot_product_attention (dq, dk and
+    # dv in one call, so both rows carry it; the plain time is likewise
+    # that of the whole plain backward)
+    for T, D in ((2048, 64), (512, 256)):  # noqa: N806
+        sc = 1.0 / math.sqrt(D)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn((1, H, T, D), generator=g, device=dev)
+                           .to(dt) for _ in range(4))
+            out, lse = flash_attention_fwd(q, k, v, scale=sc)
+            dsum = (do.float() * out.float()).sum(-1)
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, dsum, scale=sc)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, dsum, scale=sc)
+            ref = flash_attention_bwd_plain(q, k, v, out, lse, do, scale=sc)
+            torch.cuda.synchronize()
+            tol = TOL_BWD_BF16 if dt == torch.bfloat16 else TOL_BWD_F32
+            errs = [rel_err(a, b) for a, b in zip((dq, dk, dv), ref)]
+            for name, (err, rel), got in zip(("dq", "dk", "dv"), errs,
+                                             (dq, dk, dv)):
+                if not torch.isfinite(got).all() or rel > tol:
+                    fail(f"flash_attention_bwd {name} T={T} D={D} {dt}: "
+                         f"max|err| {err:.3g} (rel {rel:.3g} > {tol})")
+            ms_dq = timed(lambda: flash_attention_bwd_dq(
+                q, k, v, do, lse, dsum, scale=sc))
+            ms_dkv = timed(lambda: flash_attention_bwd_dkv(
+                q, k, v, do, lse, dsum, scale=sc))
+            plain_ms = timed(lambda: flash_attention_bwd_plain(
+                q, k, v, out, lse, do, scale=sc), reps=5, warmup=1)
+            qg, kg, vg = (x.detach().clone().requires_grad_()
+                          for x in (q, k, v))
+            o = torch.nn.functional.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=True, scale=sc)
+            lib_ms = timed(lambda: torch.autograd.grad(
+                o, (qg, kg, vg), do, retain_graph=True))
+            del o, qg, kg, vg
+            esz = q.element_size()
+            pairs = H * T * (T + 1) // 2
+            peak = bf16_peak if dt == torch.bfloat16 else f32_peak
+            io = H * T * D * esz  # one [H, T, D] tensor
+            shape = f"T={T} H={H} D={D} {str(dt)[6:]}"
+            for kname, ms, nbytes, ops, err in (
+                    ("flash_attention_bwd_dq", ms_dq, 5 * io + 2 * H * T * 4,
+                     6 * D * pairs, errs[0][0]),
+                    ("flash_attention_bwd_dkv", ms_dkv,
+                     6 * io + 2 * H * T * 4, 8 * D * pairs,
+                     max(errs[1][0], errs[2][0]))):
+                b_ms, b_by = bound(nbytes, ops, peak)
+                rows.append(dict(kernel=kname, shape=shape, max_abs_err=err,
+                                 rel_err=max(r for _, r in errs), ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib_ms))
+            del q, k, v, do, out, lse, dsum, dq, dk, dv, ref
+            torch.cuda.empty_cache()
     _build.reset_launch_counts()  # comparison launches do not count
     return rows
 
@@ -658,6 +735,182 @@ def phase_card_vs_cpu():
     return out
 
 
+def phase_train_card_vs_cpu():
+    """Three f32 training steps at Pythia-410M width, depth 2, on the card
+    and on the CPU from the same init and batch."""
+    import torch
+
+    from vsim_tpu_torch.engine.train import float_leaves, make_train_step
+    from vsim_tpu_torch.models.config import PRESETS
+    from vsim_tpu_torch.models.init import init_params
+
+    cfg = PRESETS["pythia-410m"].replace(n_layer=2, n_ctx=256)
+    ids = torch.randint(0, cfg.n_vocab, (2, 257),
+                        generator=torch.Generator().manual_seed(3))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = init_params(cfg, seed=2, device=dev)
+        init_fn, step_fn = make_train_step(cfg)
+        state = init_fn(params)
+        losses, grads = [], {}
+        for i in range(3):
+            _, state, loss = step_fn(params, state, ids.to(dev))
+            losses.append(float(loss))
+            if i == 0:
+                for name, t in float_leaves(params).items():
+                    if t.grad is None:
+                        fail(f"training on {dev}: no gradient for {name}")
+                    grads[name] = t.grad.detach().cpu()
+        runs[dev] = losses, grads
+        del params, state
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+    if not all(math.isfinite(x) for x in l_gpu):
+        fail(f"training losses on the card: {l_gpu}")
+    rel0 = abs(l_gpu[0] - l_cpu[0]) / abs(l_cpu[0])
+    if rel0 > TOL_TRAIN_LOSS0:
+        fail(f"step-0 loss card {l_gpu[0]} vs cpu {l_cpu[0]} (rel {rel0:.3g})")
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    grad_rel = {}
+    for name, ref in g_cpu.items():
+        scale = ref.abs().max().item()
+        err = (g_gpu[name] - ref).abs().max().item()
+        grad_rel[name] = err / max(scale, 1e-30)
+        if err > TOL_TRAIN_GRAD * scale + 1e-6 * top:
+            fail(f"step-0 gradient {name}: card vs cpu max|err| {err:.3g}, "
+                 f"max|grad| {scale:.3g}")
+    rels = [abs(a - b) / abs(b) for a, b in zip(l_gpu[1:], l_cpu[1:])]
+    if max(rels) > TOL_TRAIN_LOSS:
+        fail(f"training losses card {l_gpu} vs cpu {l_cpu}")
+    return dict(losses_card=l_gpu, losses_cpu=l_cpu, loss0_rel_err=rel0,
+                loss_rel_err=rels, grad_rel_err_max=max(grad_rel.values()),
+                grad_rel_err=grad_rel)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training and perplexity at full size
+# ---------------------------------------------------------------------------
+
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+
+
+def _kernel_class(name: str) -> str:
+    if "flash_bwd_dq" in name:
+        return "K7 dq"
+    if "flash_bwd_dkv" in name:
+        return "K8 dk/dv"
+    if "flash_fwd" in name:
+        return "K4 forward"
+    if any(w in name.lower() for w in ("gemm", "cutlass", "xmma")):
+        return "matmuls (cuBLAS)"
+    return "other PyTorch kernels"
+
+
+def phase_training(peaks):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vsim_tpu_torch.engine.evaluate import perplexity
+    from vsim_tpu_torch.engine.train import float_leaves, make_train_step
+    from vsim_tpu_torch.models.config import PRESETS
+    from vsim_tpu_torch.models.init import init_params, random_q4_params
+    from vsim_tpu_torch.ops import _build
+
+    cfg = PRESETS["pythia-410m"]
+    L, E, T = cfg.n_layer, cfg.n_embd, cfg.n_ctx  # noqa: N806
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    init_fn, step_fn = make_train_step(cfg)
+    state = init_fn(params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in float_leaves(params).values())
+    gen = torch.Generator().manual_seed(0)
+    for B in (4, 2, 1):  # noqa: N806  halve the batch if it does not fit
+        ids = torch.randint(0, cfg.n_vocab, (B, T + 1), generator=gen)
+        ids = ids.cuda()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s, launches = [], [], []
+        try:
+            for _ in range(5):
+                _build.reset_launch_counts()
+                torch.cuda.synchronize()
+                a = time.perf_counter()
+                _, state, loss = step_fn(params, state, ids)
+                losses.append(float(loss))  # waits for the step
+                step_s.append(time.perf_counter() - a)
+                launches.append(dict(_build.launch_counts))
+            break
+        except torch.cuda.OutOfMemoryError:
+            pass
+        print(f"training: B={B} does not fit, halving", flush=True)
+        params = state = None  # start again from the init
+        torch.cuda.empty_cache()
+        params = init_params(cfg, seed=0)
+        state = init_fn(params)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"training losses {losses}: not finite or not falling")
+    for i, counts in enumerate(launches):
+        for name in TRAIN_KERNELS:
+            if counts.get(name, 0) != L:
+                fail(f"training step {i}: {name} launched "
+                     f"{counts.get(name, 0)} times, not {L}: {counts}")
+    step_med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tokens = B * T
+    # model FLOPs: 6 per weight and token in the matmuls (lm head included,
+    # embedding gather not), attention 12 D per visible (query, key) pair
+    # and layer (forward q.k and p.v, backward four products)
+    mm_params = L * (4 * E * E + 2 * E * cfg.n_ff) + cfg.n_vocab * E
+    pairs = B * cfg.n_head * T * (T + 1) // 2
+    flops = 6 * mm_params * tokens + 12 * cfg.head_dim * pairs * L
+    # where one step's device time goes (torch.profiler; None if it records
+    # no device activity)
+    by_class, by_name = collections.Counter(), collections.Counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, state, loss = step_fn(params, state, ids)
+        torch.cuda.synchronize()
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms = (ev.time_range.end - ev.time_range.start) / 1e3
+            by_class[_kernel_class(ev.name)] += ms
+            by_name[ev.name[:60]] += ms
+    train = dict(
+        batch=B, seq=T, tokens_per_step=tokens, params=n_params,
+        setup_s=setup_s, losses=losses, step_s=step_s,
+        step_ms_median=step_med * 1e3, tokens_per_s=tokens / step_med,
+        peak_memory_gb=peak_gb, model_flops_per_step=flops,
+        model_flop_share_f32_peak=flops / step_med / peaks[2],
+        launches_per_step=launches[0],
+        device_ms_by_class=dict(by_class) or None,
+        device_ms_top_kernels=dict(by_name.most_common(10)) or None)
+    del params, state, ids, prof
+    torch.cuda.empty_cache()
+
+    q4 = random_q4_params(cfg, seed=0)
+    stream = torch.randint(0, cfg.n_vocab, (4096,),
+                           generator=torch.Generator().manual_seed(1)).tolist()
+    _build.reset_launch_counts()
+    a = time.perf_counter()
+    ppl = perplexity(cfg, q4, stream, window=T)
+    ppl_s = time.perf_counter() - a
+    ppl_launches = dict(_build.launch_counts)
+    if not math.isfinite(ppl["ppl"]) or ppl["tokens"] != 4095:
+        fail(f"perplexity {ppl}")
+    if ppl_launches.get("flash_attention", 0) == 0:
+        fail(f"perplexity never launched flash_attention: {ppl_launches}")
+    del q4
+    torch.cuda.empty_cache()
+    total = collections.Counter()
+    for counts in launches:
+        total.update(counts)
+    total.update(ppl_launches)
+    ppl.update(seconds=ppl_s, windows=len(range(0, len(stream) - 1, T - 1)),
+               launches=ppl_launches)
+    return dict(train=train, perplexity=ppl), total
+
+
 KERNEL_META = {
     "q4_gemv_ps": ("vsim_tpu_torch/csrc/q4_gemv_ps.cu",
                    "vsim_tpu/ops/pallas_q4.py:339", "fc n=1"),
@@ -675,12 +928,20 @@ KERNEL_META = {
     "scatter_rows": ("vsim_tpu_torch/csrc/kv_scatter_rows.cu",
                      "vsim_tpu/ops/decode_attention.py:370",
                      "int8 L=28 B=8 H=16 Dp=256 S=2048"),
+    "flash_attention_bwd_dq": ("vsim_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "vsim_tpu/ops/attention.py:196",
+                               "T=2048 H=16 D=64 float32"),
+    "flash_attention_bwd_dkv": ("vsim_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "vsim_tpu/ops/attention.py:236",
+                                "T=2048 H=16 D=64 float32"),
 }
 ROW_KERNEL = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
               "decode_attention_q": "decode_attention",
               "flash_attention_fwd": "flash_attention",
               "decode_attention_fresh": "decode_attention_fresh",
-              "scatter_rows": "scatter_rows"}
+              "scatter_rows": "scatter_rows",
+              "flash_attention_bwd_dq": "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
 
 
 def kernel_line(rows, launches):
@@ -744,17 +1005,24 @@ def main() -> None:
         print(f"  {k}: {json.dumps(v)}", flush=True)
     t0 = time.perf_counter()
     vs_cpu = phase_card_vs_cpu()
+    vs_cpu["training"] = phase_train_card_vs_cpu()
     print(f"card vs cpu in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps(vs_cpu)}", flush=True)
+    t0 = time.perf_counter()
+    training, train_launches = phase_training(peaks)
+    print(f"training and perplexity in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(training)}", flush=True)
 
     total = collections.Counter(launches)
     for counts in serve_launches.values():
         total.update(counts)
+    total.update(train_launches)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernel_rows=rows, model=model,
                        launches_inference=launches, serving=serving,
                        launches_serving=serve_launches, card_vs_cpu=vs_cpu,
+                       training=training,
                        timings_unheld=UNHELD[0], ptxas=reports), f,
                   indent=1)
     print(json.dumps({"kernels": kernel_line(rows, total)}))

@@ -1,4 +1,4 @@
-"""K1-K6 on the card against their plain PyTorch versions, at small shapes.
+"""K1-K8 on the card against their plain PyTorch versions, at small shapes.
 
 Marked ``cuda``: each test skips without a CUDA device (decided in the
 fixture, never at import).  On a machine with the card and no JAX
@@ -8,8 +8,9 @@ fixture, never at import).  On a machine with the card and no JAX
 
 Tolerances relative to max|plain|, as in chip_smoke.py: 1e-4 for the Q4
 matmuls and 1e-3 for decode attention, fresh mode included (only the f32
-sum and exp order differ), 1e-2 for bf16 flash output (rounded to bf16);
-the row writer K6 is exact.
+sum and exp order differ), 1e-2 for bf16 flash output and gradients
+(rounded to bf16), 1e-4 for f32 flash gradients (sum order); the row
+writer K6 is exact.
 """
 
 import math
@@ -18,7 +19,14 @@ import pytest
 import torch
 
 from vsim_tpu_torch.ops import _build
-from vsim_tpu_torch.ops.attention import flash_attention_fwd, flash_attention_plain
+from vsim_tpu_torch.ops.attention import (
+    NEG_INF,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
+    flash_attention_plain,
+)
 from vsim_tpu_torch.ops.decode_attention import (
     decode_attention_fresh,
     decode_attention_fresh_plain,
@@ -188,3 +196,53 @@ def test_flash_attention_fwd(dev, dtype, tol, T, n_past):
                                          scale=1 / math.sqrt(D), slopes=slopes)
     assert _rel(out, ref) < tol
     assert _rel(lse, lse_ref) < 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("T,n_past,S,alibi", [(100, 0, 100, False),
+                                              (70, 37, 107, True),
+                                              (40, 0, 130, True)])
+def test_flash_attention_bwd(dev, dtype, tol, D, T, n_past, S, alibi):
+    """K7/K8 against the plain backward; the last case has key rows no query
+    sees (S > n_past + T), which must come back as zeros."""
+    B, H = 2, 3  # noqa: N806
+    g = torch.Generator(device=dev).manual_seed(D + T)
+    q = torch.randn((B, H, T, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, H, S, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, H, S, D), generator=g, device=dev).to(dtype)
+    do = torch.randn((B, H, T, D), generator=g, device=dev).to(dtype)
+    slopes = torch.linspace(0.01, 0.1, H, device=dev) if alibi else None
+    kw = dict(n_past=n_past, scale=1 / math.sqrt(D), slopes=slopes)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    before = dict(_build.launch_counts)
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert _build.launch_counts[name] == before.get(name, 0) + 1
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        assert _rel(a, b) < tol
+    for a in got[1:]:
+        assert not a[:, :, n_past + T:].any()
+    # bit-identical from run to run: two passes, no atomics
+    again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # rows that saw no key (lse = NEG_INF) give p = 0, never exp(0) = 1
+    lse[:, :, [0, T // 2]] = NEG_INF
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    assert not got[0][:, :, [0, T // 2]].any()
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all() and _rel(a, b) < tol
+
+
+def test_flash_attention_function_on_card(dev):
+    """Gradients through the differentiable entry reach q, k and v."""
+    q, k, v = (torch.randn((1, 2, 50, 64), device=dev, requires_grad=True)
+               for _ in range(3))
+    out = flash_attention(q, k, v, scale=0.125)
+    out.square().sum().backward()
+    for t in (q, k, v):
+        assert t.grad is not None and t.grad.abs().max() > 0

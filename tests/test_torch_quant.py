@@ -174,3 +174,22 @@ def test_fuse_qkv_and_params_from_numpy():
                      jq4.to_plane_split(one).packed)
     assert prep["lm_head"].layout == "ps"
     assert pinit.param_bytes(prep) == pinit.param_bytes(pf)
+
+
+def test_params_from_numpy_dense():
+    """A dense (training) tree carries across byte for byte and equals the
+    port's own init; the dense fuse_qkv branch interleaves like the JAX
+    package's."""
+    jc, pc = _cfg_pair(arch="gptneox", rotary_interleaved=False,
+                       shared_layernorm=False, qkv_bias=True,
+                       attn_out_bias=True, final_logit_bias=False,
+                       activation="gelu_exact")
+    j = jinit.init_params(jc, seed=11, quantize=False)
+    p = params_from_numpy(pc, jax.tree.map(np.asarray, j), device="cpu")
+    _assert_trees_same(j, p)
+    _assert_trees_same(j, pinit.init_params(pc, seed=11, device="cpu"))
+    assert p["layers"]["wq"].dtype == torch.float32
+    jf = jinit.fuse_qkv_params(jc, j)
+    pf = pinit.fuse_qkv_params(pc, p)
+    _assert_same(pf["layers"]["w_qkv"], jf["layers"]["w_qkv"])
+    _assert_same(pf["layers"]["b_qkv"], jf["layers"]["b_qkv"])

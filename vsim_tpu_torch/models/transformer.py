@@ -19,11 +19,13 @@ Attention routes:
     write: each layer quantizes its row and K5 attends rows < n_past[b]
     plus that row; after the layer loop K6 writes every layer's rows at
     once (one launch a step, not one a layer);
-  * a prefill over its own full-precision k/v (``fresh_kv``, or no cache)
-    → K4 (ops/attention.py), for every T;
+  * a prefill over its own full-precision k/v (``fresh_kv``, or no cache:
+    training and perplexity) → ``flash_attention`` (ops/attention.py), K4
+    forward and K7/K8 backward, for every T;
   * anything else (a float cache, a multi-token step over the cache) →
     the plain einsum over the dequantized cache.
-Every Q4 matmul goes through ops/matmul.py:q4_matmul.  On the ragged path
+Every Q4 matmul goes through ops/matmul.py:q4_matmul, or with
+``cfg.act_quant`` through q4_matmul_act_quant.  On the ragged path
 ``n_past`` never becomes a Python int, so a step makes no host sync.
 """
 
@@ -37,7 +39,7 @@ import torch
 from vsim_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
 from vsim_tpu_torch.models.config import ModelConfig
 from vsim_tpu_torch.models.init import layer_of
-from vsim_tpu_torch.ops.attention import flash_attention_fwd
+from vsim_tpu_torch.ops.attention import flash_attention
 from vsim_tpu_torch.ops.decode_attention import (
     NEG_INF,
     decode_attention_fresh,
@@ -46,7 +48,7 @@ from vsim_tpu_torch.ops.decode_attention import (
     scatter_rows,
 )
 from vsim_tpu_torch.ops.layers import get_activation, layer_norm
-from vsim_tpu_torch.ops.matmul import q4_matmul
+from vsim_tpu_torch.ops.matmul import q4_matmul, q4_matmul_act_quant
 from vsim_tpu_torch.ops.rope import apply_rope
 from vsim_tpu_torch.quant.q4 import Q4Tensor, q4_take_rows
 
@@ -140,7 +142,10 @@ def _kv_read(store, il: int, n: int, dtype) -> torch.Tensor:
     return store[il, :, :, :n].to(dtype)
 
 
-def _linear(x, w, b, cdt):
+def _linear(x, w, b, cdt, act_quant: bool = False):
+    if act_quant:
+        y = q4_matmul_act_quant(x, w, compute_dtype=cdt)
+        return (y if b is None else y + b.to(y.dtype)).to(cdt)
     return q4_matmul(x, w, bias=b, compute_dtype=cdt).to(cdt)
 
 
@@ -174,14 +179,15 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
     all-layer K6 write after the loop."""
     B, T, E = h.shape  # noqa: N806
     H, D = cfg.n_head, cfg.head_dim  # noqa: N806
-    cdt = h.dtype
+    cdt, aq = h.dtype, cfg.act_quant
     if "w_qkv" in lp:  # fused head-interleaved [q_h | k_h | v_h]
-        qkv = _linear(h, lp["w_qkv"], lp.get("b_qkv"), cdt).view(B, T, H, 3, D)
+        qkv = _linear(h, lp["w_qkv"], lp.get("b_qkv"), cdt, aq).view(
+            B, T, H, 3, D)
         q, k, v = qkv.unbind(dim=3)
     else:
-        q = _linear(h, lp["wq"], lp.get("bq"), cdt).view(B, T, H, D)
-        k = _linear(h, lp["wk"], lp.get("bk"), cdt).view(B, T, H, D)
-        v = _linear(h, lp["wv"], lp.get("bv"), cdt).view(B, T, H, D)
+        q = _linear(h, lp["wq"], lp.get("bq"), cdt, aq).view(B, T, H, D)
+        k = _linear(h, lp["wk"], lp.get("bk"), cdt, aq).view(B, T, H, D)
+        v = _linear(h, lp["wv"], lp.get("bv"), cdt, aq).view(B, T, H, D)
     if cfg.n_rot > 0:
         q = apply_rope(q, positions, cfg.n_rot,
                        interleaved=cfg.rotary_interleaved, base=cfg.rope_base)
@@ -199,7 +205,7 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
         ctx = decode_attention_fresh(q[:, 0], k_all, v_all, il, n_past_vec,
                                      rows, scale=scale, slopes=slopes)
         ctx = ctx.to(cdt).reshape(B, 1, E)
-        return _linear(ctx, lp["wo"], lp.get("bo"), cdt)
+        return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq)
     if k_all is not None:
         _kv_write(k_all, k, il, n_past)
         _kv_write(v_all, v, il, n_past)
@@ -207,12 +213,11 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
             ctx = decode_attention_q(q[:, 0], k_all, v_all, il, n_past_vec,
                                      scale=scale, slopes=slopes)
             ctx = ctx.to(cdt).reshape(B, 1, E)
-            return _linear(ctx, lp["wo"], lp.get("bo"), cdt)
+            return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq)
     if k_all is None or fresh_kv:  # attend over this chunk's own k/v
-        out, _ = flash_attention_fwd(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), n_past=n_past, scale=scale,
-            slopes=slopes)
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), n_past=n_past, scale=scale,
+                              slopes=slopes)
         ctx = out.transpose(1, 2).to(cdt).reshape(B, T, E)
     else:
         n = (k_all[0] if isinstance(k_all, tuple) else k_all).shape[3] \
@@ -220,14 +225,14 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
         keys = _kv_read(k_all, il, n, cdt)
         values = _kv_read(v_all, il, n, cdt)
         ctx = _attend_plain(q, keys, values, n_past, slopes, cdt).reshape(B, T, E)
-    return _linear(ctx, lp["wo"], lp.get("bo"), cdt)
+    return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq)
 
 
 def mlp(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
     act = get_activation(cfg.activation)
-    y = _linear(h, lp["w_fc"], lp.get("b_fc"), h.dtype)
+    y = _linear(h, lp["w_fc"], lp.get("b_fc"), h.dtype, cfg.act_quant)
     y = act(y.to(torch.float32)).to(h.dtype)
-    return _linear(y, lp["w_proj"], lp.get("b_proj"), h.dtype)
+    return _linear(y, lp["w_proj"], lp.get("b_proj"), h.dtype, cfg.act_quant)
 
 
 def decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, k_all,
@@ -313,6 +318,13 @@ def forward(cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
     if logits.shape[-1] != cfg.n_vocab:  # lm head padded for the kernels
         logits = logits[..., : cfg.n_vocab]
     return logits.to(torch.float32), cache
+
+
+def forward_nocache(cfg: ModelConfig, params: Params,
+                    token_ids: torch.Tensor) -> torch.Tensor:
+    """Cache-free forward (training, perplexity): logits [B, T, n_vocab]."""
+    logits, _ = forward(cfg, params, token_ids, None, 0)
+    return logits
 
 
 def init_cache(cfg: ModelConfig, batch: int, n_ctx: Optional[int] = None,

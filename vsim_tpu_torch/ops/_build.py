@@ -10,7 +10,8 @@ so an edited source is rebuilt at its first use.  ``build_all`` starts one
 Every kernel wrapper counts its launches in ``launch_counts`` under the
 kernel's name in ``KERNELS`` (one per kernel launch, nowhere else), so a run
 can show which kernels it went through.  A source may hold more than one
-kernel: K3 and K5 are two modes of ``decode_attention.cu``.
+kernel: K3 and K5 are two modes of ``decode_attention.cu``, K7 and K8 the
+two passes of ``flash_attention_bwd.cu``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ KERNELS = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
            "decode_attention": "decode_attention",
            "decode_attention_fresh": "decode_attention",
            "flash_attention": "flash_attention",
-           "scatter_rows": "kv_scatter_rows"}
+           "scatter_rows": "kv_scatter_rows",
+           "flash_attention_bwd_dq": "flash_attention_bwd",
+           "flash_attention_bwd_dkv": "flash_attention_bwd"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,12 +1,21 @@
-"""Causal blockwise (flash) attention, forward (port of
-vsim_tpu/ops/attention.py:_fwd_kernel).
+"""Causal blockwise (flash) attention, forward and backward (port of
+vsim_tpu/ops/attention.py).
 
-K4 ``flash_attention_fwd`` (csrc/flash_attention.cu) takes head-major
-q [B, H, T, D] and k/v [B, H, S, D], bf16 or f32 (all one dtype); query t
-sees key s iff s <= n_past + t; optional ALiBi slopes [H].  It returns
-``out`` [B, H, T, D] in q's dtype and ``lse`` [B, H, T] f32 (kept for the
-training slice's backward).  A CPU tensor goes through
-``flash_attention_plain``; a CUDA tensor launches the kernel or raises.
+K4 ``flash_attention_fwd`` (csrc/flash_attention.cu, replaces
+``_fwd_kernel``) takes head-major q [B, H, T, D] and k/v [B, H, S, D], bf16
+or f32 (all one dtype); query t sees key s iff s <= n_past + t; optional
+ALiBi slopes [H].  It returns ``out`` [B, H, T, D] in q's dtype and ``lse``
+[B, H, T] f32.
+
+The backward recomputes p from q, k and lse, as ``_flash_core_bwd`` does:
+K7 ``flash_attention_bwd_dq`` (replaces ``_bwd_dq_kernel``) and K8
+``flash_attention_bwd_dkv`` (replaces ``_bwd_dkv_kernel``), both in
+csrc/flash_attention_bwd.cu, two passes with no atomics, so the gradients
+are the same from run to run.  ``FlashAttention`` wires K4 and K7/K8 into
+autograd; ``flash_attention`` is the differentiable entry.
+
+A CPU tensor goes through the plain versions; a CUDA tensor launches the
+kernels or raises.
 """
 
 from __future__ import annotations
@@ -24,6 +33,9 @@ _MAX_D = 256  # csrc/flash_attention.cu kMaxD
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
          _P)
+# K7: q, k, v, do, lse, dsum, dq, slopes; K8: ... dk, dv, slopes
+_BWD_DQ_ARGS = (_P,) * 8 + (_I,) * 7 + (ctypes.c_float, _P)
+_BWD_DKV_ARGS = (_P,) * 9 + (_I,) * 7 + (ctypes.c_float, _P)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,27 +66,35 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype), lse[..., 0]
 
 
-def _check(q, k, v, slopes):
-    for name, t in (("k", k), ("v", v), ("slopes", slopes)):
+def _check(q, k, v, slopes, what="flash_attention_fwd", extra=()):
+    """Shapes (B, H, T, S, D) after checking what the kernels take;
+    ``extra`` holds (name, tensor, shape, dtype) of further inputs."""
+    tensors = [("q", q), ("k", k), ("v", v), ("slopes", slopes)]
+    tensors += [(name, t) for name, t, _, _ in extra]
+    for name, t in tensors[1:]:
         if t is not None and t.device != q.device:
-            raise ValueError(f"flash_attention_fwd: {name} on {t.device}, "
-                             f"q on {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("slopes", slopes)):
+            raise ValueError(f"{what}: {name} on {t.device}, q on {q.device}")
+    for name, t in tensors:
         if t is not None and not t.is_contiguous():
-            raise ValueError(f"flash_attention_fwd: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
     if q.dtype not in (torch.bfloat16, torch.float32) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("flash_attention_fwd: q, k, v must share one dtype, "
-                         "bf16 or f32")
+        raise ValueError(f"{what}: q, k, v must share one dtype, bf16 or f32")
     B, H, T, D = q.shape  # noqa: N806
     S = k.shape[2]  # noqa: N806
     if tuple(k.shape) != (B, H, S, D) or tuple(v.shape) != (B, H, S, D):
-        raise ValueError("flash_attention_fwd: k/v must be [B, H, S, D]")
+        raise ValueError(f"{what}: k/v must be [B, H, S, D]")
     if D > _MAX_D:
-        raise ValueError(f"flash_attention_fwd: head dim {D} > {_MAX_D}")
+        raise ValueError(f"{what}: head dim {D} > {_MAX_D}")
     if slopes is not None and (slopes.dtype != torch.float32
                                or tuple(slopes.shape) != (H,)):
-        raise ValueError("flash_attention_fwd: slopes must be f32 [H]")
+        raise ValueError(f"{what}: slopes must be f32 [H]")
+    dims = {"B": B, "H": H, "T": T, "S": S, "D": D}
+    for name, t, shape, dtype in extra:
+        want = tuple(dims[c] for c in shape)
+        if tuple(t.shape) != want or t.dtype != (dtype or q.dtype):
+            raise ValueError(f"{what}: {name} must be {dtype or q.dtype} "
+                             f"{list(want)}, got {t.dtype} {list(t.shape)}")
     return B, H, T, S, D
 
 
@@ -95,6 +115,154 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   int(q.dtype == torch.bfloat16), B, H, T, S, D, int(n_past),
                   float(scale), _build.stream_ptr(q.device))
     return out, lse
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              n_past: int = 0, scale: float,
+                              slopes: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of K7 and K8 with the Pallas kernels' numerics
+    (``_flash_core_bwd``, ``_bwd_dq_kernel``, ``_bwd_dkv_kernel``): do
+    rounded to q's dtype, dsum = rowsum(do·out) in f32, p = exp(s − lse)
+    (0 where masked or lse == NEG_INF), ds = p·(do·vᵀ − dsum)·scale, and
+    dq = ds·k, dk = dsᵀ·q, dv = pᵀ·do in f32 with p unrounded.  Returns
+    (dq, dk, dv) in q's, k's and v's dtypes."""
+    do, dsum = _bwd_inputs(out, do, q.dtype)
+    return _bwd_plain(q, k, v, do, lse, dsum, n_past=n_past, scale=scale,
+                      slopes=slopes)
+
+
+def _bwd_inputs(out, do, dtype):
+    """do rounded to q's dtype and dsum = rowsum(do·out) [B, H, T] f32,
+    computed outside the kernels as the JAX package does."""
+    do = do.to(dtype).contiguous()
+    return do, (do.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)
+
+
+def _bwd_plain(q, k, v, do, lse, dsum, *, n_past, scale, slopes):
+    f32 = torch.float32
+    T, S = q.shape[2], k.shape[2]  # noqa: N806
+    dsum = dsum[..., None]
+    qf, kf, vf, dof = (x.to(f32) for x in (q, k, v, do))
+    s = torch.einsum("bhtd,bhsd->bhts", qf, kf) * scale
+    s_idx = torch.arange(S, device=q.device)
+    if slopes is not None:
+        s = s + slopes.to(f32)[None, :, None, None] * s_idx.to(f32)
+    t_idx = n_past + torch.arange(T, device=q.device)
+    live = (s_idx[None, :] <= t_idx[:, None]) & (lse[..., None] != NEG_INF)
+    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhtd,bhsd->bhts", dof, vf)
+    ds = p * (dp - dsum) * scale
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kf)
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, qf)
+    dv = torch.einsum("bhts,bhtd->bhsd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd(q, k, v, do, lse, dsum, slopes, what):
+    B, H, T, S, D = _check(  # noqa: N806
+        q, k, v, slopes, what,
+        extra=(("do", do, "BHTD", None), ("lse", lse, "BHT", torch.float32),
+               ("dsum", dsum, "BHT", torch.float32)))
+    if D % 4:
+        raise ValueError(f"{what}: head dim {D} is not a multiple of 4")
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError(f"{what}: q, k, v, do must be 16-byte aligned")
+    return B, H, T, S, D
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, dsum, *, n_past: int = 0,
+                           scale: float,
+                           slopes: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """K7: dq [B, H, T, D] in q's dtype from the saved lse and dsum =
+    rowsum(do·out) [B, H, T] f32; ``do`` in q's dtype.  CPU tensors take
+    the plain version."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, dsum, n_past=n_past, scale=scale,
+                          slopes=slopes)[0]
+    B, H, T, S, D = _check_bwd(q, k, v, do, lse, dsum, slopes,  # noqa: N806
+                               "flash_attention_bwd_dq")
+    dq = torch.empty_like(q)
+    p = _build.ptr
+    _build.launch("flash_attention_bwd_dq", "flash_attention_bwd_dq_launch",
+                  _BWD_DQ_ARGS, p(q), p(k), p(v), p(do), p(lse), p(dsum),
+                  p(dq), p(slopes), int(q.dtype == torch.bfloat16), B, H, T,
+                  S, D, int(n_past), float(scale), _build.stream_ptr(q.device))
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, dsum, *, n_past: int = 0,
+                            scale: float,
+                            slopes: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8: (dk, dv) [B, H, S, D] in k's and v's dtype; key rows no query
+    sees get zeros.  CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, dsum, n_past=n_past, scale=scale,
+                          slopes=slopes)[1:]
+    B, H, T, S, D = _check_bwd(q, k, v, do, lse, dsum, slopes,  # noqa: N806
+                               "flash_attention_bwd_dkv")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    p = _build.ptr
+    _build.launch("flash_attention_bwd_dkv",
+                  "flash_attention_bwd_dkv_launch", _BWD_DKV_ARGS, p(q), p(k),
+                  p(v), p(do), p(lse), p(dsum), p(dk), p(dv), p(slopes),
+                  int(q.dtype == torch.bfloat16), B, H, T, S, D, int(n_past),
+                  float(scale), _build.stream_ptr(q.device))
+    return dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, n_past: int = 0, scale: float,
+                        slopes: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of ``out = flash_attention_fwd(q, k, v)`` for the
+    incoming gradient ``do``: K7 then K8 on CUDA tensors, the plain version
+    (once for all three) on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, n_past=n_past,
+                                         scale=scale, slopes=slopes)
+    do, dsum = _bwd_inputs(out, do, q.dtype)
+    kw = dict(n_past=n_past, scale=scale, slopes=slopes)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, dsum, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, dsum, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal flash attention with its flash backward: K4 forward, K7/K8
+    backward (the plain versions on the CPU).  Saves q, k, v, out, lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_past: int, scale: float,
+                slopes: Optional[torch.Tensor]):
+        out, lse = flash_attention_fwd(q, k, v, n_past=n_past, scale=scale,
+                                       slopes=slopes)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.n_past, ctx.scale, ctx.slopes = n_past, scale, slopes
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g.contiguous(),
+                                         n_past=ctx.n_past, scale=ctx.scale,
+                                         slopes=ctx.slopes)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    n_past: int = 0, scale: float,
+                    slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable causal flash attention, head-major: q [B, H, T, D],
+    k/v [B, H, S, D] → out [B, H, T, D] in q's dtype."""
+    return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous(), int(n_past), float(scale),
+                                slopes)
 
 
 def attention_reference(q, k, v, *, n_past: int = 0,

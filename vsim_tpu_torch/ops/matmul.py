@@ -9,6 +9,10 @@ logical shape [O, K], in f32.  Routes, by the rows n of x:
     with f32 accumulation (the JAX package leaves this case to XLA)
   * interleaved weight on the CPU            → dequantize_km + torch.matmul
 
+``q4_matmul_act_quant`` first Q4_0 quantize-dequantizes x along K (the
+reference's matmul INIT phase) and always takes dequantize + torch.matmul,
+as the JAX package forces ``impl="xla"`` there.
+
 On CPU tensors K1 and K2 run their plain versions; a CUDA tensor no kernel
 takes (an interleaved weight at n <= 128, a bad shape or dtype) raises.
 Dense (non-Q4) weights use torch.matmul.  The bias is added in the kernels'
@@ -29,7 +33,7 @@ from vsim_tpu_torch.ops.q4_cuda import (
     q4_gemv_ps,
     q4_matmul_ps,
 )
-from vsim_tpu_torch.quant.q4 import Q4Tensor, dequantize_km
+from vsim_tpu_torch.quant.q4 import Q4Tensor, dequantize_km, fake_quantize
 
 Weight = Union[Q4Tensor, torch.Tensor]
 
@@ -79,3 +83,15 @@ def q4_matmul(x: torch.Tensor, w: Weight, *,
             f"no CUDA kernel takes a {w.layout!r}-layout Q4 weight at n={n} "
             "rows: plane-split it first (quant/q4.py:to_plane_split)")
     return y.reshape(*lead, -1)
+
+
+def q4_matmul_act_quant(x: torch.Tensor, w: Weight, *,
+                        compute_dtype=torch.float32) -> torch.Tensor:
+    """Reference-parity mode: ``x`` Q4_0-quantized along K before the dot,
+    then ``x @ dequant(w).T`` in f32 (no bias: the caller adds it)."""
+    cdt = torch_dtype(compute_dtype)
+    lead, K = x.shape[:-1], x.shape[-1]  # noqa: N806
+    xq = fake_quantize(x.reshape(-1, K)).to(cdt)
+    if not isinstance(w, Q4Tensor):
+        return q4_matmul(xq, w, compute_dtype=cdt).reshape(*lead, -1)
+    return _dequant_matmul(xq, w, cdt, None).reshape(*lead, -1)

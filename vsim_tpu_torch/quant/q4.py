@@ -211,6 +211,21 @@ def dequantize_km(w: Q4Tensor, dtype=torch.float32) -> torch.Tensor:
     return q.to(dtype) * s
 
 
+def fake_quantize(w: torch.Tensor, scale_dtype=torch.float32) -> torch.Tensor:
+    """Q4_0 quantize-dequantize round trip of an [O, K] tensor, f32 out:
+    d = amax/7 per 32-block, q = round(v/d) (half away from zero) clipped
+    to [-8, 7], v' = q·d with d cast through ``scale_dtype``.  The
+    reference's activation treatment in the matmul INIT phase
+    (ggml.c:5030-5038)."""
+    O, K = w.shape  # noqa: N806
+    blocks = w.to(torch.float32).reshape(O, K // QK, QK)
+    d = blocks.abs().amax(dim=-1) / 7.0
+    inv = torch.where(d != 0.0, 1.0 / torch.where(d != 0.0, d, 1.0), 0.0)
+    q = _round_half_away(blocks * inv[..., None]).clamp(-8, 7)
+    deq = q * d.to(torch_dtype(scale_dtype)).to(torch.float32)[..., None]
+    return deq.reshape(O, K)
+
+
 def q4_take_rows(w: Q4Tensor, ids: torch.Tensor,
                  dtype=torch.float32) -> torch.Tensor:
     """Gather + dequantize logical rows (axis O) → [..., K] (ggml GET_ROWS
