@@ -6,8 +6,9 @@
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi) and build the
      kernels from csrc/ (one nvcc per source, all at once, into build/);
-  2. kernels: each of K1-K6 at GPT-J-6B shapes, and K7/K8 (the flash
-     backward) at Pythia-410M and GPT-J shapes, against its plain PyTorch
+  2. kernels: each of K1-K6 at GPT-J-6B shapes, K4 and K7/K8 (the flash
+     backward) also at the Pythia-410M shapes of phase 6 (B=4 training,
+     B=1 perplexity) and K7/K8 at GPT-J's, against its plain PyTorch
      version on the card, its device time (CUDA events, the calls held
      back to back) beside its bound and a PyTorch yardstick the port never
      calls;
@@ -411,60 +412,84 @@ def phase_kernels(peaks):
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=lib_ms))
 
-    # K7/K8: the flash backward at Pythia-410M (T=S=2048, D=64) and GPT-J
-    # (T=S=512, D=256) shapes, H=16, B=1, against the plain backward; the
-    # yardstick is the backward of scaled_dot_product_attention (dq, dk and
-    # dv in one call, so both rows carry it; the plain time is likewise
+    # K7/K8, the flash backward, against the plain backward at the shapes
+    # of the training and perplexity paths (Pythia-410M: H=16, T=S=2048,
+    # D=64, f32; training B=4, perplexity B=1), in bf16 at B=1, and at
+    # GPT-J's (T=S=512, D=256); K4 at the Pythia-410M shapes as well.  The
+    # yardsticks are scaled_dot_product_attention and its backward (dq, dk
+    # and dv in one call, so both rows carry it; the plain time is likewise
     # that of the whole plain backward)
-    for T, D in ((2048, 64), (512, 256)):  # noqa: N806
+    f32, bf16 = torch.float32, torch.bfloat16
+    for B, T, D, dt in ((1, 2048, 64, f32), (4, 2048, 64, f32),  # noqa: N806
+                        (1, 2048, 64, bf16), (1, 512, 256, f32),
+                        (1, 512, 256, bf16)):
         sc = 1.0 / math.sqrt(D)
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v, do = (torch.randn((1, H, T, D), generator=g, device=dev)
-                           .to(dt) for _ in range(4))
-            out, lse = flash_attention_fwd(q, k, v, scale=sc)
-            dsum = (do.float() * out.float()).sum(-1)
-            dq = flash_attention_bwd_dq(q, k, v, do, lse, dsum, scale=sc)
-            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, dsum, scale=sc)
-            ref = flash_attention_bwd_plain(q, k, v, out, lse, do, scale=sc)
+        q, k, v, do = (torch.randn((B, H, T, D), generator=g, device=dev)
+                       .to(dt) for _ in range(4))
+        out, lse = flash_attention_fwd(q, k, v, scale=sc)
+        esz = q.element_size()
+        pairs = B * H * T * (T + 1) // 2
+        peak = bf16_peak if dt == bf16 else f32_peak
+        io = B * H * T * D * esz  # one [B, H, T, D] tensor
+        shape = f"B={B} T={T} H={H} D={D} {str(dt)[6:]}"
+        if D == 64:
+            ref, lse_ref = flash_attention_plain(q, k, v, scale=sc)
             torch.cuda.synchronize()
-            tol = TOL_BWD_BF16 if dt == torch.bfloat16 else TOL_BWD_F32
-            errs = [rel_err(a, b) for a, b in zip((dq, dk, dv), ref)]
-            for name, (err, rel), got in zip(("dq", "dk", "dv"), errs,
-                                             (dq, dk, dv)):
-                if not torch.isfinite(got).all() or rel > tol:
-                    fail(f"flash_attention_bwd {name} T={T} D={D} {dt}: "
-                         f"max|err| {err:.3g} (rel {rel:.3g} > {tol})")
-            ms_dq = timed(lambda: flash_attention_bwd_dq(
-                q, k, v, do, lse, dsum, scale=sc))
-            ms_dkv = timed(lambda: flash_attention_bwd_dkv(
-                q, k, v, do, lse, dsum, scale=sc))
-            plain_ms = timed(lambda: flash_attention_bwd_plain(
-                q, k, v, out, lse, do, scale=sc), reps=5, warmup=1)
-            qg, kg, vg = (x.detach().clone().requires_grad_()
-                          for x in (q, k, v))
-            o = torch.nn.functional.scaled_dot_product_attention(
-                qg, kg, vg, is_causal=True, scale=sc)
-            lib_ms = timed(lambda: torch.autograd.grad(
-                o, (qg, kg, vg), do, retain_graph=True))
-            del o, qg, kg, vg
-            esz = q.element_size()
-            pairs = H * T * (T + 1) // 2
-            peak = bf16_peak if dt == torch.bfloat16 else f32_peak
-            io = H * T * D * esz  # one [H, T, D] tensor
-            shape = f"T={T} H={H} D={D} {str(dt)[6:]}"
-            for kname, ms, nbytes, ops, err in (
-                    ("flash_attention_bwd_dq", ms_dq, 5 * io + 2 * H * T * 4,
-                     6 * D * pairs, errs[0][0]),
-                    ("flash_attention_bwd_dkv", ms_dkv,
-                     6 * io + 2 * H * T * 4, 8 * D * pairs,
-                     max(errs[1][0], errs[2][0]))):
-                b_ms, b_by = bound(nbytes, ops, peak)
-                rows.append(dict(kernel=kname, shape=shape, max_abs_err=err,
-                                 rel_err=max(r for _, r in errs), ms=ms,
-                                 plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib_ms))
-            del q, k, v, do, out, lse, dsum, dq, dk, dv, ref
-            torch.cuda.empty_cache()
+            err, rel = rel_err(out, ref)
+            _, rel_lse = rel_err(lse, lse_ref)
+            tol = TOL_FLASH_BF16 if dt == bf16 else TOL_FLASH_F32
+            if not torch.isfinite(out).all() or max(rel, rel_lse) > tol:
+                fail(f"flash_attention_fwd {shape}: max|err| {err:.3g} "
+                     f"(rel {rel:.3g}, lse rel {rel_lse:.3g} > {tol})")
+            del ref, lse_ref
+            ms = timed(lambda: flash_attention_fwd(q, k, v, scale=sc))
+            plain_ms = timed(lambda: flash_attention_plain(q, k, v, scale=sc),
+                             reps=5, warmup=1)
+            lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=sc))
+            b_ms, b_by = bound(4 * io + B * H * T * 4, 4 * pairs * D, peak)
+            rows.append(dict(kernel="flash_attention_fwd", shape=shape,
+                             max_abs_err=err, rel_err=rel, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms))
+        dsum = (do.float() * out.float()).sum(-1)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, dsum, scale=sc)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, dsum, scale=sc)
+        ref = flash_attention_bwd_plain(q, k, v, out, lse, do, scale=sc)
+        torch.cuda.synchronize()
+        tol = TOL_BWD_BF16 if dt == bf16 else TOL_BWD_F32
+        errs = [rel_err(a, b) for a, b in zip((dq, dk, dv), ref)]
+        for name, (err, rel), got in zip(("dq", "dk", "dv"), errs,
+                                         (dq, dk, dv)):
+            if not torch.isfinite(got).all() or rel > tol:
+                fail(f"flash_attention_bwd {name} {shape}: max|err| "
+                     f"{err:.3g} (rel {rel:.3g} > {tol})")
+        del ref
+        ms_dq = timed(lambda: flash_attention_bwd_dq(
+            q, k, v, do, lse, dsum, scale=sc))
+        ms_dkv = timed(lambda: flash_attention_bwd_dkv(
+            q, k, v, do, lse, dsum, scale=sc))
+        plain_ms = timed(lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, do, scale=sc), reps=5, warmup=1)
+        qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=True, scale=sc)
+        lib_ms = timed(lambda: torch.autograd.grad(
+            o, (qg, kg, vg), do, retain_graph=True))
+        del o, qg, kg, vg
+        for kname, ms, nbytes, ops, err in (
+                ("flash_attention_bwd_dq", ms_dq, 5 * io + 2 * B * H * T * 4,
+                 6 * D * pairs, errs[0][0]),
+                ("flash_attention_bwd_dkv", ms_dkv,
+                 6 * io + 2 * B * H * T * 4, 8 * D * pairs,
+                 max(errs[1][0], errs[2][0]))):
+            b_ms, b_by = bound(nbytes, ops, peak)
+            rows.append(dict(kernel=kname, shape=shape, max_abs_err=err,
+                             rel_err=max(r for _, r in errs), ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms))
+        del q, k, v, do, out, lse, dsum, dq, dk, dv
+        torch.cuda.empty_cache()
     _build.reset_launch_counts()  # comparison launches do not count
     return rows
 
@@ -825,29 +850,19 @@ def phase_training(peaks):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in float_leaves(params).values())
-    gen = torch.Generator().manual_seed(0)
-    for B in (4, 2, 1):  # noqa: N806  halve the batch if it does not fit
-        ids = torch.randint(0, cfg.n_vocab, (B, T + 1), generator=gen)
-        ids = ids.cuda()
-        torch.cuda.reset_peak_memory_stats()
-        losses, step_s, launches = [], [], []
-        try:
-            for _ in range(5):
-                _build.reset_launch_counts()
-                torch.cuda.synchronize()
-                a = time.perf_counter()
-                _, state, loss = step_fn(params, state, ids)
-                losses.append(float(loss))  # waits for the step
-                step_s.append(time.perf_counter() - a)
-                launches.append(dict(_build.launch_counts))
-            break
-        except torch.cuda.OutOfMemoryError:
-            pass
-        print(f"training: B={B} does not fit, halving", flush=True)
-        params = state = None  # start again from the init
-        torch.cuda.empty_cache()
-        params = init_params(cfg, seed=0)
-        state = init_fn(params)
+    B = 4  # noqa: N806
+    ids = torch.randint(0, cfg.n_vocab, (B, T + 1),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, launches = [], [], []
+    for _ in range(5):
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        _, state, loss = step_fn(params, state, ids)
+        losses.append(float(loss))  # waits for the step
+        step_s.append(time.perf_counter() - a)
+        launches.append(dict(_build.launch_counts))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         fail(f"training losses {losses}: not finite or not falling")
@@ -930,10 +945,10 @@ KERNEL_META = {
                      "int8 L=28 B=8 H=16 Dp=256 S=2048"),
     "flash_attention_bwd_dq": ("vsim_tpu_torch/csrc/flash_attention_bwd.cu",
                                "vsim_tpu/ops/attention.py:196",
-                               "T=2048 H=16 D=64 float32"),
+                               "B=4 T=2048 H=16 D=64 float32"),
     "flash_attention_bwd_dkv": ("vsim_tpu_torch/csrc/flash_attention_bwd.cu",
                                 "vsim_tpu/ops/attention.py:236",
-                                "T=2048 H=16 D=64 float32"),
+                                "B=4 T=2048 H=16 D=64 float32"),
 }
 ROW_KERNEL = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
               "decode_attention_q": "decode_attention",

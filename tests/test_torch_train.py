@@ -13,12 +13,17 @@ any leaf (a leaf whose true gradient is 0, such as the key bias of the
 unrotated dims, holds only rounding noise); after three AdamW steps the
 losses rtol 1e-5 and the params within 3e-6 (each step moves a weight by
 about lr = 1e-4, and a noise-sized gradient's step is its sign times up
-to lr).
+to lr).  Each step's change of the layer-norm weights, which start at 1,
+within 4e-3 of JAX's: f32 rounding at 1 is 1.2e-3 of a 1e-4 step, and
+torch's default decay of 1e-2 in place of optax's 1e-4 would add 1e-2.
 """
+
+import inspect
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -85,14 +90,21 @@ def test_train_steps_match_jax(n_tok):
     p_init, p_step = ptrain.make_train_step(pc)
     j_state, p_state = j_init(jp), p_init(pp)
     jids, pids = jnp.asarray(ids, jnp.int32), torch.from_numpy(ids)
-    before = {k: _np(v).copy() for k, v in _flat(pp).items()}
+    first = {k: _np(v).copy() for k, v in _flat(pp).items()}
     j_losses, p_losses = [], []
     for _ in range(3):
+        p_before = {k: _np(v).copy() for k, v in _flat(pp).items()}
+        j_before = _flat(jax.tree.map(np.asarray, jp))
         jp, j_state, jl = j_step(jp, j_state, jids)
         pp2, p_state, pl = p_step(pp, p_state, pids)
         assert pp2 is pp  # in place
         j_losses.append(float(jl))
         p_losses.append(float(pl))
+        j_after = _flat(jax.tree.map(np.asarray, jp))
+        for name in ("layers/ln1_w", "layers/ln2_w", "ln_f_w"):
+            dj = j_after[name] - j_before[name]
+            dp = _np(_flat(pp)[name]) - p_before[name]
+            assert np.abs(dp - dj).max() <= 4e-3 * np.abs(dj).max(), name
     np.testing.assert_allclose(p_losses, j_losses, rtol=1e-5)
     assert p_losses[-1] < p_losses[0]
     jflat = _flat(jax.tree.map(np.asarray, jp))
@@ -100,7 +112,30 @@ def test_train_steps_match_jax(n_tok):
         got = _np(t)
         np.testing.assert_allclose(got, jflat[name], rtol=0, atol=3e-6,
                                    err_msg=name)
-        assert np.abs(got - before[name]).max() > 1e-5, name  # it trained
+        assert np.abs(got - first[name]).max() > 1e-5, name  # it trained
+
+
+def test_default_optimizer_is_optax_adamw():
+    """The default optimizer is ``optax.adamw(1e-4)`` with optax's own
+    defaults (b1, b2, eps, weight_decay; mask=None: every leaf decays), as
+    the JAX package's make_train_step builds it."""
+    pc = ModelConfig(**NEOX_TINY)
+    pp = init_params(pc, seed=0, device="cpu")
+    opt = ptrain.make_train_step(pc)[0](pp)
+    want = {k: v.default for k, v in
+            inspect.signature(optax.adamw).parameters.items()
+            if v.default is not inspect.Parameter.empty}
+    assert want["mask"] is None and want["eps_root"] == 0.0
+    assert not want["nesterov"]
+    assert type(opt) is torch.optim.AdamW
+    assert len(opt.param_groups) == 1
+    group = opt.param_groups[0]
+    assert len(group["params"]) == len(ptrain.float_leaves(pp))
+    assert group["lr"] == 1e-4
+    assert group["betas"] == (want["b1"], want["b2"])
+    assert group["eps"] == want["eps"]
+    assert group["weight_decay"] == want["weight_decay"]
+    assert not group["amsgrad"] and not group["maximize"]
 
 
 def test_train_perplexity_matches_jax():

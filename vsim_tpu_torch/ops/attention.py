@@ -66,15 +66,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype), lse[..., 0]
 
 
-def _check(q, k, v, slopes, what="flash_attention_fwd", extra=()):
-    """Shapes (B, H, T, S, D) after checking what the kernels take;
-    ``extra`` holds (name, tensor, shape, dtype) of further inputs."""
-    tensors = [("q", q), ("k", k), ("v", v), ("slopes", slopes)]
-    tensors += [(name, t) for name, t, _, _ in extra]
-    for name, t in tensors[1:]:
+def _check(q, k, v, slopes, what="flash_attention_fwd"):
+    """Shapes (B, H, T, S, D) after checking what the kernels take."""
+    for name, t in (("k", k), ("v", v), ("slopes", slopes)):
         if t is not None and t.device != q.device:
             raise ValueError(f"{what}: {name} on {t.device}, q on {q.device}")
-    for name, t in tensors:
+    for name, t in (("q", q), ("k", k), ("v", v), ("slopes", slopes)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     if q.dtype not in (torch.bfloat16, torch.float32) \
@@ -89,12 +86,6 @@ def _check(q, k, v, slopes, what="flash_attention_fwd", extra=()):
     if slopes is not None and (slopes.dtype != torch.float32
                                or tuple(slopes.shape) != (H,)):
         raise ValueError(f"{what}: slopes must be f32 [H]")
-    dims = {"B": B, "H": H, "T": T, "S": S, "D": D}
-    for name, t, shape, dtype in extra:
-        want = tuple(dims[c] for c in shape)
-        if tuple(t.shape) != want or t.dtype != (dtype or q.dtype):
-            raise ValueError(f"{what}: {name} must be {dtype or q.dtype} "
-                             f"{list(want)}, got {t.dtype} {list(t.shape)}")
     return B, H, T, S, D
 
 
@@ -162,10 +153,16 @@ def _bwd_plain(q, k, v, do, lse, dsum, *, n_past, scale, slopes):
 
 
 def _check_bwd(q, k, v, do, lse, dsum, slopes, what):
-    B, H, T, S, D = _check(  # noqa: N806
-        q, k, v, slopes, what,
-        extra=(("do", do, "BHTD", None), ("lse", lse, "BHT", torch.float32),
-               ("dsum", dsum, "BHT", torch.float32)))
+    B, H, T, S, D = _check(q, k, v, slopes, what)  # noqa: N806
+    if do.device != q.device or do.dtype != q.dtype \
+            or tuple(do.shape) != (B, H, T, D) or not do.is_contiguous():
+        raise ValueError(f"{what}: do must be contiguous {q.dtype} "
+                         f"[B, H, T, D] on {q.device}")
+    for name, t in (("lse", lse), ("dsum", dsum)):
+        if t.device != q.device or t.dtype != torch.float32 \
+                or tuple(t.shape) != (B, H, T) or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous f32 "
+                             f"[B, H, T] on {q.device}")
     if D % 4:
         raise ValueError(f"{what}: head dim {D} is not a multiple of 4")
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
@@ -221,11 +218,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         slopes: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of ``out = flash_attention_fwd(q, k, v)`` for the
-    incoming gradient ``do``: K7 then K8 on CUDA tensors, the plain version
-    (once for all three) on CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, do, n_past=n_past,
-                                         scale=scale, slopes=slopes)
+    incoming gradient ``do``: K7 then K8 (their plain versions on CPU
+    tensors)."""
     do, dsum = _bwd_inputs(out, do, q.dtype)
     kw = dict(n_past=n_past, scale=scale, slopes=slopes)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, dsum, **kw)
