@@ -8,10 +8,11 @@ Phases, each fatal on failure:
      kernels from csrc/ (one nvcc per source, all at once, into build/);
   2. kernels: each of K1-K6 at GPT-J-6B shapes, K4 and K7/K8 (the flash
      backward) also at the Pythia-410M shapes of phase 6 (B=4 training,
-     B=1 perplexity) and K7/K8 at GPT-J's, against its plain PyTorch
-     version on the card, its device time (CUDA events, the calls held
-     back to back) beside its bound and a PyTorch yardstick the port never
-     calls;
+     B=1 perplexity) and K7/K8 at GPT-J's, K9-K11 and K2's f32-planes
+     contract for bf16 x at the Pythia-12B shapes of phase 7 (K9 and K11
+     at GPT-J's too), against its plain PyTorch version on the card, its
+     device time (CUDA events, the calls held back to back) beside its
+     bound and a PyTorch yardstick the port never calls;
   3. InferenceEngine on GPT-J-6B at full width (28 layers, random Q4
      weights from seed 0, bf16 compute) with int8 and with int4 KV, serving
      prompts of 8, 100 and 300 tokens (64 new tokens, greedy) and one
@@ -24,13 +25,23 @@ Phases, each fatal on failure:
      identical (InferenceEngine, and ServingEngine card vs CPU vs the
      card's InferenceEngine), bf16 return_logits must agree within the
      stated tolerance; Pythia-410M width at depth 2, three f32 training
-     steps: losses and every leaf's step-0 gradient must agree;
+     steps: losses and every leaf's step-0 gradient must agree; Pythia-12B
+     width at depth 2 through phase 7's stacked and f32xf engines: f32
+     greedy streams identical, bf16 logits within the tolerance;
   6. training: Pythia-410M at full width and depth, dense f32 weights from
      seed 0, make_train_step with the default AdamW, 5 steps on one seeded
      batch of 4 x 2049 tokens: finite losses, the last below the first, and
      K4, K7 and K8 launched once per layer in every step; then
      evaluate.perplexity on random Q4 params over a seeded 4096-token
-     stream at window 2048.
+     stream at window 2048;
+  7. Pythia-12B at full width (36 layers, random Q4 weights from seed 0,
+     bf16 compute, int8 KV) through three InferenceEngines serving prompts
+     of 8, 100 and 300 tokens (64 new tokens, greedy): stacked layers
+     (unroll_layers=False: K10 4 launches a layer and K9 1 a step), the
+     default engine under the f32xf math (K11 once a layer, K2) and under
+     gi (K1, K2); K3 and K4 in each; one step timed alone (enqueue, wall,
+     and the profiler's device busy time by kernel) against the weight
+     bytes' bound.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Prints a JSON line {"kernels": [...]} and, last, the device line.
 Details go to build/chip_smoke.json.  Exits non-zero, printing no result,
@@ -490,7 +501,186 @@ def phase_kernels(peaks):
                              bound_by=b_by, library_ms=lib_ms))
         del q, k, v, do, out, lse, dsum, dq, dk, dv
         torch.cuda.empty_cache()
+    rows += q4_layout_rows(peaks, bound, q4_weight)
     _build.reset_launch_counts()  # comparison launches do not count
+    return rows
+
+
+# Pythia-12B's matmuls (E=5120, F=20480, vocab 50688 padded to 51200):
+# (name, K, O, bias)
+PYTHIA_SHAPES = {"qkv": (5120, 15360, True), "wo": (5120, 5120, True),
+                 "fc": (5120, 20480, True), "proj": (20480, 5120, True),
+                 "lm_head": (5120, 51200, False)}
+
+
+def q4_layout_rows(peaks, bound, q4_weight):
+    """K9, K10, K11 and K2's f32-planes contract for bf16 x, against their
+    plain versions at the shapes phase 7's engines give them."""
+    import torch
+    import torch.nn.functional as F  # noqa: N812
+
+    from vsim_tpu_torch.ops.q4_cuda import (
+        mlp_activation, q4_matmul_i, q4_matmul_i_plain, q4_matmul_ps,
+        q4_matmul_ps_plain, q4_matmul_stacked, q4_matmul_stacked_plain,
+        q4_mlp_ps, q4_mlp_ps_plain)
+    from vsim_tpu_torch.quant.q4 import Q4Tensor, dequantize_km
+
+    bw, bf16_peak, f32_peak = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    rows = []
+
+    def check(kname, shape, got, ref):
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        if not torch.isfinite(got).all() or rel > TOL_Q4:
+            fail(f"{kname} {shape}: max|err| {err:.3g} (rel {rel:.3g} > "
+                 f"{TOL_Q4})")
+        return err, rel
+
+    def row(kname, shape, err, rel, ms, plain_ms, lib_ms, nbytes, ops, peak):
+        b_ms, b_by = bound(nbytes, ops, peak)
+        rows.append(dict(kernel=kname, shape=shape, max_abs_err=err,
+                         rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms))
+
+    def stacked_weight(L, K, O, seed):  # noqa: N803
+        w = q4_weight(K, O * L, seed)  # random bytes, reshaped per layer
+        return Q4Tensor(w.packed.reshape(K // 2, L, O).transpose(0, 1)
+                        .contiguous(),
+                        w.scales.reshape(K // 32, L, O).transpose(0, 1)
+                        .contiguous(), "i")
+
+    def matmul_case(kname, sname, n, K, O, has_bias, xdt, fn, plain, lib_w,  # noqa: N803
+                    make, round_planes):
+        w0 = make(0)
+        ws = _rotation(make, w0.nbytes)
+        ws[0] = w0
+        x = torch.randn((n, K), generator=g, device=dev).to(xdt)
+        bias = torch.randn((O,), generator=g, device=dev) if has_bias else None
+        shape = (f"pythia-12b {sname} n={n} {K}->{O} x={str(xdt)[6:]} "
+                 f"planes={'bf16' if round_planes else 'f32'}")
+        err, rel = check(kname, shape, fn(x, w0, bias), plain(x, w0, bias))
+        cyc = itertools.cycle(ws)
+        ms = timed(lambda: fn(x, next(cyc), bias))
+        plain_ms = timed(lambda: plain(x, w0, bias), reps=5, warmup=1)
+        wdt = torch.bfloat16 if round_planes else torch.float32
+        lib_ms = timed(lambda: torch.matmul(
+            x.to(wdt), dequantize_km(lib_w(next(cyc)), wdt)), reps=5,
+            warmup=1)
+        nbytes = (w0.nbytes // (w0.packed.shape[0] if w0.packed.dim() == 3
+                                else 1)
+                  + x.numel() * x.element_size() + n * O * 4
+                  + (O * 4 if has_bias else 0))
+        row(kname, shape, err, rel, ms, plain_ms, lib_ms, nbytes,
+            2 * n * K * O, bf16_peak if round_planes else f32_peak)
+
+    # K2, f32 planes for bf16 x (the f32xf engine's decode matmuls)
+    for sname in ("qkv", "wo", "lm_head"):
+        K, O, has_bias = PYTHIA_SHAPES[sname]  # noqa: N806
+        matmul_case(
+            "q4_matmul_ps", sname, 1, K, O, has_bias, torch.bfloat16,
+            lambda x, w, b: q4_matmul_ps(x, w.packed, w.scales, b, False),
+            lambda x, w, b: q4_matmul_ps_plain(x, w.packed, w.scales, b,
+                                               False),
+            lambda w: w,
+            lambda i, K=K, O=O: q4_weight(K, O, 7 * K + O + i), False)
+
+    # K9 at the lm heads of the stacked engine: Pythia-12B and GPT-J
+    for model, K, O, has_bias in (("pythia-12b", 5120, 51200, False),  # noqa: N806
+                                  ("gpt-j-6b", 4096, 51200, True)):
+        def make(i, K=K, O=O):  # noqa: N803
+            w = q4_weight(K, O, 11 * K + O + i)
+            return Q4Tensor(w.packed, w.scales, "i")
+        matmul_case(
+            "q4_matmul_i", "lm_head", 1, K, O, has_bias, torch.bfloat16,
+            lambda x, w, b: q4_matmul_i(x, w.packed, w.scales, b),
+            lambda x, w, b: q4_matmul_i_plain(x, w.packed, w.scales, b),
+            lambda w: w, make, False)
+        rows[-1]["shape"] = rows[-1]["shape"].replace("pythia-12b", model)
+
+    # K10 on layer L-1 of a stacked weight (L=2 at full width; layer 0
+    # checked too): each matmul of a Pythia-12B layer at n=1, fc at 8 and
+    # 128 rows, under both plane contracts
+    L = 2  # noqa: N806
+    il_last = torch.tensor(L - 1, dtype=torch.int32, device=dev)
+    il_first = torch.tensor(0, dtype=torch.int32, device=dev)
+    cases = ([(s, 1) for s in ("qkv", "wo", "fc", "proj")]
+             + [("fc", 8), ("fc", 128)])
+    for round_planes in (False, True):
+        for sname, n in cases:
+            K, O, has_bias = PYTHIA_SHAPES[sname]  # noqa: N806
+
+            def fn(x, w, b, il=il_last, r=round_planes):
+                return q4_matmul_stacked(x, w.packed, w.scales, il, b, r)
+
+            def plain(x, w, b, il=il_last, r=round_planes):
+                return q4_matmul_stacked_plain(x, w.packed, w.scales, il, b, r)
+
+            w0 = stacked_weight(L, K, O, 13 * K + O)
+            x0 = torch.randn((n, K), generator=g, device=dev).to(torch.bfloat16)
+            check("q4_matmul_stacked", f"{sname} n={n} il=0",
+                  q4_matmul_stacked(x0, w0.packed, w0.scales, il_first, None,
+                                    round_planes),
+                  q4_matmul_stacked_plain(x0, w0.packed, w0.scales, il_first,
+                                          None, round_planes))
+            matmul_case(
+                "q4_matmul_stacked", sname + f" il={L - 1} of {L}", n, K, O,
+                has_bias, torch.bfloat16, fn, plain,
+                lambda w: Q4Tensor(w.packed[L - 1], w.scales[L - 1], "i"),
+                lambda i, K=K, O=O: (w0 if i == 0 else stacked_weight(
+                    L, K, O, 13 * K + O + i)), round_planes)
+            del w0
+    torch.cuda.empty_cache()
+
+    # K11: Pythia-12B (gelu_exact, n=1 and 8), GPT-J (gelu_tanh), relu small
+    lib_act = {"gelu_exact": F.gelu, "relu": F.relu,
+               "gelu_tanh": lambda h: F.gelu(h, approximate="tanh")}
+    for model, E, Fd, act, n in (("pythia-12b", 5120, 20480, "gelu_exact", 1),  # noqa: N806
+                                 ("pythia-12b", 5120, 20480, "gelu_exact", 8),
+                                 ("gpt-j-6b", 4096, 16384, "gelu_tanh", 1),
+                                 ("small", 512, 1024, "relu", 4)):
+        def make(i, E=E, Fd=Fd):  # noqa: N803
+            return (q4_weight(E, Fd, 17 * E + i), q4_weight(Fd, E, 19 * E + i))
+
+        pair0 = make(0)
+        nb = pair0[0].nbytes + pair0[1].nbytes
+        pairs = _rotation(make, nb)
+        pairs[0] = pair0
+        x = torch.randn((n, E), generator=g, device=dev).to(torch.bfloat16)
+        bfc = torch.randn((Fd,), generator=g, device=dev) * 0.1
+        bproj = torch.randn((E,), generator=g, device=dev)
+
+        def run(p, plain=False):
+            f = q4_mlp_ps_plain if plain else q4_mlp_ps
+            return f(x, p[0].packed, p[0].scales, bfc, p[1].packed,
+                     p[1].scales, bproj, act)
+
+        shape = f"{model} E={E} F={Fd} {act} n={n}"
+        got = run(pair0)
+        err, rel = check("q4_mlp_ps", shape, got, run(pair0, plain=True))
+        if not torch.equal(got, run(pair0)):
+            fail(f"q4_mlp_ps {shape}: two runs differ")
+        # the activation the kernel computes against torch's, as a check of
+        # the plain version's polynomial at these h
+        h = torch.randn((n, Fd), device=dev) * 3
+        if (mlp_activation(h, act) - lib_act[act](h)).abs().max() > 1e-5:
+            fail(f"mlp_activation {act} differs from torch's")
+        cyc = itertools.cycle(pairs)
+        ms = timed(lambda: run(next(cyc)))
+        plain_ms = timed(lambda: run(pair0, plain=True), reps=5, warmup=1)
+
+        def library(p):
+            hh = torch.matmul(x.float(), dequantize_km(p[0])) + bfc
+            return torch.matmul(lib_act[act](hh), dequantize_km(p[1])) + bproj
+
+        lib_ms = timed(lambda: library(next(cyc)), reps=5, warmup=1)
+        nbytes = nb + x.numel() * 2 + (Fd + E) * 4 + n * E * 4
+        row("q4_mlp_ps", shape, err, rel, ms, plain_ms, lib_ms, nbytes,
+            4 * n * E * Fd, f32_peak)
+        del pairs, pair0
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -592,10 +782,8 @@ def phase_model(peaks):
 
 def phase_serving(cfg, params):
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from vsim_tpu_torch import monitor
-    from vsim_tpu_torch.decode_profile import busy_us
     from vsim_tpu_torch.engine.serving import ServingEngine
     from vsim_tpu_torch.models.transformer import forward
     from vsim_tpu_torch.ops import _build
@@ -662,21 +850,8 @@ def phase_serving(cfg, params):
             wall_step.append(time.perf_counter() - a)
         enq.sort()
         wall_step.sort()
-        # the same step under torch.profiler: device busy time (the union
-        # of kernel and copy intervals) and device time by kernel; None
-        # where the profiler records no device activity
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                forward(cfg, srv.params, tok, srv.cache, npv)
-            torch.cuda.synchronize()
-        intervals, by_name = [], collections.Counter()
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                s, e = ev.time_range.start, ev.time_range.end
-                intervals.append((s, e))
-                by_name[ev.name[:60]] += (e - s) / 1e3 / 5
-        busy_ms = busy_us(intervals) / 1e3 / 5 if intervals else None
+        busy_ms, by_kernel = step_device_profile(
+            lambda: forward(cfg, srv.params, tok, srv.cache, npv), steps=5)
         out[kv] = dict(
             warmup_s=warmup_s, wall_s=wall, requests=len(reqs),
             generated_tokens=n_tok, tokens_per_s=n_tok / wall,
@@ -690,7 +865,7 @@ def phase_serving(cfg, params):
             step_b8_device_busy_ms=busy_ms,
             step_b8_device_idle_share=(None if busy_ms is None else
                                        1 - busy_ms / (wall_step[5] * 1e3)),
-            step_b8_device_ms_by_kernel=dict(by_name.most_common(8)))
+            step_b8_device_ms_by_kernel=by_kernel)
         del srv
         torch.cuda.empty_cache()
     return out, launches
@@ -757,6 +932,62 @@ def phase_card_vs_cpu():
              f"{TOL_LOGITS_BF16})")
     out["bf16_logits_max_abs_err"] = err
     out["bf16_logits_rel_err"] = rel
+    return out
+
+
+# f32 greedy steps of this prompt at Pythia-12B width, depth 2, seed-1
+# weights: every top-2 logit margin on the CPU is at least 8e-3 of
+# max|logit|, for both engines
+PYTHIA_PROMPT = [50, 1201, 7, 40000, 333, 9, 2024, 11]
+
+
+def phase_pythia_card_vs_cpu():
+    """Pythia-12B width at depth 2, card vs CPU, for phase 7's stacked and
+    f32xf engines: f32 greedy streams identical, bf16 prompt logits within
+    TOL_LOGITS_BF16.  An 8-token prompt takes K11 and K10 in the prefill
+    too."""
+    import torch
+
+    from vsim_tpu_torch.engine.generate import InferenceEngine
+    from vsim_tpu_torch.engine.sampling import SamplingParams
+    from vsim_tpu_torch.models.config import PRESETS
+    from vsim_tpu_torch.models.init import random_q4_params
+    from vsim_tpu_torch.ops.q4_cuda import set_dequant_math
+
+    base = PRESETS["pythia-12b"].replace(n_layer=2, n_ctx=64)
+    params = random_q4_params(base, seed=1, device="cpu")
+    out = {}
+    for name in ("stacked", "f32xf"):
+        kw, math_name, _ = PYTHIA_ENGINES[name]
+        set_dequant_math(math_name)
+        try:
+            streams, logits = {}, {}
+            for dev in ("cuda", "cpu"):
+                cfg = base.replace(compute_dtype="float32")
+                eng = InferenceEngine(cfg, params, kv_dtype="int8", device=dev,
+                                      **kw)
+                streams[dev] = eng.generate(
+                    PYTHIA_PROMPT, 8, SamplingParams(greedy=True)).token_ids
+                cfg = base.replace(compute_dtype="bfloat16")
+                eng = InferenceEngine(cfg, params, kv_dtype="int8", device=dev,
+                                      **kw)
+                logits[dev] = torch.from_numpy(eng.generate(
+                    PYTHIA_PROMPT, 1, return_logits=True).logits)
+                del eng
+        finally:
+            set_dequant_math("gi")
+        if streams["cuda"] != streams["cpu"]:
+            fail(f"pythia-12b {name} f32 greedy streams differ: card "
+                 f"{streams['cuda']} cpu {streams['cpu']}")
+        if not torch.isfinite(logits["cuda"]).all():
+            fail(f"pythia-12b {name} bf16 logits on the card are not finite")
+        err, rel = rel_err(logits["cuda"], logits["cpu"])
+        if rel > TOL_LOGITS_BF16:
+            fail(f"pythia-12b {name} bf16 logits card vs cpu: max|err| "
+                 f"{err:.3g} (rel {rel:.3g} > {TOL_LOGITS_BF16})")
+        out[name] = dict(f32_greedy_tokens=streams["cuda"],
+                         bf16_logits_max_abs_err=err, bf16_logits_rel_err=rel)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -926,6 +1157,165 @@ def phase_training(peaks):
     return dict(train=train, perplexity=ppl), total
 
 
+# ---------------------------------------------------------------------------
+# phase 7: Pythia-12B at full width through three engines
+# ---------------------------------------------------------------------------
+
+# engine: (InferenceEngine options, dequant math, the kernels it must launch)
+PYTHIA_ENGINES = {
+    "stacked": (dict(unroll_layers=False), "gi",
+                ("q4_matmul_stacked", "q4_matmul_i", "decode_attention",
+                 "flash_attention")),
+    "f32xf": ({}, "f32xf", ("q4_mlp_ps", "q4_matmul_ps", "decode_attention",
+                            "flash_attention")),
+    "gi": ({}, "gi", ("q4_gemv_ps", "q4_matmul_ps", "decode_attention",
+                      "flash_attention")),
+}
+
+
+def q4_step_bytes(params) -> int:
+    """The Q4 weight bytes one decode step reads: every layer's matmuls and
+    the lm head."""
+    from vsim_tpu_torch.quant.q4 import Q4Tensor
+
+    layers = params["layers"]
+    dicts = layers if isinstance(layers, list) else [layers]
+    return sum(t.nbytes for lp in dicts for t in lp.values()
+               if isinstance(t, Q4Tensor)) + params["lm_head"].nbytes
+
+
+def step_device_profile(step, steps: int = 3):
+    """Device busy ms (the union of kernel and copy intervals) and device
+    ms by kernel of one step, from torch.profiler over ``steps`` steps;
+    (None, None) where the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vsim_tpu_torch.decode_profile import busy_us
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    intervals, by_name = [], collections.Counter()
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            s, e = ev.time_range.start, ev.time_range.end
+            intervals.append((s, e))
+            by_name[ev.name[:60]] += (e - s) / 1e3 / steps
+    if not intervals:
+        return None, None
+    return busy_us(intervals) / 1e3 / steps, dict(by_name.most_common(8))
+
+
+def phase_pythia(peaks):
+    """Pythia-12B (GPT-NeoX, 36 layers, E=5120, F=20480, exact GELU) at full
+    width, random Q4 weights from seed 0, bf16 compute, int8 KV, n_ctx 2048,
+    through the stacked-layer engine (K10, K9), the default engine under
+    the f32xf math (K11, K2) and under gi (K1, K2)."""
+    import torch
+
+    from vsim_tpu_torch.engine.generate import InferenceEngine
+    from vsim_tpu_torch.engine.sampling import SamplingParams
+    from vsim_tpu_torch.models.config import PRESETS
+    from vsim_tpu_torch.models.init import random_q4_params
+    from vsim_tpu_torch.models.transformer import forward
+    from vsim_tpu_torch.ops import _build
+    from vsim_tpu_torch.ops.q4_cuda import set_dequant_math
+
+    cfg = PRESETS["pythia-12b"].replace(compute_dtype="bfloat16")
+    L = cfg.n_layer  # noqa: N806
+    t0 = time.perf_counter()
+    params = random_q4_params(cfg, seed=0)
+    engines = {"stacked": InferenceEngine(cfg, params, kv_dtype="int8",
+                                          unroll_layers=False)}
+    del params
+    # the plane-split engines share one load of the stacked engine's
+    # (padded, qkv-fused) params
+    engines["f32xf"] = engines["gi"] = InferenceEngine(
+        cfg, engines["stacked"].params, kv_dtype="int8")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = torch.Generator().manual_seed(7)
+    prompts = {n: torch.randint(0, cfg.n_vocab, (n,), generator=rng).tolist()
+               for n in (8, 100, 300)}
+    out, launches = dict(setup_s=setup_s, engines={}), {}
+    for name, (_, math_name, kernels) in PYTHIA_ENGINES.items():
+        eng = engines[name]
+        step_bytes = q4_step_bytes(eng.params)
+        set_dequant_math(math_name)
+        try:
+            _build.reset_launch_counts()
+            requests = {}
+            for n, prompt in prompts.items():
+                r = eng.generate(prompt, 64, SamplingParams(greedy=True))
+                if len(r.token_ids) != 64 or not all(
+                        0 <= t < cfg.n_vocab for t in r.token_ids):
+                    fail(f"pythia-12b {name} prompt {n}: bad tokens "
+                         f"{r.token_ids[:8]}...")
+                tm = r.timings
+                requests[f"prompt={n}"] = dict(
+                    prefill_ms=tm["prefill_s"] * 1e3,
+                    decode_ms_per_token=tm["decode_s"] * 1e3
+                    / (tm["tokens"] - 1), tokens=r.token_ids[:8])
+            launches[name] = run = dict(_build.launch_counts)
+            for k in kernels:
+                if run.get(k, 0) == 0:
+                    fail(f"pythia-12b {name} engine never launched {k}: {run}")
+
+            # one decode step at n_past=300, alone
+            cache = eng.new_cache()
+            ids = torch.tensor([prompts[300]], device="cuda")
+            forward(cfg, eng.params, ids, cache, 0, fresh_kv=True)
+            tok = ids[:, -1:]
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            forward(cfg, eng.params, tok, cache, 300)
+            per_step = dict(_build.launch_counts)
+            want = {"stacked": {"q4_matmul_stacked": 4 * L,
+                                "q4_matmul_i": 1},
+                    "f32xf": {"q4_mlp_ps": L, "q4_matmul_ps": 2 * L + 1},
+                    "gi": {"q4_gemv_ps": 4 * L + 1}}[name]
+            for k, v in want.items():
+                if per_step.get(k, 0) != v:
+                    fail(f"pythia-12b {name}: {k} launched "
+                         f"{per_step.get(k, 0)} times a step, not {v}")
+            enq, wall = [], []
+            for i in range(10):
+                torch.cuda.synchronize()
+                a = time.perf_counter()
+                forward(cfg, eng.params, tok, cache, 301 + i)
+                b = time.perf_counter()
+                torch.cuda.synchronize()
+                enq.append(b - a)
+                wall.append(time.perf_counter() - a)
+            enq.sort()
+            wall.sort()
+            busy_ms, by_kernel = step_device_profile(
+                lambda: forward(cfg, eng.params, tok, cache, 311))
+        finally:
+            set_dequant_math("gi")
+        bound_ms = step_bytes / peaks[0] * 1e3
+        out["engines"][name] = dict(
+            math=math_name, requests=requests, launches_per_step=per_step,
+            weight_bytes_per_step=step_bytes, bound_ms_per_token=bound_ms,
+            step_enqueue_ms_median=enq[5] * 1e3,
+            step_wall_ms_median=wall[5] * 1e3,
+            step_device_busy_ms=busy_ms,
+            step_device_idle_share=(None if busy_ms is None
+                                    else 1 - busy_ms / (wall[5] * 1e3)),
+            step_device_ms_by_kernel=by_kernel)
+        del cache
+        torch.cuda.empty_cache()
+    del engines
+    torch.cuda.empty_cache()
+    total = collections.Counter()
+    for counts in launches.values():
+        total.update(counts)
+    return out, launches, total
+
+
 KERNEL_META = {
     "q4_gemv_ps": ("vsim_tpu_torch/csrc/q4_gemv_ps.cu",
                    "vsim_tpu/ops/pallas_q4.py:339", "fc n=1"),
@@ -949,6 +1339,16 @@ KERNEL_META = {
     "flash_attention_bwd_dkv": ("vsim_tpu_torch/csrc/flash_attention_bwd.cu",
                                 "vsim_tpu/ops/attention.py:236",
                                 "B=4 T=2048 H=16 D=64 float32"),
+    "q4_matmul_i": ("vsim_tpu_torch/csrc/q4_matmul_i.cu",
+                    "vsim_tpu/ops/pallas_q4.py:110",
+                    "pythia-12b lm_head n=1 5120->51200"),
+    "q4_matmul_stacked": ("vsim_tpu_torch/csrc/q4_matmul_i.cu",
+                          "vsim_tpu/ops/pallas_q4.py:953",
+                          "pythia-12b fc il=1 of 2 n=1 5120->20480 "
+                          "x=bfloat16 planes=f32"),
+    "q4_mlp_ps": ("vsim_tpu_torch/csrc/q4_mlp_ps.cu",
+                  "vsim_tpu/ops/pallas_q4.py:679",
+                  "pythia-12b E=5120 F=20480 gelu_exact n=1"),
 }
 ROW_KERNEL = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
               "decode_attention_q": "decode_attention",
@@ -956,7 +1356,10 @@ ROW_KERNEL = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
               "decode_attention_fresh": "decode_attention_fresh",
               "scatter_rows": "scatter_rows",
               "flash_attention_bwd_dq": "flash_attention_bwd_dq",
-              "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
+              "flash_attention_bwd_dkv": "flash_attention_bwd_dkv",
+              "q4_matmul_i": "q4_matmul_i",
+              "q4_matmul_stacked": "q4_matmul_stacked",
+              "q4_mlp_ps": "q4_mlp_ps"}
 
 
 def kernel_line(rows, launches):
@@ -1021,23 +1424,32 @@ def main() -> None:
     t0 = time.perf_counter()
     vs_cpu = phase_card_vs_cpu()
     vs_cpu["training"] = phase_train_card_vs_cpu()
+    vs_cpu["pythia-12b"] = phase_pythia_card_vs_cpu()
     print(f"card vs cpu in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps(vs_cpu)}", flush=True)
     t0 = time.perf_counter()
     training, train_launches = phase_training(peaks)
     print(f"training and perplexity in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps(training)}", flush=True)
+    t0 = time.perf_counter()
+    pythia, pythia_launches, pythia_total = phase_pythia(peaks)
+    print(f"Pythia-12B engines in {time.perf_counter() - t0:.1f} s "
+          f"(setup {pythia['setup_s']:.1f} s)", flush=True)
+    for k, v in pythia["engines"].items():
+        print(f"  {k}: {json.dumps(v)}", flush=True)
 
     total = collections.Counter(launches)
     for counts in serve_launches.values():
         total.update(counts)
     total.update(train_launches)
+    total.update(pythia_total)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernel_rows=rows, model=model,
                        launches_inference=launches, serving=serving,
                        launches_serving=serve_launches, card_vs_cpu=vs_cpu,
-                       training=training,
+                       training=training, pythia=pythia,
+                       launches_pythia=pythia_launches,
                        timings_unheld=UNHELD[0], ptxas=reports), f,
                   indent=1)
     print(json.dumps({"kernels": kernel_line(rows, total)}))

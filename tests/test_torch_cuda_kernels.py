@@ -1,4 +1,4 @@
-"""K1-K8 on the card against their plain PyTorch versions, at small shapes.
+"""K1-K11 on the card against their plain PyTorch versions, at small shapes.
 
 Marked ``cuda``: each test skips without a CUDA device (decided in the
 fixture, never at import).  On a machine with the card and no JAX
@@ -7,7 +7,8 @@ fixture, never at import).  On a machine with the card and no JAX
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
 Tolerances relative to max|plain|, as in chip_smoke.py: 1e-4 for the Q4
-matmuls and 1e-3 for decode attention, fresh mode included (only the f32
+matmuls (K1, K2, K9, K10) and the fused MLP (K11, which is also
+bit-identical from run to run) and 1e-3 for decode attention, fresh mode included (only the f32
 sum and exp order differ), 1e-2 for bf16 flash output and gradients
 (rounded to bf16), 1e-4 for f32 flash gradients (sum order); the row
 writer K6 is exact.
@@ -38,8 +39,14 @@ from vsim_tpu_torch.ops.decode_attention import (
 from vsim_tpu_torch.ops.q4_cuda import (
     q4_gemv_ps,
     q4_gemv_ps_plain,
+    q4_matmul_i,
+    q4_matmul_i_plain,
     q4_matmul_ps,
     q4_matmul_ps_plain,
+    q4_matmul_stacked,
+    q4_matmul_stacked_plain,
+    q4_mlp_ps,
+    q4_mlp_ps_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -85,6 +92,97 @@ def test_q4_matmul_ps(dev, n, dtype):
     x = torch.randn((n, 1024), device=dev).to(dtype)
     got = q4_matmul_ps(x, packed, scales, None)
     assert _rel(got, q4_matmul_ps_plain(x, packed, scales, None)) < 1e-4
+
+
+@pytest.mark.parametrize("n", [1, 8, 33])
+@pytest.mark.parametrize("dtype,round_planes", [(torch.float32, True),
+                                                (torch.bfloat16, False)])
+def test_q4_matmul_ps_plane_contract(dev, n, dtype, round_planes):
+    """K2's contracts beyond "bf16 planes for bf16 x": f32 x rounded with
+    its planes (i32/f32x), bf16 x against f32 planes (f32xf)."""
+    packed, scales = _weight(1024, 320, dev, n + 1)
+    x = torch.randn((n, 1024), device=dev).to(dtype)
+    bias = torch.randn((320,), device=dev)
+    got = q4_matmul_ps(x, packed, scales, bias, round_planes)
+    ref = q4_matmul_ps_plain(x, packed, scales, bias, round_planes)
+    assert _rel(got, ref) < 1e-4
+    other = q4_matmul_ps_plain(x, packed, scales, bias, not round_planes)
+    assert _rel(other, ref) > 1e-4  # the contracts differ beyond the tolerance
+
+
+@pytest.mark.parametrize("n", [1, 3, 8, 100])
+@pytest.mark.parametrize("K,O", [(512, 1024), (2048, 4100)])
+def test_q4_matmul_i(dev, n, K, O):
+    packed, scales = _weight(K, O, dev, n + 2)
+    x = torch.randn((n, K), device=dev).to(torch.bfloat16)
+    bias = torch.randn((O,), device=dev)
+    before = _build.launch_counts["q4_matmul_i"]
+    got = q4_matmul_i(x, packed, scales, bias)
+    assert _build.launch_counts["q4_matmul_i"] == before + 1
+    assert _rel(got, q4_matmul_i_plain(x, packed, scales, bias)) < 1e-4
+
+
+@pytest.mark.parametrize("n", [1, 8, 128])
+@pytest.mark.parametrize("round_planes", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_q4_matmul_stacked(dev, n, round_planes, dtype):
+    L, K, O = 3, 1024, 2048  # noqa: N806
+    g = torch.Generator(device=dev).manual_seed(n)
+    packed = torch.randint(0, 256, (L, K // 2, O), generator=g, device=dev,
+                           dtype=torch.uint8)
+    scales = (torch.rand((L, K // 32, O), generator=g, device=dev)
+              * 0.01).to(torch.bfloat16)
+    x = torch.randn((n, K), generator=g, device=dev).to(dtype)
+    for il in (0, L - 1):
+        ilt = torch.tensor(il, dtype=torch.int32, device=dev)
+        before = _build.launch_counts["q4_matmul_stacked"]
+        got = q4_matmul_stacked(x, packed, scales, ilt, None, round_planes)
+        assert _build.launch_counts["q4_matmul_stacked"] == before + 1
+        ref = q4_matmul_stacked_plain(x, packed, scales, ilt, None,
+                                      round_planes)
+        assert _rel(got, ref) < 1e-4
+        assert _rel(got, q4_matmul_i_plain(x, packed[il], scales[il], None,
+                                           round_planes)) < 1e-4
+    with pytest.raises(ValueError, match="int32"):
+        q4_matmul_stacked(x, packed, scales, 1)
+
+
+def test_q4_matmul_refuses_a_gradient_it_cannot_carry(dev):
+    """The Q4 kernels have no backward: a route that would launch one for
+    an x that needs a gradient raises instead of dropping it."""
+    from vsim_tpu_torch.ops.matmul import q4_matmul
+    from vsim_tpu_torch.quant.q4 import Q4Tensor
+
+    packed, scales = _weight(512, 256, dev, 0)
+    x = torch.randn((4, 512), device=dev, requires_grad=True)
+    for layout in ("i", "ps"):
+        with pytest.raises(ValueError, match="no backward"):
+            q4_matmul(x, Q4Tensor(packed, scales, layout))
+    y = q4_matmul(x.detach(), Q4Tensor(packed, scales, "i"))
+    assert y.shape == (4, 256)
+
+
+@pytest.mark.parametrize("act", ["gelu_tanh", "relu", "gelu_exact"])
+@pytest.mark.parametrize("n", [1, 5, 8])
+def test_q4_mlp_ps(dev, act, n):
+    E, F = 512, 1024  # noqa: N806
+    pfc, sfc = _weight(E, F, dev, n + 3)
+    pproj, sproj = _weight(F, E, dev, n + 4)
+    x = torch.randn((n, E), device=dev).to(torch.bfloat16)
+    for bfc, bproj in ((None, None), (torch.randn((F,), device=dev),
+                                      torch.randn((E,), device=dev))):
+        before = _build.launch_counts["q4_mlp_ps"]
+        got = q4_mlp_ps(x, pfc, sfc, bfc, pproj, sproj, bproj, act)
+        assert _build.launch_counts["q4_mlp_ps"] == before + 1
+        ref = q4_mlp_ps_plain(x, pfc, sfc, bfc, pproj, sproj, bproj, act)
+        assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
+        # bit-identical from run to run: a reduce pass, no atomics
+        again = q4_mlp_ps(x, pfc, sfc, bfc, pproj, sproj, bproj, act)
+        assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="F %"):
+        q4_mlp_ps(x, pfc[:, :960].contiguous(), sfc[:, :960].contiguous(),
+                  None, pproj[:480].contiguous(), sproj[:30].contiguous(),
+                  None, act)
 
 
 def test_q4_kernels_reject_what_they_cannot_take(dev):

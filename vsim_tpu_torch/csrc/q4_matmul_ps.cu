@@ -4,8 +4,10 @@
 //
 // Replaces vsim_tpu/ops/pallas_q4.py:_kernel_ps and _kernel_ps_bias (:482,
 // :223) with _dequant_planes_ps (:187): each weight element dequantizes to
-// (v - 8) * s, rounded to bf16 when x is bf16 (the "f32x" math) and kept in
-// f32 when x is f32 (the "f32xf" math), and the product accumulates in f32.
+// (v - 8) * s; with ROUND (the i32/f32x maths, and gi for bf16 x at n > 8:
+// ops/q4_cuda.py:ps_round_planes) the planes and x are rounded to bf16, as
+// the Pallas kernel's acc_dtype bf16 casts them, else both stay f32 (the
+// "f32xf" math); the product accumulates in f32.
 // Packed row c holds element c (low nibble, scale row c/32) and element
 // K/2 + c (high nibble, scale row K/64 + c/32).
 //
@@ -26,7 +28,7 @@ constexpr int kBN = 64;       // output columns per block
 constexpr int kKS = 64;       // K values per step: 32 lo + 32 hi
 constexpr int kThreads = 256; // 16 x 16 threads, 2 x 4 outputs each
 
-template <bool XBF16>
+template <bool XBF16, bool ROUND>
 __global__ void __launch_bounds__(kThreads)
 matmul_ps_kernel(const void* __restrict__ xv,            // [n, K] bf16 or f32
                  const uint8_t* __restrict__ packed,     // [K/2, O]
@@ -52,6 +54,7 @@ matmul_ps_kernel(const void* __restrict__ xv,            // [n, K] bf16 or f32
         const size_t off = static_cast<size_t>(m0 + m) * K + k;
         v = XBF16 ? bf16_to_float(static_cast<const uint16_t*>(xv)[off])
                   : static_cast<const float*>(xv)[off];
+        if (ROUND && !XBF16) v = round_bf16(v);
       }
       xs[m][kk] = v;
     }
@@ -66,7 +69,7 @@ matmul_ps_kernel(const void* __restrict__ xv,            // [n, K] bf16 or f32
             bf16_to_float(scales[static_cast<size_t>(G + g) * O + o]);
         wl = static_cast<float>(static_cast<int>(b & 0xFu) - 8) * sl;
         wh = static_cast<float>(static_cast<int>(b >> 4) - 8) * sh;
-        if (XBF16) {
+        if (ROUND) {
           wl = round_bf16(wl);
           wh = round_bf16(wh);
         }
@@ -104,21 +107,34 @@ matmul_ps_kernel(const void* __restrict__ xv,            // [n, K] bf16 or f32
   }
 }
 
+template <bool XBF16, bool ROUND>
+void launch_t(const void* x, const uint8_t* packed, const uint16_t* scales,
+              const float* bias, float* out, int n, int K, int O,
+              cudaStream_t s) {
+  const dim3 grid((O + kBN - 1) / kBN, (n + kBM - 1) / kBM);
+  matmul_ps_kernel<XBF16, ROUND><<<grid, kThreads, 0, s>>>(x, packed, scales,
+                                                           bias, out, n, K, O);
+}
+
 }  // namespace
 
 extern "C" int q4_matmul_ps_launch(const void* x, int x_is_bf16,
+                                   int round_planes,
                                    const void* packed, const void* scales,
                                    const void* bias, void* out, int n, int K,
                                    int O, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((O + kBN - 1) / kBN, (n + kBM - 1) / kBM);
   auto pp = static_cast<const uint8_t*>(packed);
   auto sp = static_cast<const uint16_t*>(scales);
   auto bp = static_cast<const float*>(bias);
   auto op = static_cast<float*>(out);
-  if (x_is_bf16)
-    matmul_ps_kernel<true><<<grid, kThreads, 0, s>>>(x, pp, sp, bp, op, n, K, O);
+  if (x_is_bf16 && round_planes)
+    launch_t<true, true>(x, pp, sp, bp, op, n, K, O, s);
+  else if (x_is_bf16)
+    launch_t<true, false>(x, pp, sp, bp, op, n, K, O, s);
+  else if (round_planes)
+    launch_t<false, true>(x, pp, sp, bp, op, n, K, O, s);
   else
-    matmul_ps_kernel<false><<<grid, kThreads, 0, s>>>(x, pp, sp, bp, op, n, K, O);
+    launch_t<false, false>(x, pp, sp, bp, op, n, K, O, s);
   return static_cast<int>(cudaGetLastError());
 }

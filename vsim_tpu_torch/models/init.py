@@ -176,14 +176,15 @@ def layer_of(v, il: int):
     return v[il]
 
 
-def prepare_unrolled_params(params: Dict[str, Any]) -> Dict[str, Any]:
+def prepare_unrolled_params(params: Dict[str, Any], *,
+                            plane_split: bool = True) -> Dict[str, Any]:
     """Engine-load transform: each stacked Q4 weight becomes a per-layer
-    list, plane-split when K % 64 == 0 (the port's kernels need whole
-    32-row groups in each plane, nothing more); the lm head too.  Small
-    stacked tensors (LN weights, biases) stay stacked.  Returns a new dict;
-    the caller's is not modified."""
+    list, with ``plane_split`` plane-split when K % 64 == 0 (the port's
+    kernels need whole 32-row groups in each plane, nothing more); the lm
+    head too.  Small stacked tensors (LN weights, biases) stay stacked.
+    Returns a new dict; the caller's is not modified."""
     def convert(t: Q4Tensor) -> Q4Tensor:
-        if t.in_features % (2 * QK) == 0:
+        if plane_split and t.in_features % (2 * QK) == 0:
             return to_plane_split(t)
         return t
 

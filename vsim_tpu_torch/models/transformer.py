@@ -1,8 +1,10 @@
 """Decoder forward for the four reference architectures (port of
 vsim_tpu/models/transformer.py, per-layer form).
 
-The layer loop is a Python loop over per-layer parameters; stacked weights
-are indexed per layer as views (models/init.py:layer_of).  The KV cache is
+The layer loop is a Python loop over per-layer parameters.  A stacked Q4
+weight reaches each layer as a ``Q4Layer`` (ops/matmul.py: K10 picks the
+layer inside the kernel); other stacked entries are per-layer views
+(models/init.py:layer_of).  The KV cache is
 head-major [L, B, H, S, D] and is updated in place: a float tensor, or a
 pair (values, bf16 scales [L, B, H, S]) with int8 values, or plane-packed
 uint8 int4 values [L, B, H, S, D/2] (byte c = dims c | c + D/2).
@@ -25,7 +27,9 @@ Attention routes:
   * anything else (a float cache, a multi-token step over the cache) →
     the plain einsum over the dequantized cache.
 Every Q4 matmul goes through ops/matmul.py:q4_matmul, or with
-``cfg.act_quant`` through q4_matmul_act_quant.  On the ragged path
+``cfg.act_quant`` through q4_matmul_act_quant; off the gi dequant math an
+MLP of n <= 8 rows with plane-split weights is one K11 launch (``mlp``).
+On the ragged path
 ``n_past`` never becomes a Python int, so a step makes no host sync.
 """
 
@@ -48,11 +52,17 @@ from vsim_tpu_torch.ops.decode_attention import (
     scatter_rows,
 )
 from vsim_tpu_torch.ops.layers import get_activation, layer_norm
-from vsim_tpu_torch.ops.matmul import q4_matmul, q4_matmul_act_quant
+from vsim_tpu_torch.ops.matmul import Q4Layer, q4_matmul, q4_matmul_act_quant
+from vsim_tpu_torch.ops.q4_cuda import MLP_MAX_ROWS, get_dequant_math, q4_mlp_ps
 from vsim_tpu_torch.ops.rope import apply_rope
 from vsim_tpu_torch.quant.q4 import Q4Tensor, q4_take_rows
 
 Params = Dict[str, Any]
+
+# config activations K11 computes (vsim_tpu/models/transformer.py:371-373)
+_FUSED_ACTS = {"gelu_tanh": "gelu_tanh", "gelu_new": "gelu_tanh",
+               "gelu_fast": "gelu_tanh", "relu": "relu",
+               "gelu_exact": "gelu_exact"}
 
 
 def alibi_slopes(n_head: int, device: DeviceLike = "cpu") -> torch.Tensor:
@@ -228,7 +238,25 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
     return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq)
 
 
+def _fusable(w) -> bool:
+    return isinstance(w, Q4Tensor) and w.layout == "ps"
+
+
 def mlp(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+    """fc, activation, proj.  Off the gi math, n <= 8 rows with plane-split
+    weights take K11, which keeps h in f32 (the unfused route rounds it to
+    the compute dtype twice): the n <= 8 cut decides the numerics."""
+    w_fc, w_proj = lp["w_fc"], lp["w_proj"]
+    n = h.numel() // h.shape[-1]
+    if (not cfg.act_quant and _fusable(w_fc) and _fusable(w_proj)
+            and cfg.activation in _FUSED_ACTS
+            and get_dequant_math() != "gi" and n <= MLP_MAX_ROWS):
+        b_fc, b_proj = (None if b is None else b.to(torch.float32).contiguous()
+                        for b in (lp.get("b_fc"), lp.get("b_proj")))
+        y = q4_mlp_ps(h.reshape(n, -1).contiguous(), w_fc.packed,
+                      w_fc.scales, b_fc, w_proj.packed, w_proj.scales, b_proj,
+                      _FUSED_ACTS[cfg.activation])
+        return y.to(h.dtype).reshape(h.shape)
     act = get_activation(cfg.activation)
     y = _linear(h, lp["w_fc"], lp.get("b_fc"), h.dtype, cfg.act_quant)
     y = act(y.to(torch.float32)).to(h.dtype)
@@ -260,13 +288,23 @@ def embed(cfg: ModelConfig, params: Params, token_ids: torch.Tensor, dtype):
     return wte[token_ids].to(dtype)
 
 
+def _stacked_q4(v) -> bool:
+    return isinstance(v, Q4Tensor) and v.packed.dim() == 3
+
+
 def per_layer(layers, n_layer: int) -> List[Params]:
     """Per-layer parameter dicts from a dict of stacked/per-layer entries
-    (a list of dicts passes through)."""
+    (a list of dicts passes through).  A stacked Q4 weight becomes a
+    ``Q4Layer`` whose index is one element of an int32 tensor built once on
+    the weights' device, so K10 selects the layer inside the kernel; other
+    stacked entries become per-layer views."""
     if isinstance(layers, list):
         return layers
-    return [{k: layer_of(v, il) for k, v in layers.items()}
-            for il in range(n_layer)]
+    stacked = [v for v in layers.values() if _stacked_q4(v)]
+    ils = (torch.arange(n_layer, dtype=torch.int32, device=stacked[0].device)
+           if stacked else None)
+    return [{k: Q4Layer(v, ils[il]) if _stacked_q4(v) else layer_of(v, il)
+             for k, v in layers.items()} for il in range(n_layer)]
 
 
 def forward(cfg: ModelConfig, params: Params, token_ids: torch.Tensor,

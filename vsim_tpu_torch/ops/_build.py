@@ -11,7 +11,8 @@ Every kernel wrapper counts its launches in ``launch_counts`` under the
 kernel's name in ``KERNELS`` (one per kernel launch, nowhere else), so a run
 can show which kernels it went through.  A source may hold more than one
 kernel: K3 and K5 are two modes of ``decode_attention.cu``, K7 and K8 the
-two passes of ``flash_attention_bwd.cu``.
+two passes of ``flash_attention_bwd.cu``, K9 and K10 the single and the
+stacked-layer launchers of ``q4_matmul_i.cu``.
 """
 
 from __future__ import annotations
@@ -34,7 +35,9 @@ KERNELS = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
            "flash_attention": "flash_attention",
            "scatter_rows": "kv_scatter_rows",
            "flash_attention_bwd_dq": "flash_attention_bwd",
-           "flash_attention_bwd_dkv": "flash_attention_bwd"}
+           "flash_attention_bwd_dkv": "flash_attention_bwd",
+           "q4_matmul_i": "q4_matmul_i", "q4_matmul_stacked": "q4_matmul_i",
+           "q4_mlp_ps": "q4_mlp_ps"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,26 +1,34 @@
 """Quantized matmul routing (port of vsim_tpu/ops/matmul.py).
 
 ``q4_matmul(x, w)`` computes ``x @ dequant(w).T (+ bias)`` for ``w`` of
-logical shape [O, K], in f32.  Routes, by the rows n of x:
+logical shape [O, K] (a Q4Tensor, one layer of a stacked one as a
+``Q4Layer``, or dense), in f32.  Routes, by the rows n of x and the dequant
+math (ops/q4_cuda.py:set_dequant_math):
 
-  * plane-split weight, bf16 x, n <= 8       → K1 ``q4_gemv_ps``
-  * plane-split weight, otherwise n <= 128   → K2 ``q4_matmul_ps``
-  * n > 128                                  → dequantize_km + torch.matmul
-    with f32 accumulation (the JAX package leaves this case to XLA)
-  * interleaved weight on the CPU            → dequantize_km + torch.matmul
+  * n > 128, any Q4 weight                   → dequantize + torch.matmul with
+    f32 accumulation (the JAX package leaves this case to XLA); a Q4Layer's
+    layer is copied out first
+  * plane-split, bf16 x, n <= 8, math "gi"   → K1 ``q4_gemv_ps``
+  * plane-split, otherwise                   → K2 ``q4_matmul_ps``, planes
+    and x in bf16 or f32 as ``ps_round_planes`` says
+  * interleaved ("i") weight                 → K9 ``q4_matmul_i``, f32 planes
+  * ``Q4Layer`` (stacked "i" weight)         → K10 ``q4_matmul_stacked``,
+    which reads the layer index on the device; bf16 planes and x under
+    i32/f32x, f32 under f32xf/gi (``stacked_round_planes``)
 
 ``q4_matmul_act_quant`` first Q4_0 quantize-dequantizes x along K (the
 reference's matmul INIT phase) and always takes dequantize + torch.matmul,
 as the JAX package forces ``impl="xla"`` there.
 
-On CPU tensors K1 and K2 run their plain versions; a CUDA tensor no kernel
-takes (an interleaved weight at n <= 128, a bad shape or dtype) raises.
-Dense (non-Q4) weights use torch.matmul.  The bias is added in the kernels'
-epilogue, as the Pallas kernels fold it into their output init.
+On CPU tensors the kernels run their plain versions; a CUDA tensor no kernel
+takes (a bad shape or dtype) raises, and so does one that needs a gradient:
+the kernels have no backward.  Dense (non-Q4) weights use torch.matmul.  The
+bias is added in the kernels' epilogue.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
@@ -30,12 +38,39 @@ from vsim_tpu_torch.device import torch_dtype
 from vsim_tpu_torch.ops.q4_cuda import (
     GEMV_MAX_ROWS,
     MATMUL_MAX_ROWS,
+    get_dequant_math,
+    ps_round_planes,
     q4_gemv_ps,
+    q4_matmul_i,
     q4_matmul_ps,
+    q4_matmul_stacked,
+    stacked_layer,
+    stacked_round_planes,
 )
 from vsim_tpu_torch.quant.q4 import Q4Tensor, dequantize_km, fake_quantize
 
-Weight = Union[Q4Tensor, torch.Tensor]
+
+@dataclasses.dataclass
+class Q4Layer:
+    """Layer ``il`` of a stacked Q4 weight.  ``il`` is an int32 tensor on
+    the weight's device, never a Python int, so K10 reads it on the card
+    and a step makes no host sync (vsim_tpu/ops/matmul.py:Q4Layer)."""
+
+    stacked: Q4Tensor  # packed [L, K/2, O]
+    il: torch.Tensor  # int32, one element
+
+    @property
+    def out_features(self) -> int:
+        return self.stacked.out_features
+
+    def layer(self) -> Q4Tensor:
+        """The selected layer as a Q4Tensor of its own (a copy)."""
+        return Q4Tensor(stacked_layer(self.stacked.packed, self.il),
+                        stacked_layer(self.stacked.scales, self.il),
+                        self.stacked.layout)
+
+
+Weight = Union[Q4Tensor, Q4Layer, torch.Tensor]
 
 
 def _f32_bias(bias: Optional[torch.Tensor], width: int):
@@ -64,24 +99,33 @@ def q4_matmul(x: torch.Tensor, w: Weight, *,
     lead, K = x.shape[:-1], x.shape[-1]  # noqa: N806
     x2 = x.reshape(-1, K).to(cdt).contiguous()
     n = x2.shape[0]
-    if not isinstance(w, Q4Tensor):  # dense [O, K]
+    if not isinstance(w, (Q4Tensor, Q4Layer)):  # dense [O, K]
         y = torch.matmul(x2.to(torch.float32),
                          w.to(cdt).to(torch.float32).T)
         b = _f32_bias(bias, y.shape[-1])
         return (y if b is None else y + b).reshape(*lead, -1)
     b = _f32_bias(bias, w.out_features)
     if n > MATMUL_MAX_ROWS:
-        y = _dequant_matmul(x2, w, cdt, b)
-    elif w.layout == "ps":
-        kernel = (q4_gemv_ps if cdt == torch.bfloat16 and n <= GEMV_MAX_ROWS
-                  else q4_matmul_ps)
-        y = kernel(x2, w.packed, w.scales, b)
-    elif x2.device.type == "cpu":
-        y = _dequant_matmul(x2, w, cdt, b)
+        y = _dequant_matmul(x2, w.layer() if isinstance(w, Q4Layer) else w,
+                            cdt, b)
+        return y.reshape(*lead, -1)
+    if x2.requires_grad and x2.device.type == "cuda":
+        raise ValueError("the Q4 matmul kernels have no backward: a "
+                         "gradient through a Q4 weight needs n > 128 rows")
+    if isinstance(w, Q4Layer):
+        if w.stacked.layout != "i":
+            raise ValueError("K10 takes stacked interleaved weights, got "
+                             f"layout {w.stacked.layout!r}")
+        y = q4_matmul_stacked(x2, w.stacked.packed, w.stacked.scales, w.il,
+                              b, stacked_round_planes())
+    elif w.layout == "i":
+        y = q4_matmul_i(x2, w.packed, w.scales, b)
+    elif (cdt == torch.bfloat16 and n <= GEMV_MAX_ROWS
+          and get_dequant_math() == "gi"):
+        y = q4_gemv_ps(x2, w.packed, w.scales, b)
     else:
-        raise ValueError(
-            f"no CUDA kernel takes a {w.layout!r}-layout Q4 weight at n={n} "
-            "rows: plane-split it first (quant/q4.py:to_plane_split)")
+        y = q4_matmul_ps(x2, w.packed, w.scales, b,
+                         ps_round_planes(n, x2.dtype))
     return y.reshape(*lead, -1)
 
 
@@ -92,6 +136,8 @@ def q4_matmul_act_quant(x: torch.Tensor, w: Weight, *,
     cdt = torch_dtype(compute_dtype)
     lead, K = x.shape[:-1], x.shape[-1]  # noqa: N806
     xq = fake_quantize(x.reshape(-1, K)).to(cdt)
+    if isinstance(w, Q4Layer):
+        w = w.layer()
     if not isinstance(w, Q4Tensor):
         return q4_matmul(xq, w, compute_dtype=cdt).reshape(*lead, -1)
     return _dequant_matmul(xq, w, cdt, None).reshape(*lead, -1)

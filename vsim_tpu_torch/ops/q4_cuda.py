@@ -1,12 +1,23 @@
-"""Plane-split Q4_0 matmul kernels (counterpart of vsim_tpu/ops/pallas_q4.py).
+"""Q4_0 matmul kernels (counterpart of vsim_tpu/ops/pallas_q4.py).
 
 K1 ``q4_gemv_ps`` (csrc/q4_gemv_ps.cu): n <= 8 rows of bf16 x, the
 grouped-integer math of ``_kernel_ps_giw`` / ``_kernel_ps_gi[_bias]``.
 K2 ``q4_matmul_ps`` (csrc/q4_matmul_ps.cu): n <= 128 rows, the per-element
-dequant math of ``_kernel_ps[_bias]`` (bf16 planes for bf16 x, f32 planes for
-f32 x).
+dequant math of ``_kernel_ps[_bias]``: planes (v - 8)·s rounded to bf16 (x
+too) or kept in f32 (``round_planes``, see ``ps_round_planes``).
+K9 ``q4_matmul_i`` and K10 ``q4_matmul_stacked`` (csrc/q4_matmul_i.cu): the
+interleaved ("i") layout of ``_kernel`` and ``_kernel_stacked``, n <= 128;
+K10 picks layer ``il`` (an int32 device tensor) of a stacked [L, K/2, O]
+weight inside the kernel.
+K11 ``q4_mlp_ps`` (csrc/q4_mlp_ps.cu): the fused ``act(x Wfc + bfc) Wproj +
+bproj`` of ``_kernel_mlp_ps``, both weights plane-split, n <= 8, all in f32.
 
-Each wrapper takes x [n, K], the plane-split ``packed`` [K/2, O] uint8 and
+The dequant math (``set_dequant_math``: "i32", "f32x", "f32xf" or "gi", the
+JAX package's names and default) decides which kernel the routes take and
+where they round (ops/matmul.py, models/transformer.py:mlp).  "i32" and
+"f32x" give the same numbers: (v - 8)·s is exact in f32 either way.
+
+Each matmul wrapper takes x [n, K], ``packed`` [K/2, O] uint8 and
 ``scales`` [K/32, O] bf16, and an optional f32 ``bias`` [O]; it returns f32
 [n, O].  A CPU tensor goes through the plain PyTorch version beside the
 kernel; a CUDA tensor launches the kernel or raises.
@@ -16,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -25,16 +37,60 @@ from vsim_tpu_torch.quant.q4 import QK
 
 GEMV_MAX_ROWS = 8
 MATMUL_MAX_ROWS = 128
-_GEMV_TILE_O = 1024  # output columns per K1 block (csrc/q4_gemv_ps.cu)
+MLP_MAX_ROWS = 8
+_GEMV_TILE_O = 1024  # output columns per K1 / K9 / K10 block
+_I_ROWS = 8  # x rows per K9 / K10 block (csrc/q4_matmul_i.cu kMaxRows)
+_MLP_BFH = 64  # K11: F columns per plane per block (csrc/q4_mlp_ps.cu)
+
+MATHS = ("i32", "f32x", "f32xf", "gi")
+_dequant_math = "gi"
+
+# K11's activations (models/transformer.py:_FUSED_ACTS maps config names)
+MLP_ACTS = {"gelu_tanh": 0, "relu": 1, "gelu_exact": 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _GEMV_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-_MATMUL_ARGS = (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P)
+_MATMUL_ARGS = (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P)
+_I_ARGS = (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_STACKED_ARGS = (_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_MLP_ARGS = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+
+
+def set_dequant_math(name: str) -> None:
+    """Select the dequant math of the Q4 routes (pallas_q4.py:74)."""
+    global _dequant_math
+    if name not in MATHS:
+        raise ValueError(f"unknown dequant math {name!r}; known: {MATHS}")
+    _dequant_math = name
+
+
+def get_dequant_math() -> str:
+    return _dequant_math
+
+
+def ps_round_planes(n: int, x_dtype: torch.dtype,
+                    math_name: Optional[str] = None) -> bool:
+    """K2's plane contract (pallas_q4.py:541-547, 206-220): bf16 planes and
+    x under i32/f32x whatever x's dtype (``pallas_q4_matmul_ps`` passes
+    acc_dtype bf16), and under gi for bf16 x at n > 8; f32 otherwise."""
+    m = math_name or _dequant_math
+    return m in ("i32", "f32x") or (
+        m == "gi" and n > GEMV_MAX_ROWS and x_dtype == torch.bfloat16)
+
+
+def stacked_round_planes(math_name: Optional[str] = None) -> bool:
+    """K10's contract (``pallas_q4_matmul_stacked``, acc_dtype bf16): bf16
+    planes and x under i32/f32x, f32 under f32xf and gi."""
+    return (math_name or _dequant_math) in ("i32", "f32x")
 
 
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
 
 
 def q4_gemv_ps_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -45,7 +101,7 @@ def q4_gemv_ps_plain(x: torch.Tensor, packed: torch.Tensor,
     n, K = x.shape  # noqa: N806
     half = K // 2
     G = half // QK  # noqa: N806
-    xf = x.to(torch.bfloat16).to(torch.float32)
+    xf = _bf16(x)
     xlo = xf[:, :half].reshape(n, G, QK).transpose(0, 1)  # [G, n, 32]
     xhi = xf[:, half:].reshape(n, G, QK).transpose(0, 1)
     vlo = (packed & 0x0F).to(torch.float32).reshape(G, QK, -1)  # [G, 32, O]
@@ -63,25 +119,118 @@ def q4_gemv_ps_plain(x: torch.Tensor, packed: torch.Tensor,
     return y
 
 
-def q4_matmul_ps_plain(x: torch.Tensor, packed: torch.Tensor,
-                       scales: torch.Tensor,
-                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-element dequant (_dequant_planes_ps): planes (v − 8)·s, rounded
-    to bf16 when x is bf16 ("f32x"), unrounded for f32 x ("f32xf"); the
-    product accumulates in f32."""
-    half = packed.shape[0]
-    G = half // QK  # noqa: N806
+def _ps_planes(packed: torch.Tensor, scales: torch.Tensor):
+    """The two f32 planes (v − 8)·s of a plane-split weight, [K/2, O] each:
+    packed row c is element c (scale row c/32) and K/2 + c (K/64 + c/32)."""
+    G = packed.shape[0] // QK  # noqa: N806
     s = scales.to(torch.float32)
     lo = ((packed & 0x0F).to(torch.float32) - 8.0) \
         * s[:G].repeat_interleave(QK, dim=0)
     hi = ((packed >> 4).to(torch.float32) - 8.0) \
         * s[G:2 * G].repeat_interleave(QK, dim=0)
-    w = torch.cat([lo, hi], dim=0)  # [K, O]
-    if x.dtype == torch.bfloat16:
-        w = w.to(torch.bfloat16).to(torch.float32)
-    y = torch.matmul(x.to(torch.float32), w)
+    return lo, hi
+
+
+def q4_matmul_ps_plain(x: torch.Tensor, packed: torch.Tensor,
+                       scales: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None,
+                       round_planes: Optional[bool] = None) -> torch.Tensor:
+    """Per-element dequant (_dequant_planes_ps): planes (v − 8)·s, with
+    planes and x rounded to bf16 when ``round_planes`` (None: the current
+    math's contract, ``ps_round_planes``); the product accumulates in f32."""
+    if round_planes is None:
+        round_planes = ps_round_planes(x.shape[0], x.dtype)
+    w = torch.cat(_ps_planes(packed, scales), dim=0)  # [K, O]
+    xf = x.to(torch.float32)
+    if round_planes:
+        w, xf = _bf16(w), _bf16(xf)
+    y = torch.matmul(xf, w)
     if bias is not None:
         y = y + bias.to(torch.float32)
+    return y
+
+
+def q4_matmul_i_plain(x: torch.Tensor, packed: torch.Tensor,
+                      scales: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      round_planes: bool = False) -> torch.Tensor:
+    """Interleaved-layout dequant matmul (_kernel / _dequant_planes): byte c
+    holds elements 2c (low nibble) and 2c+1 (high), both with scale row
+    c // 16, each (v − 8)·s; y = x · W in f32 (one product over K, the sum
+    order of dequantize_km + matmul), planes and x rounded to bf16 when
+    ``round_planes``."""
+    s = scales.to(torch.float32).repeat_interleave(QK // 2, dim=0)  # [K/2, O]
+    lo = ((packed & 0x0F).to(torch.float32) - 8.0) * s
+    hi = ((packed >> 4).to(torch.float32) - 8.0) * s
+    w = torch.stack([lo, hi], dim=1).reshape(-1, lo.shape[1])  # [K, O]
+    xf = x.to(torch.float32)
+    if round_planes:
+        w, xf = _bf16(w), _bf16(xf)
+    y = torch.matmul(xf, w)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return y
+
+
+def stacked_layer(t: torch.Tensor, il: torch.Tensor) -> torch.Tensor:
+    """Layer ``il`` (an int32 tensor, one element) of a stacked tensor,
+    without a host sync (a copy: index_select)."""
+    return torch.index_select(t, 0, il.reshape(1).to(torch.long))[0]
+
+
+def q4_matmul_stacked_plain(x: torch.Tensor, packed: torch.Tensor,
+                            scales: torch.Tensor, il: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None,
+                            round_planes: bool = False) -> torch.Tensor:
+    """``q4_matmul_i_plain`` on layer ``il`` of a stacked [L, K/2, O]
+    weight (_kernel_stacked)."""
+    return q4_matmul_i_plain(x, stacked_layer(packed, il),
+                             stacked_layer(scales, il), bias, round_planes)
+
+
+def _erf_poly(x: torch.Tensor) -> torch.Tensor:
+    """Abramowitz–Stegun 7.1.26, as pallas_q4.py:_erf_poly (|err| <=
+    1.5e-7): what the fused TPU kernel computes for exact GELU."""
+    ax = x.abs()
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    y = 1.0 - poly * torch.exp(-ax * ax)
+    return torch.where(x < 0, -y, y)
+
+
+def mlp_activation(h: torch.Tensor, act: str) -> torch.Tensor:
+    """K11's activations in f32 (_kernel_mlp_ps)."""
+    if act == "gelu_tanh":
+        return 0.5 * h * (1.0 + torch.tanh(
+            math.sqrt(2.0 / math.pi) * (h + 0.044715 * h * h * h)))
+    if act == "relu":
+        return torch.clamp_min(h, 0.0)
+    if act == "gelu_exact":
+        return 0.5 * h * (1.0 + _erf_poly(h * 0.7071067811865476))
+    raise ValueError(f"unknown fused-MLP activation {act!r}; known: "
+                     f"{sorted(MLP_ACTS)}")
+
+
+def q4_mlp_ps_plain(x: torch.Tensor, fc_packed: torch.Tensor,
+                    fc_scales: torch.Tensor, fc_bias: Optional[torch.Tensor],
+                    proj_packed: torch.Tensor, proj_scales: torch.Tensor,
+                    proj_bias: Optional[torch.Tensor],
+                    act: str) -> torch.Tensor:
+    """``act(x Wfc + bfc) Wproj + bproj`` with x, both weights' planes and
+    h in f32, never rounded (the f32xf math _kernel_mlp_ps always uses)."""
+    xf = x.to(torch.float32)
+    half_e = xf.shape[1] // 2
+    lo, hi = _ps_planes(fc_packed, fc_scales)
+    h = torch.matmul(xf[:, :half_e], lo) + torch.matmul(xf[:, half_e:], hi)
+    if fc_bias is not None:
+        h = h + fc_bias.to(torch.float32)
+    h = mlp_activation(h, act)
+    half_f = h.shape[1] // 2
+    lo, hi = _ps_planes(proj_packed, proj_scales)
+    y = torch.matmul(h[:, :half_f], lo) + torch.matmul(h[:, half_f:], hi)
+    if proj_bias is not None:
+        y = y + proj_bias.to(torch.float32)
     return y
 
 
@@ -90,7 +239,11 @@ def q4_matmul_ps_plain(x: torch.Tensor, packed: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check(x, packed, scales, bias, max_rows, x_dtypes, what):
+def _check(x, packed, scales, bias, max_rows, x_dtypes, what, group=2 * QK,
+           ndim=2):
+    """Validate a matmul launch; ``group`` is the multiple K must be (64 for
+    plane-split weights: whole 32-row groups in each plane), ``ndim`` the
+    weight's (3 for a stacked one)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x must be a CUDA tensor")
     for name, t in (("packed", packed), ("scales", scales), ("bias", bias)):
@@ -106,16 +259,18 @@ def _check(x, packed, scales, bias, max_rows, x_dtypes, what):
     if x.dtype not in x_dtypes:
         raise ValueError(f"{what}: x dtype {x.dtype} not in {x_dtypes}")
     n, K = x.shape  # noqa: N806
-    if K % (2 * QK):
-        raise ValueError(f"{what}: K={K} must be a multiple of 64 (whole "
-                         "32-row groups in each plane)")
-    if packed.dtype != torch.uint8 or packed.dim() != 2 \
-            or packed.shape[0] != K // 2:
-        raise ValueError(f"{what}: packed must be uint8 [K/2, O]")
-    O = packed.shape[1]  # noqa: N806
-    if scales.dtype != torch.bfloat16 or tuple(scales.shape) != (K // QK, O):
-        raise ValueError(f"{what}: scales must be bf16 [K/32, O] = "
-                         f"{(K // QK, O)}, got {scales.dtype} "
+    if K % group:
+        raise ValueError(f"{what}: K={K} must be a multiple of {group}")
+    lead = packed.shape[:-2]
+    if (packed.dtype != torch.uint8 or packed.dim() != ndim
+            or packed.shape[-2] != K // 2):
+        raise ValueError(f"{what}: packed must be uint8 "
+                         f"{'[L, K/2, O]' if ndim == 3 else '[K/2, O]'}")
+    O = packed.shape[-1]  # noqa: N806
+    if scales.dtype != torch.bfloat16 or tuple(scales.shape) != (
+            *lead, K // QK, O):
+        raise ValueError(f"{what}: scales must be bf16 [..., K/32, O] = "
+                         f"{(*lead, K // QK, O)}, got {scales.dtype} "
                          f"{tuple(scales.shape)}")
     if bias is not None and (bias.dtype != torch.float32
                              or tuple(bias.shape) != (O,)):
@@ -123,16 +278,23 @@ def _check(x, packed, scales, bias, max_rows, x_dtypes, what):
     return n, K, O
 
 
+def _check_quads(what, O, packed, scales):  # noqa: N803
+    if O % 4 or packed.data_ptr() % 4 or scales.data_ptr() % 8:
+        raise ValueError(f"{what}: O must be a multiple of 4 and the weight "
+                         "4-byte (packed) / 8-byte (scales) aligned")
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def gemv_splits(K: int, O: int, sm_count: int) -> int:
-    """K1's split of the 32-row groups across blocks: enough blocks for two
-    per SM, never more splits than groups."""
-    tiles = -(-O // _GEMV_TILE_O)
-    return max(1, min(K // (2 * QK), -(-2 * sm_count // tiles)))
+def gemv_splits(K: int, O: int, sm_count: int, row_tiles: int = 1,  # noqa: N803
+                group: int = 2 * QK) -> int:
+    """K1's (and K9/K10's) split of K across blocks: enough blocks for two
+    per SM, never more splits than ``group``-wide slices of K."""
+    tiles = -(-O // _GEMV_TILE_O) * row_tiles
+    return max(1, min(K // group, -(-2 * sm_count // tiles)))
 
 
 def q4_gemv_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -142,9 +304,7 @@ def q4_gemv_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         return q4_gemv_ps_plain(x, packed, scales, bias)
     n, K, O = _check(x, packed, scales, bias, GEMV_MAX_ROWS,  # noqa: N806
                      (torch.bfloat16,), "q4_gemv_ps")
-    if O % 4 or packed.data_ptr() % 4 or scales.data_ptr() % 8:
-        raise ValueError("q4_gemv_ps: O must be a multiple of 4 and the "
-                         "weight 4-byte (packed) / 8-byte (scales) aligned")
+    _check_quads("q4_gemv_ps", O, packed, scales)
     splits = gemv_splits(K, O, _sm_count(x.device.index))
     out = torch.empty((n, O), dtype=torch.float32, device=x.device)
     partial = (torch.empty((splits, n, O), dtype=torch.float32,
@@ -157,15 +317,124 @@ def q4_gemv_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
 
 
 def q4_matmul_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K2: y [n, O] f32 for n <= 128 rows of bf16 or f32 x."""
+                 bias: Optional[torch.Tensor] = None,
+                 round_planes: Optional[bool] = None) -> torch.Tensor:
+    """K2: y [n, O] f32 for n <= 128 rows of bf16 or f32 x; ``round_planes``
+    None takes the current math's contract (``ps_round_planes``)."""
+    if round_planes is None:
+        round_planes = ps_round_planes(x.shape[0], x.dtype)
     if x.device.type == "cpu":
-        return q4_matmul_ps_plain(x, packed, scales, bias)
+        return q4_matmul_ps_plain(x, packed, scales, bias, round_planes)
     n, K, O = _check(x, packed, scales, bias, MATMUL_MAX_ROWS,  # noqa: N806
                      (torch.bfloat16, torch.float32), "q4_matmul_ps")
     out = torch.empty((n, O), dtype=torch.float32, device=x.device)
     _build.launch("q4_matmul_ps", "q4_matmul_ps_launch", _MATMUL_ARGS,
                   _build.ptr(x), int(x.dtype == torch.bfloat16),
+                  int(bool(round_planes)), _build.ptr(packed),
+                  _build.ptr(scales), _build.ptr(bias), _build.ptr(out),
+                  n, K, O, _build.stream_ptr(x.device))
+    return out
+
+
+def _i_launch_shape(x, K, O):  # noqa: N803
+    """K9/K10's grid: 8-row tiles of x, 1024-column tiles of y, K split in
+    16-row slices (one scale row each) for two blocks per SM."""
+    n = x.shape[0]
+    row_tiles = -(-n // _I_ROWS)
+    splits = gemv_splits(K, O, _sm_count(x.device.index), row_tiles, QK)
+    out = torch.empty((n, O), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((splits, n, O), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    return n, splits, out, partial
+
+
+def q4_matmul_i(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K9: y [n, O] f32 for n <= 128 rows of x and an interleaved weight;
+    f32 planes, as ``q4_matmul`` calls ``pallas_q4_matmul`` (acc f32)."""
+    if x.device.type == "cpu":
+        return q4_matmul_i_plain(x, packed, scales, bias)
+    what = "q4_matmul_i"
+    _, K, O = _check(x, packed, scales, bias, MATMUL_MAX_ROWS,  # noqa: N806
+                     (torch.bfloat16, torch.float32), what, group=QK)
+    _check_quads(what, O, packed, scales)
+    n, splits, out, partial = _i_launch_shape(x, K, O)
+    _build.launch(what, "q4_matmul_i_launch", _I_ARGS,
+                  _build.ptr(x), int(x.dtype == torch.bfloat16),
                   _build.ptr(packed), _build.ptr(scales), _build.ptr(bias),
-                  _build.ptr(out), n, K, O, _build.stream_ptr(x.device))
+                  _build.ptr(partial), _build.ptr(out), n, K, O, splits, 0,
+                  _build.stream_ptr(x.device))
+    return out
+
+
+def q4_matmul_stacked(x: torch.Tensor, packed: torch.Tensor,
+                      scales: torch.Tensor, il: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      round_planes: bool = False) -> torch.Tensor:
+    """K10: y [n, O] f32 = x · (layer ``il`` of a stacked interleaved
+    [L, K/2, O] weight); the kernel reads ``il`` (int32, one element, on
+    x's device) itself, so no layer is sliced and the host never syncs."""
+    if x.device.type == "cpu":
+        return q4_matmul_stacked_plain(x, packed, scales, il, bias,
+                                       round_planes)
+    what = "q4_matmul_stacked"
+    _, K, O = _check(x, packed, scales, bias, MATMUL_MAX_ROWS,  # noqa: N806
+                     (torch.bfloat16, torch.float32), what, group=QK, ndim=3)
+    if (not isinstance(il, torch.Tensor) or il.dtype != torch.int32
+            or il.numel() != 1 or il.device != x.device):
+        raise ValueError(f"{what}: il must be a one-element int32 tensor on "
+                         f"{x.device}")
+    _check_quads(what, O, packed, scales)
+    n, splits, out, partial = _i_launch_shape(x, K, O)
+    _build.launch(what, "q4_matmul_stacked_launch", _STACKED_ARGS,
+                  _build.ptr(x), int(x.dtype == torch.bfloat16),
+                  _build.ptr(packed), _build.ptr(scales), _build.ptr(il),
+                  packed.shape[0], _build.ptr(bias), _build.ptr(partial),
+                  _build.ptr(out), n, K, O, splits, int(bool(round_planes)),
+                  _build.stream_ptr(x.device))
+    return out
+
+
+def q4_mlp_ps(x: torch.Tensor, fc_packed: torch.Tensor,
+              fc_scales: torch.Tensor, fc_bias: Optional[torch.Tensor],
+              proj_packed: torch.Tensor, proj_scales: torch.Tensor,
+              proj_bias: Optional[torch.Tensor], act: str) -> torch.Tensor:
+    """K11: ``act(x Wfc + bfc) Wproj + bproj`` → f32 [n, E] for n <= 8 rows
+    of x [n, E], plane-split fc [E/2, F] and proj [F/2, E] weights; the
+    [n, F] intermediate never leaves the chip and is never rounded."""
+    if act not in MLP_ACTS:
+        raise ValueError(f"unknown fused-MLP activation {act!r}; known: "
+                         f"{sorted(MLP_ACTS)}")
+    if x.device.type == "cpu":
+        return q4_mlp_ps_plain(x, fc_packed, fc_scales, fc_bias, proj_packed,
+                               proj_scales, proj_bias, act)
+    what = "q4_mlp_ps"
+    n, E, F = _check(x, fc_packed, fc_scales, fc_bias,  # noqa: N806
+                     MLP_MAX_ROWS, (torch.bfloat16, torch.float32), what)
+    if fc_packed.dim() != 2 or F % (2 * _MLP_BFH):
+        raise ValueError(f"{what}: fc must be [E/2, F] with F % "
+                         f"{2 * _MLP_BFH} == 0, got {tuple(fc_packed.shape)}")
+    for name, t, shape, dt in (
+            ("proj packed", proj_packed, (F // 2, E), torch.uint8),
+            ("proj scales", proj_scales, (F // QK, E), torch.bfloat16),
+            ("proj bias", proj_bias, (E,), torch.float32)):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dt
+                              or t.device != x.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be contiguous {dt} "
+                             f"{shape} on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    _check_quads(what, F, fc_packed, fc_scales)
+    _check_quads(what, E, proj_packed, proj_scales)
+    blocks = F // (2 * _MLP_BFH)
+    out = torch.empty((n, E), dtype=torch.float32, device=x.device)
+    partial = torch.empty((blocks, n, E), dtype=torch.float32,
+                          device=x.device)
+    _build.launch(what, "q4_mlp_ps_launch", _MLP_ARGS,
+                  _build.ptr(x), int(x.dtype == torch.bfloat16),
+                  _build.ptr(fc_packed), _build.ptr(fc_scales),
+                  _build.ptr(fc_bias), _build.ptr(proj_packed),
+                  _build.ptr(proj_scales), _build.ptr(proj_bias),
+                  _build.ptr(partial), _build.ptr(out), n, E, F,
+                  MLP_ACTS[act], _build.stream_ptr(x.device))
     return out
