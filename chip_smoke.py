@@ -8,11 +8,13 @@ Phases, each fatal on failure:
      kernels from csrc/ (one nvcc per source, all at once, into build/);
   2. kernels: each of K1-K6 at GPT-J-6B shapes, K4 and K7/K8 (the flash
      backward) also at the Pythia-410M shapes of phase 6 (B=4 training,
-     B=1 perplexity) and K7/K8 at GPT-J's, K9-K11 and K2's f32-planes
-     contract for bf16 x at the Pythia-12B shapes of phase 7 (K9 and K11
-     at GPT-J's too), against its plain PyTorch version on the card, its
-     device time (CUDA events, the calls held back to back) beside its
-     bound and a PyTorch yardstick the port never calls;
+     B=1 perplexity) and K7/K8 at GPT-J's; K1-K4 and K9-K11 at the
+     Pythia-12B shapes phase 7 gives them (K1 at 1 and 8 rows, K2 at 1, 8
+     and 100 rows under both plane contracts, K3 on layer 35 of a 36-layer
+     cache, K4 at the prompt lengths; K9 and K11 at GPT-J's too); each
+     against its plain PyTorch version on the card, its device time (CUDA
+     events, the calls held back to back) beside its bound and a PyTorch
+     yardstick the port never calls;
   3. InferenceEngine on GPT-J-6B at full width (28 layers, random Q4
      weights from seed 0, bf16 compute) with int8 and with int4 KV, serving
      prompts of 8, 100 and 300 tokens (64 new tokens, greedy) and one
@@ -41,7 +43,8 @@ Phases, each fatal on failure:
      default engine under the f32xf math (K11 once a layer, K2) and under
      gi (K1, K2); K3 and K4 in each; one step timed alone (enqueue, wall,
      and the profiler's device busy time by kernel) against the weight
-     bytes' bound.
+     bytes' bound.  Before its run, K10 on layer 35 of the stacked
+     engine's own weights is held against its plain version.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Prints a JSON line {"kernels": [...]} and, last, the device line.
 Details go to build/chip_smoke.json.  Exits non-zero, printing no result,
@@ -51,6 +54,7 @@ without a CUDA card or outside a checkout of the repository.
 from __future__ import annotations
 
 import collections
+import functools
 import itertools
 import json
 import math
@@ -205,6 +209,9 @@ def phase_kernels(peaks):
             "q4_matmul_ps": (q4_matmul_ps, q4_matmul_ps_plain)}
     for kname, n, xdt in q4_cases:
         fn, plain = kern[kname]
+        if kname == "q4_matmul_ps":  # gi's contract: bf16 planes for bf16 x
+            fn, plain = (functools.partial(f, round_planes=xdt == torch.bfloat16)
+                         for f in (fn, plain))
         for sname, K, O, has_bias in shapes:
             w0 = q4_weight(K, O, K + O)
             wbytes = w0.nbytes
@@ -502,6 +509,7 @@ def phase_kernels(peaks):
         del q, k, v, do, out, lse, dsum, dq, dk, dv
         torch.cuda.empty_cache()
     rows += q4_layout_rows(peaks, bound, q4_weight)
+    rows += pythia_attention_rows(peaks, bound)
     _build.reset_launch_counts()  # comparison launches do not count
     return rows
 
@@ -514,15 +522,16 @@ PYTHIA_SHAPES = {"qkv": (5120, 15360, True), "wo": (5120, 5120, True),
 
 
 def q4_layout_rows(peaks, bound, q4_weight):
-    """K9, K10, K11 and K2's f32-planes contract for bf16 x, against their
-    plain versions at the shapes phase 7's engines give them."""
+    """K1, K2 (both plane contracts), K9, K10 and K11 against their plain
+    versions at the shapes phase 7's engines give them."""
     import torch
     import torch.nn.functional as F  # noqa: N812
 
     from vsim_tpu_torch.ops.q4_cuda import (
-        mlp_activation, q4_matmul_i, q4_matmul_i_plain, q4_matmul_ps,
-        q4_matmul_ps_plain, q4_matmul_stacked, q4_matmul_stacked_plain,
-        q4_mlp_ps, q4_mlp_ps_plain)
+        mlp_activation, q4_gemv_ps, q4_gemv_ps_plain, q4_matmul_i,
+        q4_matmul_i_plain, q4_matmul_ps, q4_matmul_ps_plain,
+        q4_matmul_stacked, q4_matmul_stacked_plain, q4_mlp_ps,
+        q4_mlp_ps_plain)
     from vsim_tpu_torch.quant.q4 import Q4Tensor, dequantize_km
 
     bw, bf16_peak, f32_peak = peaks
@@ -553,14 +562,17 @@ def q4_layout_rows(peaks, bound, q4_weight):
                         .contiguous(), "i")
 
     def matmul_case(kname, sname, n, K, O, has_bias, xdt, fn, plain, lib_w,  # noqa: N803
-                    make, round_planes):
+                    make, round_planes, planes=None):
+        """``round_planes``: bf16 planes (bf16 peak and yardstick) or f32;
+        ``planes`` names them in the shape (K1's "gi": integer sums)."""
         w0 = make(0)
         ws = _rotation(make, w0.nbytes)
         ws[0] = w0
         x = torch.randn((n, K), generator=g, device=dev).to(xdt)
         bias = torch.randn((O,), generator=g, device=dev) if has_bias else None
+        planes = planes or ("bf16" if round_planes else "f32")
         shape = (f"pythia-12b {sname} n={n} {K}->{O} x={str(xdt)[6:]} "
-                 f"planes={'bf16' if round_planes else 'f32'}")
+                 f"planes={planes}")
         err, rel = check(kname, shape, fn(x, w0, bias), plain(x, w0, bias))
         cyc = itertools.cycle(ws)
         ms = timed(lambda: fn(x, next(cyc), bias))
@@ -576,16 +588,29 @@ def q4_layout_rows(peaks, bound, q4_weight):
         row(kname, shape, err, rel, ms, plain_ms, lib_ms, nbytes,
             2 * n * K * O, bf16_peak if round_planes else f32_peak)
 
-    # K2, f32 planes for bf16 x (the f32xf engine's decode matmuls)
-    for sname in ("qkv", "wo", "lm_head"):
+    # K1 (the gi engine's decode and 8-token prefill), and K2: f32 planes
+    # for bf16 x (the f32xf engine's decode, 8-token prefill and, at 100
+    # rows, its prefill MLP too) and at 100 rows under both contracts (the
+    # prefill of 100 tokens; gi rounds the planes past 8 rows)
+    cases = ([("q4_gemv_ps", s, n, True) for n in (1, 8)
+              for s in PYTHIA_SHAPES]
+             + [("q4_matmul_ps", s, n, False) for n in (1, 8)
+                for s in ("qkv", "wo", "lm_head")]
+             + [("q4_matmul_ps", s, 100, r) for r in (True, False)
+                for s in PYTHIA_SHAPES])
+    for kname, sname, n, round_planes in cases:
         K, O, has_bias = PYTHIA_SHAPES[sname]  # noqa: N806
+        if kname == "q4_gemv_ps":
+            fn, plain = q4_gemv_ps, q4_gemv_ps_plain
+        else:
+            fn, plain = (functools.partial(f, round_planes=round_planes)
+                         for f in (q4_matmul_ps, q4_matmul_ps_plain))
         matmul_case(
-            "q4_matmul_ps", sname, 1, K, O, has_bias, torch.bfloat16,
-            lambda x, w, b: q4_matmul_ps(x, w.packed, w.scales, b, False),
-            lambda x, w, b: q4_matmul_ps_plain(x, w.packed, w.scales, b,
-                                               False),
-            lambda w: w,
-            lambda i, K=K, O=O: q4_weight(K, O, 7 * K + O + i), False)
+            kname, sname, n, K, O, has_bias, torch.bfloat16,
+            lambda x, w, b, f=fn: f(x, w.packed, w.scales, b),
+            lambda x, w, b, f=plain: f(x, w.packed, w.scales, b),
+            lambda w: w, lambda i, K=K, O=O: q4_weight(K, O, 7 * K + O + i),
+            round_planes, "gi" if kname == "q4_gemv_ps" else None)
 
     # K9 at the lm heads of the stacked engine: Pythia-12B and GPT-J
     for model, K, O, has_bias in (("pythia-12b", 5120, 51200, False),  # noqa: N806
@@ -681,6 +706,92 @@ def q4_layout_rows(peaks, bound, q4_weight):
             4 * n * E * Fd, f32_peak)
         del pairs, pair0
         torch.cuda.empty_cache()
+    return rows
+
+
+def pythia_attention_rows(peaks, bound):
+    """K3 and K4 at the shapes phase 7 gives them (Pythia-12B: H=40,
+    D=128, bf16 compute): K3 over the int8 cache of all 36 layers, on the
+    last, at the decode lengths of the three prompts; K4 over each
+    prompt's own k/v."""
+    import torch
+
+    from vsim_tpu_torch.ops.attention import (flash_attention_fwd,
+                                              flash_attention_plain)
+    from vsim_tpu_torch.ops.decode_attention import (decode_attention_plain,
+                                                     decode_attention_q,
+                                                     kv_int)
+
+    _, bf16_peak, _ = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    L, B, H, S, D = 36, 1, 40, 2048, 128  # noqa: N806
+    il, scale, rows = L - 1, 1.0 / math.sqrt(D), []
+
+    def side():
+        vals = torch.randint(-127, 128, (L, B, H, S, D), generator=g,
+                             device=dev, dtype=torch.int8)
+        sc = (torch.rand((L, B, H, S), generator=g, device=dev)
+              * 0.05).to(torch.bfloat16)
+        return vals, sc
+
+    k_store, v_store = side(), side()
+    q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
+    for n_past in (7, 363, 1500):
+        npv = torch.full((B,), n_past, dtype=torch.int32, device=dev)
+        shape = (f"pythia-12b int8 L={L} il={il} B={B} H={H} D={D} S={S} "
+                 f"n_past={n_past}")
+        got = decode_attention_q(q, k_store, v_store, il, npv, scale=scale)
+        ref = decode_attention_plain(q, k_store, v_store, il, npv,
+                                     scale=scale)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        if not torch.isfinite(got).all() or rel > TOL_DECODE:
+            fail(f"decode_attention_q {shape}: max|err| {err:.3g} (rel "
+                 f"{rel:.3g} > {TOL_DECODE})")
+        ms = timed(lambda: decode_attention_q(q, k_store, v_store, il, npv,
+                                              scale=scale), reps=50)
+        plain_ms = timed(lambda: decode_attention_plain(
+            q, k_store, v_store, il, npv, scale=scale), reps=5, warmup=1)
+        nk = n_past + 1
+        kd, vd = ((kv_int(st[0][il, :, :, :nk])
+                   * st[1][il, :, :, :nk].float()[..., None]).to(torch.bfloat16)
+                  for st in (k_store, v_store))
+        lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None, :], kd, vd, scale=scale), reps=50)
+        b_ms, b_by = bound(2 * B * H * nk * (D + 2) + B * H * D * (2 + 4),
+                           4 * B * H * nk * D, bf16_peak)
+        rows.append(dict(kernel="decode_attention_q", shape=shape,
+                         max_abs_err=err, rel_err=rel, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms))
+    del k_store, v_store
+    torch.cuda.empty_cache()
+
+    for T in (8, 100, 300):  # noqa: N806
+        q, k, v = (torch.randn((1, H, T, D), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        shape = f"pythia-12b T={T} H={H} D={D} bfloat16"
+        got, lse = flash_attention_fwd(q, k, v, scale=scale)
+        ref, lse_ref = flash_attention_plain(q, k, v, scale=scale)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        _, rel_lse = rel_err(lse, lse_ref)
+        if not torch.isfinite(got).all() or max(rel, rel_lse) > TOL_FLASH_BF16:
+            fail(f"flash_attention_fwd {shape}: max|err| {err:.3g} (rel "
+                 f"{rel:.3g}, lse rel {rel_lse:.3g} > {TOL_FLASH_BF16})")
+        ms = timed(lambda: flash_attention_fwd(q, k, v, scale=scale))
+        plain_ms = timed(lambda: flash_attention_plain(q, k, v, scale=scale),
+                         reps=5, warmup=1)
+        lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale))
+        b_ms, b_by = bound(4 * H * T * D * 2 + H * T * 4,
+                           4 * H * T * (T + 1) // 2 * D, bf16_peak)
+        rows.append(dict(kernel="flash_attention_fwd", shape=shape,
+                         max_abs_err=err, rel_err=rel, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms))
     return rows
 
 
@@ -1174,14 +1285,52 @@ PYTHIA_ENGINES = {
 
 
 def q4_step_bytes(params) -> int:
-    """The Q4 weight bytes one decode step reads: every layer's matmuls and
-    the lm head."""
+    """The Q4 weight bytes one decode step reads: every layer's matmuls
+    (one layer of a stacked weight for each Q4Layer) and the lm head."""
+    from vsim_tpu_torch.ops.matmul import Q4Layer
     from vsim_tpu_torch.quant.q4 import Q4Tensor
 
-    layers = params["layers"]
-    dicts = layers if isinstance(layers, list) else [layers]
-    return sum(t.nbytes for lp in dicts for t in lp.values()
-               if isinstance(t, Q4Tensor)) + params["lm_head"].nbytes
+    def nbytes(t):
+        if isinstance(t, Q4Layer):
+            return t.stacked.nbytes // t.stacked.packed.shape[0]
+        return t.nbytes if isinstance(t, Q4Tensor) else 0
+
+    return sum(nbytes(t) for lp in params["layers"] for t in lp.values()) \
+        + params["lm_head"].nbytes
+
+
+def stacked_last_layer_check(params):
+    """K10 on the last layer of the stacked engine's own weights (the
+    largest layer offset in the stack), each matmul at n=1 under both
+    plane contracts, against its plain version: (max|err|, rel) worst."""
+    import torch
+
+    from vsim_tpu_torch.ops.q4_cuda import (q4_matmul_stacked,
+                                            q4_matmul_stacked_plain)
+
+    lp = params["layers"][-1]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(35)
+    worst = (0.0, 0.0)
+    for wname, bname in (("w_qkv", "b_qkv"), ("wo", "bo"), ("w_fc", "b_fc"),
+                         ("w_proj", "b_proj")):
+        w, b = lp[wname], lp.get(bname)
+        if int(w.il) != len(params["layers"]) - 1:
+            fail(f"stacked {wname}: the last layer's index is {int(w.il)}")
+        b = None if b is None else b.to(torch.float32).contiguous()
+        K = w.stacked.packed.shape[1] * 2  # noqa: N806
+        x = torch.randn((1, K), generator=g, device="cuda").to(torch.bfloat16)
+        for r in (False, True):
+            args = (x, w.stacked.packed, w.stacked.scales, w.il, b, r)
+            got, ref = q4_matmul_stacked(*args), q4_matmul_stacked_plain(*args)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, ref)
+            if not torch.isfinite(got).all() or rel > TOL_Q4:
+                fail(f"q4_matmul_stacked {wname} last layer planes="
+                     f"{'bf16' if r else 'f32'}: max|err| {err:.3g} (rel "
+                     f"{rel:.3g} > {TOL_Q4})")
+            worst = max(worst, (err, rel))
+    return worst
 
 
 def step_device_profile(step, steps: int = 3):
@@ -1230,17 +1379,20 @@ def phase_pythia(peaks):
     params = random_q4_params(cfg, seed=0)
     engines = {"stacked": InferenceEngine(cfg, params, kv_dtype="int8",
                                           unroll_layers=False)}
+    # the f32xf and gi engines share one plane-split load
+    engines["f32xf"] = engines["gi"] = InferenceEngine(cfg, params,
+                                                       kv_dtype="int8")
     del params
-    # the plane-split engines share one load of the stacked engine's
-    # (padded, qkv-fused) params
-    engines["f32xf"] = engines["gi"] = InferenceEngine(
-        cfg, engines["stacked"].params, kv_dtype="int8")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    # before any counted run: comparison launches do not count
+    last_err, last_rel = stacked_last_layer_check(engines["stacked"].params)
     rng = torch.Generator().manual_seed(7)
     prompts = {n: torch.randint(0, cfg.n_vocab, (n,), generator=rng).tolist()
                for n in (8, 100, 300)}
-    out, launches = dict(setup_s=setup_s, engines={}), {}
+    out = dict(setup_s=setup_s, engines={},
+               k10_last_layer=dict(max_abs_err=last_err, rel_err=last_rel))
+    launches = {}
     for name, (_, math_name, kernels) in PYTHIA_ENGINES.items():
         eng = engines[name]
         step_bytes = q4_step_bytes(eng.params)
@@ -1434,7 +1586,8 @@ def main() -> None:
     t0 = time.perf_counter()
     pythia, pythia_launches, pythia_total = phase_pythia(peaks)
     print(f"Pythia-12B engines in {time.perf_counter() - t0:.1f} s "
-          f"(setup {pythia['setup_s']:.1f} s)", flush=True)
+          f"(setup {pythia['setup_s']:.1f} s), K10 on the last layer: "
+          f"{json.dumps(pythia['k10_last_layer'])}", flush=True)
     for k, v in pythia["engines"].items():
         print(f"  {k}: {json.dumps(v)}", flush=True)
 

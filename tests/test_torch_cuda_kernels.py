@@ -90,8 +90,9 @@ def test_q4_gemv_ps(dev, n, K, O):
 def test_q4_matmul_ps(dev, n, dtype):
     packed, scales = _weight(1024, 320, dev, n)
     x = torch.randn((n, 1024), device=dev).to(dtype)
-    got = q4_matmul_ps(x, packed, scales, None)
-    assert _rel(got, q4_matmul_ps_plain(x, packed, scales, None)) < 1e-4
+    rnd = dtype == torch.bfloat16  # the gi math's contract past 8 rows
+    got = q4_matmul_ps(x, packed, scales, None, rnd)
+    assert _rel(got, q4_matmul_ps_plain(x, packed, scales, None, rnd)) < 1e-4
 
 
 @pytest.mark.parametrize("n", [1, 8, 33])
@@ -160,6 +161,40 @@ def test_q4_matmul_refuses_a_gradient_it_cannot_carry(dev):
             q4_matmul(x, Q4Tensor(packed, scales, layout))
     y = q4_matmul(x.detach(), Q4Tensor(packed, scales, "i"))
     assert y.shape == (4, 256)
+
+
+def test_fused_mlp_refuses_a_gradient_it_cannot_carry(dev):
+    """K11 has no backward either: mlp() off the gi math sends n <= 8 rows
+    with plane-split weights to it, and an h that needs a gradient (or a
+    bias that does) raises there instead of leaving y without a grad_fn."""
+    from vsim_tpu_torch.models.config import ModelConfig
+    from vsim_tpu_torch.models.transformer import mlp
+    from vsim_tpu_torch.ops.q4_cuda import set_dequant_math
+    from vsim_tpu_torch.quant.q4 import Q4Tensor
+
+    E, F = 256, 512  # noqa: N806
+    pfc, sfc = _weight(E, F, dev, 1)
+    pproj, sproj = _weight(F, E, dev, 2)
+    bfc = torch.zeros((F,), device=dev)
+    args = (pfc, sfc, bfc, pproj, sproj, None, "gelu_exact")
+    x = torch.randn((2, E), device=dev)
+    with pytest.raises(ValueError, match="no backward"):
+        q4_mlp_ps(x.requires_grad_(), *args)
+    with pytest.raises(ValueError, match="no backward"):
+        q4_mlp_ps(x.detach(), pfc, sfc, bfc.requires_grad_(), *args[3:])
+    cfg = ModelConfig(arch="gptneox", n_vocab=64, n_ctx=16, n_embd=E,
+                      n_head=2, n_layer=1, n_ff=F, activation="gelu_exact")
+    lp = {"w_fc": Q4Tensor(pfc, sfc, "ps"), "w_proj": Q4Tensor(pproj, sproj,
+                                                               "ps")}
+    h = torch.randn((1, 2, E), device=dev, requires_grad=True)
+    set_dequant_math("f32xf")
+    try:
+        with pytest.raises(ValueError, match="no backward"):
+            mlp(cfg, lp, h)
+        y = mlp(cfg, lp, h.detach())
+    finally:
+        set_dequant_math("gi")
+    assert y.shape == (1, 2, E) and torch.isfinite(y).all()
 
 
 @pytest.mark.parametrize("act", ["gelu_tanh", "relu", "gelu_exact"])

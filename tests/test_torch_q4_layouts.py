@@ -22,13 +22,16 @@ import torch
 from vsim_tpu.ops import pallas_q4 as jpq
 from vsim_tpu.quant import q4 as jq4
 from vsim_tpu_torch.ops import q4_cuda
-from vsim_tpu_torch.ops.matmul import Q4Layer, q4_matmul
-from vsim_tpu_torch.ops.q4_cuda import (
+from vsim_tpu_torch.ops.matmul import (
+    Q4Layer,
     ps_round_planes,
+    q4_matmul,
+    stacked_round_planes,
+)
+from vsim_tpu_torch.ops.q4_cuda import (
     q4_matmul_i,
     q4_matmul_ps,
     q4_matmul_stacked,
-    stacked_round_planes,
 )
 from vsim_tpu_torch.quant import q4 as pq4
 

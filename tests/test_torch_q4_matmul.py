@@ -75,7 +75,7 @@ def test_matmul_plain_matches_pallas_bf16_planes(n, with_bias):
     ref = _jax(x, jw, b, jnp.bfloat16)
     xb = torch.from_numpy(x).to(torch.bfloat16)
     got = q4_matmul_ps(xb, pw.packed, pw.scales,
-                       None if b is None else torch.from_numpy(b))
+                       None if b is None else torch.from_numpy(b), True)
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
     routed = q4_matmul(xb, pw, bias=None if b is None else torch.from_numpy(b),
                        compute_dtype=torch.bfloat16)
@@ -89,7 +89,7 @@ def test_matmul_plain_f32_matches_unrounded_oracle(n):
     x, b = _inputs(n, K, O, seed=n + 2, with_bias=True)
     ref = np.asarray(jnp.asarray(x) @ jq4.dequantize_km(jw, jnp.float32)) + b
     got = q4_matmul_ps(torch.from_numpy(x), pw.packed, pw.scales,
-                       torch.from_numpy(b))
+                       torch.from_numpy(b), False)
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
     routed = q4_matmul(torch.from_numpy(x), pw, bias=torch.from_numpy(b))
     np.testing.assert_array_equal(routed.numpy(), got.numpy())

@@ -97,8 +97,9 @@ def test_stacked_engine_matches_jax(model, jax_ref, monkeypatch):
     single = _count(monkeypatch, matmul, "q4_matmul_i")
     eng = InferenceEngine(cfg, params, device="cpu", kv_dtype="int8",
                           unroll_layers=False, decode_chunk=5)
-    assert isinstance(eng.params["layers"], dict)  # still stacked, "i"
-    assert eng.params["layers"]["w_qkv"].packed.dim() == 3
+    w_qkv = eng.params["layers"][0]["w_qkv"]  # still stacked, "i"
+    assert isinstance(w_qkv, matmul.Q4Layer)
+    assert w_qkv.stacked.packed.dim() == 3 and w_qkv.stacked.layout == "i"
     assert eng.params["lm_head"].layout == "i"
     stream = eng.generate(PROMPT, 12, SamplingParams(greedy=True)).token_ids
     assert stream == jax_ref[0]
@@ -157,6 +158,35 @@ def test_forward_hands_each_layer_a_device_index(model, monkeypatch):
         assert w.il.dtype == torch.int32 and w.il.numel() == 1
         assert w.il.device == dev
         assert int(w.il) == i // n_q4
+
+
+def test_stacked_engine_builds_its_layer_index_once(model, monkeypatch):
+    """The stacked engine's params hold one Q4Layer per layer and weight,
+    built at load: every layer's weight shares one stacked tensor, every
+    index is an element of one int32 tensor, and a step builds none."""
+    _, _, cfg, params = model
+    eng = InferenceEngine(cfg, params, device="cpu", kv_dtype="int8",
+                          unroll_layers=False)
+    layers = eng.params["layers"]
+    assert isinstance(layers, list) and len(layers) == cfg.n_layer
+    fc = [lp["w_fc"] for lp in layers]
+    assert all(w.stacked is fc[0].stacked for w in fc)
+    base = fc[0].il.untyped_storage().data_ptr()
+    for i, lp in enumerate(layers):
+        for w in lp.values():
+            if isinstance(w, matmul.Q4Layer):
+                assert w.il.dtype == torch.int32 and int(w.il) == i
+                assert w.il.untyped_storage().data_ptr() == base
+    built = _count(monkeypatch, transformer, "layer_of")
+    eng.generate(PROMPT, 3, SamplingParams(greedy=True))
+    assert built == []
+    # the stacked tensors count once (fusing q/k/v keeps their bytes), and
+    # a second engine shares them
+    from vsim_tpu_torch.models.init import param_bytes
+    assert param_bytes(layers) == param_bytes(params["layers"])
+    again = InferenceEngine(cfg, eng.params, device="cpu", kv_dtype="int8")
+    shared = again.params["layers"][1]["w_fc"].stacked
+    assert shared.packed.data_ptr() == fc[0].stacked.packed.data_ptr()
 
 
 def test_stacked_engine_needs_a_card_unless_told(model):

@@ -217,9 +217,9 @@ extern "C" int q4_matmul_i_launch(const void* x, int x_is_bf16,
                                   const void* packed, const void* scales,
                                   const void* bias, void* partial, void* out,
                                   int n, int K, int O, int splits,
-                                  int round_planes, void* stream) {
+                                  void* stream) {
   return launch(x, x_is_bf16, packed, scales, nullptr, 1, bias, partial, out,
-                n, K, O, splits, round_planes, stream);
+                n, K, O, splits, 0, stream);
 }
 
 // K10: layer *il (clamped to [0, n_layers)) of a stacked [L, K/2, O] weight.

@@ -7,7 +7,8 @@ kernels' column tiles need aligned O; logits are sliced back to n_vocab),
 fuse q/k/v into one head-interleaved weight, split the layers and repack
 every weight with K % 64 == 0 to plane-split.  ``unroll_layers=False``
 keeps the layers stacked in the interleaved layout instead (the JAX
-engine's scan form: each layer's matmuls select their layer inside K10).
+engine's scan form: each layer's matmuls select their layer inside K10,
+from an index built once here).
 
 ``generate`` prefills the whole prompt from an empty cache (attending over
 its own full-precision k/v), then decodes in a Python loop with sampling on
@@ -45,12 +46,13 @@ LM_HEAD_ALIGN = 1024
 
 def engine_params(cfg: ModelConfig, params, device: torch.device, *,
                   unroll_layers: bool = True, plane_split: bool = True):
-    """The engines' params on ``device``: lm head padded, qkv fused and, by
-    default, layers split into a per-layer list with every Q4 weight
-    plane-split.  ``unroll_layers=False`` keeps the layers stacked in the
-    interleaved layout (K10 and, for the lm head, K9);
-    ``plane_split=False`` keeps per-layer interleaved weights (K9).  An
-    engine's params (layers already a list) are shared as they are."""
+    """The engines' params on ``device``: lm head padded, qkv fused and
+    layers as a per-layer list of dicts, by default with every Q4 weight
+    plane-split.  ``unroll_layers=False`` keeps each Q4 weight stacked in
+    the interleaved layout, reached through a ``Q4Layer`` per layer (K10
+    and, for the lm head, K9); ``plane_split=False`` keeps per-layer
+    interleaved weights (K9).  An engine's params (layers already a list)
+    are shared as they are."""
     params = params_to(params, device)
     if isinstance(params["layers"], list):
         return params
@@ -63,9 +65,8 @@ def engine_params(cfg: ModelConfig, params, device: torch.device, *,
             params["lm_head_b"] = F.pad(b.to(torch.float32), (0, pad))
     if cfg.fuse_qkv:
         params = fuse_qkv_params(cfg, params)
-    if not unroll_layers:
-        return params
-    params = prepare_unrolled_params(params, plane_split=plane_split)
+    if unroll_layers:
+        params = prepare_unrolled_params(params, plane_split=plane_split)
     return dict(params, layers=per_layer(params["layers"], cfg.n_layer))
 
 
@@ -82,8 +83,8 @@ class InferenceEngine:
 
     def __init__(self, cfg: ModelConfig, params, *, n_ctx: Optional[int] = None,
                  kv_dtype=None, device: DeviceLike = None,
-                 decode_chunk: int = 64, unroll_layers: Optional[bool] = None,
-                 plane_split: Optional[bool] = None):
+                 decode_chunk: int = 64, unroll_layers: bool = True,
+                 plane_split: bool = True):
         """``unroll_layers`` and ``plane_split`` as in the JAX engine
         (vsim_tpu/engine/generate.py:112-132): by default per-layer
         plane-split weights (K1/K2/K11); ``unroll_layers=False`` keeps the
@@ -97,10 +98,9 @@ class InferenceEngine:
         if decode_chunk < 1:
             raise ValueError("decode_chunk must be >= 1")
         self.decode_chunk = decode_chunk
-        unrolled = unroll_layers is None or bool(unroll_layers)
-        self.params = engine_params(
-            cfg, params, self.device, unroll_layers=unrolled,
-            plane_split=unrolled and (plane_split is None or bool(plane_split)))
+        self.params = engine_params(cfg, params, self.device,
+                                    unroll_layers=unroll_layers,
+                                    plane_split=plane_split)
 
     def new_cache(self, batch: int = 1):
         return init_cache(self.cfg, batch, n_ctx=self.n_ctx,

@@ -6,7 +6,8 @@ vsim_tpu/models/init.py).
 gives byte-identical weights in both packages.  Parameters are a plain dict:
 
   params = {"wte": Q4Tensor | [V, E], "layers": {name: stacked [L, ...]
-            tensor or Q4Tensor, or a per-layer list}, "ln_f_w", "ln_f_b",
+            tensor or Q4Tensor} or a per-layer list of dicts (an engine's:
+            a stacked Q4 weight as one Q4Layer per layer), "ln_f_w", "ln_f_b",
             "lm_head": Q4Tensor | [V, E], "lm_head_b" (gptj), "wpe" (gpt2),
             "emb_ln_w"/"emb_ln_b" (bloom)}
 """
@@ -20,6 +21,7 @@ import torch
 
 from vsim_tpu_torch.device import DeviceLike, resolve_device
 from vsim_tpu_torch.models.config import ModelConfig
+from vsim_tpu_torch.ops.matmul import Q4Layer
 from vsim_tpu_torch.quant.q4 import (
     DEFAULT_SCALE_DTYPE,
     QK,
@@ -235,34 +237,47 @@ def fuse_qkv_params(cfg: ModelConfig, params: Dict[str, Any]
     return dict(params, layers=layers)
 
 
-def iter_tensors(tree) -> Iterator[torch.Tensor]:
-    """Every tensor of a params tree (Q4 weights as packed + scales)."""
+def iter_tensors(tree, _seen=None) -> Iterator[torch.Tensor]:
+    """Every tensor of a params tree (Q4 weights as packed + scales; a
+    stacked weight that several Q4Layers share, once)."""
+    seen = set() if _seen is None else _seen
     if isinstance(tree, torch.Tensor):
         yield tree
+    elif isinstance(tree, Q4Layer):
+        if id(tree.stacked) not in seen:
+            seen.add(id(tree.stacked))
+            yield from iter_tensors(tree.stacked, seen)
     elif isinstance(tree, Q4Tensor):
         yield tree.packed
         yield tree.scales
     elif isinstance(tree, dict):
         for v in tree.values():
-            yield from iter_tensors(v)
+            yield from iter_tensors(v, seen)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
-            yield from iter_tensors(v)
+            yield from iter_tensors(v, seen)
 
 
 def param_bytes(params) -> int:
     return sum(t.numel() * t.element_size() for t in iter_tensors(params))
 
 
-def params_to(params, device: DeviceLike):
+def params_to(params, device: DeviceLike, _moved=None):
     """Copy of a params tree on ``device`` (tensors already there are
-    shared, not copied)."""
+    shared, not copied; a stacked weight that several Q4Layers share is
+    moved once)."""
+    moved = {} if _moved is None else _moved
     if isinstance(params, torch.Tensor):
         return params.to(device)
+    if isinstance(params, Q4Layer):
+        key = id(params.stacked)
+        if key not in moved:
+            moved[key] = params.stacked.to(device)
+        return Q4Layer(moved[key], params.il.to(device))
     if isinstance(params, Q4Tensor):
         return params.to(device)
     if isinstance(params, dict):
-        return {k: params_to(v, device) for k, v in params.items()}
+        return {k: params_to(v, device, moved) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
-        return [params_to(v, device) for v in params]
+        return [params_to(v, device, moved) for v in params]
     raise TypeError(f"unexpected params leaf {type(params).__name__}")

@@ -20,10 +20,11 @@ math (ops/q4_cuda.py:set_dequant_math):
 reference's matmul INIT phase) and always takes dequantize + torch.matmul,
 as the JAX package forces ``impl="xla"`` there.
 
-On CPU tensors the kernels run their plain versions; a CUDA tensor no kernel
-takes (a bad shape or dtype) raises, and so does one that needs a gradient:
-the kernels have no backward.  Dense (non-Q4) weights use torch.matmul.  The
-bias is added in the kernels' epilogue.
+The plane contracts are decided here, from the math, and handed to the
+kernels as a flag.  On CPU tensors the kernels run their plain versions; a
+CUDA tensor no kernel takes (a bad shape or dtype) raises, and so does one
+that needs a gradient: the kernels have no backward.  Dense (non-Q4)
+weights use torch.matmul.  The bias is added in the kernels' epilogue.
 """
 
 from __future__ import annotations
@@ -39,13 +40,11 @@ from vsim_tpu_torch.ops.q4_cuda import (
     GEMV_MAX_ROWS,
     MATMUL_MAX_ROWS,
     get_dequant_math,
-    ps_round_planes,
     q4_gemv_ps,
     q4_matmul_i,
     q4_matmul_ps,
     q4_matmul_stacked,
     stacked_layer,
-    stacked_round_planes,
 )
 from vsim_tpu_torch.quant.q4 import Q4Tensor, dequantize_km, fake_quantize
 
@@ -71,6 +70,20 @@ class Q4Layer:
 
 
 Weight = Union[Q4Tensor, Q4Layer, torch.Tensor]
+
+
+def ps_round_planes(n: int, x_dtype: torch.dtype, math_name: str) -> bool:
+    """K2's plane contract (pallas_q4.py:541-547, 206-220): bf16 planes and
+    x under i32/f32x whatever x's dtype (``pallas_q4_matmul_ps`` passes
+    acc_dtype bf16), and under gi for bf16 x at n > 8; f32 otherwise."""
+    return math_name in ("i32", "f32x") or (
+        math_name == "gi" and n > GEMV_MAX_ROWS and x_dtype == torch.bfloat16)
+
+
+def stacked_round_planes(math_name: str) -> bool:
+    """K10's contract (``pallas_q4_matmul_stacked``, acc_dtype bf16): bf16
+    planes and x under i32/f32x, f32 under f32xf and gi."""
+    return math_name in ("i32", "f32x")
 
 
 def _f32_bias(bias: Optional[torch.Tensor], width: int):
@@ -109,23 +122,21 @@ def q4_matmul(x: torch.Tensor, w: Weight, *,
         y = _dequant_matmul(x2, w.layer() if isinstance(w, Q4Layer) else w,
                             cdt, b)
         return y.reshape(*lead, -1)
-    if x2.requires_grad and x2.device.type == "cuda":
-        raise ValueError("the Q4 matmul kernels have no backward: a "
-                         "gradient through a Q4 weight needs n > 128 rows")
+    math_name = get_dequant_math()
     if isinstance(w, Q4Layer):
         if w.stacked.layout != "i":
             raise ValueError("K10 takes stacked interleaved weights, got "
                              f"layout {w.stacked.layout!r}")
         y = q4_matmul_stacked(x2, w.stacked.packed, w.stacked.scales, w.il,
-                              b, stacked_round_planes())
+                              b, stacked_round_planes(math_name))
     elif w.layout == "i":
         y = q4_matmul_i(x2, w.packed, w.scales, b)
     elif (cdt == torch.bfloat16 and n <= GEMV_MAX_ROWS
-          and get_dequant_math() == "gi"):
+          and math_name == "gi"):
         y = q4_gemv_ps(x2, w.packed, w.scales, b)
     else:
         y = q4_matmul_ps(x2, w.packed, w.scales, b,
-                         ps_round_planes(n, x2.dtype))
+                         ps_round_planes(n, x2.dtype, math_name))
     return y.reshape(*lead, -1)
 
 

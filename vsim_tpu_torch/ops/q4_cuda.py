@@ -4,7 +4,8 @@ K1 ``q4_gemv_ps`` (csrc/q4_gemv_ps.cu): n <= 8 rows of bf16 x, the
 grouped-integer math of ``_kernel_ps_giw`` / ``_kernel_ps_gi[_bias]``.
 K2 ``q4_matmul_ps`` (csrc/q4_matmul_ps.cu): n <= 128 rows, the per-element
 dequant math of ``_kernel_ps[_bias]``: planes (v - 8)·s rounded to bf16 (x
-too) or kept in f32 (``round_planes``, see ``ps_round_planes``).
+too) or kept in f32, as ``round_planes`` says (ops/matmul.py decides it
+from the math).
 K9 ``q4_matmul_i`` and K10 ``q4_matmul_stacked`` (csrc/q4_matmul_i.cu): the
 interleaved ("i") layout of ``_kernel`` and ``_kernel_stacked``, n <= 128;
 K10 picks layer ``il`` (an int32 device tensor) of a stacked [L, K/2, O]
@@ -20,7 +21,8 @@ where they round (ops/matmul.py, models/transformer.py:mlp).  "i32" and
 Each matmul wrapper takes x [n, K], ``packed`` [K/2, O] uint8 and
 ``scales`` [K/32, O] bf16, and an optional f32 ``bias`` [O]; it returns f32
 [n, O].  A CPU tensor goes through the plain PyTorch version beside the
-kernel; a CUDA tensor launches the kernel or raises.
+kernel; a CUDA tensor launches the kernel or raises, and raises too when x
+or a bias needs a gradient: the kernels have no backward.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ MLP_ACTS = {"gelu_tanh": 0, "relu": 1, "gelu_exact": 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _GEMV_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 _MATMUL_ARGS = (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P)
-_I_ARGS = (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_I_ARGS = (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 _STACKED_ARGS = (_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _MLP_ARGS = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 
@@ -66,22 +68,6 @@ def set_dequant_math(name: str) -> None:
 
 def get_dequant_math() -> str:
     return _dequant_math
-
-
-def ps_round_planes(n: int, x_dtype: torch.dtype,
-                    math_name: Optional[str] = None) -> bool:
-    """K2's plane contract (pallas_q4.py:541-547, 206-220): bf16 planes and
-    x under i32/f32x whatever x's dtype (``pallas_q4_matmul_ps`` passes
-    acc_dtype bf16), and under gi for bf16 x at n > 8; f32 otherwise."""
-    m = math_name or _dequant_math
-    return m in ("i32", "f32x") or (
-        m == "gi" and n > GEMV_MAX_ROWS and x_dtype == torch.bfloat16)
-
-
-def stacked_round_planes(math_name: Optional[str] = None) -> bool:
-    """K10's contract (``pallas_q4_matmul_stacked``, acc_dtype bf16): bf16
-    planes and x under i32/f32x, f32 under f32xf and gi."""
-    return (math_name or _dequant_math) in ("i32", "f32x")
 
 
 # ---------------------------------------------------------------------------
@@ -132,14 +118,11 @@ def _ps_planes(packed: torch.Tensor, scales: torch.Tensor):
 
 
 def q4_matmul_ps_plain(x: torch.Tensor, packed: torch.Tensor,
-                       scales: torch.Tensor,
-                       bias: Optional[torch.Tensor] = None,
-                       round_planes: Optional[bool] = None) -> torch.Tensor:
+                       scales: torch.Tensor, bias: Optional[torch.Tensor],
+                       round_planes: bool) -> torch.Tensor:
     """Per-element dequant (_dequant_planes_ps): planes (v − 8)·s, with
-    planes and x rounded to bf16 when ``round_planes`` (None: the current
-    math's contract, ``ps_round_planes``); the product accumulates in f32."""
-    if round_planes is None:
-        round_planes = ps_round_planes(x.shape[0], x.dtype)
+    planes and x rounded to bf16 when ``round_planes``; the product
+    accumulates in f32."""
     w = torch.cat(_ps_planes(packed, scales), dim=0)  # [K, O]
     xf = x.to(torch.float32)
     if round_planes:
@@ -246,6 +229,10 @@ def _check(x, packed, scales, bias, max_rows, x_dtypes, what, group=2 * QK,
     weight's (3 for a stacked one)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x must be a CUDA tensor")
+    if x.requires_grad or (bias is not None and bias.requires_grad):
+        raise ValueError(f"{what}: the kernel has no backward, and x or the "
+                         "bias needs a gradient (a gradient through a Q4 "
+                         "weight takes the n > 128 dequant route)")
     for name, t in (("packed", packed), ("scales", scales), ("bias", bias)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}")
@@ -317,12 +304,10 @@ def q4_gemv_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
 
 
 def q4_matmul_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-                 bias: Optional[torch.Tensor] = None,
-                 round_planes: Optional[bool] = None) -> torch.Tensor:
-    """K2: y [n, O] f32 for n <= 128 rows of bf16 or f32 x; ``round_planes``
-    None takes the current math's contract (``ps_round_planes``)."""
-    if round_planes is None:
-        round_planes = ps_round_planes(x.shape[0], x.dtype)
+                 bias: Optional[torch.Tensor],
+                 round_planes: bool) -> torch.Tensor:
+    """K2: y [n, O] f32 for n <= 128 rows of bf16 or f32 x, planes and x
+    rounded to bf16 when ``round_planes``."""
     if x.device.type == "cpu":
         return q4_matmul_ps_plain(x, packed, scales, bias, round_planes)
     n, K, O = _check(x, packed, scales, bias, MATMUL_MAX_ROWS,  # noqa: N806
@@ -330,7 +315,7 @@ def q4_matmul_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     out = torch.empty((n, O), dtype=torch.float32, device=x.device)
     _build.launch("q4_matmul_ps", "q4_matmul_ps_launch", _MATMUL_ARGS,
                   _build.ptr(x), int(x.dtype == torch.bfloat16),
-                  int(bool(round_planes)), _build.ptr(packed),
+                  int(round_planes), _build.ptr(packed),
                   _build.ptr(scales), _build.ptr(bias), _build.ptr(out),
                   n, K, O, _build.stream_ptr(x.device))
     return out
@@ -362,7 +347,7 @@ def q4_matmul_i(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     _build.launch(what, "q4_matmul_i_launch", _I_ARGS,
                   _build.ptr(x), int(x.dtype == torch.bfloat16),
                   _build.ptr(packed), _build.ptr(scales), _build.ptr(bias),
-                  _build.ptr(partial), _build.ptr(out), n, K, O, splits, 0,
+                  _build.ptr(partial), _build.ptr(out), n, K, O, splits,
                   _build.stream_ptr(x.device))
     return out
 
@@ -390,7 +375,7 @@ def q4_matmul_stacked(x: torch.Tensor, packed: torch.Tensor,
                   _build.ptr(x), int(x.dtype == torch.bfloat16),
                   _build.ptr(packed), _build.ptr(scales), _build.ptr(il),
                   packed.shape[0], _build.ptr(bias), _build.ptr(partial),
-                  _build.ptr(out), n, K, O, splits, int(bool(round_planes)),
+                  _build.ptr(out), n, K, O, splits, int(round_planes),
                   _build.stream_ptr(x.device))
     return out
 
@@ -418,6 +403,9 @@ def q4_mlp_ps(x: torch.Tensor, fc_packed: torch.Tensor,
             ("proj packed", proj_packed, (F // 2, E), torch.uint8),
             ("proj scales", proj_scales, (F // QK, E), torch.bfloat16),
             ("proj bias", proj_bias, (E,), torch.float32)):
+        if t is not None and t.requires_grad:
+            raise ValueError(f"{what}: the kernel has no backward, and the "
+                             f"{name} needs a gradient")
         if t is not None and (tuple(t.shape) != shape or t.dtype != dt
                               or t.device != x.device
                               or not t.is_contiguous()):
