@@ -11,10 +11,12 @@ Phases, each fatal on failure:
      B=1 perplexity) and K7/K8 at GPT-J's; K1-K4 and K9-K11 at the
      Pythia-12B shapes phase 7 gives them (K1 at 1 and 8 rows, K2 at 1, 8
      and 100 rows under both plane contracts, K3 on layer 35 of a 36-layer
-     cache, K4 at the prompt lengths; K9 and K11 at GPT-J's too); each
-     against its plain PyTorch version on the card, its device time (CUDA
-     events, the calls held back to back) beside its bound and a PyTorch
-     yardstick the port never calls;
+     int8 and int4 cache, K4 at the prompt lengths; K9 and K11 at GPT-J's
+     too); K4 also at codegen-2b's D=80 and at D=72; each against its plain
+     PyTorch version on the card (K3 and K4 also against a second run of
+     themselves, bit for bit), its device time (CUDA events, the calls held
+     back to back) beside its bound and a PyTorch yardstick the port never
+     calls (K3/K4 rows are printed with their ratio to SDPA);
   3. InferenceEngine on GPT-J-6B at full width (28 layers, random Q4
      weights from seed 0, bf16 compute) with int8 and with int4 KV, serving
      prompts of 8, 100 and 300 tokens (64 new tokens, greedy) and one
@@ -42,8 +44,8 @@ Phases, each fatal on failure:
      (unroll_layers=False: K10 4 launches a layer and K9 1 a step), the
      default engine under the f32xf math (K11 once a layer, K2) and under
      gi (K1, K2); K3 and K4 in each; one step timed alone (enqueue, wall,
-     and the profiler's device busy time by kernel) against the weight
-     bytes' bound.  Before its run, K10 on layer 35 of the stacked
+     and the profiler's device busy time by kernel, K3's two passes
+     summed) against the weight bytes' bound.  Before its run, K10 on layer 35 of the stacked
      engine's own weights is held against its plain version.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Prints a JSON line {"kernels": [...]} and, last, the device line.
@@ -277,6 +279,10 @@ def phase_kernels(peaks):
             if not torch.isfinite(got).all() or rel > TOL_DECODE:
                 fail(f"decode_attention_q {kv} n_past={n_past}: max|err| "
                      f"{err:.3g} (rel {rel:.3g} > {TOL_DECODE})")
+            if not torch.equal(got, decode_attention_q(q, k_store, v_store, 1,
+                                                       npv, scale=scale)):
+                fail(f"decode_attention_q {kv} n_past={n_past}: differs "
+                     "from run to run")
             ms = timed(lambda: decode_attention_q(q, k_store, v_store, 1, npv,
                                                   scale=scale), reps=50)
             plain_ms = timed(lambda: decode_attention_plain(
@@ -414,6 +420,10 @@ def phase_kernels(peaks):
             if not torch.isfinite(got).all() or max(rel, rel_lse) > tol:
                 fail(f"flash_attention_fwd T={T} {dt}: max|err| {err:.3g} "
                      f"(rel {rel:.3g}, lse rel {rel_lse:.3g} > {tol})")
+            if not torch.equal(got, flash_attention_fwd(q, k, v,
+                                                        scale=scale)[0]):
+                fail(f"flash_attention_fwd T={T} {dt}: differs from run to "
+                     "run")
             ms = timed(lambda: flash_attention_fwd(q, k, v, scale=scale))
             plain_ms = timed(lambda: flash_attention_plain(q, k, v,
                                                            scale=scale), reps=5)
@@ -711,9 +721,10 @@ def q4_layout_rows(peaks, bound, q4_weight):
 
 def pythia_attention_rows(peaks, bound):
     """K3 and K4 at the shapes phase 7 gives them (Pythia-12B: H=40,
-    D=128, bf16 compute): K3 over the int8 cache of all 36 layers, on the
-    last, at the decode lengths of the three prompts; K4 over each
-    prompt's own k/v."""
+    D=128, bf16 compute): K3 over the int8 and the int4 (Dp=64) cache of all
+    36 layers, on the last, at the decode lengths of the three prompts; K4
+    over each prompt's own k/v.  Then K4 at head dims its shared memory pads:
+    codegen-2b's D=80 (H=32) and D=72, at T=300."""
     import torch
 
     from vsim_tpu_torch.ops.attention import (flash_attention_fwd,
@@ -729,65 +740,80 @@ def pythia_attention_rows(peaks, bound):
     L, B, H, S, D = 36, 1, 40, 2048, 128  # noqa: N806
     il, scale, rows = L - 1, 1.0 / math.sqrt(D), []
 
-    def side():
-        vals = torch.randint(-127, 128, (L, B, H, S, D), generator=g,
-                             device=dev, dtype=torch.int8)
+    def side(kv):
+        Dp = D // 2 if kv == "int4" else D  # noqa: N806
+        lo, hi, vdt = ((0, 256, torch.uint8) if kv == "int4"
+                       else (-127, 128, torch.int8))
+        vals = torch.randint(lo, hi, (L, B, H, S, Dp), generator=g,
+                             device=dev, dtype=vdt)
         sc = (torch.rand((L, B, H, S), generator=g, device=dev)
               * 0.05).to(torch.bfloat16)
         return vals, sc
 
-    k_store, v_store = side(), side()
     q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
-    for n_past in (7, 363, 1500):
-        npv = torch.full((B,), n_past, dtype=torch.int32, device=dev)
-        shape = (f"pythia-12b int8 L={L} il={il} B={B} H={H} D={D} S={S} "
-                 f"n_past={n_past}")
-        got = decode_attention_q(q, k_store, v_store, il, npv, scale=scale)
-        ref = decode_attention_plain(q, k_store, v_store, il, npv,
+    for kv in ("int8", "int4"):
+        k_store, v_store = side(kv), side(kv)
+        Dp = k_store[0].shape[-1]  # noqa: N806
+        for n_past in (7, 363, 1500):
+            npv = torch.full((B,), n_past, dtype=torch.int32, device=dev)
+            shape = (f"pythia-12b {kv} L={L} il={il} B={B} H={H} D={D} "
+                     f"S={S} n_past={n_past}")
+            got = decode_attention_q(q, k_store, v_store, il, npv,
                                      scale=scale)
-        torch.cuda.synchronize()
-        err, rel = rel_err(got, ref)
-        if not torch.isfinite(got).all() or rel > TOL_DECODE:
-            fail(f"decode_attention_q {shape}: max|err| {err:.3g} (rel "
-                 f"{rel:.3g} > {TOL_DECODE})")
-        ms = timed(lambda: decode_attention_q(q, k_store, v_store, il, npv,
-                                              scale=scale), reps=50)
-        plain_ms = timed(lambda: decode_attention_plain(
-            q, k_store, v_store, il, npv, scale=scale), reps=5, warmup=1)
-        nk = n_past + 1
-        kd, vd = ((kv_int(st[0][il, :, :, :nk])
-                   * st[1][il, :, :, :nk].float()[..., None]).to(torch.bfloat16)
-                  for st in (k_store, v_store))
-        lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None, :], kd, vd, scale=scale), reps=50)
-        b_ms, b_by = bound(2 * B * H * nk * (D + 2) + B * H * D * (2 + 4),
-                           4 * B * H * nk * D, bf16_peak)
-        rows.append(dict(kernel="decode_attention_q", shape=shape,
-                         max_abs_err=err, rel_err=rel, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms))
-    del k_store, v_store
-    torch.cuda.empty_cache()
+            ref = decode_attention_plain(q, k_store, v_store, il, npv,
+                                         scale=scale)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, ref)
+            if not torch.isfinite(got).all() or rel > TOL_DECODE:
+                fail(f"decode_attention_q {shape}: max|err| {err:.3g} (rel "
+                     f"{rel:.3g} > {TOL_DECODE})")
+            if not torch.equal(got, decode_attention_q(
+                    q, k_store, v_store, il, npv, scale=scale)):
+                fail(f"decode_attention_q {shape}: differs from run to run")
+            ms = timed(lambda: decode_attention_q(q, k_store, v_store, il,
+                                                  npv, scale=scale), reps=50)
+            plain_ms = timed(lambda: decode_attention_plain(
+                q, k_store, v_store, il, npv, scale=scale), reps=5, warmup=1)
+            nk = n_past + 1
+            kd, vd = ((kv_int(st[0][il, :, :, :nk])
+                       * st[1][il, :, :, :nk].float()[..., None]).to(
+                           torch.bfloat16) for st in (k_store, v_store))
+            lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None, :], kd, vd, scale=scale), reps=50)
+            b_ms, b_by = bound(2 * B * H * nk * (Dp + 2) + B * H * D * (2 + 4),
+                               4 * B * H * nk * D, bf16_peak)
+            rows.append(dict(kernel="decode_attention_q", shape=shape,
+                             max_abs_err=err, rel_err=rel, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms))
+        del k_store, v_store
+        torch.cuda.empty_cache()
 
-    for T in (8, 100, 300):  # noqa: N806
-        q, k, v = (torch.randn((1, H, T, D), generator=g, device=dev)
-                   .to(torch.bfloat16) for _ in range(3))
-        shape = f"pythia-12b T={T} H={H} D={D} bfloat16"
-        got, lse = flash_attention_fwd(q, k, v, scale=scale)
-        ref, lse_ref = flash_attention_plain(q, k, v, scale=scale)
+    for T, Hf, Df, name in ((8, H, D, "pythia-12b"),  # noqa: N806
+                            (100, H, D, "pythia-12b"),
+                            (300, H, D, "pythia-12b"),
+                            (300, 32, 80, "codegen-2b"), (300, 32, 72, "")):
+        sc = 1.0 / math.sqrt(Df)
+        qt, k, v = (torch.randn((1, Hf, T, Df), generator=g, device=dev)
+                    .to(torch.bfloat16) for _ in range(3))
+        shape = f"{name + ' ' if name else ''}T={T} H={Hf} D={Df} bfloat16"
+        got, lse = flash_attention_fwd(qt, k, v, scale=sc)
+        ref, lse_ref = flash_attention_plain(qt, k, v, scale=sc)
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
         _, rel_lse = rel_err(lse, lse_ref)
         if not torch.isfinite(got).all() or max(rel, rel_lse) > TOL_FLASH_BF16:
             fail(f"flash_attention_fwd {shape}: max|err| {err:.3g} (rel "
                  f"{rel:.3g}, lse rel {rel_lse:.3g} > {TOL_FLASH_BF16})")
-        ms = timed(lambda: flash_attention_fwd(q, k, v, scale=scale))
-        plain_ms = timed(lambda: flash_attention_plain(q, k, v, scale=scale),
+        if not torch.equal(got, flash_attention_fwd(qt, k, v, scale=sc)[0]):
+            fail(f"flash_attention_fwd {shape}: differs from run to run")
+        ms = timed(lambda: flash_attention_fwd(qt, k, v, scale=sc))
+        plain_ms = timed(lambda: flash_attention_plain(qt, k, v, scale=sc),
                          reps=5, warmup=1)
         lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale))
-        b_ms, b_by = bound(4 * H * T * D * 2 + H * T * 4,
-                           4 * H * T * (T + 1) // 2 * D, bf16_peak)
+            qt, k, v, is_causal=True, scale=sc))
+        b_ms, b_by = bound(4 * Hf * T * Df * 2 + Hf * T * 4,
+                           4 * Hf * T * (T + 1) // 2 * Df, bf16_peak)
         rows.append(dict(kernel="flash_attention_fwd", shape=shape,
                          max_abs_err=err, rel_err=rel, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -961,7 +987,7 @@ def phase_serving(cfg, params):
             wall_step.append(time.perf_counter() - a)
         enq.sort()
         wall_step.sort()
-        busy_ms, by_kernel = step_device_profile(
+        busy_ms, by_kernel, _ = step_device_profile(
             lambda: forward(cfg, srv.params, tok, srv.cache, npv), steps=5)
         out[kv] = dict(
             warmup_s=warmup_s, wall_s=wall, requests=len(reqs),
@@ -1334,9 +1360,10 @@ def stacked_last_layer_check(params):
 
 
 def step_device_profile(step, steps: int = 3):
-    """Device busy ms (the union of kernel and copy intervals) and device
-    ms by kernel of one step, from torch.profiler over ``steps`` steps;
-    (None, None) where the profiler records no device activity."""
+    """Device busy ms (the union of kernel and copy intervals), device ms by
+    kernel and K3's device ms (both passes) of one step, from torch.profiler
+    over ``steps`` steps; (None, None, None) where the profiler records no
+    device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1347,15 +1374,19 @@ def step_device_profile(step, steps: int = 3):
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    intervals, by_name = [], collections.Counter()
+    intervals, by_name, k3_ms = [], collections.Counter(), 0.0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             s, e = ev.time_range.start, ev.time_range.end
             intervals.append((s, e))
             by_name[ev.name[:60]] += (e - s) / 1e3 / steps
+            if "decode_split_kernel" in ev.name \
+                    or "decode_combine_kernel" in ev.name:
+                k3_ms += (e - s) / 1e3 / steps
     if not intervals:
-        return None, None
-    return busy_us(intervals) / 1e3 / steps, dict(by_name.most_common(8))
+        return None, None, None
+    return (busy_us(intervals) / 1e3 / steps, dict(by_name.most_common(8)),
+            k3_ms)
 
 
 def phase_pythia(peaks):
@@ -1444,7 +1475,7 @@ def phase_pythia(peaks):
                 wall.append(time.perf_counter() - a)
             enq.sort()
             wall.sort()
-            busy_ms, by_kernel = step_device_profile(
+            busy_ms, by_kernel, k3_ms = step_device_profile(
                 lambda: forward(cfg, eng.params, tok, cache, 311))
         finally:
             set_dequant_math("gi")
@@ -1457,7 +1488,7 @@ def phase_pythia(peaks):
             step_device_busy_ms=busy_ms,
             step_device_idle_share=(None if busy_ms is None
                                     else 1 - busy_ms / (wall[5] * 1e3)),
-            step_device_ms_by_kernel=by_kernel)
+            step_device_ms_by_kernel=by_kernel, step_k3_device_ms=k3_ms)
         del cache
         torch.cuda.empty_cache()
     del engines
@@ -1561,6 +1592,12 @@ def main() -> None:
     rows = phase_kernels(peaks)
     print(f"kernel phase: {len(rows)} cases pass in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for r in rows:
+        if r["kernel"] in ("decode_attention_q", "flash_attention_fwd"):
+            print(f"  {r['kernel']} {r['shape']}: {r['ms']:.4g} ms, bound "
+                  f"{r['bound_ms']:.2g}, plain {r['plain_ms']:.4g}, SDPA "
+                  f"{r['library_ms']:.4g} ({r['ms'] / r['library_ms']:.2f}x)",
+                  flush=True)
     t0 = time.perf_counter()
     model, launches, cfg, params = phase_model(peaks)
     print(f"InferenceEngine in {time.perf_counter() - t0:.1f} s: "

@@ -8,6 +8,8 @@ tests/test_decode_attention.py.  K4 at f32 1e-5; at bf16 one bf16 step of
 the output (p rounds to bf16 before p.v in both).
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +36,7 @@ from vsim_tpu_torch.ops.attention import attention_reference, flash_attention_fw
 from vsim_tpu_torch.ops.decode_attention import (
     decode_attention_oracle,
     decode_attention_q,
+    decode_split_plan,
 )
 from vsim_tpu_torch.quant.q4 import tensor_from_np
 
@@ -97,6 +100,31 @@ def test_decode_attention_plain_matches_kernel(kv_dtype, D, n_past):
                                    atol=1e-5)
         np.testing.assert_allclose(got.numpy(), oracle[:, 0], rtol=2e-2,
                                    atol=2e-2)
+
+
+@pytest.mark.parametrize("B,H,S,n_sm,want", [
+    (1, 16, 2048, 132, (128, 16)),   # GPT-J B=1: 256 blocks
+    (1, 40, 2048, 132, (256, 8)),    # Pythia-12B B=1: 320 blocks
+    (8, 16, 2048, 132, (1024, 2)),
+    (1, 4, 300, 132, (64, 5)),       # S too short for 132 blocks
+    (3, 4, 300, 16, (256, 2)),
+    (1, 1, 1, 132, (64, 1)),
+    (2, 32, 4096, 132, (1024, 4)),
+])
+def test_decode_split_plan(B, H, S, n_sm, want):  # noqa: N803
+    """K3's split plan depends on the shapes alone (no n_past, so no host
+    sync), covers [0, S) exactly once in tile multiples, and fills the card
+    where S allows."""
+    assert list(inspect.signature(decode_split_plan).parameters) == [
+        "B", "H", "S", "n_sm"]
+    c, n_split = decode_split_plan(B, H, S, n_sm)
+    assert (c, n_split) == want == decode_split_plan(B, H, S, n_sm)
+    assert c % 64 == 0 and c & (c - 1) == 0
+    covered = [s for i in range(n_split) for s in range(i * c,
+                                                        min(i * c + c, S))]
+    assert covered == list(range(S))  # once each, and no split is empty
+    if B * H * -(-S // 64) >= n_sm:
+        assert B * H * n_split >= n_sm
 
 
 def test_decode_attention_ragged_n_past():

@@ -33,6 +33,7 @@ from vsim_tpu_torch.ops.decode_attention import (
     decode_attention_fresh_plain,
     decode_attention_plain,
     decode_attention_q,
+    decode_split_plan,
     scatter_rows,
     scatter_rows_plain,
 )
@@ -231,31 +232,35 @@ def test_q4_kernels_reject_what_they_cannot_take(dev):
 
 
 @pytest.mark.parametrize("kv", ["int8", "int4"])
-@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_decode_attention_q(dev, kv, D):
-    L, B, H, S = 2, 3, 4, 300  # noqa: N806
+    """K3's split-S at the edges of its plan: ragged n_past on 0, a split
+    boundary - 1, the boundary and S - 1 (int4 D=80 has Dp = 40, loaded 8
+    bytes a lane), with and without ALiBi, one launch a call, and the same
+    bits from run to run (an in-order combine, no atomics)."""
+    L, B, H, S = 2, 4, 4, 700  # noqa: N806
+    c, n_split = decode_split_plan(
+        B, H, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert n_split > 1
     g = torch.Generator(device=dev).manual_seed(D)
     Dp = D // 2 if kv == "int4" else D  # noqa: N806
-    lo, hi, vdt = ((0, 256, torch.uint8) if kv == "int4"
-                   else (-127, 128, torch.int8))
-
-    def side():
-        vals = torch.randint(lo, hi, (L, B, H, S, Dp), generator=g,
-                             device=dev, dtype=vdt)
-        sc = (torch.rand((L, B, H, S), generator=g, device=dev) * 0.05).to(
-            torch.bfloat16)
-        return vals, sc
-
-    k, v = side(), side()
+    k, v = (_kv_side(dev, g, kv, (L, B, H, S, Dp)) for _ in range(2))
     q = torch.randn((B, H, D), generator=g, device=dev)
-    n_past = torch.tensor([0, 70, 299], dtype=torch.int32, device=dev)
+    n_past = torch.tensor([0, c - 1, c, S - 1], dtype=torch.int32,
+                          device=dev)
     slopes = torch.linspace(0.01, 0.1, H, device=dev)
     for sl in (None, slopes):
+        before = _build.launch_counts["decode_attention"]
         got = decode_attention_q(q, k, v, 1, n_past, scale=D ** -0.5,
                                  slopes=sl)
+        assert _build.launch_counts["decode_attention"] == before + 1
         ref = decode_attention_plain(q, k, v, 1, n_past, scale=D ** -0.5,
                                      slopes=sl)
+        assert torch.isfinite(got).all()
         assert _rel(got, ref) < 1e-3
+        again = decode_attention_q(q, k, v, 1, n_past, scale=D ** -0.5,
+                                   slopes=sl)
+        assert torch.equal(got, again)
 
 
 def _kv_side(dev, g, kv, shape):
@@ -314,21 +319,32 @@ def test_scatter_rows(dev, kv, D):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
                                        (torch.float32, 1e-4)])
-@pytest.mark.parametrize("T,n_past", [(5, 0), (100, 37)])
-def test_flash_attention_fwd(dev, dtype, tol, T, n_past):
-    B, H, D = 2, 3, 96  # noqa: N806
-    S = n_past + T  # noqa: N806
-    g = torch.Generator(device=dev).manual_seed(T)
-    q = torch.randn((B, H, T, D), generator=g, device=dev).to(dtype)
-    k = torch.randn((B, H, S, D), generator=g, device=dev).to(dtype)
-    v = torch.randn((B, H, S, D), generator=g, device=dev).to(dtype)
+@pytest.mark.parametrize("D", [64, 72, 80, 96, 128, 256])
+@pytest.mark.parametrize("T", [1, 63, 65, 300])
+def test_flash_attention_fwd(dev, dtype, tol, D, T):
+    """K4 at the edges of both designs: head dims padded in shared memory
+    (72, 80 to 80; bf16 tiles of 64 queries, f32 tiles of 32), query
+    counts around a tile, n_past = 0 with S = T and n_past > 0 with key
+    rows no query sees (S > n_past + T), ALiBi, lse, one launch a call,
+    and the same bits from run to run."""
+    B, H = 2, 3  # noqa: N806
+    g = torch.Generator(device=dev).manual_seed(D * T)
     slopes = torch.linspace(0.01, 0.1, H, device=dev)
-    out, lse = flash_attention_fwd(q, k, v, n_past=n_past,
-                                   scale=1 / math.sqrt(D), slopes=slopes)
-    ref, lse_ref = flash_attention_plain(q, k, v, n_past=n_past,
-                                         scale=1 / math.sqrt(D), slopes=slopes)
-    assert _rel(out, ref) < tol
-    assert _rel(lse, lse_ref) < 1e-4
+    for n_past, extra in ((0, 0), (17, 9)):
+        S = n_past + T + extra  # noqa: N806
+        q = torch.randn((B, H, T, D), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, H, S, D), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, H, S, D), generator=g, device=dev).to(dtype)
+        kw = dict(n_past=n_past, scale=1 / math.sqrt(D), slopes=slopes)
+        before = _build.launch_counts["flash_attention"]
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        assert _build.launch_counts["flash_attention"] == before + 1
+        ref, lse_ref = flash_attention_plain(q, k, v, **kw)
+        assert out.dtype == dtype and torch.isfinite(out).all()
+        assert _rel(out, ref) < tol
+        assert _rel(lse, lse_ref) < 1e-4
+        again, lse2 = flash_attention_fwd(q, k, v, **kw)
+        assert torch.equal(out, again) and torch.equal(lse, lse2)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),

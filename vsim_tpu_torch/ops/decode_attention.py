@@ -3,7 +3,9 @@ row writer of the ragged serving step (port of
 vsim_tpu/ops/decode_attention.py).
 
 K3 ``decode_attention_q`` (csrc/decode_attention.cu) attends one query per
-(b, h) over layer ``il`` of the stacked cache, keys s <= n_past[b]:
+(b, h) over layer ``il`` of the stacked cache, keys s <= n_past[b], split
+across blocks by ``decode_split_plan`` (flash-decoding: partials, then an
+in-order combine):
 
   q        [B, H, D]          rounded to bf16 (as the JAX wrapper does)
   k_q/v_q  [L, B, H, S, Dp]   int8 (Dp = D) or plane-packed uint8 int4
@@ -27,6 +29,7 @@ tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -34,10 +37,12 @@ import torch
 from vsim_tpu_torch.ops import _build
 
 NEG_INF = float(torch.finfo(torch.float32).min)
-_MAX_DP = 512  # packed columns a K3 block covers (csrc/decode_attention.cu)
+_MAX_DP = 512  # packed columns a K3 / K5 block covers (csrc/decode_attention.cu)
+_SPLIT_TILE = 64  # keys per tile of K3's pass 1 (kSplitTile)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-         ctypes.c_float, _P)
+# q, kq, ks, vq, vs, n_past, slopes, part, out; packed4, il, B, H, S, D, c,
+# n_split, W; scale; stream
+_ARGS = (_P,) * 9 + (_I,) * 9 + (ctypes.c_float, _P)
 _FRESH_ARGS = (_P,) * 12 + (_I,) * 6 + (ctypes.c_float, _P)
 _SCATTER_ARGS = (_P,) * 9 + (_I,) * 5 + (_P,)
 
@@ -81,6 +86,38 @@ def decode_attention_plain(q: torch.Tensor, k_store: Store, v_store: Store,
     pw = p * v_s[il, :, :, :n].to(torch.float32)
     ctx = torch.einsum("bhs,bhsd->bhd", pw, kv_int(v_q[il, :, :, :n]))
     return ctx / torch.where(l > 0, l, 1.0)
+
+
+def decode_split_plan(B: int, H: int, S: int, n_sm: int  # noqa: N803
+                      ) -> Tuple[int, int]:
+    """K3's split of the S cache rows of each (b, h): (c, n_split), splits
+    [i c, i c + c) for i < n_split.  From the shapes alone, never from
+    n_past, so the call makes no host sync.  c is a power-of-two multiple of
+    the 64-key tile, the largest whose grid of B·H·n_split blocks holds at
+    least 1.5× the SM count (about two waves), or 64 where S does not allow
+    that many: 16 splits of 128 at GPT-J B=1 on 132 SMs, 8 of 256 at
+    Pythia-12B's 40 heads."""
+    c = _SPLIT_TILE
+    while c < S:
+        c *= 2
+    while c > _SPLIT_TILE and B * H * -(-S // c) < 1.5 * n_sm:
+        c //= 2
+    return c, max(1, -(-S // c))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _load_width(Dp: int, tensors) -> int:  # noqa: N803
+    """K3's load width in bytes: the largest power of two up to 16 that
+    divides Dp and every cache address, so each row chunk is one aligned
+    load."""
+    w = 16
+    while w > 1 and (Dp % w or any(t.data_ptr() % w for t in tensors)):
+        w //= 2
+    return w
 
 
 def decode_attention_fresh_plain(q: torch.Tensor, k_store: Store,
@@ -196,13 +233,21 @@ def decode_attention_q(q: torch.Tensor, k_store: Store, v_store: Store,
     qb = q.to(torch.bfloat16).contiguous()
     packed4, B, H, S, D = _check(  # noqa: N806
         "decode_attention_q", qb, k_store, v_store, il, n_past, slopes)
+    Dp = D // 2 if packed4 else D  # noqa: N806
+    w = _load_width(Dp, (k_store[0], v_store[0]))
+    if Dp // w > 256:
+        raise ValueError("decode_attention_q: the cache's addresses allow "
+                         f"only {w}-byte loads of {Dp}-byte rows")
+    c, n_split = decode_split_plan(B, H, S, _sm_count(q.device.index or 0))
+    part = torch.empty((B, H, n_split, D + 2), dtype=torch.float32,
+                       device=q.device)
     out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     p = _build.ptr
     _build.launch("decode_attention", "decode_attention_launch", _ARGS,
                   p(qb), p(k_store[0]), p(k_store[1]), p(v_store[0]),
-                  p(v_store[1]), p(n_past), p(slopes), p(out), int(packed4),
-                  int(il), B, H, S, D, float(scale),
-                  _build.stream_ptr(q.device))
+                  p(v_store[1]), p(n_past), p(slopes), p(part), p(out),
+                  int(packed4), int(il), B, H, S, D, c, n_split, w,
+                  float(scale), _build.stream_ptr(q.device))
     return out
 
 
