@@ -6,17 +6,19 @@
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi) and build the
      kernels from csrc/ (one nvcc per source, all at once, into build/);
-  2. kernels: each of K1-K6 at GPT-J-6B shapes, K4 and K7/K8 (the flash
+  2. kernels: each of K1-K6 at GPT-J-6B shapes (K2 at 1 and 8 rows under
+     both plane contracts and at 9-128 rows, K5 on the B=8 ragged step, on
+     phase 4's timed step and at B=1), K4 and K7/K8 (the flash
      backward) also at the Pythia-410M shapes of phase 6 (B=4 training,
      B=1 perplexity) and K7/K8 at GPT-J's; K1-K4 and K9-K11 at the
      Pythia-12B shapes phase 7 gives them (K1 at 1 and 8 rows, K2 at 1, 8
      and 100 rows under both plane contracts, K3 on layer 35 of a 36-layer
      int8 and int4 cache, K4 at the prompt lengths; K9 and K11 at GPT-J's
      too); K4 also at codegen-2b's D=80 and at D=72; each against its plain
-     PyTorch version on the card (K3 and K4 also against a second run of
+     PyTorch version on the card (K2-K5 also against a second run of
      themselves, bit for bit), its device time (CUDA events, the calls held
      back to back) beside its bound and a PyTorch yardstick the port never
-     calls (K3/K4 rows are printed with their ratio to SDPA);
+     calls (K2-K5 rows are printed with their ratio to it);
   3. InferenceEngine on GPT-J-6B at full width (28 layers, random Q4
      weights from seed 0, bf16 compute) with int8 and with int4 KV, serving
      prompts of 8, 100 and 300 tokens (64 new tokens, greedy) and one
@@ -24,14 +26,17 @@ Phases, each fatal on failure:
   4. ServingEngine on the same params, max_batch 8, int8 and int4 KV: 12
      requests (seeded prompt lengths 8-300, 32 or 64 new tokens, greedy,
      chunks of 8 steps) and one submitted mid-flight; every request returns
-     its token count; the launch counts of K1, K4, K5 and K6 must grow;
-  5. card against CPU: GPT-J width at depth 2, f32 greedy streams must be
-     identical (InferenceEngine, and ServingEngine card vs CPU vs the
-     card's InferenceEngine), bf16 return_logits must agree within the
-     stated tolerance; Pythia-410M width at depth 2, three f32 training
-     steps: losses and every leaf's step-0 gradient must agree; Pythia-12B
-     width at depth 2 through phase 7's stacked and f32xf engines: f32
-     greedy streams identical, bf16 logits within the tolerance;
+     its token count; the launch counts of K1, K4, K5 and K6 must grow; one
+     B=8 step's device time, K5's share of it from the profiler;
+  5. card against CPU, each part's seconds printed: GPT-J width at depth
+     2, f32 greedy streams must be identical (InferenceEngine, 8 tokens,
+     and ServingEngine card vs CPU vs the card's InferenceEngine, 6
+     tokens), bf16 return_logits must agree within the stated tolerance;
+     Pythia-410M width at depth 2, three f32 training steps: losses and
+     every leaf's step-0 gradient must agree; Pythia-12B width at depth 2
+     through phase 7's three engines: f32 greedy streams (6 tokens)
+     identical, bf16 logits within the tolerance (the gi engine's from a
+     12-token prompt, whose prefill takes K2's tensor cores);
   6. training: Pythia-410M at full width and depth, dense f32 weights from
      seed 0, make_train_step with the default AdamW, 5 steps on one seeded
      batch of 4 x 2049 tokens: finite losses, the last below the first, and
@@ -44,9 +49,10 @@ Phases, each fatal on failure:
      (unroll_layers=False: K10 4 launches a layer and K9 1 a step), the
      default engine under the f32xf math (K11 once a layer, K2) and under
      gi (K1, K2); K3 and K4 in each; one step timed alone (enqueue, wall,
-     and the profiler's device busy time by kernel, K3's two passes
-     summed) against the weight bytes' bound.  Before its run, K10 on layer 35 of the stacked
-     engine's own weights is held against its plain version.
+     and the profiler's device busy time by kernel, K3's two passes and
+     K2's launches summed) against the weight bytes' bound.  Before its
+     run, K10 on layer 35 of the stacked engine's own weights is held
+     against its plain version.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Prints a JSON line {"kernels": [...]} and, last, the device line.
 Details go to build/chip_smoke.json.  Exits non-zero, printing no result,
@@ -204,15 +210,23 @@ def phase_kernels(peaks):
     shapes = [("qkv", 4096, 12288, False), ("wo", 4096, 4096, False),
               ("fc", 4096, 16384, True), ("proj", 16384, 4096, True),
               ("lm_head", 4096, 51200, True)]
-    q4_cases = ([("q4_gemv_ps", n, torch.bfloat16) for n in (1, 8)]
-                + [("q4_matmul_ps", n, dt) for n in (16, 128)
-                   for dt in (torch.bfloat16, torch.float32)])
+    # (kernel, n, x dtype, K2's plane contract): K1 at decode and serving
+    # batches; K2's GEMV at n = 1 and 8 under both contracts (f32xf, i32 /
+    # f32x), its tensor cores at 9-128 rows (gi's contract for bf16 x), its
+    # f32 FMA tiles for f32 x past 8 rows
+    bf16, f32 = torch.bfloat16, torch.float32
+    q4_cases = ([("q4_gemv_ps", n, bf16, None) for n in (1, 8)]
+                + [("q4_matmul_ps", n, bf16, r) for n in (1, 8)
+                   for r in (False, True)]
+                + [("q4_matmul_ps", n, bf16, True) for n in (9, 16, 32, 64,
+                                                             128)]
+                + [("q4_matmul_ps", n, f32, False) for n in (16, 128)])
     kern = {"q4_gemv_ps": (q4_gemv_ps, q4_gemv_ps_plain),
             "q4_matmul_ps": (q4_matmul_ps, q4_matmul_ps_plain)}
-    for kname, n, xdt in q4_cases:
+    for kname, n, xdt, round_planes in q4_cases:
         fn, plain = kern[kname]
-        if kname == "q4_matmul_ps":  # gi's contract: bf16 planes for bf16 x
-            fn, plain = (functools.partial(f, round_planes=xdt == torch.bfloat16)
+        if kname == "q4_matmul_ps":
+            fn, plain = (functools.partial(f, round_planes=round_planes)
                          for f in (fn, plain))
         for sname, K, O, has_bias in shapes:
             w0 = q4_weight(K, O, K + O)
@@ -226,9 +240,15 @@ def phase_kernels(peaks):
             ref = plain(x, w0.packed, w0.scales, bias)
             torch.cuda.synchronize()
             err, rel = rel_err(got, ref)
+            shape = (f"{sname} n={n} {K}->{O} x={str(xdt)[6:]}"
+                     + ("" if round_planes is None else
+                        f" planes={'bf16' if round_planes else 'f32'}"))
             if not torch.isfinite(got).all() or rel > TOL_Q4:
-                fail(f"{kname} {sname} n={n} {xdt}: max|err| {err:.3g} "
+                fail(f"{kname} {shape}: max|err| {err:.3g} "
                      f"(rel {rel:.3g} > {TOL_Q4})")
+            if kname == "q4_matmul_ps" and not torch.equal(
+                    got, fn(x, w0.packed, w0.scales, bias)):
+                fail(f"{kname} {shape}: differs from run to run")
             cyc = itertools.cycle(ws)
 
             def run_kernel():
@@ -238,15 +258,14 @@ def phase_kernels(peaks):
             ms = timed(run_kernel)
             plain_ms = timed(lambda: plain(x, w0.packed, w0.scales, bias),
                              reps=5, warmup=1)
-            wdt = torch.bfloat16 if xdt == torch.bfloat16 else torch.float32
+            wdt = bf16 if round_planes in (None, True) else f32
             lib_ms = timed(lambda: torch.matmul(
                 x.to(wdt), dequantize_km(next(cyc), wdt)), reps=5, warmup=1)
             nbytes = (wbytes + x.numel() * x.element_size() + n * O * 4
                       + (O * 4 if has_bias else 0))
-            peak = bf16_peak if xdt == torch.bfloat16 else f32_peak
+            peak = bf16_peak if wdt == bf16 else f32_peak
             b_ms, b_by = bound(nbytes, 2 * n * K * O, peak)
-            rows.append(dict(kernel=kname, shape=f"{sname} n={n} {K}->{O} "
-                             f"x={str(xdt)[6:]}", max_abs_err=err,
+            rows.append(dict(kernel=kname, shape=shape, max_abs_err=err,
                              rel_err=rel, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
 
@@ -305,38 +324,32 @@ def phase_kernels(peaks):
 
     # K5 (fresh-mode decode attention) and K6 (the all-layer row writer):
     # one ragged serving step at B=8, each row at its own n_past (2048 = S
-    # is the inactive-slot sentinel: K5 reads all S rows, K6 writes none)
-    B = 8  # noqa: N806
-    n_list = [0, 1, 127, 128, 300, 1500, 2047, 2048]
-    npv = torch.tensor(n_list, dtype=torch.int32, device=dev)
-    n_keys = [min(n, S) for n in n_list]
-    live = [b for b, n in enumerate(n_list) if n < S]
-    for kv in ("int8", "int4"):
+    # is the inactive-slot sentinel: K5 reads all S rows, K6 writes none);
+    # K5 also at phase 4's timed step (slots at n_past 38 and 100) and at B=1
+    def fresh_row(kv, n_list, side):
+        Bf = len(n_list)  # noqa: N806
+        npv = torch.tensor(n_list, dtype=torch.int32, device=dev)
         Dp = D // 2 if kv == "int4" else D  # noqa: N806
-        vdt = torch.uint8 if kv == "int4" else torch.int8
-        lo, hi = (0, 256) if kv == "int4" else (-127, 128)
+        k_store, v_store = side((L, Bf, H, S, Dp)), side((L, Bf, H, S, Dp))
+        fresh = (*side((Bf, H, Dp)), *side((Bf, H, Dp)))
+        q = torch.randn((Bf, H, D), generator=g, device=dev)
+        shape = f"{kv} B={Bf} H={H} D={D} S={S} n_past={n_list}"
 
-        def side(shape):
-            vals = torch.randint(lo, hi, shape, generator=g, device=dev,
-                                 dtype=vdt)
-            sc = (torch.rand(shape[:-1], generator=g, device=dev)
-                  * 0.05).to(torch.bfloat16)
-            return vals, sc
+        def run():
+            return decode_attention_fresh(q, k_store, v_store, 1, npv, fresh,
+                                          scale=scale)
 
-        k_store, v_store = side((L, B, H, S, Dp)), side((L, B, H, S, Dp))
-        fresh = (*side((B, H, Dp)), *side((B, H, Dp)))
-        q = torch.randn((B, H, D), generator=g, device=dev)
-        got = decode_attention_fresh(q, k_store, v_store, 1, npv, fresh,
-                                     scale=scale)
+        got = run()
         ref = decode_attention_fresh_plain(q, k_store, v_store, 1, npv, fresh,
                                            scale=scale)
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
         if not torch.isfinite(got).all() or rel > TOL_DECODE:
-            fail(f"decode_attention_fresh {kv}: max|err| {err:.3g} "
+            fail(f"decode_attention_fresh {shape}: max|err| {err:.3g} "
                  f"(rel {rel:.3g} > {TOL_DECODE})")
-        ms = timed(lambda: decode_attention_fresh(
-            q, k_store, v_store, 1, npv, fresh, scale=scale), reps=50)
+        if not torch.equal(got, run()):
+            fail(f"decode_attention_fresh {shape}: differs from run to run")
+        ms = timed(run, reps=50)
         plain_ms = timed(lambda: decode_attention_fresh_plain(
             q, k_store, v_store, 1, npv, fresh, scale=scale), reps=5,
             warmup=1)
@@ -356,15 +369,34 @@ def phase_kernels(peaks):
         lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
             qb, kd, vd, attn_mask=mask, scale=scale), reps=50)
         del kd, vd
-        rows_read = sum(n_keys) + B  # cache rows and the fresh ones, per head
-        nbytes = (2 * H * rows_read * (Dp + 2) + B * H * D * (2 + 4))
+        # cache rows and the fresh ones, per head
+        rows_read = sum(min(n, S) for n in n_list) + Bf
+        nbytes = (2 * H * rows_read * (Dp + 2) + Bf * H * D * (2 + 4))
         b_ms, b_by = bound(nbytes, 4 * H * rows_read * D, bf16_peak)
-        rows.append(dict(kernel="decode_attention_fresh",
-                         shape=f"{kv} B={B} H={H} D={D} S={S} n_past={n_list}",
+        rows.append(dict(kernel="decode_attention_fresh", shape=shape,
                          max_abs_err=err, rel_err=rel, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
-        del k_store, v_store
+
+    B = 8  # noqa: N806
+    n_list = [0, 1, 127, 128, 300, 1500, 2047, 2048]
+    npv = torch.tensor(n_list, dtype=torch.int32, device=dev)
+    live = [b for b, n in enumerate(n_list) if n < S]
+    for kv in ("int8", "int4"):
+        Dp = D // 2 if kv == "int4" else D  # noqa: N806
+        vdt = torch.uint8 if kv == "int4" else torch.int8
+        lo, hi = (0, 256) if kv == "int4" else (-127, 128)
+
+        def side(shape):
+            vals = torch.randint(lo, hi, shape, generator=g, device=dev,
+                                 dtype=vdt)
+            sc = (torch.rand(shape[:-1], generator=g, device=dev)
+                  * 0.05).to(torch.bfloat16)
+            return vals, sc
+
+        for nl in (n_list, [38] + [100] * 7, [100], [1500]):
+            fresh_row(kv, nl, side)
+        torch.cuda.empty_cache()
 
         # K6 over the whole GPT-J-6B cache, 28 layers
         L6 = 28  # noqa: N806
@@ -583,7 +615,10 @@ def q4_layout_rows(peaks, bound, q4_weight):
         planes = planes or ("bf16" if round_planes else "f32")
         shape = (f"pythia-12b {sname} n={n} {K}->{O} x={str(xdt)[6:]} "
                  f"planes={planes}")
-        err, rel = check(kname, shape, fn(x, w0, bias), plain(x, w0, bias))
+        got = fn(x, w0, bias)
+        err, rel = check(kname, shape, got, plain(x, w0, bias))
+        if kname == "q4_matmul_ps" and not torch.equal(got, fn(x, w0, bias)):
+            fail(f"{kname} {shape}: differs from run to run")
         cyc = itertools.cycle(ws)
         ms = timed(lambda: fn(x, next(cyc), bias))
         plain_ms = timed(lambda: plain(x, w0, bias), reps=5, warmup=1)
@@ -987,7 +1022,7 @@ def phase_serving(cfg, params):
             wall_step.append(time.perf_counter() - a)
         enq.sort()
         wall_step.sort()
-        busy_ms, by_kernel, _ = step_device_profile(
+        busy_ms, by_kernel, by_group = step_device_profile(
             lambda: forward(cfg, srv.params, tok, srv.cache, npv), steps=5)
         out[kv] = dict(
             warmup_s=warmup_s, wall_s=wall, requests=len(reqs),
@@ -1002,7 +1037,8 @@ def phase_serving(cfg, params):
             step_b8_device_busy_ms=busy_ms,
             step_b8_device_idle_share=(None if busy_ms is None else
                                        1 - busy_ms / (wall_step[5] * 1e3)),
-            step_b8_device_ms_by_kernel=by_kernel)
+            step_b8_device_ms_by_kernel=by_kernel,
+            step_b8_k5_device_ms=by_group and by_group["decode_attention"])
         del srv
         torch.cuda.empty_cache()
     return out, launches
@@ -1013,7 +1049,21 @@ def phase_serving(cfg, params):
 # ---------------------------------------------------------------------------
 
 
-def phase_card_vs_cpu():
+class PartTimer:
+    """Seconds of each part of phase 5, by device: the CPU side is most of
+    the phase, and its parts are what a cut of depth or tokens shortens."""
+
+    def __init__(self):
+        self.seconds = collections.Counter()
+
+    def __call__(self, part: str, dev: str, fn):
+        a = time.perf_counter()
+        out = fn()
+        self.seconds[f"{part} {dev}"] += time.perf_counter() - a
+        return out
+
+
+def phase_card_vs_cpu(clock: PartTimer):
     import torch
 
     from vsim_tpu_torch.engine.generate import InferenceEngine
@@ -1029,14 +1079,14 @@ def phase_card_vs_cpu():
     cfg = base.replace(compute_dtype="float32")
     streams = {}
     for dev in ("cuda", "cpu"):
-        eng = InferenceEngine(cfg, params, kv_dtype="int8", device=dev)
-        streams[dev] = eng.generate(prompt, 16,
-                                    SamplingParams(greedy=True)).token_ids
+        streams[dev] = clock("gpt-j f32 stream", dev, lambda: InferenceEngine(
+            cfg, params, kv_dtype="int8", device=dev).generate(
+                prompt, 8, SamplingParams(greedy=True)).token_ids)
     if streams["cuda"] != streams["cpu"]:
         fail(f"f32 greedy streams differ: card {streams['cuda']} "
              f"cpu {streams['cpu']}")
     out["f32_greedy_tokens"] = streams["cuda"]
-    # serving: 4 prompts on 3 slots (one waits for a slot), 12 tokens each.
+    # serving: 4 prompts on 3 slots (one waits for a slot), 6 tokens each.
     # Random weights give the odd near-tie, where card and CPU f32 sums may
     # pick different tokens (range(300, 320) has a top-2 logit margin of
     # 3e-4 of max|logit| at its third step): every greedy step of these
@@ -1044,12 +1094,12 @@ def phase_card_vs_cpu():
     prompts = [prompt, list(range(7, 10)), list(range(1000, 1020)), [42]]
     served = {}
     for dev in ("cuda", "cpu"):
-        srv = ServingEngine(cfg, params, max_batch=3, kv_dtype="int8",
-                            device=dev)
-        res = srv.run(prompts, 12, stop_tokens=(), chunk_steps=4)
+        res = clock("gpt-j serving", dev, lambda: ServingEngine(
+            cfg, params, max_batch=3, kv_dtype="int8", device=dev).run(
+                prompts, 6, stop_tokens=(), chunk_steps=4))
         served[dev] = [res[i].generated for i in sorted(res)]
     eng = InferenceEngine(cfg, params, kv_dtype="int8", device="cuda")
-    single = [eng.generate(p, 12, SamplingParams(greedy=True)).token_ids
+    single = [eng.generate(p, 6, SamplingParams(greedy=True)).token_ids
               for p in prompts]
     if not served["cuda"] == served["cpu"] == single:
         fail(f"f32 serving streams differ: card {served['cuda']} cpu "
@@ -1058,9 +1108,10 @@ def phase_card_vs_cpu():
     cfg = base.replace(compute_dtype="bfloat16")
     logits = {}
     for dev in ("cuda", "cpu"):
-        eng = InferenceEngine(cfg, params, kv_dtype="int8", device=dev)
-        logits[dev] = torch.from_numpy(
-            eng.generate(prompt, 1, return_logits=True).logits)
+        logits[dev] = torch.from_numpy(clock(
+            "gpt-j bf16 logits", dev, lambda: InferenceEngine(
+                cfg, params, kv_dtype="int8", device=dev).generate(
+                    prompt, 1, return_logits=True).logits))
     if not torch.isfinite(logits["cuda"]).all():
         fail("bf16 logits on the card are not finite")
     err, rel = rel_err(logits["cuda"], logits["cpu"])
@@ -1074,15 +1125,18 @@ def phase_card_vs_cpu():
 
 # f32 greedy steps of this prompt at Pythia-12B width, depth 2, seed-1
 # weights: every top-2 logit margin on the CPU is at least 8e-3 of
-# max|logit|, for both engines
+# max|logit|, for each engine
 PYTHIA_PROMPT = [50, 1201, 7, 40000, 333, 9, 2024, 11]
+# the gi engine's bf16 logits: more than 8 tokens, so that its prefill takes
+# K2's tensor-core instance (K1 takes n <= 8 rows)
+PYTHIA_LOGITS_PROMPT = {"gi": PYTHIA_PROMPT + [3000, 17, 29, 4242]}
 
 
-def phase_pythia_card_vs_cpu():
-    """Pythia-12B width at depth 2, card vs CPU, for phase 7's stacked and
-    f32xf engines: f32 greedy streams identical, bf16 prompt logits within
+def phase_pythia_card_vs_cpu(clock: PartTimer):
+    """Pythia-12B width at depth 2, card vs CPU, for phase 7's three
+    engines: f32 greedy streams identical, bf16 prompt logits within
     TOL_LOGITS_BF16.  An 8-token prompt takes K11 and K10 in the prefill
-    too."""
+    too; the gi engine's 12-token logits prompt K2 on the tensor cores."""
     import torch
 
     from vsim_tpu_torch.engine.generate import InferenceEngine
@@ -1094,23 +1148,25 @@ def phase_pythia_card_vs_cpu():
     base = PRESETS["pythia-12b"].replace(n_layer=2, n_ctx=64)
     params = random_q4_params(base, seed=1, device="cpu")
     out = {}
-    for name in ("stacked", "f32xf"):
-        kw, math_name, _ = PYTHIA_ENGINES[name]
+    for name, (kw, math_name, _) in PYTHIA_ENGINES.items():
+        prompt = PYTHIA_LOGITS_PROMPT.get(name, PYTHIA_PROMPT)
         set_dequant_math(math_name)
         try:
             streams, logits = {}, {}
             for dev in ("cuda", "cpu"):
                 cfg = base.replace(compute_dtype="float32")
-                eng = InferenceEngine(cfg, params, kv_dtype="int8", device=dev,
-                                      **kw)
-                streams[dev] = eng.generate(
-                    PYTHIA_PROMPT, 8, SamplingParams(greedy=True)).token_ids
+                streams[dev] = clock(
+                    f"pythia-12b {name} f32 stream", dev,
+                    lambda: InferenceEngine(
+                        cfg, params, kv_dtype="int8", device=dev,
+                        **kw).generate(PYTHIA_PROMPT, 6, SamplingParams(
+                            greedy=True)).token_ids)
                 cfg = base.replace(compute_dtype="bfloat16")
-                eng = InferenceEngine(cfg, params, kv_dtype="int8", device=dev,
-                                      **kw)
-                logits[dev] = torch.from_numpy(eng.generate(
-                    PYTHIA_PROMPT, 1, return_logits=True).logits)
-                del eng
+                logits[dev] = torch.from_numpy(clock(
+                    f"pythia-12b {name} bf16 logits", dev,
+                    lambda: InferenceEngine(
+                        cfg, params, kv_dtype="int8", device=dev,
+                        **kw).generate(prompt, 1, return_logits=True).logits))
         finally:
             set_dequant_math("gi")
         if streams["cuda"] != streams["cpu"]:
@@ -1123,12 +1179,13 @@ def phase_pythia_card_vs_cpu():
             fail(f"pythia-12b {name} bf16 logits card vs cpu: max|err| "
                  f"{err:.3g} (rel {rel:.3g} > {TOL_LOGITS_BF16})")
         out[name] = dict(f32_greedy_tokens=streams["cuda"],
+                         bf16_logits_prompt_tokens=len(prompt),
                          bf16_logits_max_abs_err=err, bf16_logits_rel_err=rel)
     torch.cuda.empty_cache()
     return out
 
 
-def phase_train_card_vs_cpu():
+def phase_train_card_vs_cpu(clock: PartTimer):
     """Three f32 training steps at Pythia-410M width, depth 2, on the card
     and on the CPU from the same init and batch."""
     import torch
@@ -1142,6 +1199,7 @@ def phase_train_card_vs_cpu():
                         generator=torch.Generator().manual_seed(3))
     runs = {}
     for dev in ("cuda", "cpu"):
+        a = time.perf_counter()
         params = init_params(cfg, seed=2, device=dev)
         init_fn, step_fn = make_train_step(cfg)
         state = init_fn(params)
@@ -1156,6 +1214,7 @@ def phase_train_card_vs_cpu():
                     grads[name] = t.grad.detach().cpu()
         runs[dev] = losses, grads
         del params, state
+        clock.seconds[f"pythia-410m training {dev}"] += time.perf_counter() - a
     (l_gpu, g_gpu), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
     if not all(math.isfinite(x) for x in l_gpu):
         fail(f"training losses on the card: {l_gpu}")
@@ -1359,11 +1418,21 @@ def stacked_last_layer_check(params):
     return worst
 
 
+# device kernels of the redesigned ops, by the names the profiler reports:
+# K3 or K5 (the one a path runs: phase 4's serving step K5, phase 7's K3)
+# and K2's three instances and its split reduce
+STEP_KERNELS = {"decode_attention": ("decode_split_kernel",
+                                     "decode_combine_kernel"),
+                "q4_matmul_ps": ("ps_gemv_kernel", "ps_mma_kernel",
+                                 "matmul_ps_kernel",
+                                 "ps_split_reduce_kernel")}
+
+
 def step_device_profile(step, steps: int = 3):
     """Device busy ms (the union of kernel and copy intervals), device ms by
-    kernel and K3's device ms (both passes) of one step, from torch.profiler
-    over ``steps`` steps; (None, None, None) where the profiler records no
-    device activity."""
+    kernel and by each group of STEP_KERNELS of one step, from
+    torch.profiler over ``steps`` steps; (None, None, None) where the
+    profiler records no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1374,19 +1443,20 @@ def step_device_profile(step, steps: int = 3):
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    intervals, by_name, k3_ms = [], collections.Counter(), 0.0
+    intervals, by_name = [], collections.Counter()
+    by_group = dict.fromkeys(STEP_KERNELS, 0.0)
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             s, e = ev.time_range.start, ev.time_range.end
             intervals.append((s, e))
             by_name[ev.name[:60]] += (e - s) / 1e3 / steps
-            if "decode_split_kernel" in ev.name \
-                    or "decode_combine_kernel" in ev.name:
-                k3_ms += (e - s) / 1e3 / steps
+            for group, names in STEP_KERNELS.items():
+                if any(k in ev.name for k in names):
+                    by_group[group] += (e - s) / 1e3 / steps
     if not intervals:
         return None, None, None
     return (busy_us(intervals) / 1e3 / steps, dict(by_name.most_common(8)),
-            k3_ms)
+            by_group)
 
 
 def phase_pythia(peaks):
@@ -1475,7 +1545,7 @@ def phase_pythia(peaks):
                 wall.append(time.perf_counter() - a)
             enq.sort()
             wall.sort()
-            busy_ms, by_kernel, k3_ms = step_device_profile(
+            busy_ms, by_kernel, by_group = step_device_profile(
                 lambda: forward(cfg, eng.params, tok, cache, 311))
         finally:
             set_dequant_math("gi")
@@ -1488,7 +1558,9 @@ def phase_pythia(peaks):
             step_device_busy_ms=busy_ms,
             step_device_idle_share=(None if busy_ms is None
                                     else 1 - busy_ms / (wall[5] * 1e3)),
-            step_device_ms_by_kernel=by_kernel, step_k3_device_ms=k3_ms)
+            step_device_ms_by_kernel=by_kernel,
+            step_k3_device_ms=by_group and by_group["decode_attention"],
+            step_k2_device_ms=by_group and by_group["q4_matmul_ps"])
         del cache
         torch.cuda.empty_cache()
     del engines
@@ -1592,10 +1664,11 @@ def main() -> None:
     rows = phase_kernels(peaks)
     print(f"kernel phase: {len(rows)} cases pass in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for r in rows:
-        if r["kernel"] in ("decode_attention_q", "flash_attention_fwd"):
+    for r in rows:  # the redesigned kernels, with their ratio to the library
+        if r["kernel"] in ("decode_attention_q", "flash_attention_fwd",
+                           "decode_attention_fresh", "q4_matmul_ps"):
             print(f"  {r['kernel']} {r['shape']}: {r['ms']:.4g} ms, bound "
-                  f"{r['bound_ms']:.2g}, plain {r['plain_ms']:.4g}, SDPA "
+                  f"{r['bound_ms']:.2g}, plain {r['plain_ms']:.4g}, library "
                   f"{r['library_ms']:.4g} ({r['ms'] / r['library_ms']:.2f}x)",
                   flush=True)
     t0 = time.perf_counter()
@@ -1610,10 +1683,17 @@ def main() -> None:
     print(f"ServingEngine in {time.perf_counter() - t0:.1f} s", flush=True)
     for k, v in serving.items():
         print(f"  {k}: {json.dumps(v)}", flush=True)
+        print(f"  {k}: K5 {v['step_b8_k5_device_ms']} ms of a B=8 step's "
+              f"{v['step_b8_device_busy_ms']} device ms", flush=True)
     t0 = time.perf_counter()
-    vs_cpu = phase_card_vs_cpu()
-    vs_cpu["training"] = phase_train_card_vs_cpu()
-    vs_cpu["pythia-12b"] = phase_pythia_card_vs_cpu()
+    clock = PartTimer()
+    vs_cpu = phase_card_vs_cpu(clock)
+    vs_cpu["training"] = phase_train_card_vs_cpu(clock)
+    vs_cpu["pythia-12b"] = phase_pythia_card_vs_cpu(clock)
+    vs_cpu["seconds"] = {k: round(v, 1) for k, v in clock.seconds.items()}
+    cpu_s = sum(v for k, v in clock.seconds.items() if k.endswith(" cpu"))
+    print(f"card vs cpu, seconds by part (CPU side {cpu_s:.1f} s): "
+          f"{json.dumps(vs_cpu['seconds'])}", flush=True)
     print(f"card vs cpu in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps(vs_cpu)}", flush=True)
     t0 = time.perf_counter()
@@ -1627,6 +1707,9 @@ def main() -> None:
           f"{json.dumps(pythia['k10_last_layer'])}", flush=True)
     for k, v in pythia["engines"].items():
         print(f"  {k}: {json.dumps(v)}", flush=True)
+        print(f"  {k}: K2 {v['step_k2_device_ms']} ms, K3 "
+              f"{v['step_k3_device_ms']} ms of a step's "
+              f"{v['step_device_busy_ms']} device ms", flush=True)
 
     total = collections.Counter(launches)
     for counts in serve_launches.values():

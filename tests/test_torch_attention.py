@@ -9,6 +9,7 @@ the output (p rounds to bf16 before p.v in both).
 """
 
 import inspect
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,9 +35,12 @@ from vsim_tpu_torch.models.transformer import alibi_slopes as p_alibi
 from vsim_tpu_torch.models.transformer import init_cache as p_init_cache
 from vsim_tpu_torch.ops.attention import attention_reference, flash_attention_fwd
 from vsim_tpu_torch.ops.decode_attention import (
+    NEG_INF,
+    decode_attention_fresh_plain,
     decode_attention_oracle,
     decode_attention_q,
     decode_split_plan,
+    kv_int,
 )
 from vsim_tpu_torch.quant.q4 import tensor_from_np
 
@@ -105,7 +109,7 @@ def test_decode_attention_plain_matches_kernel(kv_dtype, D, n_past):
 @pytest.mark.parametrize("B,H,S,n_sm,want", [
     (1, 16, 2048, 132, (128, 16)),   # GPT-J B=1: 256 blocks
     (1, 40, 2048, 132, (256, 8)),    # Pythia-12B B=1: 320 blocks
-    (8, 16, 2048, 132, (1024, 2)),
+    (8, 16, 2048, 132, (1024, 2)),   # K5's B=8 GPT-J serving step
     (1, 4, 300, 132, (64, 5)),       # S too short for 132 blocks
     (3, 4, 300, 16, (256, 2)),
     (1, 1, 1, 132, (64, 1)),
@@ -125,6 +129,87 @@ def test_decode_split_plan(B, H, S, n_sm, want):  # noqa: N803
     assert covered == list(range(S))  # once each, and no split is empty
     if B * H * -(-S // 64) >= n_sm:
         assert B * H * n_split >= n_sm
+
+
+def _fresh_split_emulation(q, k_store, v_store, il, n_past, rows, scale,
+                           slopes, n_sm):
+    """K5's algorithm (csrc/decode_attention.cu, FRESH) in f32 PyTorch:
+    pass 1's partials (m, l, acc) over the splits of ``decode_split_plan``,
+    keys s < min(n_past[b], S), an empty split m = NEG_INF and l = 0; then
+    the combine, which merges the splits in index order and the fresh row
+    last."""
+    k_q, k_s = k_store
+    v_q, v_s = v_store
+    knq, kns, vnq, vns = rows
+    B, H, D = q.shape  # noqa: N806
+    S = k_q.shape[3]  # noqa: N806
+    c, n_split = decode_split_plan(B, H, S, n_sm)
+    qf = q.to(torch.bfloat16).float()
+    out = torch.empty((B, H, D))
+    for b in range(B):
+        n_keys = min(int(n_past[b]), S)
+        for h in range(H):
+            slope = 0.0 if slopes is None else float(slopes[h])
+            parts = []
+            for i in range(n_split):
+                k0, k1 = i * c, min(i * c + c, n_keys)
+                if k0 >= k1:
+                    parts.append((NEG_INF, 0.0, torch.zeros(D)))
+                    continue
+                idx = torch.arange(k0, k1)
+                sc = (kv_int(k_q[il, b, h, k0:k1]) @ qf[b, h]) \
+                    * k_s[il, b, h, k0:k1].float() * scale \
+                    + slope * idx.float()
+                m = sc.max()
+                p = torch.exp(sc - m)
+                acc = (p * v_s[il, b, h, k0:k1].float()) @ kv_int(
+                    v_q[il, b, h, k0:k1])
+                parts.append((float(m), float(p.sum()), acc))
+            s_new = float((qf[b, h] * kv_int(knq[b, h])).sum()
+                          * kns[b, h].float() * scale) + slope * int(n_past[b])
+            M = max([s_new] + [m for m, l, _ in parts if l > 0])  # noqa: N806
+            L, acc = 0.0, torch.zeros(D)  # noqa: N806
+            for m, l, a in parts:  # noqa: E741
+                if l > 0:
+                    w = math.exp(m - M)
+                    L, acc = L + l * w, acc + a * w  # noqa: N806
+            p_new = math.exp(s_new - M)
+            acc = acc + p_new * vns[b, h].float() * kv_int(vnq[b, h])
+            out[b, h] = acc / (L + p_new)
+    return out
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("n_sm", [132, 8])
+def test_fresh_split_algorithm_matches_plain(kv_dtype, alibi, n_sm):
+    """K5's split-S algorithm, emulated, against its plain version: empty
+    splits (short rows, and n_past = 0 where every split is empty), a row
+    ending on a split boundary, and the inactive-slot sentinel n_past = S."""
+    L, B, H, S, D = 2, 5, 2, 300, 64  # noqa: N806
+    Dp = D // 2 if kv_dtype == "int4" else D  # noqa: N806
+    c, n_split = decode_split_plan(B, H, S, n_sm)
+    assert n_split > 1
+    g = torch.Generator().manual_seed(n_sm + alibi)
+    lo, hi, vdt = ((0, 256, torch.uint8) if kv_dtype == "int4"
+                   else (-127, 128, torch.int8))
+
+    def side(shape):
+        return (torch.randint(lo, hi, shape, generator=g, dtype=vdt),
+                (torch.rand(shape[:-1], generator=g) * 0.05).to(
+                    torch.bfloat16))
+
+    k_store, v_store = side((L, B, H, S, Dp)), side((L, B, H, S, Dp))
+    rows = (*side((B, H, Dp)), *side((B, H, Dp)))
+    q = torch.randn((B, H, D), generator=g) * 3
+    n_past = torch.tensor([0, 1, c - 1, c, S], dtype=torch.int32)
+    slopes = p_alibi(H) if alibi else None
+    ref = decode_attention_fresh_plain(q, k_store, v_store, 1, n_past, rows,
+                                       scale=D ** -0.5, slopes=slopes)
+    got = _fresh_split_emulation(q, k_store, v_store, 1, n_past, rows,
+                                 D ** -0.5, slopes, n_sm)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
 
 
 def test_decode_attention_ragged_n_past():

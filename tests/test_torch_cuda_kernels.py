@@ -7,11 +7,11 @@ fixture, never at import).  On a machine with the card and no JAX
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
 Tolerances relative to max|plain|, as in chip_smoke.py: 1e-4 for the Q4
-matmuls (K1, K2, K9, K10) and the fused MLP (K11, which is also
-bit-identical from run to run) and 1e-3 for decode attention, fresh mode included (only the f32
-sum and exp order differ), 1e-2 for bf16 flash output and gradients
-(rounded to bf16), 1e-4 for f32 flash gradients (sum order); the row
-writer K6 is exact.
+matmuls (K1, K2, K9, K10) and the fused MLP (K11; K2 and K11 are also
+bit-identical from run to run) and 1e-3 for decode attention, fresh mode
+included (only the f32 sum and exp order differ), 1e-2 for bf16 flash
+output and gradients (rounded to bf16), 1e-4 for f32 flash gradients (sum
+order); the row writer K6 is exact.
 """
 
 import math
@@ -86,14 +86,27 @@ def test_q4_gemv_ps(dev, n, K, O):
     assert _rel(got, q4_gemv_ps_plain(x, packed, scales, bias)) < 1e-4
 
 
-@pytest.mark.parametrize("n", [9, 33, 128])
+@pytest.mark.parametrize("n", [1, 3, 8, 9, 16, 32, 33, 100, 128])
+@pytest.mark.parametrize("round_planes", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_q4_matmul_ps(dev, n, dtype):
-    packed, scales = _weight(1024, 320, dev, n)
-    x = torch.randn((n, 1024), device=dev).to(dtype)
-    rnd = dtype == torch.bfloat16  # the gi math's contract past 8 rows
-    got = q4_matmul_ps(x, packed, scales, None, rnd)
-    assert _rel(got, q4_matmul_ps_plain(x, packed, scales, None, rnd)) < 1e-4
+@pytest.mark.parametrize("O", [1024, 4100])
+def test_q4_matmul_ps(dev, n, round_planes, dtype, O):  # noqa: N803
+    """K2's three instances (the GEMV at n <= 8, the tensor cores at 9-128
+    rows with bf16 planes, the f32 FMA tiles otherwise) under both plane
+    contracts, bf16 and f32 x, with and without a bias; O = 4100 is a ragged
+    tile that cp.async cannot copy (O % 16 != 0).  One launch count a call,
+    the same bits from run to run (split partials reduced in order)."""
+    K = 2048  # noqa: N806
+    packed, scales = _weight(K, O, dev, n + O)
+    x = torch.randn((n, K), device=dev).to(dtype)
+    for bias in (None, torch.randn((O,), device=dev)):
+        before = _build.launch_counts["q4_matmul_ps"]
+        got = q4_matmul_ps(x, packed, scales, bias, round_planes)
+        assert _build.launch_counts["q4_matmul_ps"] == before + 1
+        ref = q4_matmul_ps_plain(x, packed, scales, bias, round_planes)
+        assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
+        assert torch.equal(got, q4_matmul_ps(x, packed, scales, bias,
+                                             round_planes))
 
 
 @pytest.mark.parametrize("n", [1, 8, 33])
@@ -275,26 +288,65 @@ def _kv_side(dev, g, kv, shape):
 
 
 @pytest.mark.parametrize("kv", ["int8", "int4"])
-@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_decode_attention_fresh(dev, kv, D):
-    L, B, H, S = 2, 4, 4, 300  # noqa: N806
+    """K5's split-S at the edges of its plan: ragged n_past on 0 (the fresh
+    row alone), 1, a split boundary - 1, the boundary, S - 1 and S (the
+    inactive-slot sentinel, all S rows), with and without ALiBi (the fresh
+    row's at position n_past), one launch a call, and the same bits from run
+    to run (an in-order combine, no atomics)."""
+    L, B, H, S = 2, 6, 4, 700  # noqa: N806
+    c, n_split = decode_split_plan(
+        B, H, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert n_split > 1
     g = torch.Generator(device=dev).manual_seed(D + 1)
     Dp = D // 2 if kv == "int4" else D  # noqa: N806
     k, v = (_kv_side(dev, g, kv, (L, B, H, S, Dp)) for _ in range(2))
     rows = (*_kv_side(dev, g, kv, (B, H, Dp)),
             *_kv_side(dev, g, kv, (B, H, Dp)))
     q = torch.randn((B, H, D), generator=g, device=dev)
-    n_past = torch.tensor([0, 1, 299, 300], dtype=torch.int32, device=dev)
+    n_past = torch.tensor([0, 1, c - 1, c, S - 1, S], dtype=torch.int32,
+                          device=dev)
     slopes = torch.linspace(0.01, 0.1, H, device=dev)
-    before = _build.launch_counts["decode_attention_fresh"]
     for sl in (None, slopes):
-        got = decode_attention_fresh(q, k, v, 1, n_past, rows,
-                                     scale=D ** -0.5, slopes=sl)
-        ref = decode_attention_fresh_plain(q, k, v, 1, n_past, rows,
-                                           scale=D ** -0.5, slopes=sl)
+        kw = dict(scale=D ** -0.5, slopes=sl)
+        before = _build.launch_counts["decode_attention_fresh"]
+        got = decode_attention_fresh(q, k, v, 1, n_past, rows, **kw)
+        assert _build.launch_counts["decode_attention_fresh"] == before + 1
+        ref = decode_attention_fresh_plain(q, k, v, 1, n_past, rows, **kw)
         assert torch.isfinite(got).all()
         assert _rel(got, ref) < 1e-3
-    assert _build.launch_counts["decode_attention_fresh"] == before + 2
+        assert torch.equal(got, decode_attention_fresh(q, k, v, 1, n_past,
+                                                       rows, **kw))
+
+
+def test_decode_attention_refuses_a_gradient_it_cannot_carry(dev):
+    """K3 and K5 have no backward: a q (or fresh-row scale) that needs a
+    gradient raises on the card instead of leaving the output without a
+    grad_fn; the plain versions on the CPU stay differentiable."""
+    L, B, H, S, D = 1, 2, 2, 64, 64  # noqa: N806
+    g = torch.Generator(device=dev).manual_seed(3)
+    k, v = (_kv_side(dev, g, "int8", (L, B, H, S, D)) for _ in range(2))
+    rows = (*_kv_side(dev, g, "int8", (B, H, D)),
+            *_kv_side(dev, g, "int8", (B, H, D)))
+    n_past = torch.tensor([5, 9], dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, D), device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        decode_attention_q(q, k, v, 0, n_past, scale=0.125)
+    with pytest.raises(ValueError, match="no backward"):
+        decode_attention_fresh(q, k, v, 0, n_past, rows, scale=0.125)
+    grad_rows = (rows[0], rows[1].clone().requires_grad_(), *rows[2:])
+    with pytest.raises(ValueError, match="no backward"):
+        decode_attention_fresh(q.detach(), k, v, 0, n_past, grad_rows,
+                               scale=0.125)
+    assert decode_attention_q(q.detach(), k, v, 0, n_past,
+                              scale=0.125).shape == (B, H, D)
+    cpu = [t.cpu() for t in (*k, *v, *rows, n_past)]
+    qc = q.detach().cpu().requires_grad_()
+    out = decode_attention_fresh(qc, tuple(cpu[:2]), tuple(cpu[2:4]), 0,
+                                 cpu[8], tuple(cpu[4:8]), scale=0.125)
+    out.square().sum().backward()
+    assert qc.grad is not None and qc.grad.abs().max() > 0
 
 
 @pytest.mark.parametrize("kv", ["int8", "int4"])

@@ -5,7 +5,7 @@ vsim_tpu/ops/decode_attention.py).
 K3 ``decode_attention_q`` (csrc/decode_attention.cu) attends one query per
 (b, h) over layer ``il`` of the stacked cache, keys s <= n_past[b], split
 across blocks by ``decode_split_plan`` (flash-decoding: partials, then an
-in-order combine):
+in-order combine; K5 shares both):
 
   q        [B, H, D]          rounded to bf16 (as the JAX wrapper does)
   k_q/v_q  [L, B, H, S, Dp]   int8 (Dp = D) or plane-packed uint8 int4
@@ -23,7 +23,8 @@ at slot n_past[b], in place; a row with n_past[b] outside [0, S) writes
 nothing (n_past = S is the serving engine's inactive-slot sentinel).
 
 A CPU tensor goes through the plain version beside each kernel; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises, and raises too when q or another
+float input needs a gradient: K3 and K5 have no backward.
 """
 
 from __future__ import annotations
@@ -38,12 +39,14 @@ from vsim_tpu_torch.ops import _build
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 _MAX_DP = 512  # packed columns a K3 / K5 block covers (csrc/decode_attention.cu)
-_SPLIT_TILE = 64  # keys per tile of K3's pass 1 (kSplitTile)
+_SPLIT_TILE = 64  # keys per tile of K3/K5's pass 1 (kSplitTile)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, kq, ks, vq, vs, n_past, slopes, part, out; packed4, il, B, H, S, D, c,
 # n_split, W; scale; stream
 _ARGS = (_P,) * 9 + (_I,) * 9 + (ctypes.c_float, _P)
-_FRESH_ARGS = (_P,) * 12 + (_I,) * 6 + (ctypes.c_float, _P)
+# q, kq, ks, vq, vs, n_past, slopes, knq, kns, vnq, vns, part, out; packed4,
+# il, B, H, S, D, c, n_split, W; scale; stream
+_FRESH_ARGS = (_P,) * 13 + (_I,) * 9 + (ctypes.c_float, _P)
 _SCATTER_ARGS = (_P,) * 9 + (_I,) * 5 + (_P,)
 
 Store = Tuple[torch.Tensor, torch.Tensor]
@@ -90,13 +93,13 @@ def decode_attention_plain(q: torch.Tensor, k_store: Store, v_store: Store,
 
 def decode_split_plan(B: int, H: int, S: int, n_sm: int  # noqa: N803
                       ) -> Tuple[int, int]:
-    """K3's split of the S cache rows of each (b, h): (c, n_split), splits
-    [i c, i c + c) for i < n_split.  From the shapes alone, never from
-    n_past, so the call makes no host sync.  c is a power-of-two multiple of
-    the 64-key tile, the largest whose grid of B·H·n_split blocks holds at
-    least 1.5× the SM count (about two waves), or 64 where S does not allow
-    that many: 16 splits of 128 at GPT-J B=1 on 132 SMs, 8 of 256 at
-    Pythia-12B's 40 heads."""
+    """K3's and K5's split of the S cache rows of each (b, h): (c,
+    n_split), splits [i c, i c + c) for i < n_split.  From the shapes alone,
+    never from n_past, so the call makes no host sync.  c is a power-of-two
+    multiple of the 64-key tile, the largest whose grid of B·H·n_split
+    blocks holds at least 1.5× the SM count (about two waves), or 64 where S
+    does not allow that many: 16 splits of 128 at GPT-J B=1 on 132 SMs, 8 of
+    256 at Pythia-12B's 40 heads, 2 of 1024 for the B=8 serving step."""
     c = _SPLIT_TILE
     while c < S:
         c *= 2
@@ -111,7 +114,7 @@ def _sm_count(index: int) -> int:
 
 
 def _load_width(Dp: int, tensors) -> int:  # noqa: N803
-    """K3's load width in bytes: the largest power of two up to 16 that
+    """K3/K5's load width in bytes: the largest power of two up to 16 that
     divides Dp and every cache address, so each row chunk is one aligned
     load."""
     w = 16
@@ -187,6 +190,9 @@ def _check(what, q, k_store, v_store, il, n_past, slopes, fresh_rows=None):
             raise ValueError(f"{what}: {name} on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+        if t.requires_grad:
+            raise ValueError(f"{what}: the kernel has no backward, and {name} "
+                             "needs a gradient")
     B, H, D = q.shape  # noqa: N806
     L, B2, H2, S, Dp = k_q.shape  # noqa: N806
     packed4 = k_q.dtype == torch.uint8
@@ -222,6 +228,22 @@ def _check(what, q, k_store, v_store, il, n_past, slopes, fresh_rows=None):
     return packed4, B, H, S, D
 
 
+def _split_scratch(what, qb, k_store, v_store,
+                   B, H, S, D, packed4):  # noqa: N803
+    """The split plan, load width, partials scratch and output of a K3 or
+    K5 launch (both share pass 1 and the combine)."""
+    Dp = D // 2 if packed4 else D  # noqa: N806
+    w = _load_width(Dp, (k_store[0], v_store[0]))
+    if Dp // w > 256:
+        raise ValueError(f"{what}: the cache's addresses allow only {w}-byte "
+                         f"loads of {Dp}-byte rows")
+    c, n_split = decode_split_plan(B, H, S, _sm_count(qb.device.index or 0))
+    part = torch.empty((B, H, n_split, D + 2), dtype=torch.float32,
+                       device=qb.device)
+    out = torch.empty((B, H, D), dtype=torch.float32, device=qb.device)
+    return c, n_split, w, part, out
+
+
 def decode_attention_q(q: torch.Tensor, k_store: Store, v_store: Store,
                        il: int, n_past: torch.Tensor, *, scale: float,
                        slopes: Optional[torch.Tensor] = None
@@ -230,18 +252,12 @@ def decode_attention_q(q: torch.Tensor, k_store: Store, v_store: Store,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_store, v_store, il, n_past,
                                       scale=scale, slopes=slopes)
+    what = "decode_attention_q"
     qb = q.to(torch.bfloat16).contiguous()
     packed4, B, H, S, D = _check(  # noqa: N806
-        "decode_attention_q", qb, k_store, v_store, il, n_past, slopes)
-    Dp = D // 2 if packed4 else D  # noqa: N806
-    w = _load_width(Dp, (k_store[0], v_store[0]))
-    if Dp // w > 256:
-        raise ValueError("decode_attention_q: the cache's addresses allow "
-                         f"only {w}-byte loads of {Dp}-byte rows")
-    c, n_split = decode_split_plan(B, H, S, _sm_count(q.device.index or 0))
-    part = torch.empty((B, H, n_split, D + 2), dtype=torch.float32,
-                       device=q.device)
-    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+        what, qb, k_store, v_store, il, n_past, slopes)
+    c, n_split, w, part, out = _split_scratch(what, qb, k_store, v_store, B,
+                                              H, S, D, packed4)
     p = _build.ptr
     _build.launch("decode_attention", "decode_attention_launch", _ARGS,
                   p(qb), p(k_store[0]), p(k_store[1]), p(v_store[0]),
@@ -262,18 +278,20 @@ def decode_attention_fresh(q: torch.Tensor, k_store: Store, v_store: Store,
         return decode_attention_fresh_plain(q, k_store, v_store, il, n_past,
                                             fresh_rows, scale=scale,
                                             slopes=slopes)
+    what = "decode_attention_fresh"
     qb = q.to(torch.bfloat16).contiguous()
     rows = tuple(r.contiguous() for r in fresh_rows)
     packed4, B, H, S, D = _check(  # noqa: N806
-        "decode_attention_fresh", qb, k_store, v_store, il, n_past, slopes,
-        rows)
-    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+        what, qb, k_store, v_store, il, n_past, slopes, rows)
+    c, n_split, w, part, out = _split_scratch(what, qb, k_store, v_store, B,
+                                              H, S, D, packed4)
     p = _build.ptr
     _build.launch("decode_attention_fresh", "decode_attention_fresh_launch",
                   _FRESH_ARGS, p(qb), p(k_store[0]), p(k_store[1]),
                   p(v_store[0]), p(v_store[1]), p(n_past), p(slopes),
-                  *(p(r) for r in rows), p(out), int(packed4), int(il), B, H,
-                  S, D, float(scale), _build.stream_ptr(q.device))
+                  *(p(r) for r in rows), p(part), p(out), int(packed4),
+                  int(il), B, H, S, D, c, n_split, w, float(scale),
+                  _build.stream_ptr(q.device))
     return out
 
 

@@ -5,7 +5,8 @@ grouped-integer math of ``_kernel_ps_giw`` / ``_kernel_ps_gi[_bias]``.
 K2 ``q4_matmul_ps`` (csrc/q4_matmul_ps.cu): n <= 128 rows, the per-element
 dequant math of ``_kernel_ps[_bias]``: planes (v - 8)·s rounded to bf16 (x
 too) or kept in f32, as ``round_planes`` says (ops/matmul.py decides it
-from the math).
+from the math).  A GEMV at n <= 8, tensor cores at 9-128 rows with bf16
+planes, f32 FMA tiles at 9-128 rows with f32 planes.
 K9 ``q4_matmul_i`` and K10 ``q4_matmul_stacked`` (csrc/q4_matmul_i.cu): the
 interleaved ("i") layout of ``_kernel`` and ``_kernel_stacked``, n <= 128;
 K10 picks layer ``il`` (an int32 device tensor) of a stacked [L, K/2, O]
@@ -40,7 +41,8 @@ from vsim_tpu_torch.quant.q4 import QK
 GEMV_MAX_ROWS = 8
 MATMUL_MAX_ROWS = 128
 MLP_MAX_ROWS = 8
-_GEMV_TILE_O = 1024  # output columns per K1 / K9 / K10 block
+_GEMV_TILE_O = 1024  # output columns per K1 / K2 (n <= 8) / K9 / K10 block
+_MMA_TILE_O = 128  # output columns per block of K2's tensor-core instance
 _I_ROWS = 8  # x rows per K9 / K10 block (csrc/q4_matmul_i.cu kMaxRows)
 _MLP_BFH = 64  # K11: F columns per plane per block (csrc/q4_mlp_ps.cu)
 
@@ -52,7 +54,7 @@ MLP_ACTS = {"gelu_tanh": 0, "relu": 1, "gelu_exact": 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _GEMV_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-_MATMUL_ARGS = (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P)
+_MATMUL_ARGS = (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 _I_ARGS = (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 _STACKED_ARGS = (_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _MLP_ARGS = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
@@ -303,6 +305,21 @@ def q4_gemv_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def q4_matmul_ps_splits(n: int, K: int, O: int,  # noqa: N803
+                        round_planes: bool, sm_count: int) -> int:
+    """K2's split of K in whole 64-value groups (32 packed rows of each
+    plane), from the shapes and the contract alone: as many splits of the
+    column tiles (1024 columns for the GEMV at n <= 8, 128 for the
+    tensor-core instance) as fill two blocks an SM without starting a
+    second wave, one block an SM for the tensor cores past 32 rows (where
+    the partials would outweigh the weight); none for the f32 FMA tiles."""
+    if n > GEMV_MAX_ROWS and not round_planes:
+        return 1
+    tile = _GEMV_TILE_O if n <= GEMV_MAX_ROWS else _MMA_TILE_O
+    blocks = sm_count * (2 if n <= 32 else 1)
+    return max(1, min(K // (2 * QK), blocks // -(-O // tile)))
+
+
 def q4_matmul_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                  bias: Optional[torch.Tensor],
                  round_planes: bool) -> torch.Tensor:
@@ -310,14 +327,22 @@ def q4_matmul_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     rounded to bf16 when ``round_planes``."""
     if x.device.type == "cpu":
         return q4_matmul_ps_plain(x, packed, scales, bias, round_planes)
+    what = "q4_matmul_ps"
     n, K, O = _check(x, packed, scales, bias, MATMUL_MAX_ROWS,  # noqa: N806
-                     (torch.bfloat16, torch.float32), "q4_matmul_ps")
+                     (torch.bfloat16, torch.float32), what)
+    if n <= GEMV_MAX_ROWS:
+        _check_quads(what, O, packed, scales)
+    splits = q4_matmul_ps_splits(n, K, O, round_planes,
+                                 _sm_count(x.device.index))
     out = torch.empty((n, O), dtype=torch.float32, device=x.device)
-    _build.launch("q4_matmul_ps", "q4_matmul_ps_launch", _MATMUL_ARGS,
+    partial = (torch.empty((splits, n, O), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    _build.launch(what, "q4_matmul_ps_launch", _MATMUL_ARGS,
                   _build.ptr(x), int(x.dtype == torch.bfloat16),
                   int(round_planes), _build.ptr(packed),
-                  _build.ptr(scales), _build.ptr(bias), _build.ptr(out),
-                  n, K, O, _build.stream_ptr(x.device))
+                  _build.ptr(scales), _build.ptr(bias), _build.ptr(partial),
+                  _build.ptr(out), n, K, O, splits,
+                  _build.stream_ptr(x.device))
     return out
 
 
