@@ -18,7 +18,16 @@ Phases, each fatal on failure:
      PyTorch version on the card (K2-K5 also against a second run of
      themselves, bit for bit), its device time (CUDA events, the calls held
      back to back) beside its bound and a PyTorch yardstick the port never
-     calls (K2-K5 rows are printed with their ratio to it);
+     calls (K2-K5 rows are printed with their ratio to it); then the lab's
+     path, the five lab entry points' ``run`` (vsim_tpu_torch/tools): K12
+     under every dequant math at GPT-J-6B's five Q4 weight shapes at n = 1
+     and 8, K13 (a per-column read of every byte) in both layouts with
+     K9, K1 and K2 beside it at every Q4 weight shape of GPT-J-6B and
+     Pythia-12B at n = 1, the
+     tools' own defaults, and K14; each tool holds every variant against
+     its plain version (K12 and K13 also against a second run, bit for
+     bit) and raises on a miss; prints each math's GB/s by shape and each
+     shape's K13 rate with K9's, K1's and K2's share of it;
   3. InferenceEngine on GPT-J-6B at full width (28 layers, random Q4
      weights from seed 0, bf16 compute) with int8 and with int4 KV, serving
      prompts of 8, 100 and 300 tokens (64 new tokens, greedy) and one
@@ -54,7 +63,8 @@ Phases, each fatal on failure:
      run, K10 on layer 35 of the stacked engine's own weights is held
      against its plain version.
 Each path's launch counts are set to 0 just before it runs and read just
-after.  Prints a JSON line {"kernels": [...]} and, last, the device line.
+after (the lab's too: K12-K14 launch only there).  Prints the run's total
+seconds, a JSON line {"kernels": [...]} (K1-K14) and, last, the device line.
 Details go to build/chip_smoke.json.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
 """
@@ -72,6 +82,12 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+try:
+    from vsim_tpu_torch.timing import UNHELD, rel_err, rotation, timed
+except ImportError as exc:  # outside a checkout, or without PyTorch
+    print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
+    sys.exit(1)
 
 # Tolerances, relative to max|plain| on the same inputs.
 TOL_Q4 = 1e-4     # K1/K2: only the order of the f32 sums differs
@@ -99,10 +115,6 @@ TOL_LOGITS_BF16 = 5e-2
 PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12),
          "H100": (3.35e12, 989e12, 67e12),
          "H200": (4.8e12, 989e12, 67e12)}
-# Cycles per second that sizes timed()'s spin: at or above the SM clock
-# (H100 boost 1.98 GHz), so the spin lasts at least as long as asked.
-SPIN_HZ = 2.0e9
-UNHELD = [0]  # timed() calls whose spin ended before the calls were queued
 
 
 def fail(msg: str) -> None:
@@ -117,57 +129,9 @@ def card_peaks(name: str):
     fail(f"no peak table for card {name!r}")
 
 
-def timed(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device ms per call of fn(), from CUDA events around ``reps`` calls
-    that the host enqueues while a spin kernel holds the stream, so they
-    run back to back on the card.  Events around calls on a free stream
-    would time the host's launches instead, which take longer than a small
-    kernel runs.  The spin is sized from the host's own enqueue time; a
-    call that waits on the host cannot be held, and its time then includes
-    the host's gaps (counted in ``UNHELD``)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_s = time.perf_counter() - a
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    for spin_s in (2 * host_s + 2e-3, 8 * host_s + 20e-3):
-        torch.cuda._sleep(int(spin_s * SPIN_HZ))
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        held = not start.query()  # the spin still ran when all were queued
-        torch.cuda.synchronize()
-        if held:
-            break
-    else:
-        UNHELD[0] += 1
-    return start.elapsed_time(end) / reps
-
-
-def rel_err(got, ref) -> tuple:
-    d = (got.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
-    return d, d / max(scale, 1e-30)
-
-
 # ---------------------------------------------------------------------------
 # phase 2: kernels
 # ---------------------------------------------------------------------------
-
-
-def _rotation(make, nbytes: int):
-    """Enough copies of the inputs that a timed loop cycles through more
-    than the 50 MB L2 (the decode step reads each weight cold)."""
-    n = max(1, math.ceil(200e6 / max(nbytes, 1)))
-    return [make(i) for i in range(min(n, 16))]
 
 
 def phase_kernels(peaks):
@@ -231,7 +195,7 @@ def phase_kernels(peaks):
         for sname, K, O, has_bias in shapes:
             w0 = q4_weight(K, O, K + O)
             wbytes = w0.nbytes
-            ws = _rotation(lambda i: q4_weight(K, O, K + O + i), wbytes)
+            ws = rotation(lambda i: q4_weight(K, O, K + O + i), wbytes)
             ws[0] = w0
             x = torch.randn((n, K), generator=g, device=dev).to(xdt)
             bias = (torch.randn((O,), generator=g, device=dev)
@@ -608,7 +572,7 @@ def q4_layout_rows(peaks, bound, q4_weight):
         """``round_planes``: bf16 planes (bf16 peak and yardstick) or f32;
         ``planes`` names them in the shape (K1's "gi": integer sums)."""
         w0 = make(0)
-        ws = _rotation(make, w0.nbytes)
+        ws = rotation(make, w0.nbytes)
         ws[0] = w0
         x = torch.randn((n, K), generator=g, device=dev).to(xdt)
         bias = torch.randn((O,), generator=g, device=dev) if has_bias else None
@@ -716,7 +680,7 @@ def q4_layout_rows(peaks, bound, q4_weight):
 
         pair0 = make(0)
         nb = pair0[0].nbytes + pair0[1].nbytes
-        pairs = _rotation(make, nb)
+        pairs = rotation(make, nb)
         pairs[0] = pair0
         x = torch.randn((n, E), generator=g, device=dev).to(torch.bfloat16)
         bfc = torch.randn((Fd,), generator=g, device=dev) * 0.1
@@ -854,6 +818,108 @@ def pythia_attention_rows(peaks, bound):
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2, the lab: K12-K14 through the five lab entry points
+# ---------------------------------------------------------------------------
+
+# GPT-J-6B's Q4 weights (name, K, O): the lm head's vocabulary padded to 51200
+GPTJ_SHAPES = (("qkv", 4096, 12288), ("wo", 4096, 4096), ("fc", 4096, 16384),
+               ("proj", 16384, 4096), ("lm_head", 4096, 51200))
+LAB_KERNELS = ("q4_lab_gemv", "q4_lab_dma", "pair_bitcast")
+
+
+def phase_labs(peaks):
+    """The lab's path: the five tools' ``run`` as a user calls them, each
+    holding every variant against its plain version (and K12/K13 against a
+    second run, bit for bit) before timing it.  K12 under every math at
+    GPT-J-6B's five weight shapes at n = 1 and 8, K13 and K1/K2/K9 at every
+    Q4 weight shape of GPT-J-6B and Pythia-12B at n = 1, the tools'
+    defaults, and K14.  Returns (rows, launch counts of the path)."""
+    import torch
+
+    from vsim_tpu_torch.ops import _build
+    from vsim_tpu_torch.tools import (gi_sweep, kernel_lab, pair_lab,
+                                      pair_probe, pair_sweep)
+
+    rows = []
+
+    def tag(label, got):
+        for r in got:
+            r["shape"] = f"{label} {r['shape']}"
+            r["bound_ms"], r["bound_by"] = lab_bound(peaks, r["nbytes"],
+                                                     r["ops"], r["peak"])
+        rows.extend(got)
+
+    _build.reset_launch_counts()
+    for sname, K, O in GPTJ_SHAPES:  # noqa: N806
+        for n in (1, 8):
+            tag(f"gpt-j-6b {sname}", kernel_lab.run(n, (O, K)))
+            tag(f"gpt-j-6b {sname}", pair_lab.run(n, (O, K)))
+            tag(f"gpt-j-6b {sname}", pair_sweep.run(n, (O, K), ("pairC",)))
+        tag(f"gpt-j-6b {sname}", gi_sweep.run(1, (O, K)))
+    for sname, (K, O, _) in PYTHIA_SHAPES.items():  # noqa: N806
+        tag(f"pythia-12b {sname}", kernel_lab.run(1, (O, K), ("dma", "cur")))
+        tag(f"pythia-12b {sname}", gi_sweep.run(1, (O, K)))
+    for tool in (kernel_lab, pair_lab, pair_sweep):
+        tag(f"{tool.__name__.rsplit('.', 1)[1]} default", tool.run())
+    for stage in pair_probe.STAGES:
+        tag("pair_probe", pair_probe.run(stage))
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    missing = [k for k in LAB_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"the lab path launched no {missing}")
+    _build.reset_launch_counts()
+    return rows, launches
+
+
+def lab_bound(peaks, nbytes, ops, peak):
+    """(the least ms the card could take, "bytes" or "operations")."""
+    bw, bf16_peak, f32_peak = peaks
+    t_b = nbytes / bw * 1e3
+    t_o = ops / (bf16_peak if peak == "bf16" else f32_peak) * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def lab_summary(rows, peaks):
+    """Lines: each math's GB/s by GPT-J-6B shape at n = 1 and 8; each Q4
+    weight shape's K13 rate (both layouts) and K9's, K1's and
+    K2's share of it at n = 1."""
+    from vsim_tpu_torch.ops.q4_lab import LAB_MATHS
+
+    def pick(label, tool, variant, n):
+        for r in rows:
+            if (r["shape"].startswith(label + " ") and r["tool"] == tool
+                    and r["variant"] == variant and r["n"] == n):
+                return r
+        return None
+
+    lines = []
+    for n in (1, 8):
+        for math in ("dma",) + LAB_MATHS:
+            tool = ("pair_sweep" if math == "pairC" else "pair_lab"
+                    if math in ("f32b", "pairA", "pairB") else "kernel_lab")
+            rates = []
+            for sname, _, _ in GPTJ_SHAPES:
+                r = pick(f"gpt-j-6b {sname}", tool, math, n)
+                rates.append(f"{sname} {r['gbs']:.0f}")
+            lines.append(f"  lab {math} n={n} GB/s: " + ", ".join(rates))
+    shapes = ([("gpt-j-6b", s, K, O) for s, K, O in GPTJ_SHAPES]
+              + [("pythia-12b", s, K, O)
+                 for s, (K, O, _) in PYTHIA_SHAPES.items()])
+    for model, sname, K, O in shapes:  # noqa: N806
+        label = f"{model} {sname}"
+        di, dp = (pick(label, t, "dma", 1) for t in ("kernel_lab", "gi_sweep"))
+        k9, k2, k1 = (pick(label, t, v, 1) for t, v in (
+            ("kernel_lab", "cur"), ("gi_sweep", "gi"), ("gi_sweep", "giw")))
+        lines.append(
+            f"  K13 rate {label} {K}->{O}: K13 i {di['gbs']:.0f} GB/s, "
+            f"ps {dp['gbs']:.0f} GB/s ({di['gbs'] / (peaks[0] / 1e9):.2f} "
+            f"of nominal); K9 {k9['vs_dma']:.2f}, K1 {k1['vs_dma']:.2f}, "
+            f"K2 {k2['vs_dma']:.2f} of it")
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -1604,6 +1670,12 @@ KERNEL_META = {
     "q4_mlp_ps": ("vsim_tpu_torch/csrc/q4_mlp_ps.cu",
                   "vsim_tpu/ops/pallas_q4.py:679",
                   "pythia-12b E=5120 F=20480 gelu_exact n=1"),
+    "q4_lab_gemv": ("vsim_tpu_torch/csrc/q4_lab.cu", "tools/kernel_lab.py:489",
+                    "gpt-j-6b fc u16 n=1 4096->16384"),
+    "q4_lab_dma": ("vsim_tpu_torch/csrc/q4_lab.cu", "tools/kernel_lab.py:489",
+                   "gpt-j-6b fc dma n=1 4096->16384"),
+    "pair_bitcast": ("vsim_tpu_torch/csrc/q4_lab.cu", "tools/pair_probe.py:53",
+                     "pair_probe probe bitcast KH=256 O=256"),
 }
 ROW_KERNEL = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
               "decode_attention_q": "decode_attention",
@@ -1614,7 +1686,8 @@ ROW_KERNEL = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
               "flash_attention_bwd_dkv": "flash_attention_bwd_dkv",
               "q4_matmul_i": "q4_matmul_i",
               "q4_matmul_stacked": "q4_matmul_stacked",
-              "q4_mlp_ps": "q4_mlp_ps"}
+              "q4_mlp_ps": "q4_mlp_ps", "q4_lab_gemv": "q4_lab_gemv",
+              "q4_lab_dma": "q4_lab_dma", "pair_bitcast": "pair_bitcast"}
 
 
 def kernel_line(rows, launches):
@@ -1637,6 +1710,7 @@ def kernel_line(rows, launches):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "vsim_tpu_torch")):
         fail("vsim_tpu_torch/ is missing: run from a checkout of the repo")
     try:
@@ -1645,7 +1719,6 @@ def main() -> None:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    sys.path.insert(0, HERE)
     from vsim_tpu_torch.ops import _build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1671,6 +1744,13 @@ def main() -> None:
                   f"{r['bound_ms']:.2g}, plain {r['plain_ms']:.4g}, library "
                   f"{r['library_ms']:.4g} ({r['ms'] / r['library_ms']:.2f}x)",
                   flush=True)
+    t0 = time.perf_counter()
+    lab_rows, lab_launches = phase_labs(peaks)
+    print(f"lab phase: {len(lab_rows)} cases pass in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for line in lab_summary(lab_rows, peaks):
+        print(line, flush=True)
+    rows += lab_rows
     t0 = time.perf_counter()
     model, launches, cfg, params = phase_model(peaks)
     print(f"InferenceEngine in {time.perf_counter() - t0:.1f} s: "
@@ -1716,6 +1796,7 @@ def main() -> None:
         total.update(counts)
     total.update(train_launches)
     total.update(pythia_total)
+    total.update(lab_launches)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernel_rows=rows, model=model,
@@ -1723,8 +1804,11 @@ def main() -> None:
                        launches_serving=serve_launches, card_vs_cpu=vs_cpu,
                        training=training, pythia=pythia,
                        launches_pythia=pythia_launches,
+                       launches_labs=lab_launches,
                        timings_unheld=UNHELD[0], ptxas=reports), f,
                   indent=1)
+    print(f"chip_smoke: all phases pass in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernel_line(rows, total)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

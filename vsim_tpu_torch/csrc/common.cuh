@@ -100,3 +100,43 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
 }
+
+// ---------------------------------------------------------------------------
+// Q4 dequant steps (K2, K12)
+// ---------------------------------------------------------------------------
+
+// nibble v of byte j of w (0 <= v < 16) as the float v - 8, exactly
+template <int J>
+__device__ __forceinline__ float nib_f(uint32_t w) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 + J)) - 8388616.f;
+}
+
+// f32 -> bf16 -> f32 for two values (cvt.rn: round to nearest even)
+__device__ __forceinline__ void round2_bf16(float& a, float& b) {
+  const uint32_t r = pack_bf16(a, b);
+  a = __uint_as_float(r << 16);
+  b = __uint_as_float(r & 0xFFFF0000u);
+}
+
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// The contract's round((v - 8) s) for the nibbles of bytes J, J + 1 of
+// ``nib`` (each v < 16) and their scale pair s2, as a bf16 pair, two weights
+// an instruction: bf16 128 + v is the byte under exponent 0x43; minus 136
+// is v - 8 exactly; times s is exact before its one rounding (fma with -0).
+template <int J>
+__device__ __forceinline__ uint32_t dequant_bf16x2(uint32_t nib, uint32_t s2) {
+  const uint32_t u = __byte_perm(nib, 0x43u, J == 0 ? 0x4140 : 0x4342);
+  return fma_bf16x2(fma_bf16x2(u, 0x3F803F80u, 0xC308C308u), s2, 0x80008000u);
+}
+
+// bf16 pair -> its two floats
+__device__ __forceinline__ void unpack_bf16x2(uint32_t p, float& a, float& b) {
+  a = __uint_as_float(p << 16);
+  b = __uint_as_float(p & 0xFFFF0000u);
+}

@@ -1,0 +1,112 @@
+// The read designs K13 (q4_lab.cu) is held against, timed by
+// vsim_tpu_torch/tools/read_designs.py.  They replace no TPU kernel and no
+// path runs them.
+//
+// read_flat: every 16-byte word of the packed bytes and of the scales in one
+// grid-stride loop, 8 words in flight a thread, summed without regard to
+// columns (u8 bytes by dp4a, bf16 bit patterns as u16) into two u64 totals:
+// the card's read of a Q4 weight's bytes, with the least work a byte.
+//
+// read_spans<TWC>: K13's per-column checksum (column_sums.cuh) with 512
+// threads a block instead of 256, whose TWC threads a row read TWC x 16
+// contiguous bytes of it (512 bytes to 8 KB), 512 / TWC rows at a time.
+#include "column_sums.cuh"
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 512;
+
+__global__ void __launch_bounds__(kThreads)
+read_flat_kernel(const uint4* __restrict__ p, long long np,
+                 const uint4* __restrict__ s, long long ns,
+                 unsigned long long* __restrict__ totals) {
+  unsigned ap = 0u, as = 0u;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  auto add = [&](const uint4 v) {
+    ap = __dp4a(v.x, 0x01010101u, ap);
+    ap = __dp4a(v.y, 0x01010101u, ap);
+    ap = __dp4a(v.z, 0x01010101u, ap);
+    ap = __dp4a(v.w, 0x01010101u, ap);
+  };
+  for (; i + 7 * stride < np; i += 8 * stride) {
+    uint4 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = __ldg(p + i + k * stride);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) add(v[k]);
+  }
+  for (; i < np; i += stride) add(__ldg(p + i));
+  for (i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < ns;
+       i += stride) {
+    const uint4 v = __ldg(s + i);
+    as += (v.x & 0xFFFFu) + (v.x >> 16) + (v.y & 0xFFFFu) + (v.y >> 16) +
+          (v.z & 0xFFFFu) + (v.z >> 16) + (v.w & 0xFFFFu) + (v.w >> 16);
+  }
+  for (int o = 16; o; o >>= 1) {
+    ap += __shfl_xor_sync(0xffffffffu, ap, o);
+    as += __shfl_xor_sync(0xffffffffu, as, o);
+  }
+  __shared__ unsigned long long part[2][kThreads / 32];
+  if (threadIdx.x % 32 == 0) {
+    part[0][threadIdx.x / 32] = ap;
+    part[1][threadIdx.x / 32] = as;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    unsigned long long t = 0;
+    for (int w = 0; w < kThreads / 32; ++w) t += part[threadIdx.x][w];
+    atomicAdd(totals + threadIdx.x, t);
+  }
+}
+
+template <int TWC>
+__global__ void __launch_bounds__(kThreads)
+read_spans_kernel(const uint8_t* __restrict__ packed,   // [K/2, O]
+                  const uint16_t* __restrict__ scales,  // [K/32, O]
+                  int* __restrict__ checksum,           // [2, O], zeroed
+                  int K, int O) {
+  __shared__ __align__(16) int red[kThreads * 16];
+  checksum_share<kThreads, TWC>(packed, scales, checksum, K, O, blockIdx.x, gridDim.x,
+                                red);
+}
+
+}  // namespace
+
+// totals [2] u64: the sum of the packed bytes, of the scales' bit patterns.
+extern "C" int read_flat_launch(const void* packed, long long packed_bytes,
+                                const void* scales, long long scale_bytes,
+                                void* totals, int blocks, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (packed_bytes % 16 || scale_bytes % 16 || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(totals, 0, 2 * sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  read_flat_kernel<<<blocks, kThreads, 0, s>>>(
+      static_cast<const uint4*>(packed), packed_bytes / 16,
+      static_cast<const uint4*>(scales), scale_bytes / 16,
+      static_cast<unsigned long long*>(totals));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// checksum [2, O] int32, as K13's; span_bytes: 512, 2048, 4096 or 8192.
+extern "C" int read_spans_launch(const void* packed, const void* scales,
+                                 void* checksum, int K, int O, int span_bytes,
+                                 int blocks, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (K % 32 || O % 16 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(checksum, 0, sizeof(int) * 2 * O, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto p = static_cast<const uint8_t*>(packed);
+  auto sc = static_cast<const uint16_t*>(scales);
+  auto c = static_cast<int*>(checksum);
+  switch (span_bytes) {
+    case 512: read_spans_kernel<32><<<blocks, kThreads, 0, s>>>(p, sc, c, K, O); break;
+    case 2048: read_spans_kernel<128><<<blocks, kThreads, 0, s>>>(p, sc, c, K, O); break;
+    case 4096: read_spans_kernel<256><<<blocks, kThreads, 0, s>>>(p, sc, c, K, O); break;
+    case 8192: read_spans_kernel<512><<<blocks, kThreads, 0, s>>>(p, sc, c, K, O); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
