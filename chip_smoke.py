@@ -26,8 +26,17 @@ Phases, each fatal on failure:
      Pythia-12B at n = 1, the
      tools' own defaults, and K14; each tool holds every variant against
      its plain version (K12 and K13 also against a second run, bit for
-     bit) and raises on a miss; prints each math's GB/s by shape and each
-     shape's K13 rate with K9's, K1's and K2's share of it;
+     bit) and raises on a miss; kernel_lab also runs K12's "res", "w32"
+     and "ps" layouts there; decode_lab runs K12's stacked "v2" layout
+     beside K10 and K9 on GPT-J-6B's four stacked groups (L = 28) at n = 1
+     and 8; batch_lab runs K15 (three maths, two geometries) and K13's
+     batch touches at GPT-J-6B's four shapes at n = 64 and 128 and
+     Pythia-12B's at n = 64; attn_lab runs K16 (vpu3d, mxu) beside K3 and
+     the einsum route over a whole L-layer int8 cache for GPT-J-6B at
+     B=32 x 128 and B=8 x 2048 and Pythia-12B at B=1 x 2048; prints each
+     math's GB/s by shape, each shape's K13 rate with K9's, K1's and K2's
+     share of it, each batch_lab variant's GB/s by shape and each
+     attn_lab configuration's ms a pass;
   3. InferenceEngine on GPT-J-6B at full width (28 layers, random Q4
      weights from seed 0, bf16 compute) with int8 and with int4 KV, serving
      prompts of 8, 100 and 300 tokens (64 new tokens, greedy) and one
@@ -63,8 +72,8 @@ Phases, each fatal on failure:
      run, K10 on layer 35 of the stacked engine's own weights is held
      against its plain version.
 Each path's launch counts are set to 0 just before it runs and read just
-after (the lab's too: K12-K14 launch only there).  Prints the run's total
-seconds, a JSON line {"kernels": [...]} (K1-K14) and, last, the device line.
+after (the lab's too: K12-K16 launch only there).  Prints the run's total
+seconds, a JSON line {"kernels": [...]} (K1-K16) and, last, the device line.
 Details go to build/chip_smoke.json.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
 """
@@ -827,23 +836,35 @@ def pythia_attention_rows(peaks, bound):
 # GPT-J-6B's Q4 weights (name, K, O): the lm head's vocabulary padded to 51200
 GPTJ_SHAPES = (("qkv", 4096, 12288), ("wo", 4096, 4096), ("fc", 4096, 16384),
                ("proj", 16384, 4096), ("lm_head", 4096, 51200))
-LAB_KERNELS = ("q4_lab_gemv", "q4_lab_dma", "pair_bitcast")
+LAB_KERNELS = ("q4_lab_gemv", "q4_lab_dma", "pair_bitcast", "q4_batch_lab",
+               "attn_lab")
+# attn_lab's configurations: (model, B, kv_len): the TPU tool's default,
+# phase 4's slot count and context, Pythia-12B's B=1 chat at full context
+ATTN_LAB_CASES = (("gpt-j-6b", 32, 128), ("gpt-j-6b", 8, 2048),
+                  ("pythia-12b", 1, 2048))
 
 
 def phase_labs(peaks):
-    """The lab's path: the five tools' ``run`` as a user calls them, each
-    holding every variant against its plain version (and K12/K13 against a
-    second run, bit for bit) before timing it.  K12 under every math at
-    GPT-J-6B's five weight shapes at n = 1 and 8, K13 and K1/K2/K9 at every
-    Q4 weight shape of GPT-J-6B and Pythia-12B at n = 1, the tools'
-    defaults, and K14.  Returns (rows, launch counts of the path)."""
+    """The lab's path: the eight tools' ``run`` as a user calls them, each
+    holding every variant against its plain version (and K12/K13/K15/K16
+    against a second run, bit for bit) before timing it.  K12 under every
+    math and layout at GPT-J-6B's five weight shapes at n = 1 and 8, K13
+    and K1/K2/K9 at every Q4 weight shape of GPT-J-6B and Pythia-12B at
+    n = 1, the tools' defaults, and K14; K12's "v2" beside K10 and K9 on
+    GPT-J-6B's stacked groups at n = 1 and 8; K15 and K13's batch touches
+    at GPT-J-6B's four shapes at n = 64 and 128 and Pythia-12B's at 64; K16
+    beside K3 at ``ATTN_LAB_CASES``.  Returns (rows, launch counts of the
+    path)."""
     import torch
 
     from vsim_tpu_torch.ops import _build
-    from vsim_tpu_torch.tools import (gi_sweep, kernel_lab, pair_lab,
+    from vsim_tpu_torch.tools import (attn_lab, batch_lab, decode_lab,
+                                      gi_sweep, kernel_lab, pair_lab,
                                       pair_probe, pair_sweep)
 
     rows = []
+    seconds = collections.Counter()  # by tool
+    clock = [time.perf_counter()]
 
     def tag(label, got):
         for r in got:
@@ -851,6 +872,9 @@ def phase_labs(peaks):
             r["bound_ms"], r["bound_by"] = lab_bound(peaks, r["nbytes"],
                                                      r["ops"], r["peak"])
         rows.extend(got)
+        now = time.perf_counter()
+        seconds[got[0]["tool"]] += now - clock[0]
+        clock[0] = now
 
     _build.reset_launch_counts()
     for sname, K, O in GPTJ_SHAPES:  # noqa: N806
@@ -866,7 +890,17 @@ def phase_labs(peaks):
         tag(f"{tool.__name__.rsplit('.', 1)[1]} default", tool.run())
     for stage in pair_probe.STAGES:
         tag("pair_probe", pair_probe.run(stage))
+    for n in (1, 8):
+        tag("gpt-j-6b stacked", decode_lab.run(n))
+    for n in (64, 128):
+        tag("gpt-j-6b batch", batch_lab.run(n, batch_lab.SHAPES["gptj"]))
+    tag("pythia-12b batch", batch_lab.run(64, batch_lab.SHAPES["pythia12b"]))
+    for model, b, kv_len in ATTN_LAB_CASES:
+        tag("attn_lab", attn_lab.run(model, b, kv_len))
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print("lab path, seconds by tool: " + json.dumps(
+        {k: round(v, 1) for k, v in seconds.items()}), flush=True)
     launches = dict(_build.launch_counts)
     missing = [k for k in LAB_KERNELS if not launches.get(k)]
     if missing:
@@ -906,6 +940,39 @@ def lab_summary(rows, peaks):
                 r = pick(f"gpt-j-6b {sname}", tool, math, n)
                 rates.append(f"{sname} {r['gbs']:.0f}")
             lines.append(f"  lab {math} n={n} GB/s: " + ", ".join(rates))
+    for n in (1, 8):
+        for v in ("res", "w32", "ps"):
+            rates = []
+            for sname, _, _ in GPTJ_SHAPES:
+                r = pick(f"gpt-j-6b {sname}", "kernel_lab", v, n)
+                rates.append(f"{sname} {r['gbs']:.0f} ({r['vs_dma']:.2f}x "
+                             "dma)")
+            lines.append(f"  lab K12 {v} n={n} GB/s: " + ", ".join(rates))
+    stacked = [r for r in rows if r["tool"] == "decode_lab"]
+    for n, v in dict.fromkeys((r["n"], r["variant"]) for r in stacked):
+        calls = [f"{r['group']} {r['ms'] * 1e3:.1f} ({r['gbs']:.0f} GB/s)"
+                 for r in stacked if (r["n"], r["variant"]) == (n, v)]
+        lines.append(f"  decode_lab {v} n={n} us a call: " + ", ".join(calls))
+    for label, n in (("gpt-j-6b", 64), ("gpt-j-6b", 128),
+                     ("pythia-12b", 64)):
+        batch = [r for r in rows if r["tool"] == "batch_lab" and r["n"] == n
+                 and r["shape"].startswith(label + " ")]
+        for v in dict.fromkeys(r["variant"] for r in batch):
+            rates = [f"{r['K']}->{r['O']} {r['gbs']:.0f} ({r['ms']:.4f} ms, "
+                     f"{r['ms'] / r['bound_ms']:.1f}x bound)"
+                     for r in batch if r["variant"] == v]
+            lines.append(f"  batch_lab {label} {v} n={n} GB/s: "
+                         + ", ".join(rates))
+    for r in rows:
+        if r["tool"] == "attn_lab":
+            lines.append(f"  attn_lab {r['model']} B={r['B']} S={r['S']} "
+                         f"{r['variant']}: {r['ms']:.3f} ms a pass of "
+                         f"{r['L']} layers, {r['gbs']:.0f} GB/s on KV, bound "
+                         f"{r['bound_ms']:.3f}, library {r['library_ms']:.3f}"
+                         + ("" if r.get("vpu3d_err") is None else
+                            f", max|err| {r['max_abs_err']:.3g} against its "
+                            f"plain version, {r['vpu3d_err']:.3g} against "
+                            "vpu3d's"))
     shapes = ([("gpt-j-6b", s, K, O) for s, K, O in GPTJ_SHAPES]
               + [("pythia-12b", s, K, O)
                  for s, (K, O, _) in PYTHIA_SHAPES.items()])
@@ -1676,6 +1743,11 @@ KERNEL_META = {
                    "gpt-j-6b fc dma n=1 4096->16384"),
     "pair_bitcast": ("vsim_tpu_torch/csrc/q4_lab.cu", "tools/pair_probe.py:53",
                      "pair_probe probe bitcast KH=256 O=256"),
+    "q4_batch_lab": ("vsim_tpu_torch/csrc/q4_batch_lab.cu",
+                     "tools/batch_lab.py:174",
+                     "gpt-j-6b batch 2d/f32x n=64 4096->16384"),
+    "attn_lab": ("vsim_tpu_torch/csrc/attn_lab.cu", "tools/attn_lab.py:159",
+                 "attn_lab gpt-j-6b vpu3d L=28 B=32 H=16 D=256 S=128"),
 }
 ROW_KERNEL = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
               "decode_attention_q": "decode_attention",
@@ -1687,7 +1759,8 @@ ROW_KERNEL = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
               "q4_matmul_i": "q4_matmul_i",
               "q4_matmul_stacked": "q4_matmul_stacked",
               "q4_mlp_ps": "q4_mlp_ps", "q4_lab_gemv": "q4_lab_gemv",
-              "q4_lab_dma": "q4_lab_dma", "pair_bitcast": "pair_bitcast"}
+              "q4_lab_dma": "q4_lab_dma", "pair_bitcast": "pair_bitcast",
+              "q4_batch_lab": "q4_batch_lab", "attn_lab": "attn_lab"}
 
 
 def kernel_line(rows, launches):
@@ -1696,7 +1769,9 @@ def kernel_line(rows, launches):
     sums the launch counts of the driven paths."""
     out = []
     for name, (src, replaces, shape) in KERNEL_META.items():
-        mine = [r for r in rows if ROW_KERNEL[r["kernel"]] == name]
+        # attn_lab's einsum rows ran no kernel; any other name must be known
+        mine = [r for r in rows if r["kernel"] is not None
+                and ROW_KERNEL[r["kernel"]] == name]
         rep = [r for r in mine if r["shape"] == shape
                or r["shape"].startswith(shape + " ")]
         r = rep[0]

@@ -14,7 +14,12 @@ swapped for a namespace whose ``pallas_call`` passes ``interpret=True``).
     tiles in grid order) and checksum (exact integers) against
     kernel_lab's "dma" and gi_sweep.giw_dma, for both layouts, and the
     block_kh the TPU body cannot shape raising on both sides;
-  * K14 against pair_probe's k_bitcast, exactly.
+  * K14 against pair_probe's k_bitcast, exactly;
+  * K12's other operand layouts under f32x against kernel_lab.res_matmul,
+    w32_matmul and ps_matmul and decode_lab.v2_matmul (a stacked weight
+    of 3 layers, layer 1 read from a device index), at 1e-5 of max|JAX|,
+    with the port's own ``pack_w32`` and plane-split repack equal to the
+    tools' byte for byte.
 
 Every JAX call is compiled with XLA's excess precision off: the Pallas
 bodies round the planes to bf16 before the TPU's matrix unit takes them,
@@ -38,7 +43,8 @@ import pytest
 import torch
 
 from vsim_tpu_torch.ops import q4_lab
-from vsim_tpu_torch.quant.q4 import tensor_from_np
+from vsim_tpu_torch.quant.q4 import Q4Tensor, tensor_from_np, to_plane_split
+from vsim_tpu_torch.tools import decode_lab as t_decode_lab
 from vsim_tpu_torch.tools import gi_sweep as t_gi_sweep
 from vsim_tpu_torch.tools import kernel_lab as t_kernel_lab
 from vsim_tpu_torch.tools import pair_lab as t_pair_lab
@@ -66,7 +72,7 @@ def jx(monkeypatch):
     names = ("jax", "jax.numpy", "jax.experimental.pallas",
              "jax.experimental.pallas.tpu", "tools.gi_sweep",
              "tools.kernel_lab", "tools.pair_lab", "tools.pair_probe",
-             "tools.pair_sweep")
+             "tools.pair_sweep", "tools.decode_lab")
     m = types.SimpleNamespace(**{n.split(".")[-1]: importlib.import_module(n)
                                  for n in names})
     m.jnp, m.pltpu = m.numpy, m.tpu
@@ -74,7 +80,8 @@ def jx(monkeypatch):
                                     for k in dir(m.pallas)
                                     if not k.startswith("__")})
     shim.pallas_call = functools.partial(m.pallas.pallas_call, interpret=True)
-    for mod in (m.kernel_lab, m.pair_lab, m.pair_sweep, m.gi_sweep):
+    for mod in (m.kernel_lab, m.pair_lab, m.pair_sweep, m.gi_sweep,
+                m.decode_lab):
         monkeypatch.setattr(mod, "pl", shim)
     return m
 
@@ -216,6 +223,97 @@ def test_lab_dma_matches_jax(jx, layout, n, block_kh):
         .astype(np.int32)))
 
 
+def _layout_case(jx, layout, n):
+    """(JAX out, port out, (port weight, JAX weight) where repacked) for
+    K12's ``layout`` on numpy inputs."""
+    jnp = jx.jnp
+    packed, scales = _weight(seed=8)
+    x = _x(n, seed=9)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    sj = jnp.asarray(scales, jnp.bfloat16)
+    p, s, xt = _torch(packed, scales, x)
+    il = None
+    if layout == "res":
+        ref = _run(jx, jx.kernel_lab.res_matmul, xj[:, 0::2], xj[:, 1::2],
+                   jnp.asarray(packed), sj, block_o=BLOCK_O, chunk=BLOCK_KH)
+        w, pair = p, None
+    elif layout == "w32":
+        wj = jx.kernel_lab.pack_w32(packed)
+        ref = _run(jx, jx.kernel_lab.w32_matmul, xj[:, 0::2], xj[:, 1::2],
+                   jnp.asarray(wj), sj, block_o=BLOCK_O,
+                   block_kh=BLOCK_KH // 4, interpret=True)
+        w = q4_lab.pack_w32(p)
+        pair = (w, wj)
+    elif layout == "ps":
+        pj = jx.kernel_lab.pack_ps(packed)
+        ref = _run(jx, jx.kernel_lab.ps_matmul, xj, jnp.asarray(pj), sj,
+                   block_o=BLOCK_O, block_kh=BLOCK_KH, interpret=True)
+        w = to_plane_split(Q4Tensor(p, s, "i")).packed
+        pair = (w, pj)
+    else:  # a stack of 3 layers, layer 1
+        rng = np.random.default_rng(10)
+        stack = rng.integers(0, 256, (3, K // 2, O), dtype=np.uint8)
+        sstack = _bf16_np(rng.standard_normal((3, K // 32, O)) * 0.3)
+        ref = _run(jx, jx.decode_lab.v2_matmul, jnp.asarray([1], jnp.int32),
+                   xj, jnp.asarray(stack), jnp.asarray(sstack, jnp.bfloat16),
+                   block_o=BLOCK_O, block_kh=BLOCK_KH)
+        w, s, _ = _torch(stack, sstack)
+        il, pair = torch.tensor([1], dtype=torch.int32), None
+    got = q4_lab.q4_lab_gemv_layout(xt, w, s, layout, il)
+    return np.asarray(ref, np.float32), got, pair
+
+
+@pytest.mark.parametrize("n", [1, 8, 16])
+@pytest.mark.parametrize("layout", q4_lab.GEMV_LAYOUTS)
+def test_lab_gemv_layouts_match_jax(jx, layout, n):
+    ref, got, pair = _layout_case(jx, layout, n)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    err = np.abs(got.numpy() - ref).max()
+    assert err <= TOL * np.abs(ref).max(), (err, np.abs(ref).max())
+    if pair is not None:  # the port's repack is the tool's, byte for byte
+        assert np.array_equal(pair[0].numpy(), np.asarray(pair[1]))
+
+
+def test_lab_gemv_layouts_compute_f32x():
+    """Each layout is the "i" weight's f32x function, repacked or stacked
+    (the layer index clamped to the stack, as the kernel reads it)."""
+    packed, scales = _weight(seed=11)
+    p, s, x = _torch(packed, scales, _x(4, seed=12))
+    ref = q4_lab.q4_lab_gemv_plain(x, p, s, "f32x")
+    ps = to_plane_split(Q4Tensor(p, s, "i")).packed
+    stack = torch.stack([torch.zeros_like(p), p])
+    sstack = torch.stack([torch.zeros_like(s), s])
+    for layout, w, sc, il in (("res", p, s, None),
+                              ("w32", q4_lab.pack_w32(p), s, None),
+                              ("ps", ps, s, None),
+                              ("v2", stack, sstack,
+                               torch.tensor([1], dtype=torch.int32)),
+                              ("v2", stack, sstack,
+                               torch.tensor([7], dtype=torch.int32))):
+        got = q4_lab.q4_lab_gemv_layout(x, w, sc, layout, il)
+        assert (got - ref).abs().max() <= 1e-6 * ref.abs().max(), layout
+    assert torch.equal(q4_lab.unpack_w32(q4_lab.pack_w32(p)), p)
+
+
+def test_lab_gemv_layouts_raise_on_what_they_do_not_take():
+    packed, scales = _weight()
+    p, s, x = _torch(packed, scales, _x(8))
+    with pytest.raises(ValueError, match="layout"):
+        q4_lab.q4_lab_gemv_layout(x, p, s, "i")
+    with pytest.raises(ValueError, match="il"):
+        q4_lab.q4_lab_gemv_layout(x, p, s, "res",
+                                  torch.tensor([0], dtype=torch.int32))
+    with pytest.raises(ValueError, match="il"):
+        q4_lab.q4_lab_gemv_layout(x, p[None], s[None], "v2")
+    with pytest.raises(ValueError, match="weight"):
+        q4_lab.q4_lab_gemv_layout(x, p, s, "w32")
+    with pytest.raises(ValueError, match="rows"):
+        q4_lab.q4_lab_gemv_layout(torch.zeros((33, K), dtype=torch.bfloat16),
+                                  p, s, "ps")
+    with pytest.raises(ValueError, match="il must be"):
+        q4_lab.q4_lab_gemv_layout(x, p[None], s[None], "v2", 0)
+
+
 def _probe_call(jx, kernel, out_shape, *args):
     """pair_probe's pallas_call (pair_probe.py:53-58, :80-85), interpreted."""
     vmem = jx.pallas.BlockSpec(memory_space=jx.pltpu.VMEM)
@@ -293,6 +391,18 @@ def test_lab_entry_points_need_a_card_or_cpu(tool, monkeypatch):
                         for r in rows)
 
 
+def test_decode_lab_entry_point_needs_a_card_or_cpu(monkeypatch):
+    """v2 held against cur (one function) and each against its plain
+    version, on a 3-layer stack of every group at a small shape."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--n", "2", "--shape", "256,128", "--layers", "3"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_decode_lab.main(args)
+    rows = t_decode_lab.main(args + ["--device", "cpu"])
+    assert len(rows) == len(t_decode_lab.SHAPES) * len(t_decode_lab.VARIANTS)
+    assert all(r["ms"] is None and r["max_abs_err"] == 0.0 for r in rows)
+
+
 def test_read_designs_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -303,7 +413,9 @@ def test_read_designs_needs_a_card(monkeypatch):
 
 def test_lab_entry_points_raise_on_failure():
     with pytest.raises(ValueError, match="unknown variants"):
-        t_kernel_lab.run(2, (256, 128), ("dma", "res"), "cpu")
+        t_kernel_lab.run(2, (256, 128), ("dma", "i8f"), "cpu")
+    with pytest.raises(ValueError, match="unknown variants"):
+        t_decode_lab.run(1, ("wo",), ("v3",), "cpu", (256, 128), 2)
     with pytest.raises(ValueError, match="at most 8|rows"):
         t_gi_sweep.run(16, (256, 128), ("giw",), "cpu")
 
@@ -346,6 +458,36 @@ def test_lab_dma_on_card(card, layout, block_kh, n):
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert all(torch.equal(a, b) for a, b in zip(
         got, q4_lab.q4_lab_dma(x, p, s, layout, block_kh)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8, 16, 32])
+@pytest.mark.parametrize("layout", q4_lab.GEMV_LAYOUTS)
+def test_lab_gemv_layouts_on_card(card, layout, n):
+    packed, scales = _weight(seed=8)
+    p, s, x = (t.to(card) for t in _torch(packed, scales, _x(n)))
+    il = None
+    if layout == "w32":
+        p = q4_lab.pack_w32(p)
+    elif layout == "ps":
+        p = to_plane_split(Q4Tensor(p, s, "i")).packed
+    elif layout == "v2":
+        p, s = torch.stack([p.flip(0), p]), torch.stack([s.flip(0), s])
+        il = torch.tensor([1], dtype=torch.int32, device=card)
+    got = q4_lab.q4_lab_gemv_layout(x, p, s, layout, il)
+    ref = q4_lab.q4_lab_gemv_layout_plain(x, p, s, layout, il)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= q4_lab.TOL_LAB * ref.abs().max()
+    assert torch.equal(got, q4_lab.q4_lab_gemv_layout(x, p, s, layout, il))
+
+
+@pytest.mark.cuda
+def test_lab_gemv_v2_refuses_a_host_layer_index(card):
+    packed, scales = _weight()
+    p, s, x = (t.to(card) for t in _torch(packed, scales, _x(1)))
+    with pytest.raises(ValueError, match="il must be"):
+        q4_lab.q4_lab_gemv_layout(x, p[None], s[None], "v2",
+                                  torch.tensor([0], dtype=torch.int32))
 
 
 @pytest.mark.cuda

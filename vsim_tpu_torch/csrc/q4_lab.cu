@@ -32,6 +32,23 @@
 // split order (deterministic, no atomics).  pairC folds its correction into
 // the sums: after each group, acc += (-136 xs) s, with -136 xs exact in f32.
 //
+// K12 also computes four other operand layouts of kernel_lab and
+// decode_lab, each under f32x (bf16((v - 8) s)), the maths' shared
+// function: "res" (tools/kernel_lab.py:_k_res :225, res_matmul :259) is the
+// "i" instance launched with K never split, each block walking all of K for
+// its columns (the TPU's resident x has no counterpart at 16 rows of K =
+// 16384: x is staged slab by slab as for "i"); the other three are a
+// template parameter of the same skeleton: "w32" (_k_w32 :281, w32_matmul
+// :344) reads a [K/8, O] int32 weight whose word holds packed rows 4r' ..
+// 4r' + 3 of one column (pack_w32): a thread loads one 16-byte word row of
+// its 4 columns and byte-transposes it into four "i" rows; "ps" (_k_ps
+// :384, ps_matmul :439) reads the plane-split repack, byte c = elements c
+// and c + K/2, with raw x: the pair (x[c], x[K/2 + c]) and two scale rows
+// a group, c / 32 and K/64 + c / 32; "v2" (tools/decode_lab.py:_k_v2 :55,
+// v2_matmul :88) is a stacked "i" weight [L, K/2, O] whose layer the kernel
+// reads from an int32 on the device (clamped to [0, L), as K10 does), so a
+// call neither slices a layer nor syncs with the host.
+//
 // K13 replaces tools/kernel_lab.py:_k_dma (:58, "i" layout) and
 // tools/gi_sweep.py:_k_giw_dma (:24, dispatched at :47, "ps" layout with
 // both scale planes): DMA-only probes whose bodies touch 8 rows of each
@@ -54,7 +71,11 @@
 // zeroes the checksum first (a memset on the stream).  A flat read of the
 // same bytes, which sums them without columns, is faster at every shape;
 // vsim_tpu_torch/tools/read_designs.py times it beside K13 and the designs
-// K13 was chosen from.
+// K13 was chosen from.  Two more touch outputs, on the "ps" repack, are
+// tools/batch_lab.py's: "2d" (_k2d_dma :141, run_2d :174: o[i] += p[tile
+// row i] + s[i] + x[i, 0], the first 8 scale rows of the whole array) and
+// "band" (_kband's dma math :207, run_band :251: o[i] += p[tile row i] +
+// s[the tile's scale row i] + x[i, k block_kh]), both over 8 rows, n <= 128.
 //
 // K14 replaces tools/pair_probe.py:53 (k_bitcast :31): [KH, O] u8 ->
 // [2 KH, O] f32, row 2c = 128 + lo and row 2c + 1 = 128 + hi of packed row
@@ -70,6 +91,10 @@ namespace {
 // the lab maths, in the order of vsim_tpu_torch/ops/q4_lab.py:LAB_MATHS
 enum LabMath { kI32, kU16, kF32x, kF32f, kF32xf, kI32f, kF32b, kPairA, kPairB,
                kPairC, kNumMaths };
+
+// K12's operand layouts, in the order of vsim_tpu_torch/ops/q4_lab.py:
+// _KERNEL_LAYOUTS ("res" is kLayI in one split, which the wrapper sets)
+enum LabLayout { kLayI, kLayW32, kLayPs, kLayV2 };
 
 constexpr int kThreads = 256;
 constexpr int kCols = 4;                   // output columns per thread
@@ -110,8 +135,11 @@ __device__ __forceinline__ GroupScales group_scales(uint2 sw) {
 
 // The weights of elements 2c (we) and 2c + 1 (wo) of the 4 columns of
 // packed word w, under math M.
+// ``sh`` is the high nibbles' scales: ``s`` but in the "ps" layout, whose
+// two planes take different scale rows (f32x only).
 template <int M>
 __device__ __forceinline__ void dequant(uint32_t w, const GroupScales& s,
+                                        const GroupScales& sh,
                                         float (&we)[kCols],
                                         float (&wo)[kCols]) {
   const uint32_t lo4 = w & 0x0F0F0F0Fu, hi4 = (w >> 4) & 0x0F0F0F0Fu;
@@ -136,10 +164,10 @@ __device__ __forceinline__ void dequant(uint32_t w, const GroupScales& s,
     we[1] = nib_f<1>(lo4) * s.f[1];
     we[2] = nib_f<2>(lo4) * s.f[2];
     we[3] = nib_f<3>(lo4) * s.f[3];
-    wo[0] = nib_f<0>(hi4) * s.f[0];
-    wo[1] = nib_f<1>(hi4) * s.f[1];
-    wo[2] = nib_f<2>(hi4) * s.f[2];
-    wo[3] = nib_f<3>(hi4) * s.f[3];
+    wo[0] = nib_f<0>(hi4) * sh.f[0];
+    wo[1] = nib_f<1>(hi4) * sh.f[1];
+    wo[2] = nib_f<2>(hi4) * sh.f[2];
+    wo[3] = nib_f<3>(hi4) * sh.f[3];
     if (M == kF32x) {
 #pragma unroll
       for (int j = 0; j < kCols; ++j) round2_bf16(we[j], wo[j]);
@@ -168,19 +196,54 @@ __device__ __forceinline__ void dequant(uint32_t w, const GroupScales& s,
   }
 }
 
-template <int M, int NR>
+// Packed rows 4q .. 4q + 3 of group g, columns col .. col + 3, one word a
+// row (byte j = column col + j), in the layout LAY.
+template <int LAY>
+__device__ __forceinline__ void load_quad(const uint8_t* __restrict__ packed,
+                                          int g, int q, int O, int col,
+                                          uint32_t* w) {
+  if constexpr (LAY == kLayW32) {
+    // word row 4g + q of columns col .. col + 3: byte j of column c's word
+    // is packed row 4 (4g + q) + j; transposed into the four rows' words
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+        packed + (static_cast<size_t>(4 * g + q) * O + col) * 4));
+    const uint32_t xy_lo = __byte_perm(u.x, u.y, 0x5140);  // x0 y0 x1 y1
+    const uint32_t xy_hi = __byte_perm(u.x, u.y, 0x7362);  // x2 y2 x3 y3
+    const uint32_t zw_lo = __byte_perm(u.z, u.w, 0x5140);
+    const uint32_t zw_hi = __byte_perm(u.z, u.w, 0x7362);
+    w[0] = __byte_perm(xy_lo, zw_lo, 0x5410);
+    w[1] = __byte_perm(xy_lo, zw_lo, 0x7632);
+    w[2] = __byte_perm(xy_hi, zw_hi, 0x5410);
+    w[3] = __byte_perm(xy_hi, zw_hi, 0x7632);
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      w[r] = __ldg(reinterpret_cast<const unsigned int*>(
+          packed + (static_cast<size_t>(g) * kGroupRows + 4 * q + r) * O + col));
+  }
+}
+
+template <int M, int NR, int LAY>
 __global__ void __launch_bounds__(kThreads, NR >= 16 ? 1 : 2)
 lab_gemv_kernel(const uint16_t* __restrict__ x,      // [n, K] bf16
                 const uint16_t* __restrict__ xsum,   // pairC: [n, K/32] bf16
-                const uint8_t* __restrict__ packed,  // [K/2, O]
-                const uint16_t* __restrict__ scales, // [K/32, O] bf16
+                const uint8_t* __restrict__ packed,  // [(L,) K/2, O]; w32: [K/8, O] words
+                const uint16_t* __restrict__ scales, // [(L,) K/32, O] bf16
+                const int* __restrict__ il,          // v2: the layer, else null
+                int n_layers,
                 float* __restrict__ dst,  // [n, O] (splits == 1) or [splits, n, O]
                 int n, int K, int O, int splits) {
   constexpr int kSlabG = NR <= 8 ? 16 : 128 / NR;  // 16 KB of x pairs a slab
   constexpr bool kBuffered = NR <= 8;
+  constexpr bool kPs = LAY == kLayPs;
   __shared__ __align__(16) float2 xs[NR][kSlabG * kGroupRows];
   __shared__ float xc[NR][kSlabG];  // pairC: -136 times x's block sums
   const int G = K / 32;
+  if (LAY == kLayV2) {  // select the layer on the device
+    const int l = min(max(*il, 0), n_layers - 1);
+    packed += static_cast<size_t>(l) * (K / 2) * O;
+    scales += static_cast<size_t>(l) * G * O;
+  }
   const int split = blockIdx.y;
   const int g_begin = static_cast<int>(static_cast<long long>(G) * split / splits);
   const int g_end = static_cast<int>(static_cast<long long>(G) * (split + 1) / splits);
@@ -194,9 +257,10 @@ lab_gemv_kernel(const uint16_t* __restrict__ x,      // [n, K] bf16
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
 
   // acc += x . W over packed row r of group gg of the slab, word w
-  auto row_step = [&](uint32_t w, const GroupScales& s, int gg, int r) {
+  auto row_step = [&](uint32_t w, const GroupScales& s, const GroupScales& sh,
+                      int gg, int r) {
     float we[kCols], wo[kCols];
-    dequant<M>(w, s, we, wo);
+    dequant<M>(w, s, sh, we, wo);
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
       const float2 xp = xs[i][gg * kGroupRows + r];
@@ -205,26 +269,30 @@ lab_gemv_kernel(const uint16_t* __restrict__ x,      // [n, K] bf16
         acc[i][j] = fmaf(xp.y, wo[j], fmaf(xp.x, we[j], acc[i][j]));
     }
   };
-  auto scale_pair = [&](int g) {
-    return __ldg(reinterpret_cast<const uint2*>(scales + static_cast<size_t>(g) * O + col));
-  };
-  auto word = [&](int g, int r) {
-    return __ldg(reinterpret_cast<const unsigned int*>(
-        packed + (static_cast<size_t>(g) * kGroupRows + r) * O + col));
+  // the scale row of group g's low nibbles (hi: of its high nibbles): row g,
+  // or in "ps" rows g / 2 and K/64 + g / 2 (32 packed rows a scale row)
+  auto scale_pair = [&](int g, bool hi) {
+    const int row = kPs ? (hi ? G / 2 : 0) + g / 2 : g;
+    return __ldg(reinterpret_cast<const uint2*>(scales + static_cast<size_t>(row) * O + col));
   };
   // up to 8 rows (memory-bound): a group's 16 words in registers, the next
   // group's in flight while this one computes; past 8 rows (bound by the
-  // multiply-adds) the words are loaded as the rows go, 4 in flight
+  // multiply-adds) the words are loaded as the rows go, a quad of rows at
+  // a time
   uint32_t wc[kBuffered ? kGroupRows : 1], wn[kBuffered ? kGroupRows : 1];
   uint2 sc = make_uint2(0, 0), sn = make_uint2(0, 0);
+  uint2 shc = make_uint2(0, 0), shn = make_uint2(0, 0);
   auto load_group = [&](uint32_t (&w)[kBuffered ? kGroupRows : 1], uint2& sw,
-                        int g) {
+                        uint2& shw, int g) {
+    if constexpr (kBuffered) {
 #pragma unroll
-    for (int r = 0; r < kGroupRows; ++r) w[kBuffered ? r : 0] = word(g, r);
-    sw = scale_pair(g);
+      for (int q = 0; q < 4; ++q) load_quad<LAY>(packed, g, q, O, col, w + 4 * q);
+    }
+    sw = scale_pair(g, false);
+    if (kPs) shw = scale_pair(g, true);
   };
   if constexpr (kBuffered) {
-    if (active && g_begin < g_end) load_group(wc, sc, g_begin);
+    if (active && g_begin < g_end) load_group(wc, sc, shc, g_begin);
   }
 
   for (int g0 = g_begin; g0 < g_end; g0 += kSlabG) {
@@ -235,9 +303,14 @@ lab_gemv_kernel(const uint16_t* __restrict__ x,      // [n, K] bf16
       const int i = idx / pairs, c = idx - i * pairs;
       float e = 0.f, o = 0.f;
       if (i < n) {
-        const uint32_t xp = reinterpret_cast<const uint32_t*>(
-            x + static_cast<size_t>(i) * K)[g0 * kGroupRows + c];
-        unpack_bf16x2(xp, e, o);
+        const uint16_t* xr = x + static_cast<size_t>(i) * K;
+        const int pc = g0 * kGroupRows + c;  // the packed row
+        if (kPs) {  // elements c and K/2 + c
+          e = bf16_to_float(xr[pc]);
+          o = bf16_to_float(xr[K / 2 + pc]);
+        } else {    // elements 2c and 2c + 1
+          unpack_bf16x2(reinterpret_cast<const uint32_t*>(xr)[pc], e, o);
+        }
       }
       xs[i][c] = make_float2(e, o);
     }
@@ -253,19 +326,27 @@ lab_gemv_kernel(const uint16_t* __restrict__ x,      // [n, K] bf16
     if (!active) continue;
     for (int gg = 0; gg < ng; ++gg) {
       const int g = g0 + gg;
-      GroupScales s;
+      GroupScales s, sh;
       if constexpr (kBuffered) {
-        if (g + 1 < g_end) load_group(wn, sn, g + 1);
+        if (g + 1 < g_end) load_group(wn, sn, shn, g + 1);
         s = group_scales(sc);
+        sh = kPs ? group_scales(shc) : s;
 #pragma unroll
-        for (int r = 0; r < kGroupRows; ++r) row_step(wc[r], s, gg, r);
+        for (int r = 0; r < kGroupRows; ++r) row_step(wc[r], s, sh, gg, r);
 #pragma unroll
         for (int r = 0; r < kGroupRows; ++r) wc[r] = wn[r];
         sc = sn;
+        shc = shn;
       } else {
-        s = group_scales(scale_pair(g));
-#pragma unroll 4
-        for (int r = 0; r < kGroupRows; ++r) row_step(word(g, r), s, gg, r);
+        s = group_scales(scale_pair(g, false));
+        sh = kPs ? group_scales(scale_pair(g, true)) : s;
+#pragma unroll 1
+        for (int q = 0; q < 4; ++q) {
+          uint32_t w4[4];
+          load_quad<LAY>(packed, g, q, O, col, w4);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) row_step(w4[r], s, sh, gg, 4 * q + r);
+        }
       }
       if (M == kPairC) {
 #pragma unroll
@@ -297,42 +378,47 @@ __global__ void lab_split_reduce_kernel(const float* __restrict__ partial,
   out[idx] = s;
 }
 
-template <int M, int NR>
-void gemv_launch_t(const uint16_t* x, const uint16_t* xsum, const uint8_t* packed,
-                   const uint16_t* scales, float* partial, float* out, int n,
-                   int K, int O, int splits, cudaStream_t s) {
-  const dim3 grid((O + kTileO - 1) / kTileO, splits);
-  lab_gemv_kernel<M, NR><<<grid, kThreads, 0, s>>>(
-      x, xsum, packed, scales, splits == 1 ? out : partial, n, K, O, splits);
+// The operands of a K12 launch.
+struct GemvArgs {
+  const uint16_t* x;
+  const uint16_t* xsum;
+  const uint8_t* packed;
+  const uint16_t* scales;
+  const int* il;
+  int n_layers;
+  float* partial;
+  float* out;
+  int n, K, O, splits;
+};
+
+template <int M, int NR, int LAY>
+void gemv_launch_t(const GemvArgs& a, cudaStream_t s) {
+  const dim3 grid((a.O + kTileO - 1) / kTileO, a.splits);
+  lab_gemv_kernel<M, NR, LAY><<<grid, kThreads, 0, s>>>(
+      a.x, a.xsum, a.packed, a.scales, a.il, a.n_layers,
+      a.splits == 1 ? a.out : a.partial, a.n, a.K, a.O, a.splits);
 }
 
-template <int M>
-void gemv_launch_rows(const uint16_t* x, const uint16_t* xsum,
-                      const uint8_t* packed, const uint16_t* scales,
-                      float* partial, float* out, int n, int K, int O,
-                      int splits, cudaStream_t s) {
-  if (n == 1)
-    gemv_launch_t<M, 1>(x, xsum, packed, scales, partial, out, n, K, O, splits, s);
-  else if (n <= 8)
-    gemv_launch_t<M, 8>(x, xsum, packed, scales, partial, out, n, K, O, splits, s);
-  else if (n <= 16)
-    gemv_launch_t<M, 16>(x, xsum, packed, scales, partial, out, n, K, O, splits, s);
+template <int M, int LAY>
+void gemv_launch_rows(const GemvArgs& a, cudaStream_t s) {
+  if (a.n == 1)
+    gemv_launch_t<M, 1, LAY>(a, s);
+  else if (a.n <= 8)
+    gemv_launch_t<M, 8, LAY>(a, s);
+  else if (a.n <= 16)
+    gemv_launch_t<M, 16, LAY>(a, s);
   else
-    gemv_launch_t<M, 32>(x, xsum, packed, scales, partial, out, n, K, O, splits, s);
+    gemv_launch_t<M, 32, LAY>(a, s);
 }
 
+// the "i" layout under math ``math``
 template <int M = 0>
-void gemv_dispatch(int math, const uint16_t* x, const uint16_t* xsum,
-                   const uint8_t* packed, const uint16_t* scales,
-                   float* partial, float* out, int n, int K, int O,
-                   int splits, cudaStream_t s) {
+void gemv_dispatch(int math, const GemvArgs& a, cudaStream_t s) {
   if constexpr (M < kNumMaths) {
     if (math == M)
-      gemv_launch_rows<M>(x, xsum, packed, scales, partial, out, n, K, O,
-                          splits, s);
+      gemv_launch_rows<M, kLayI>(a, s);
     else
-      gemv_dispatch<M + 1>(math, x, xsum, packed, scales, partial, out, n, K,
-                           O, splits, s);
+      gemv_dispatch<M + 1>(math, a, s);
   }
 }
 
@@ -343,17 +429,21 @@ void gemv_dispatch(int math, const uint16_t* x, const uint16_t* xsum,
 constexpr int kDmaWarps = 8;
 constexpr int kDmaThreads = kDmaWarps * 32;
 
+// The touch modes, in the order of vsim_tpu_torch/ops/q4_lab.py:DMA_LAYOUTS.
+enum DmaMode { kDmaI, kDmaPs, kDma2d, kDmaBand };
+
 // The touch output, from blocks [0, tb): a thread owns whole elements and
 // sums their k tiles in grid order, as the Pallas body adds them.
 __device__ __forceinline__ void dma_touch(const uint16_t* __restrict__ x,
                                           const uint8_t* __restrict__ packed,
                                           const uint16_t* __restrict__ scales,
-                                          float* __restrict__ touch, int ps, int n,
-                                          int K, int O, int block_kh, int tb) {
+                                          float* __restrict__ touch, int mode,
+                                          int n, int K, int O, int block_kh,
+                                          int tb) {
   const int KH = K / 2;
-  const int r = min(8, n);
+  const int r = mode >= kDma2d ? 8 : min(8, n);
   const int nk = KH / block_kh;
-  const int srows = ps ? block_kh / 32 : min(8, block_kh / kGroupRows);
+  const int srows = mode == kDmaI ? min(8, block_kh / kGroupRows) : block_kh / 32;
   const bool per_row = srows >= r;
   const int stride = tb * kDmaThreads;
   for (int idx = blockIdx.x * kDmaThreads + threadIdx.x; idx < n * O; idx += stride) {
@@ -361,20 +451,28 @@ __device__ __forceinline__ void dma_touch(const uint16_t* __restrict__ x,
     float o = 0.f;
     if (i < r) {
       const int si = per_row ? i : 0;
+      const uint16_t* xr = x + static_cast<size_t>(i) * K;
 #pragma unroll 8
       for (int k = 0; k < nk; ++k) {
         const float pv = static_cast<float>(
             packed[(static_cast<size_t>(k) * block_kh + i) * O + c]);
         float t;
-        if (ps) {
+        if (mode == kDmaPs) {
           const int g = k * (block_kh / 32) + si;
           t = __fadd_rn(__fadd_rn(pv, bf16_to_float(scales[static_cast<size_t>(g) * O + c])),
                         bf16_to_float(scales[static_cast<size_t>(KH / 32 + g) * O + c]));
-          t = __fadd_rn(t, bf16_to_float(x[static_cast<size_t>(i) * K]));
+          t = __fadd_rn(t, bf16_to_float(xr[0]));
+        } else if (mode == kDma2d) {  // the whole array's scale row i, x column 0
+          t = __fadd_rn(pv, bf16_to_float(scales[static_cast<size_t>(i) * O + c]));
+          t = __fadd_rn(t, bf16_to_float(xr[0]));
+        } else if (mode == kDmaBand) {  // the tile's scale row i, its first x
+          const int g = k * (block_kh / 32) + i;
+          t = __fadd_rn(pv, bf16_to_float(scales[static_cast<size_t>(g) * O + c]));
+          t = __fadd_rn(t, bf16_to_float(xr[k * block_kh]));
         } else {
           const int g = k * (block_kh / kGroupRows) + si;
           t = __fadd_rn(pv, bf16_to_float(scales[static_cast<size_t>(g) * O + c]));
-          t = __fadd_rn(t, bf16_to_float(x[static_cast<size_t>(i) * K + 2 * k * block_kh]));
+          t = __fadd_rn(t, bf16_to_float(xr[2 * k * block_kh]));
         }
         o = __fadd_rn(o, t);
       }
@@ -392,10 +490,10 @@ lab_dma_kernel(const uint16_t* __restrict__ x,       // [n, K] bf16
                const uint16_t* __restrict__ scales,  // [K/32, O] bf16
                float* __restrict__ touch,            // [n, O]
                int* __restrict__ checksum,           // [2, O], zeroed
-               int ps, int n, int K, int O, int block_kh, int tb) {
+               int mode, int n, int K, int O, int block_kh, int tb) {
   __shared__ __align__(16) int red[kDmaThreads * 16];
   if (static_cast<int>(blockIdx.x) < tb) {
-    dma_touch(x, packed, scales, touch, ps, n, K, O, block_kh, tb);
+    dma_touch(x, packed, scales, touch, mode, n, K, O, block_kh, tb);
     return;
   }
   checksum_share<kDmaThreads, 32>(packed, scales, checksum, K, O, blockIdx.x - tb,
@@ -427,39 +525,54 @@ __global__ void pair_bitcast_kernel(const uint8_t* __restrict__ packed,
 
 }  // namespace
 
-// K12: math is the index in LAB_MATHS; xsum only for pairC.
+// K12: math is the index in LAB_MATHS, layout the index in _KERNEL_LAYOUTS;
+// xsum only for pairC, il (and n_layers) only for "v2"; the layouts other
+// than "i" take f32x only.
 extern "C" int q4_lab_gemv_launch(const void* x, const void* xsum,
                                   const void* packed, const void* scales,
-                                  void* partial, void* out, int n, int K,
-                                  int O, int splits, int math, void* stream) {
+                                  const void* il, int n_layers, void* partial,
+                                  void* out, int n, int K, int O, int splits,
+                                  int math, int layout, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (n < 1 || n > 32 || K % 32 || O % 4 || splits < 1 || math < 0 ||
-      math >= kNumMaths || (math == kPairC) != (xsum != nullptr))
+      math >= kNumMaths || (math == kPairC) != (xsum != nullptr) ||
+      layout < kLayI || layout > kLayV2 ||
+      (layout != kLayI && math != kF32x) ||
+      (layout == kLayPs && K % 64) || (layout == kLayV2) != (il != nullptr) ||
+      (layout == kLayV2 && n_layers < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto op = static_cast<float*>(out);
-  auto part = static_cast<float*>(partial);
-  gemv_dispatch(math, static_cast<const uint16_t*>(x),
-                static_cast<const uint16_t*>(xsum),
-                static_cast<const uint8_t*>(packed),
-                static_cast<const uint16_t*>(scales), part, op, n, K, O,
-                splits, s);
+  const GemvArgs a{static_cast<const uint16_t*>(x),
+                   static_cast<const uint16_t*>(xsum),
+                   static_cast<const uint8_t*>(packed),
+                   static_cast<const uint16_t*>(scales),
+                   static_cast<const int*>(il), n_layers,
+                   static_cast<float*>(partial), static_cast<float*>(out),
+                   n, K, O, splits};
+  switch (layout) {
+    case kLayI: gemv_dispatch(math, a, s); break;
+    case kLayW32: gemv_launch_rows<kF32x, kLayW32>(a, s); break;
+    case kLayPs: gemv_launch_rows<kF32x, kLayPs>(a, s); break;
+    default: gemv_launch_rows<kF32x, kLayV2>(a, s); break;
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const int total = n * O;
-  lab_split_reduce_kernel<<<(total + 255) / 256, 256, 0, s>>>(part, op, total,
-                                                              splits);
+  lab_split_reduce_kernel<<<(total + 255) / 256, 256, 0, s>>>(a.partial, a.out,
+                                                              total, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K13: ps = 1 for the plane-split touch (both scale planes, x column 0);
+// K13: mode is the touch's index in DMA_LAYOUTS ("i", "ps", "2d", "band");
 // blocks: the checksum's blocks (the launch adds the touch's).
 extern "C" int q4_lab_dma_launch(const void* x, const void* packed,
                                  const void* scales, void* touch,
-                                 void* checksum, int ps, int n, int K, int O,
+                                 void* checksum, int mode, int n, int K, int O,
                                  int block_kh, int blocks, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || n > 32 || K % 32 || O % 16 || block_kh < 16 ||
-      (K / 2) % block_kh || blocks < 1)
+  if (n < 1 || n > 128 || K % 32 || O % 16 || block_kh < 16 ||
+      (K / 2) % block_kh || blocks < 1 || mode < kDmaI || mode > kDmaBand ||
+      (mode != kDmaI && block_kh % 32) || (mode >= kDma2d && n < 8) ||
+      (mode == kDmaBand && block_kh < 256) || (mode == kDma2d && K < 256))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaMemsetAsync(checksum, 0, sizeof(int) * 2 * O, s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -468,7 +581,7 @@ extern "C" int q4_lab_dma_launch(const void* x, const void* packed,
   lab_dma_kernel<<<tb + blocks, kDmaThreads, 0, s>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(packed),
       static_cast<const uint16_t*>(scales), static_cast<float*>(touch),
-      static_cast<int*>(checksum), ps, n, K, O, block_kh, tb);
+      static_cast<int*>(checksum), mode, n, K, O, block_kh, tb);
   return static_cast<int>(cudaGetLastError());
 }
 

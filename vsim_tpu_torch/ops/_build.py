@@ -13,7 +13,8 @@ can show which kernels it went through.  A source may hold more than one
 kernel: K3 and K5 are two modes of ``decode_attention.cu``, K7 and K8 the
 two passes of ``flash_attention_bwd.cu``, K9 and K10 the single and the
 stacked-layer launchers of ``q4_matmul_i.cu``, K12-K14 the three lab kernels
-of ``q4_lab.cu``.  ``read_designs.cu`` holds the reads K13 is held against
+of ``q4_lab.cu``; K15 (``q4_batch_lab.cu``) and K16 (``attn_lab.cu``) are
+the batch and attention labs'.  ``read_designs.cu`` holds the reads K13 is held against
 (``tools/read_designs.py``); no path runs it, so it is built at its first
 ``load`` and not by ``build_all()``.
 """
@@ -41,7 +42,8 @@ KERNELS = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
            "flash_attention_bwd_dkv": "flash_attention_bwd",
            "q4_matmul_i": "q4_matmul_i", "q4_matmul_stacked": "q4_matmul_i",
            "q4_mlp_ps": "q4_mlp_ps", "q4_lab_gemv": "q4_lab",
-           "q4_lab_dma": "q4_lab", "pair_bitcast": "q4_lab"}
+           "q4_lab_dma": "q4_lab", "pair_bitcast": "q4_lab",
+           "q4_batch_lab": "q4_batch_lab", "attn_lab": "attn_lab"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -8,10 +8,18 @@ kernel_lab.py's ``_k_i32``, ``_k_u16``, ``_k_f32x``, ``_k_f32f``,
 ``_pair_kernel`` (pairA, pairB; :53, :77), pair_sweep.py's ``_k_pairA`` and
 ``_k_pairC`` (:41, :58) and pair_probe.py's ``k_pairA`` (:38, pairA with
 unit scales: ``unit_scales``).
+K12 ``q4_lab_gemv_layout`` (the same skeleton, csrc/q4_lab.cu): f32x over
+the operand layouts of ``GEMV_LAYOUTS``: kernel_lab.py's ``_k_res`` (:225,
+"i", K never split), ``_k_w32`` (:281, [K/8, O] int32 words of 4 packed
+rows, ``pack_w32``) and ``_k_ps`` (:384, the plane-split repack with raw
+x), and decode_lab.py's ``_k_v2`` (:55, a stacked "i" weight [L, K/2, O]
+and an int32 layer index on the device).
 K13 ``q4_lab_dma`` (csrc/q4_lab.cu): a read of every byte.  kernel_lab.py's
-``_k_dma`` (:58, "i" layout) and gi_sweep.py's ``_k_giw_dma`` (:24, "ps"
-layout, both scale planes): the Pallas bodies' exact touch output, which
-depends on ``block_kh``, and a checksum that reads every byte.
+``_k_dma`` (:58, "i" layout), gi_sweep.py's ``_k_giw_dma`` (:24, "ps"
+layout, both scale planes) and batch_lab.py's ``_k2d_dma`` (:141, "2d")
+and ``_kband``'s dma math (:207, "band"), both on the "ps" repack: the
+Pallas bodies' exact touch output, which depends on ``block_kh``, and a
+checksum that reads every byte.
 K14 ``pair_bitcast`` (csrc/q4_lab.cu): pair_probe.py's ``k_bitcast`` (:31),
 [KH, O] u8 → [2·KH, O] f32 of 128 + v, the low nibble on the even row.
 
@@ -43,6 +51,7 @@ from typing import Optional, Tuple
 import torch
 
 from vsim_tpu_torch.ops import _build
+from vsim_tpu_torch.ops.q4_cuda import stacked_layer
 from vsim_tpu_torch.quant.q4 import QK
 
 LAB_MATHS = ("i32", "u16", "f32x", "f32f", "f32xf", "i32f", "f32b", "pairA",
@@ -52,7 +61,14 @@ F32_MATHS = ("f32f", "f32xf", "i32f")
 # maths that compute the same function (bit-identical planes)
 SAME_FUNCTION = (("i32", "u16", "f32x", "pairA"), ("f32xf", "i32f"))
 LAB_MAX_ROWS = 32
-DMA_LAYOUTS = ("i", "ps")
+# K12's operand layouts besides "i", each under f32x (csrc/q4_lab.cu)
+GEMV_LAYOUTS = ("res", "w32", "ps", "v2")
+# the kernel's layouts (csrc/q4_lab.cu LabLayout): "res" is "i" in one split
+_KERNEL_LAYOUTS = ("i", "w32", "ps", "v2")
+# K13's touch outputs: "i" and "ps" up to 32 rows, batch_lab's "2d" and
+# "band" (on the "ps" repack) from 8 to 128
+DMA_LAYOUTS = ("i", "ps", "2d", "band")
+BATCH_TOUCH_ROWS = (8, 128)
 # max|kernel − plain| / max|plain| on the card: only the order of the f32
 # sums differs (pairC's too: its two terms are ~30x its result, and it
 # reads at most 1.6e-5 at GPT-J-6B's shapes)
@@ -63,7 +79,7 @@ _DMA_TILE_B = 512  # bytes of a K13 tile row (csrc/q4_lab.cu kDmaTileB)
 _MAGIC = 0x4B000000  # f32 bits of 2^23: | v gives 2^23 + v exactly
 _OFF = 8388616.0  # 2^23 + 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_GEMV_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_GEMV_ARGS = (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _DMA_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _BITCAST_ARGS = (_P, _P, _I, _I, _P)
 
@@ -160,11 +176,68 @@ def q4_lab_gemv_plain(x: torch.Tensor, packed: torch.Tensor,
     return y
 
 
+def pack_w32(packed: torch.Tensor) -> torch.Tensor:
+    """[K/2, O] uint8 → [K/8, O] int32 (kernel_lab.py:pack_w32): byte j of
+    word row r' holds packed row 4r' + j of the same column."""
+    hk, O = packed.shape  # noqa: N806
+    if hk % 4:
+        raise ValueError(f"pack_w32 needs K/2 % 4 == 0, got {hk}")
+    return (packed.reshape(hk // 4, 4, O).permute(0, 2, 1).contiguous()
+            .view(torch.int32).reshape(hk // 4, O))
+
+
+def unpack_w32(w32: torch.Tensor) -> torch.Tensor:
+    """``pack_w32``'s inverse: [K/8, O] int32 → [K/2, O] uint8."""
+    r, O = w32.shape  # noqa: N806
+    return (w32.contiguous().view(torch.uint8).reshape(r, O, 4)
+            .permute(0, 2, 1).reshape(4 * r, O))
+
+
+def f32x_weight(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """f32x's weight of int32 nibbles v under f32 scales s, as f32:
+    bf16((2^23 + v − (2^23 + 8))·s)."""
+    return _bf16((_magic(v) - _OFF) * s)
+
+
+def q4_lab_gemv_layout_plain(x: torch.Tensor, weight: torch.Tensor,
+                             scales: torch.Tensor, layout: str,
+                             il: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """y = x · W in f32 under f32x for a weight in ``layout``: "res" the
+    "i" layout, "w32" its word repack, "ps" the plane-split repack (low
+    nibble of byte c element c with scale row c // 32, high nibble element
+    K/2 + c with scale row K/64 + c // 32), "v2" layer ``il`` (clamped to
+    [0, L), as the kernel reads it) of a stacked "i" weight."""
+    if layout == "v2":
+        L = weight.shape[0]  # noqa: N806
+        il = il.reshape(1).clamp(0, L - 1)
+        weight, scales = stacked_layer(weight, il), stacked_layer(scales, il)
+    if layout == "w32":
+        weight = unpack_w32(weight)
+    if layout != "ps":
+        return q4_lab_gemv_plain(x, weight, scales, "f32x")
+    K = x.shape[1]  # noqa: N806
+    p = weight.to(torch.int32)
+    s = scales.to(torch.float32)
+    slo = s[:K // (2 * QK)].repeat_interleave(QK, dim=0)
+    shi = s[K // (2 * QK):].repeat_interleave(QK, dim=0)
+    w = torch.cat([f32x_weight(p & 0x0F, slo), f32x_weight(p >> 4, shi)])  # [K, O]
+    return torch.matmul(x.to(torch.float32), w)
+
+
 def _dma_touch_rows(layout: str, n: int, block_kh: int) -> Tuple[int, bool]:
     """(r, per_row): the Pallas body touches output rows [0, r) with
     r = min(8, n), and adds scale row i of the tile to output row i
     (per_row) or its one scale row to every row.  Raises where the TPU
-    version cannot shape the sum (a tile of 1 < rows < r scale rows)."""
+    version cannot shape the sum (a tile of 1 < rows < r scale rows; for
+    batch_lab's "2d" and "band", fewer than 8 rows of x, or for "band" a
+    tile of fewer than 8 scale rows)."""
+    if layout in ("2d", "band"):
+        if n < 8 or (layout == "band" and block_kh // QK < 8):
+            raise ValueError(
+                f"the TPU body cannot add 8 touched rows of the tile to "
+                f"{n} rows of x with block_kh={block_kh} ({layout!r})")
+        return 8, True
     r = min(8, n)
     per_tile = block_kh // (QK // 2 if layout == "i" else QK)
     srows = min(8, per_tile) if layout == "i" else per_tile
@@ -179,13 +252,17 @@ def _check_dma(n, K, KH, layout, block_kh):  # noqa: N803
     if layout not in DMA_LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; known: {DMA_LAYOUTS}")
     unit = QK // 2 if layout == "i" else QK
-    if layout == "ps" and K % (2 * QK):
-        raise ValueError(f"the 'ps' layout needs K % 64 == 0, got K={K}")
+    if layout != "i" and K % (2 * QK):
+        raise ValueError(f"the {layout!r} touch needs K % 64 == 0, got K={K}")
+    if layout == "2d" and K < 8 * QK:
+        raise ValueError(f"the TPU body cannot add the first 8 scale rows of "
+                         f"a [{K // QK}, O] scale array ('2d')")
     if block_kh < unit or block_kh % unit or KH % block_kh:
         raise ValueError(f"block_kh={block_kh} must be a multiple of {unit} "
                          f"that divides K/2={KH} ({layout!r} layout)")
-    if not 1 <= n <= LAB_MAX_ROWS:
-        raise ValueError(f"x must have 1..{LAB_MAX_ROWS} rows, got {n}")
+    top = BATCH_TOUCH_ROWS[1] if layout in ("2d", "band") else LAB_MAX_ROWS
+    if not 1 <= n <= top:
+        raise ValueError(f"x must have 1..{top} rows, got {n}")
     return _dma_touch_rows(layout, n, block_kh)
 
 
@@ -196,9 +273,11 @@ def q4_lab_dma_plain(x: torch.Tensor, packed: torch.Tensor,
     body's output: over the k tiles of ``block_kh`` packed rows in grid
     order, o[i] += p[tile row i] + s[tile scale row] (+ the hi plane's for
     "ps") + x[i, the tile's first column ("i": xe's; "ps": column 0)], for
-    i < min(8, n), summed left to right in f32; the other rows are 0.  The
-    checksum holds each column's int32 sums of the packed bytes and of the
-    raw bf16 scale bits."""
+    i < min(8, n), summed left to right in f32; the other rows are 0.
+    batch_lab's touches take 8 rows: "2d" adds scale row i of the whole
+    array and x[i, 0], "band" the tile's scale row i and x[i, k·block_kh].
+    The checksum holds each column's int32 sums of the packed bytes and of
+    the raw bf16 scale bits."""
     n, K = x.shape  # noqa: N806
     KH, O = packed.shape  # noqa: N806
     r, per_row = _check_dma(n, K, KH, layout, block_kh)
@@ -211,11 +290,18 @@ def q4_lab_dma_plain(x: torch.Tensor, packed: torch.Tensor,
             g0 = k * block_kh // (QK // 2)
             t = t + sf[g0:][srow]
             xv = xf[:r, 2 * k * block_kh:2 * k * block_kh + 1]
-        else:
+        elif layout == "ps":
             g0 = k * block_kh // QK
             t = t + sf[g0:][srow]
             t = t + sf[KH // QK + g0:][srow]
             xv = xf[:r, 0:1]
+        elif layout == "2d":
+            t = t + sf[:r]
+            xv = xf[:r, 0:1]
+        else:
+            g0 = k * block_kh // QK
+            t = t + sf[g0:g0 + r]
+            xv = xf[:r, k * block_kh:k * block_kh + 1]
         touch[:r] = touch[:r] + (t + xv)
     bits = scales.view(torch.int16).to(torch.int32) & 0xFFFF
     checksum = torch.stack([packed.to(torch.int32).sum(0, dtype=torch.int32),
@@ -252,14 +338,13 @@ def _check_cuda(what, x, tensors):
                              f"{x.device}")
 
 
-def _check_weight(what, x, packed, scales, cols=4):
+def _check_weight(what, x, packed, scales, cols=4, max_rows=LAB_MAX_ROWS):
     if x.dim() != 2 or x.dtype != torch.bfloat16:
         raise ValueError(f"{what}: x must be bf16 [n, K], got {x.dtype} "
                          f"{tuple(x.shape)}")
     n, K = x.shape  # noqa: N806
-    if not 1 <= n <= LAB_MAX_ROWS:
-        raise ValueError(f"{what}: x must have 1..{LAB_MAX_ROWS} rows, got "
-                         f"{n}")
+    if not 1 <= n <= max_rows:
+        raise ValueError(f"{what}: x must have 1..{max_rows} rows, got {n}")
     if K % QK:
         raise ValueError(f"{what}: K={K} must be a multiple of {QK}")
     if (packed.dtype != torch.uint8 or packed.dim() != 2
@@ -309,8 +394,79 @@ def q4_lab_gemv(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                            device=x.device) if splits > 1 else None)
     _build.launch(what, "q4_lab_gemv_launch", _GEMV_ARGS,
                   _build.ptr(x), _build.ptr(xs), _build.ptr(packed),
-                  _build.ptr(scales), _build.ptr(partial), _build.ptr(out),
-                  n, K, O, splits, LAB_MATHS.index(math),
+                  _build.ptr(scales), _build.ptr(None), 0,
+                  _build.ptr(partial), _build.ptr(out), n, K, O, splits,
+                  LAB_MATHS.index(math), 0, _build.stream_ptr(x.device))
+    return out
+
+
+def _check_layout_weight(what, x, weight, scales, layout, il):
+    """(n, K, O, L) of a ``q4_lab_gemv_layout`` call; raises on what the
+    kernel does not take."""
+    if layout not in GEMV_LAYOUTS:
+        raise ValueError(f"{what}: unknown layout {layout!r}; known: "
+                         f"{GEMV_LAYOUTS}")
+    if (il is None) != (layout != "v2"):
+        raise ValueError(f"{what}: il is v2's input, and only v2's")
+    if x.dim() != 2 or x.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: x must be bf16 [n, K]")
+    n, K = x.shape  # noqa: N806
+    if not 1 <= n <= LAB_MAX_ROWS:
+        raise ValueError(f"{what}: x must have 1..{LAB_MAX_ROWS} rows, got "
+                         f"{n}")
+    if K % (2 * QK if layout == "ps" else QK):
+        raise ValueError(f"{what}: K={K} must be a multiple of "
+                         f"{2 * QK if layout == 'ps' else QK} ({layout!r})")
+    L = weight.shape[0] if layout == "v2" else 1  # noqa: N806
+    lead = (L,) if layout == "v2" else ()
+    rows, dt = (K // 8, torch.int32) if layout == "w32" else (K // 2,
+                                                              torch.uint8)
+    if (weight.dtype != dt or weight.dim() != len(lead) + 2
+            or tuple(weight.shape[:-1]) != lead + (rows,)):
+        raise ValueError(f"{what}: the {layout!r} weight must be {dt} "
+                         f"{lead + (rows, 'O')}, got {weight.dtype} "
+                         f"{tuple(weight.shape)}")
+    O = weight.shape[-1]  # noqa: N806
+    if scales.dtype != torch.bfloat16 or tuple(scales.shape) != lead + (
+            K // QK, O):
+        raise ValueError(f"{what}: scales must be bf16 {lead + (K // QK, O)}")
+    if il is not None and (not isinstance(il, torch.Tensor)
+                           or il.dtype != torch.int32 or il.numel() != 1
+                           or il.device != x.device):
+        raise ValueError(f"{what}: il must be a one-element int32 tensor on "
+                         f"{x.device}")
+    return n, K, O, L
+
+
+def q4_lab_gemv_layout(x: torch.Tensor, weight: torch.Tensor,
+                       scales: torch.Tensor, layout: str,
+                       il: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K12 under f32x for a weight in one of ``GEMV_LAYOUTS`` (as
+    ``q4_lab_gemv_layout_plain`` says); "v2" takes the layer index ``il``
+    (int32, one element, on x's device), which the kernel reads itself."""
+    what = "q4_lab_gemv"
+    n, K, O, L = _check_layout_weight(what, x, weight, scales,  # noqa: N806
+                                      layout, il)
+    if x.device.type == "cpu":
+        return q4_lab_gemv_layout_plain(x, weight, scales, layout, il)
+    _check_cuda(what, x, [("x", x), ("weight", weight), ("scales", scales)]
+                + ([("il", il)] if il is not None else []))
+    walign = 16 if layout == "w32" else 4
+    if (O % 4 or weight.data_ptr() % walign or scales.data_ptr() % 8
+            or x.data_ptr() % 4):
+        raise ValueError(f"{what}: O must be a multiple of 4, the weight "
+                         f"{walign}-byte, the scales 8-byte and x 4-byte "
+                         "aligned")
+    splits = 1 if layout == "res" else lab_splits(K, O,
+                                                  _sm_count(x.device.index))
+    out = torch.empty((n, O), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((splits, n, O), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    _build.launch(what, "q4_lab_gemv_launch", _GEMV_ARGS,
+                  _build.ptr(x), _build.ptr(None), _build.ptr(weight),
+                  _build.ptr(scales), _build.ptr(il), L, _build.ptr(partial),
+                  _build.ptr(out), n, K, O, splits, LAB_MATHS.index("f32x"),
+                  _KERNEL_LAYOUTS.index("i" if layout == "res" else layout),
                   _build.stream_ptr(x.device))
     return out
 
@@ -330,7 +486,8 @@ def q4_lab_dma(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     ``q4_lab_dma_plain`` says; ``block_kh`` is the Pallas tile's packed
     rows, part of the touch's function."""
     what = "q4_lab_dma"
-    n, K, O = _check_weight(what, x, packed, scales, cols=16)  # noqa: N806
+    n, K, O = _check_weight(what, x, packed, scales, cols=16,  # noqa: N806
+                            max_rows=BATCH_TOUCH_ROWS[1])
     KH = K // 2  # noqa: N806
     _check_dma(n, K, KH, layout, block_kh)
     if x.device.type == "cpu":
@@ -341,7 +498,7 @@ def q4_lab_dma(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     _build.launch(what, "q4_lab_dma_launch", _DMA_ARGS,
                   _build.ptr(x), _build.ptr(packed), _build.ptr(scales),
                   _build.ptr(touch), _build.ptr(checksum),
-                  int(layout == "ps"), n, K, O, block_kh,
+                  DMA_LAYOUTS.index(layout), n, K, O, block_kh,
                   dma_blocks(KH, O, _sm_count(x.device.index)),
                   _build.stream_ptr(x.device))
     return touch, checksum

@@ -1,10 +1,14 @@
 """Q4 dequant-maths lab on the card (port of tools/kernel_lab.py).
 
     python -m vsim_tpu_torch.tools.kernel_lab [--batch 16] [--shape 4096,4096]
-        [--variants dma,cur,i32,u16,f32x,f32f,f32xf,i32f] [--device cpu]
+        [--variants dma,cur,i32,u16,f32x,f32f,f32xf,i32f,res,w32,ps]
+        [--device cpu]
 
-Times K12 (``q4_lab_gemv``) under the "i"-layout maths of the TPU lab, K13
-(``q4_lab_dma``, "i" layout, a read of every byte) and, as "cur", K9
+Times K12 (``q4_lab_gemv``) under the "i"-layout maths of the TPU lab and,
+under f32x, its operand layouts "res" (``_k_res``: K never split), "w32"
+(``_k_w32``: the word repack, ``pack_w32``) and "ps" (``_k_ps``: the
+plane-split repack, raw x), K13 (``q4_lab_dma``, "i" layout, a read of
+every byte) and, as "cur", K9
 (``q4_matmul_i``, the main path's kernel for this layout), on a random
 weight of shape O,K (``--shape``) and ``--batch`` rows of bf16 x; prints,
 per variant, ms, GB/s of weight bytes, the ratio to K13's rate, max|err|
@@ -21,7 +25,8 @@ from typing import Dict, List, Sequence, Tuple
 from vsim_tpu_torch.device import DeviceLike
 from vsim_tpu_torch.tools.lab import run_variants, tool_main
 
-VARIANTS = ("dma", "cur", "i32", "u16", "f32x", "f32f", "f32xf", "i32f")
+VARIANTS = ("dma", "cur", "i32", "u16", "f32x", "f32f", "f32xf", "i32f",
+            "res", "w32", "ps")
 BLOCK_KH = 512  # the TPU lab's default tile (2048, 512): K13's touch
 
 

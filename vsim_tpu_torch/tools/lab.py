@@ -9,6 +9,9 @@ it is timed with ``timing.timed`` over a rotation of weights larger than
 the 50 MB L2.  Variants:
 
   i32 u16 f32x f32f f32xf i32f f32b pairA pairB pairC   K12 under that math
+  res w32 ps K12 under f32x in that operand layout (``q4_lab.GEMV_LAYOUTS``:
+             "res" the "i" weight with K unsplit, "w32" and "ps" repacks
+             made once for each weight of the rotation)
   dma        K13 (its layout: "i", or "ps" for gi_sweep), a read of every byte
   cur        K9 ``q4_matmul_i``: the main path's "i"-layout matmul
   gi         K2 ``q4_matmul_ps`` with bf16 planes, on the "ps" repack
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import itertools
+import types
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -36,17 +40,20 @@ from vsim_tpu_torch.ops.q4_cuda import (q4_gemv_ps, q4_gemv_ps_plain,
                                         q4_matmul_i, q4_matmul_i_plain,
                                         q4_matmul_ps, q4_matmul_ps_plain)
 from vsim_tpu_torch.ops.q4_lab import (F32_MATHS, LAB_MATHS, TOL_LAB,
-                                       block_sums, q4_lab_dma,
+                                       block_sums, pack_w32, q4_lab_dma,
                                        q4_lab_dma_plain, q4_lab_gemv,
+                                       q4_lab_gemv_layout,
+                                       q4_lab_gemv_layout_plain,
                                        q4_lab_gemv_plain)
 from vsim_tpu_torch.quant.q4 import (QK, Q4Tensor, dequantize_km,
                                      to_plane_split)
 from vsim_tpu_torch.timing import rel_err, rotation, timed
 
-VARIANT_KERNEL = {**{m: "q4_lab_gemv" for m in LAB_MATHS},
+LAYOUT_VARIANTS = ("res", "w32", "ps")  # K12's layouts on one weight
+VARIANT_KERNEL = {**{m: "q4_lab_gemv" for m in LAB_MATHS + LAYOUT_VARIANTS},
                   "dma": "q4_lab_dma", "cur": "q4_matmul_i",
                   "gi": "q4_matmul_ps", "giw": "q4_gemv_ps"}
-PS_VARIANTS = ("gi", "giw")
+PS_VARIANTS = ("gi", "giw", "ps")
 
 
 def tool_main(run, doc: str, batch: int, shape: Tuple[int, int],
@@ -117,6 +124,9 @@ def run_variants(tool: str, O: int, K: int, batch: int,  # noqa: N803
                    wbytes) if on_card else [w0])
     need_ps = dma_layout == "ps" or any(v in PS_VARIANTS for v in order)
     wps = [to_plane_split(w) for w in ws] if need_ps else None
+    w32s = ([types.SimpleNamespace(packed=pack_w32(w.packed),
+                                   scales=w.scales) for w in ws]
+            if "w32" in order else None)
     print(f"{tool}: device={card} batch={batch} shape O={O} K={K} "
           f"({wbytes / 1e6:.1f} MB of weight, {len(ws)} in rotation)",
           flush=True)
@@ -124,8 +134,8 @@ def run_variants(tool: str, O: int, K: int, batch: int,  # noqa: N803
     rows: List[Dict] = []
     dma_gbs = None
     for v in order:
-        wl = wps if (v in PS_VARIANTS or (v == "dma" and dma_layout == "ps")) \
-            else ws
+        wl = (wps if v in PS_VARIANTS or (v == "dma" and dma_layout == "ps")
+              else w32s if v == "w32" else ws)
         bf16_planes = v not in F32_MATHS and v != "cur"
         if v == "dma":
             def fn(w):
@@ -142,6 +152,12 @@ def run_variants(tool: str, O: int, K: int, batch: int,  # noqa: N803
 
             def plain(w, v=v, vxs=vxs):
                 return q4_lab_gemv_plain(x, w.packed, w.scales, v, vxs)
+        elif v in LAYOUT_VARIANTS:
+            def fn(w, v=v):
+                return q4_lab_gemv_layout(x, w.packed, w.scales, v)
+
+            def plain(w, v=v):
+                return q4_lab_gemv_layout_plain(x, w.packed, w.scales, v)
         elif v == "cur":
             def fn(w):
                 return q4_matmul_i(x, w.packed, w.scales)
@@ -192,7 +208,8 @@ def run_variants(tool: str, O: int, K: int, batch: int,  # noqa: N803
         row = dict(tool=tool, kernel=VARIANT_KERNEL[v], variant=v,
                    shape=f"{v} n={batch} {K}->{O}", n=batch, K=K, O=O,
                    layout=(dma_layout if v == "dma" else
-                           "ps" if v in PS_VARIANTS else "i"),
+                           "ps" if v in PS_VARIANTS else
+                           "w32" if v == "w32" else "i"),
                    block_kh=block_kh if v == "dma" else None,
                    ms=ms, gbs=gbs,
                    vs_dma=(gbs / dma_gbs if gbs and dma_gbs else None),

@@ -9,8 +9,10 @@ the kernel against its plain version, exactly.  ``pairA``: K12 under pairA
 with unit scales (``q4_lab.unit_scales``), x [8, 512] bf16 times (v - 8)
 for a [256, 256] u8 weight, held against its plain version and against a
 second run of itself, bit for bit.  On the card
-each is timed (``timing.timed``).  The TPU probe's lower/compile stages do
-not carry over.
+each is timed (``timing.timed``), pairA beside a library yardstick the
+port never calls: ``torch.matmul`` of x and the unit-scale weight
+dequantized to bf16 (``dequantize_km``), the same function.  The TPU
+probe's lower/compile stages do not carry over.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from vsim_tpu_torch.device import DeviceLike, resolve_device
 from vsim_tpu_torch.ops.q4_lab import (TOL_LAB, pair_bitcast,
                                        pair_bitcast_plain, q4_lab_gemv,
                                        q4_lab_gemv_plain, unit_scales)
+from vsim_tpu_torch.quant.q4 import Q4Tensor, dequantize_km
 from vsim_tpu_torch.timing import rel_err, timed
 
 STAGES = ("bitcast", "pairA")
@@ -40,6 +43,7 @@ def run(stage: str = "bitcast", device: DeviceLike = None) -> List[Dict]:
     g.manual_seed(0)
     p = torch.randint(0, 256, (KH, O), generator=g, device=dev,
                       dtype=torch.uint8)
+    library = None
     if stage == "bitcast":
         def fn():
             return pair_bitcast(p)
@@ -74,17 +78,24 @@ def run(stage: str = "bitcast", device: DeviceLike = None) -> List[Dict]:
             raise RuntimeError("pair_probe pairA: differs from run to run")
         kernel = "q4_lab_gemv"
         nbytes = p.numel() + s.numel() * 2 + x.numel() * 2 + N * O * 4
+
+        def library():
+            return torch.matmul(x, dequantize_km(Q4Tensor(p, s, "i"),
+                                                 torch.bfloat16))
         ops = 2 * N * 2 * KH * O
     ms = timed(fn) if on_card else None
     plain_ms = timed(plain, reps=3, warmup=1) if on_card else None
+    lib_ms = (timed(library, reps=5, warmup=1)
+              if on_card and library is not None else None)
     row = dict(tool="pair_probe", kernel=kernel, variant=stage,
                shape=f"probe {stage} KH={KH} O={O}", n=N, K=2 * KH, O=O,
                ms=ms, max_abs_err=err, rel_err=rel, plain_ms=plain_ms,
-               library_ms=None, nbytes=nbytes, ops=ops,
+               library_ms=lib_ms, nbytes=nbytes, ops=ops,
                peak="bf16", device=card)
     print(f"  {stage} KH={KH} O={O}: "
           + (f"{ms:.4f} ms, plain {plain_ms:.4f} ms" if on_card
              else f"ms not measured (on {card})")
+          + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
           + f"  max|err| {err:.2e}", flush=True)
     return [row]
 
