@@ -103,7 +103,10 @@ TOL_Q4 = 1e-4     # K1/K2: only the order of the f32 sums differs
 TOL_DECODE = 1e-3  # K3, K5: only the exp and sum order differ
 TOL_FLASH_BF16 = 1e-2  # K4 bf16: the output is rounded to bf16
 TOL_FLASH_F32 = 1e-4   # K4 f32: sum order only
-# K7/K8 as K4: bf16 gradients are rounded to bf16 at the store, f32 ones
+# K7/K8: bf16 gradients are rounded to bf16 at the store; f32 ones at D = 64
+# and 128 take each product as three TF32 products of split operands
+# ("mma_3xtf32": ~1e-6 of max|plain| in tests/test_torch_flash_bwd.py's
+# emulation, where one TF32 product misses 1e-4), at other D the FMA tiles
 # differ from the plain version's cuBLAS products in sum order only
 TOL_BWD_BF16 = 1e-2
 TOL_BWD_F32 = 1e-4
@@ -124,6 +127,9 @@ TOL_LOGITS_BF16 = 5e-2
 PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12),
          "H100": (3.35e12, 989e12, 67e12),
          "H200": (4.8e12, 989e12, 67e12)}
+# dense TF32 FLOP/s (NVIDIA data sheets): the second bound of K7/K8's
+# "mma_3xtf32" instance, three TF32 products per f32 product
+TF32_PEAKS = {"H100 PCIe": 378e12, "H100": 494.7e12, "H200": 494.7e12}
 
 
 def fail(msg: str) -> None:
@@ -150,6 +156,7 @@ def phase_kernels(peaks):
     from vsim_tpu_torch.ops.attention import (flash_attention_bwd_dkv,
                                               flash_attention_bwd_dq,
                                               flash_attention_bwd_plain,
+                                              flash_attention_bwd_route,
                                               flash_attention_fwd,
                                               flash_attention_plain)
     from vsim_tpu_torch.ops.decode_attention import (
@@ -451,8 +458,12 @@ def phase_kernels(peaks):
     # GPT-J's (T=S=512, D=256); K4 at the Pythia-410M shapes as well.  The
     # yardsticks are scaled_dot_product_attention and its backward (dq, dk
     # and dv in one call, so both rows carry it; the plain time is likewise
-    # that of the whole plain backward)
+    # that of the whole plain backward).  Each row names its instance; the
+    # "mma_3xtf32" rows carry a second bound, three TF32 products per f32
+    # product at the card's dense TF32 peak
     f32, bf16 = torch.float32, torch.bfloat16
+    tf32_peak = next(v for key, v in TF32_PEAKS.items()
+                     if key in torch.cuda.get_device_name(0))
     for B, T, D, dt in ((1, 2048, 64, f32), (4, 2048, 64, f32),  # noqa: N806
                         (1, 2048, 64, bf16), (1, 512, 256, f32),
                         (1, 512, 256, bf16)):
@@ -491,13 +502,33 @@ def phase_kernels(peaks):
         ref = flash_attention_bwd_plain(q, k, v, out, lse, do, scale=sc)
         torch.cuda.synchronize()
         tol = TOL_BWD_BF16 if dt == bf16 else TOL_BWD_F32
+        route = flash_attention_bwd_route(dt, D)
+        if dt == f32 and D == 64 and route != "mma_3xtf32":
+            fail(f"flash_attention_bwd {shape}: takes {route}, not "
+                 "mma_3xtf32")
         errs = [rel_err(a, b) for a, b in zip((dq, dk, dv), ref)]
         for name, (err, rel), got in zip(("dq", "dk", "dv"), errs,
                                          (dq, dk, dv)):
             if not torch.isfinite(got).all() or rel > tol:
                 fail(f"flash_attention_bwd {name} {shape}: max|err| "
                      f"{err:.3g} (rel {rel:.3g} > {tol})")
+        # f32 at B=1: the kernel's and the plain version's distance from an
+        # f64 backward of the same inputs (dq, dk, dv; relative to max|f64|)
+        vs_f64 = None
+        if dt == f32 and B == 1:
+            exact = _bwd_f64(q, k, v, do, lse, dsum, sc)
+            vs_f64 = dict(kernel=[rel_err(a, b)[1] for a, b in
+                                  zip((dq, dk, dv), exact)],
+                          plain=[rel_err(a, b)[1] for a, b in
+                                 zip(ref, exact)])
+            del exact
         del ref
+        again = (flash_attention_bwd_dq(q, k, v, do, lse, dsum, scale=sc),
+                 *flash_attention_bwd_dkv(q, k, v, do, lse, dsum, scale=sc))
+        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+            fail(f"flash_attention_bwd {shape} ({route}): differs from run "
+                 "to run")
+        del again
         ms_dq = timed(lambda: flash_attention_bwd_dq(
             q, k, v, do, lse, dsum, scale=sc))
         ms_dkv = timed(lambda: flash_attention_bwd_dkv(
@@ -520,13 +551,37 @@ def phase_kernels(peaks):
             rows.append(dict(kernel=kname, shape=shape, max_abs_err=err,
                              rel_err=max(r for _, r in errs), ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib_ms))
+                             bound_by=b_by, library_ms=lib_ms,
+                             instance=route,
+                             bound_3xtf32_ms=(3 * ops / tf32_peak * 1e3
+                                              if route == "mma_3xtf32"
+                                              else None),
+                             rel_err_vs_f64=vs_f64))
         del q, k, v, do, out, lse, dsum, dq, dk, dv
         torch.cuda.empty_cache()
     rows += q4_layout_rows(peaks, bound, q4_weight)
     rows += pythia_attention_rows(peaks, bound)
     _build.reset_launch_counts()  # comparison launches do not count
     return rows
+
+
+def _bwd_f64(q, k, v, do, lse, dsum, scale):
+    """The causal flash backward (n_past 0, no ALiBi) in f64 from the same
+    inputs, lse and dsum: the yardstick both K7/K8 and their plain version
+    are held to in phase 2's f32 rows."""
+    import torch
+
+    f64 = torch.float64
+    T = q.shape[2]  # noqa: N806
+    live = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    s = torch.einsum("bhtd,bhsd->bhts", q.to(f64), k.to(f64)) * scale
+    p = torch.where(live, torch.exp(s - lse.to(f64)[..., None]), 0.0)
+    del s
+    ds = p * (torch.einsum("bhtd,bhsd->bhts", do.to(f64), v.to(f64))
+              - dsum.to(f64)[..., None]) * scale
+    return (torch.einsum("bhts,bhsd->bhtd", ds, k.to(f64)),
+            torch.einsum("bhts,bhtd->bhsd", ds, q.to(f64)),
+            torch.einsum("bhts,bhtd->bhsd", p, do.to(f64)))
 
 
 # Pythia-12B's matmuls (E=5120, F=20480, vocab 50688 padded to 51200):
@@ -1814,11 +1869,20 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for r in rows:  # the redesigned kernels, with their ratio to the library
         if r["kernel"] in ("decode_attention_q", "flash_attention_fwd",
-                           "decode_attention_fresh", "q4_matmul_ps"):
+                           "decode_attention_fresh", "q4_matmul_ps",
+                           "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv"):
+            extra = "" if r.get("instance") is None else (
+                f" [{r['instance']}"
+                + ("" if r["bound_3xtf32_ms"] is None
+                   else f", 3xTF32 bound {r['bound_3xtf32_ms']:.3g}")
+                + ("" if r["rel_err_vs_f64"] is None else ", vs f64 "
+                   + json.dumps({k: [float(f"{x:.2e}") for x in v] for k, v
+                                 in r["rel_err_vs_f64"].items()})) + "]")
             print(f"  {r['kernel']} {r['shape']}: {r['ms']:.4g} ms, bound "
                   f"{r['bound_ms']:.2g}, plain {r['plain_ms']:.4g}, library "
-                  f"{r['library_ms']:.4g} ({r['ms'] / r['library_ms']:.2f}x)",
-                  flush=True)
+                  f"{r['library_ms']:.4g} ({r['ms'] / r['library_ms']:.2f}x)"
+                  f"{extra}", flush=True)
     t0 = time.perf_counter()
     lab_rows, lab_launches = phase_labs(peaks)
     print(f"lab phase: {len(lab_rows)} cases pass in "

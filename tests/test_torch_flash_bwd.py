@@ -9,6 +9,13 @@ Tolerances: f32 2e-4 (rtol and atol), as tests/test_attention.py holds the
 Pallas gradients to their oracle; bf16 one bf16 step at max|grad| (both
 sides compute in f32 from the same bf16 inputs and round once at the store,
 so a rounding may flip by one step).
+
+The split numerics of K7/K8's tensor-core instance ("mma_3xtf32", f32 at D =
+64 and 128) are held here too, on the CPU: ``tf32_round`` splits each
+operand into big + small TF32 halves, and the backward with its five
+products emulated as the kernel's three TF32 products (summed in f64) stays
+within 1e-5 of max|``_bwd_plain``|, while one TF32 product per f32 product
+misses the card's 1e-4 tolerance.
 """
 
 import functools
@@ -28,9 +35,14 @@ from vsim_tpu_torch.models.transformer import alibi_slopes as p_alibi
 from vsim_tpu_torch.models.transformer import forward
 from vsim_tpu_torch.ops.attention import (
     NEG_INF,
+    _bwd_inputs,
+    _bwd_plain,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
+    flash_attention_bwd_route,
+    flash_attention_plain,
+    tf32_round,
 )
 
 # (B, H, T, n_past, S, alibi); the last has S > n_past + T, so key rows
@@ -180,3 +192,100 @@ def test_cache_free_forward_runs_flash_attention_function():
     assert names.count("FlashAttentionBackward") == cfg.n_layer
     logits.sum().backward()
     assert wq.grad is not None and wq.grad.abs().amax(dim=(1, 2)).min() > 0
+
+
+# K7/K8's f32 gradient tolerance on the card (chip_smoke.py TOL_BWD_F32,
+# tests/test_torch_cuda_kernels.py), relative to max|plain|
+TOL_BWD_F32 = 1e-4
+
+
+def test_tf32_split_reproduces_x():
+    """big = tf32_round(x) and small = tf32_round(x - big) are TF32 (13 low
+    mantissa bits zero) and big + small is x to 2^-21 relative; ties round
+    away from zero, as cvt.rna."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(np.concatenate([
+        rng.standard_normal(100_000), rng.standard_normal(1000) * 1e-30,
+        rng.standard_normal(1000) * 1e30]).astype(np.float32))
+    big = tf32_round(x)
+    small = tf32_round(x - big)
+    for h in (big, small):
+        assert not (h.view(torch.int32) & 0x1FFF).any()
+    err = ((big.double() + small.double()) - x.double()).abs()
+    assert (err <= 2.0 ** -21 * x.double().abs()).all()
+    ties = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11])
+    assert tf32_round(ties).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10),
+                                         1 + 2 ** -9]
+
+
+def _tf32_einsum(eq, a, b, terms):
+    """einsum(eq, a, b) as the kernel's TF32 products, each summed in f64:
+    big·big alone (terms=1), or small·big + big·small + big·big (3)."""
+    ab, bb = tf32_round(a), tf32_round(b)
+    out = torch.einsum(eq, ab.double(), bb.double())
+    if terms == 3:
+        a_s, b_s = tf32_round(a - ab), tf32_round(b - bb)
+        out = (torch.einsum(eq, a_s.double(), bb.double())
+               + torch.einsum(eq, ab.double(), b_s.double()) + out)
+    return out.float()
+
+
+def _bwd_tf32(q, k, v, do, lse, dsum, *, scale, terms):
+    """``_bwd_plain`` (n_past 0, no ALiBi) with its five products emulated
+    by ``_tf32_einsum``; the elementwise steps as the plain version's."""
+    T, S = q.shape[2], k.shape[2]  # noqa: N806
+    s = _tf32_einsum("bhtd,bhsd->bhts", q, k, terms) * scale
+    live = (torch.arange(S)[None, :] <= torch.arange(T)[:, None]) \
+        & (lse[..., None] != NEG_INF)
+    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+    dp = _tf32_einsum("bhtd,bhsd->bhts", do, v, terms)
+    ds = p * (dp - dsum[..., None]) * scale
+    return (_tf32_einsum("bhts,bhsd->bhtd", ds, k, terms),
+            _tf32_einsum("bhts,bhtd->bhsd", ds, q, terms),
+            _tf32_einsum("bhts,bhtd->bhsd", p, do, terms))
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(B, H, T, D_):  # noqa: N803
+    """(rel err of the 3-term emulation, of the 1-term one), each a list
+    over dq, dk, dv, relative to max|_bwd_plain| on numpy inputs."""
+    rng = np.random.default_rng(D_ + T)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (B, H, T, D_)).astype(np.float32)) for _ in range(4))
+    scale = D_ ** -0.5
+    out, lse = flash_attention_plain(q, k, v, scale=scale)
+    do, dsum = _bwd_inputs(out, do, q.dtype)
+    ref = _bwd_plain(q, k, v, do, lse, dsum, n_past=0, scale=scale,
+                     slopes=None)
+    rels = []
+    for terms in (3, 1):
+        got = _bwd_tf32(q, k, v, do, lse, dsum, scale=scale, terms=terms)
+        rels.append([((a - r).abs().max() / r.abs().max()).item()
+                     for a, r in zip(got, ref)])
+    return rels
+
+
+@pytest.mark.parametrize("D_", [64, 128])
+def test_bwd_3xtf32_emulation_within_1e5(D_):
+    """The kernel's split: three TF32 products per f32 product keep dq, dk
+    and dv within 1e-5 of max|plain| at (B, H, T) = (2, 3, 100)."""
+    three, _ = _split_case(2, 3, 100, D_)
+    assert max(three) <= 1e-5, three
+
+
+@pytest.mark.parametrize("D_", [64, 128])
+def test_bwd_1xtf32_emulation_misses_tolerance(D_):
+    """One TF32 product per f32 product misses the card's f32 tolerance on
+    at least one of dq, dk, dv at the same shapes, so the card check
+    refuses a kernel that drops the small terms."""
+    _, one = _split_case(2, 3, 100, D_)
+    assert max(one) > TOL_BWD_F32, one
+
+
+@pytest.mark.parametrize("dtype,D_,route", [
+    (torch.float32, 64, "mma_3xtf32"), (torch.float32, 128, "mma_3xtf32"),
+    (torch.float32, 80, "fma"), (torch.float32, 256, "fma"),
+    (torch.float32, 32, "fma"), (torch.bfloat16, 64, "fma"),
+    (torch.bfloat16, 128, "fma"), (torch.bfloat16, 256, "fma")])
+def test_flash_attention_bwd_route(dtype, D_, route):
+    assert flash_attention_bwd_route(dtype, D_) == route

@@ -94,6 +94,76 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 4 bytes global -> shared, asynchronously; zero where !full.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0));
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32 (K7/K8 f32): an f32 product from three TF32 tensor-core products.
+// x = big + small with both TF32 (10-bit mantissa), each rounded to nearest
+// with ties away from zero (cvt.rna's rounding); x - big is exact in f32, so
+// big + small is x to 2^-22 relative.  a.b ~ a_small.b_big + a_big.b_small +
+// a_big.b_big, the small terms first into the same f32 accumulator; the
+// dropped a_small.b_small is below 2^-22 of |a| |b|.
+// ---------------------------------------------------------------------------
+
+// cvt.rna.tf32.f32's result for finite x (and +-inf) as an integer add and
+// mask: half an ulp of the 10-bit mantissa added to the magnitude's bits,
+// then the 13 low bits cleared.  On sm_90a ptxas expands cvt.rna.tf32 with a
+// finite test and a select besides, which these finite operands do not need.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// A fragment of m16n8k8 (a0 row g col t, a1 row g+8 col t, a2 row g col
+// t+4, a3 row g+8 col t+4), split
+struct FragA3 {
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2, float a3) {
+    split_tf32(a0, big[0], small[0]);
+    split_tf32(a1, big[1], small[1]);
+    split_tf32(a2, big[2], small[2]);
+    split_tf32(a3, big[3], small[3]);
+  }
+};
+
+// B fragment of m16n8k8 (b0 k t, b1 k t+4; column g), split
+struct FragB3 {
+  uint32_t big[2], small[2];
+  __device__ __forceinline__ void set(float b0, float b1) {
+    split_tf32(b0, big[0], small[0]);
+    split_tf32(b1, big[1], small[1]);
+  }
+};
+
+// d += a . b on a 16x8x8 tile, TF32 operands, f32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b as three TF32 products, small terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA3& a,
+                                           const FragB3& b) {
+  mma_tf32(d, a.small, b.big[0], b.big[1]);
+  mma_tf32(d, a.big, b.small[0], b.small[1]);
+  mma_tf32(d, a.big, b.big[0], b.big[1]);
+}
+
 // Two floats -> bf16x2 (lo in the low half), round to nearest even.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;

@@ -11,8 +11,12 @@ The backward recomputes p from q, k and lse, as ``_flash_core_bwd`` does:
 K7 ``flash_attention_bwd_dq`` (replaces ``_bwd_dq_kernel``) and K8
 ``flash_attention_bwd_dkv`` (replaces ``_bwd_dkv_kernel``), both in
 csrc/flash_attention_bwd.cu, two passes with no atomics, so the gradients
-are the same from run to run.  ``FlashAttention`` wires K4 and K7/K8 into
-autograd; ``flash_attention`` is the differentiable entry.
+are the same from run to run.  ``flash_attention_bwd_route`` names the
+instance a call takes: f32 at D = 64 and 128 runs on the tensor cores, each
+f32 product as three TF32 products of operands split by ``tf32_round``
+("mma_3xtf32"); everything else on the FMA units ("fma").
+``FlashAttention`` wires K4 and K7/K8 into autograd; ``flash_attention`` is
+the differentiable entry.
 
 A CPU tensor goes through the plain versions; a CUDA tensor launches the
 kernels or raises.
@@ -33,9 +37,11 @@ _MAX_D = 256  # csrc/flash_attention.cu kMaxD
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
          _P)
-# K7: q, k, v, do, lse, dsum, dq, slopes; K8: ... dk, dv, slopes
-_BWD_DQ_ARGS = (_P,) * 8 + (_I,) * 7 + (ctypes.c_float, _P)
-_BWD_DKV_ARGS = (_P,) * 9 + (_I,) * 7 + (ctypes.c_float, _P)
+# K7: q, k, v, do, lse, dsum, dq, slopes; K8: ... dk, dv, slopes; then
+# is_bf16, mma, B, H, T, S, D, n_past, scale, stream
+_BWD_DQ_ARGS = (_P,) * 8 + (_I,) * 8 + (ctypes.c_float, _P)
+_BWD_DKV_ARGS = (_P,) * 9 + (_I,) * 8 + (ctypes.c_float, _P)
+_MMA_HEAD_DIMS = (64, 128)  # csrc/flash_attention_bwd.cu's 3xTF32 instances
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -152,6 +158,25 @@ def _bwd_plain(q, k, v, do, lse, dsum, *, n_past, scale, slopes):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The K7/K8 instance a call with q of ``dtype`` and head dim
+    ``head_dim`` takes on the card: "mma_3xtf32" (tensor cores, f32 at D =
+    64 and 128) or "fma" (FMA tiles: bf16 at any D, f32 at other D)."""
+    if dtype == torch.float32 and head_dim in _MMA_HEAD_DIMS:
+        return "mma_3xtf32"
+    return "fma"
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (a 10-bit mantissa), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``: the plain statement of the
+    3xTF32 split, ``big = tf32_round(x)``, ``small = tf32_round(x − big)``.
+    Non-finite values pass through."""
+    bits = x.contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
 def _check_bwd(q, k, v, do, lse, dsum, slopes, what):
     B, H, T, S, D = _check(q, k, v, slopes, what)  # noqa: N806
     if do.device != q.device or do.dtype != q.dtype \
@@ -170,6 +195,10 @@ def _check_bwd(q, k, v, do, lse, dsum, slopes, what):
     return B, H, T, S, D
 
 
+def _mma(dtype, D):  # noqa: N803
+    return int(flash_attention_bwd_route(dtype, D) == "mma_3xtf32")
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, dsum, *, n_past: int = 0,
                            scale: float,
                            slopes: Optional[torch.Tensor] = None
@@ -186,8 +215,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dsum, *, n_past: int = 0,
     p = _build.ptr
     _build.launch("flash_attention_bwd_dq", "flash_attention_bwd_dq_launch",
                   _BWD_DQ_ARGS, p(q), p(k), p(v), p(do), p(lse), p(dsum),
-                  p(dq), p(slopes), int(q.dtype == torch.bfloat16), B, H, T,
-                  S, D, int(n_past), float(scale), _build.stream_ptr(q.device))
+                  p(dq), p(slopes), int(q.dtype == torch.bfloat16),
+                  _mma(q.dtype, D), B, H, T, S, D, int(n_past), float(scale),
+                  _build.stream_ptr(q.device))
     return dq
 
 
@@ -207,8 +237,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dsum, *, n_past: int = 0,
     _build.launch("flash_attention_bwd_dkv",
                   "flash_attention_bwd_dkv_launch", _BWD_DKV_ARGS, p(q), p(k),
                   p(v), p(do), p(lse), p(dsum), p(dk), p(dv), p(slopes),
-                  int(q.dtype == torch.bfloat16), B, H, T, S, D, int(n_past),
-                  float(scale), _build.stream_ptr(q.device))
+                  int(q.dtype == torch.bfloat16), _mma(q.dtype, D), B, H, T,
+                  S, D, int(n_past), float(scale), _build.stream_ptr(q.device))
     return dk, dv
 
 
