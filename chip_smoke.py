@@ -226,8 +226,7 @@ def phase_kernels(peaks):
             if not torch.isfinite(got).all() or rel > TOL_Q4:
                 fail(f"{kname} {shape}: max|err| {err:.3g} "
                      f"(rel {rel:.3g} > {TOL_Q4})")
-            if kname == "q4_matmul_ps" and not torch.equal(
-                    got, fn(x, w0.packed, w0.scales, bias)):
+            if not torch.equal(got, fn(x, w0.packed, w0.scales, bias)):
                 fail(f"{kname} {shape}: differs from run to run")
             cyc = itertools.cycle(ws)
 
@@ -247,7 +246,8 @@ def phase_kernels(peaks):
             b_ms, b_by = bound(nbytes, 2 * n * K * O, peak)
             rows.append(dict(kernel=kname, shape=shape, max_abs_err=err,
                              rel_err=rel, ms=ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                             weights=[(K, O)]))
 
     # K3: GPT-J decode attention, H=16, D=256, S=2048, stacked L=2, layer 1
     L, B, H, S, D = 2, 1, 16, 2048, 256  # noqa: N806
@@ -561,6 +561,7 @@ def phase_kernels(peaks):
         torch.cuda.empty_cache()
     rows += q4_layout_rows(peaks, bound, q4_weight)
     rows += pythia_attention_rows(peaks, bound)
+    flat_ratios(rows)
     _build.reset_launch_counts()  # comparison launches do not count
     return rows
 
@@ -591,6 +592,23 @@ PYTHIA_SHAPES = {"qkv": (5120, 15360, True), "wo": (5120, 5120, True),
                  "lm_head": (5120, 51200, False)}
 
 
+def flat_ratios(rows):
+    """Each K1 and K11 row's time over the card's flat read of the same
+    weight bytes at n = 1 (``tools/read_designs.py:flat_ms``, this run;
+    fc's plus proj's for K11)."""
+    from vsim_tpu_torch.tools.read_designs import flat_ms
+
+    flat = {}
+    for r in rows:
+        if r["kernel"] not in ("q4_gemv_ps", "q4_mlp_ps"):
+            continue
+        for w in r["weights"]:
+            if w not in flat:
+                flat[w] = flat_ms(*w)
+        r["flat_ms"] = sum(flat[w] for w in r["weights"])
+        r["vs_flat"] = r["ms"] / r["flat_ms"]
+
+
 def q4_layout_rows(peaks, bound, q4_weight):
     """K1, K2 (both plane contracts), K9, K10 and K11 against their plain
     versions at the shapes phase 7's engines give them."""
@@ -618,11 +636,12 @@ def q4_layout_rows(peaks, bound, q4_weight):
                  f"{TOL_Q4})")
         return err, rel
 
-    def row(kname, shape, err, rel, ms, plain_ms, lib_ms, nbytes, ops, peak):
+    def row(kname, shape, err, rel, ms, plain_ms, lib_ms, nbytes, ops, peak,
+            weights):
         b_ms, b_by = bound(nbytes, ops, peak)
         rows.append(dict(kernel=kname, shape=shape, max_abs_err=err,
                          rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=lib_ms))
+                         bound_by=b_by, library_ms=lib_ms, weights=weights))
 
     def stacked_weight(L, K, O, seed):  # noqa: N803
         w = q4_weight(K, O * L, seed)  # random bytes, reshaped per layer
@@ -645,7 +664,8 @@ def q4_layout_rows(peaks, bound, q4_weight):
                  f"planes={planes}")
         got = fn(x, w0, bias)
         err, rel = check(kname, shape, got, plain(x, w0, bias))
-        if kname == "q4_matmul_ps" and not torch.equal(got, fn(x, w0, bias)):
+        if (kname in ("q4_matmul_ps", "q4_gemv_ps")
+                and not torch.equal(got, fn(x, w0, bias))):
             fail(f"{kname} {shape}: differs from run to run")
         cyc = itertools.cycle(ws)
         ms = timed(lambda: fn(x, next(cyc), bias))
@@ -659,14 +679,16 @@ def q4_layout_rows(peaks, bound, q4_weight):
                   + x.numel() * x.element_size() + n * O * 4
                   + (O * 4 if has_bias else 0))
         row(kname, shape, err, rel, ms, plain_ms, lib_ms, nbytes,
-            2 * n * K * O, bf16_peak if round_planes else f32_peak)
+            2 * n * K * O, bf16_peak if round_planes else f32_peak, [(K, O)])
 
-    # K1 (the gi engine's decode and 8-token prefill), and K2: f32 planes
-    # for bf16 x (the f32xf engine's decode, 8-token prefill and, at 100
-    # rows, its prefill MLP too) and at 100 rows under both contracts (the
-    # prefill of 100 tokens; gi rounds the planes past 8 rows)
+    # K1 (the gi engine's decode and 8-token prefill; fc at 2 and 4 rows
+    # too), and K2: f32 planes for bf16 x (the f32xf engine's decode,
+    # 8-token prefill and, at 100 rows, its prefill MLP too) and at 100 rows
+    # under both contracts (the prefill of 100 tokens; gi rounds the planes
+    # past 8 rows)
     cases = ([("q4_gemv_ps", s, n, True) for n in (1, 8)
               for s in PYTHIA_SHAPES]
+             + [("q4_gemv_ps", "fc", n, True) for n in (2, 4)]
              + [("q4_matmul_ps", s, n, False) for n in (1, 8)
                 for s in ("qkv", "wo", "lm_head")]
              + [("q4_matmul_ps", s, 100, r) for r in (True, False)
@@ -732,13 +754,17 @@ def q4_layout_rows(peaks, bound, q4_weight):
             del w0
     torch.cuda.empty_cache()
 
-    # K11: Pythia-12B (gelu_exact, n=1 and 8), GPT-J (gelu_tanh), relu small
+    # K11: Pythia-12B (gelu_exact, n=1 and 8), GPT-J (gelu_tanh), relu
+    # small, with bf16 x and with f32 x (three bf16 pieces)
     lib_act = {"gelu_exact": F.gelu, "relu": F.relu,
                "gelu_tanh": lambda h: F.gelu(h, approximate="tanh")}
-    for model, E, Fd, act, n in (("pythia-12b", 5120, 20480, "gelu_exact", 1),  # noqa: N806
-                                 ("pythia-12b", 5120, 20480, "gelu_exact", 8),
-                                 ("gpt-j-6b", 4096, 16384, "gelu_tanh", 1),
-                                 ("small", 512, 1024, "relu", 4)):
+    bf16 = torch.bfloat16
+    for model, E, Fd, act, n, xdt in (  # noqa: N806
+            ("pythia-12b", 5120, 20480, "gelu_exact", 1, bf16),
+            ("pythia-12b", 5120, 20480, "gelu_exact", 8, bf16),
+            ("gpt-j-6b", 4096, 16384, "gelu_tanh", 1, bf16),
+            ("small", 512, 1024, "relu", 4, bf16),
+            ("small", 512, 1024, "relu", 4, torch.float32)):
         def make(i, E=E, Fd=Fd):  # noqa: N803
             return (q4_weight(E, Fd, 17 * E + i), q4_weight(Fd, E, 19 * E + i))
 
@@ -746,7 +772,7 @@ def q4_layout_rows(peaks, bound, q4_weight):
         nb = pair0[0].nbytes + pair0[1].nbytes
         pairs = rotation(make, nb)
         pairs[0] = pair0
-        x = torch.randn((n, E), generator=g, device=dev).to(torch.bfloat16)
+        x = torch.randn((n, E), generator=g, device=dev).to(xdt)
         bfc = torch.randn((Fd,), generator=g, device=dev) * 0.1
         bproj = torch.randn((E,), generator=g, device=dev)
 
@@ -755,7 +781,8 @@ def q4_layout_rows(peaks, bound, q4_weight):
             return f(x, p[0].packed, p[0].scales, bfc, p[1].packed,
                      p[1].scales, bproj, act)
 
-        shape = f"{model} E={E} F={Fd} {act} n={n}"
+        shape = f"{model} E={E} F={Fd} {act} n={n}" + (
+            "" if xdt == bf16 else " x=float32")
         got = run(pair0)
         err, rel = check("q4_mlp_ps", shape, got, run(pair0, plain=True))
         if not torch.equal(got, run(pair0)):
@@ -774,9 +801,9 @@ def q4_layout_rows(peaks, bound, q4_weight):
             return torch.matmul(lib_act[act](hh), dequantize_km(p[1])) + bproj
 
         lib_ms = timed(lambda: library(next(cyc)), reps=5, warmup=1)
-        nbytes = nb + x.numel() * 2 + (Fd + E) * 4 + n * E * 4
+        nbytes = nb + x.numel() * x.element_size() + (Fd + E) * 4 + n * E * 4
         row("q4_mlp_ps", shape, err, rel, ms, plain_ms, lib_ms, nbytes,
-            4 * n * E * Fd, f32_peak)
+            4 * n * E * Fd, f32_peak, [(E, Fd), (Fd, E)])
         del pairs, pair0
         torch.cuda.empty_cache()
     return rows
@@ -1226,7 +1253,8 @@ def phase_serving(cfg, params):
             step_b8_device_idle_share=(None if busy_ms is None else
                                        1 - busy_ms / (wall_step[5] * 1e3)),
             step_b8_device_ms_by_kernel=by_kernel,
-            step_b8_k5_device_ms=by_group and by_group["decode_attention"])
+            step_b8_k5_device_ms=by_group and by_group["decode_attention"],
+            step_b8_k1_device_ms=by_group and by_group["q4_core"])
         del srv
         torch.cuda.empty_cache()
     return out, launches
@@ -1613,7 +1641,9 @@ STEP_KERNELS = {"decode_attention": ("decode_split_kernel",
                                      "decode_combine_kernel"),
                 "q4_matmul_ps": ("ps_gemv_kernel", "ps_mma_kernel",
                                  "matmul_ps_kernel",
-                                 "ps_split_reduce_kernel")}
+                                 "ps_split_reduce_kernel"),
+                # K1 and K11 (both launches): csrc/q4_core.cuh
+                "q4_core": ("q4_core_kernel",)}
 
 
 def step_device_profile(step, steps: int = 3):
@@ -1748,7 +1778,8 @@ def phase_pythia(peaks):
                                     else 1 - busy_ms / (wall[5] * 1e3)),
             step_device_ms_by_kernel=by_kernel,
             step_k3_device_ms=by_group and by_group["decode_attention"],
-            step_k2_device_ms=by_group and by_group["q4_matmul_ps"])
+            step_k2_device_ms=by_group and by_group["q4_matmul_ps"],
+            step_k1_k11_device_ms=by_group and by_group["q4_core"])
         del cache
         torch.cuda.empty_cache()
     del engines
@@ -1868,6 +1899,12 @@ def main() -> None:
     print(f"kernel phase: {len(rows)} cases pass in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for r in rows:  # the redesigned kernels, with their ratio to the library
+        if r["kernel"] in ("q4_gemv_ps", "q4_mlp_ps"):
+            print(f"  {r['kernel']} {r['shape']}: {r['ms']:.4g} ms, bound "
+                  f"{r['bound_ms']:.2g}, flat read {r['flat_ms']:.4g} "
+                  f"({r['vs_flat']:.2f}x), plain {r['plain_ms']:.4g}, "
+                  f"library {r['library_ms']:.4g} "
+                  f"({r['ms'] / r['library_ms']:.2f}x)", flush=True)
         if r["kernel"] in ("decode_attention_q", "flash_attention_fwd",
                            "decode_attention_fresh", "q4_matmul_ps",
                            "flash_attention_bwd_dq",
@@ -1902,7 +1939,8 @@ def main() -> None:
     print(f"ServingEngine in {time.perf_counter() - t0:.1f} s", flush=True)
     for k, v in serving.items():
         print(f"  {k}: {json.dumps(v)}", flush=True)
-        print(f"  {k}: K5 {v['step_b8_k5_device_ms']} ms of a B=8 step's "
+        print(f"  {k}: K5 {v['step_b8_k5_device_ms']} ms, K1 "
+              f"{v['step_b8_k1_device_ms']} ms of a B=8 step's "
               f"{v['step_b8_device_busy_ms']} device ms", flush=True)
     t0 = time.perf_counter()
     clock = PartTimer()
@@ -1927,7 +1965,8 @@ def main() -> None:
     for k, v in pythia["engines"].items():
         print(f"  {k}: {json.dumps(v)}", flush=True)
         print(f"  {k}: K2 {v['step_k2_device_ms']} ms, K3 "
-              f"{v['step_k3_device_ms']} ms of a step's "
+              f"{v['step_k3_device_ms']} ms, K1/K11 "
+              f"{v['step_k1_k11_device_ms']} ms of a step's "
               f"{v['step_device_busy_ms']} device ms", flush=True)
 
     total = collections.Counter(launches)

@@ -7,7 +7,7 @@ fixture, never at import).  On a machine with the card and no JAX
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
 Tolerances relative to max|plain|, as in chip_smoke.py: 1e-4 for the Q4
-matmuls (K1, K2, K9, K10) and the fused MLP (K11; K2 and K11 are also
+matmuls (K1, K2, K9, K10) and the fused MLP (K11; K1, K2 and K11 are also
 bit-identical from run to run) and 1e-3 for decode attention, fresh mode
 included (only the f32 sum and exp order differ), 1e-2 for bf16 flash
 output and gradients (rounded to bf16), 1e-4 for f32 flash gradients (sum
@@ -76,16 +76,56 @@ def _weight(K, O, dev, seed):
     return packed, scales
 
 
-@pytest.mark.parametrize("n", [1, 3, 8])
-@pytest.mark.parametrize("K,O", [(512, 1024), (2048, 4100)])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("K,O", [(512, 1024), (2048, 4100), (64, 1028),
+                                 (1344, 1028)])
 def test_q4_gemv_ps(dev, n, K, O):
+    """K1 at every n; K = 64 is one group a plane, K = 1344 21 groups (no
+    split divides them), O = 1028 and 4100 no multiple of a 16- or
+    128-column tile (4-byte loads, a ragged last tile); with and without a
+    bias, one launch a call, the same bits from run to run (the partials
+    meet in shared memory in a fixed order)."""
     packed, scales = _weight(K, O, dev, n)
     x = torch.randn((n, K), device=dev).to(torch.bfloat16)
+    for bias in (None, torch.randn((O,), device=dev)):
+        before = _build.launch_counts["q4_gemv_ps"]
+        got = q4_gemv_ps(x, packed, scales, bias)
+        assert _build.launch_counts["q4_gemv_ps"] == before + 1
+        ref = q4_gemv_ps_plain(x, packed, scales, bias)
+        assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
+        assert torch.equal(got, q4_gemv_ps(x, packed, scales, bias))
+
+
+@pytest.mark.parametrize("plan", [(1, 1), (1, 3), (1, 8), (2, 1), (2, 5),
+                                  (4, 1), (4, 2)])
+@pytest.mark.parametrize("K,O", [(1344, 1028), (4096, 2048)])
+def test_q4_gemv_ps_plans(dev, plan, K, O):
+    """Every kind of split the plan can pick, at n = 1 and 8: warps on one
+    column tile or several, clusters of 1-8 blocks, splits that divide the
+    groups or not (21 groups; 64 groups over 24 splits); each plan sums in
+    its own order, within the tolerance, the same bits run to run."""
+    from vsim_tpu_torch.ops.q4_cuda import q4_gemv_ps_planned
+
+    packed, scales = _weight(K, O, dev, sum(plan))
     bias = torch.randn((O,), device=dev)
-    before = _build.launch_counts["q4_gemv_ps"]
-    got = q4_gemv_ps(x, packed, scales, bias)
-    assert _build.launch_counts["q4_gemv_ps"] == before + 1
-    assert _rel(got, q4_gemv_ps_plain(x, packed, scales, bias)) < 1e-4
+    for n in (1, 8):
+        x = torch.randn((n, K), device=dev).to(torch.bfloat16)
+        got = q4_gemv_ps_planned(x, packed, scales, bias, plan)
+        ref = q4_gemv_ps_plain(x, packed, scales, bias)
+        assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
+        assert torch.equal(got, q4_gemv_ps_planned(x, packed, scales, bias,
+                                                   plan))
+
+
+def test_q4_gemv_ps_unaligned_x(dev):
+    """x that starts off a 16-byte boundary (a row of a larger tensor) is
+    taken as it is by the wrapper."""
+    packed, scales = _weight(512, 256, dev, 5)
+    big = torch.randn((2, 513), device=dev).to(torch.bfloat16)
+    x = big.reshape(-1)[1:513].reshape(1, 512)
+    assert x.data_ptr() % 16
+    assert _rel(q4_gemv_ps(x, packed, scales),
+                q4_gemv_ps_plain(x, packed, scales)) < 1e-4
 
 
 @pytest.mark.parametrize("n", [1, 3, 8, 9, 16, 32, 33, 100, 128])
@@ -214,12 +254,16 @@ def test_fused_mlp_refuses_a_gradient_it_cannot_carry(dev):
 
 
 @pytest.mark.parametrize("act", ["gelu_tanh", "relu", "gelu_exact"])
-@pytest.mark.parametrize("n", [1, 5, 8])
-def test_q4_mlp_ps(dev, act, n):
+@pytest.mark.parametrize("n", [1, 3, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_q4_mlp_ps(dev, act, n, dtype):
+    """K11 with bf16 x (one piece) and f32 x (three bf16 pieces; h is f32
+    and split the same way), with and without biases, one launch count a
+    call, the same bits from run to run."""
     E, F = 512, 1024  # noqa: N806
     pfc, sfc = _weight(E, F, dev, n + 3)
     pproj, sproj = _weight(F, E, dev, n + 4)
-    x = torch.randn((n, E), device=dev).to(torch.bfloat16)
+    x = torch.randn((n, E), device=dev).to(dtype)
     for bfc, bproj in ((None, None), (torch.randn((F,), device=dev),
                                       torch.randn((E,), device=dev))):
         before = _build.launch_counts["q4_mlp_ps"]
@@ -227,13 +271,29 @@ def test_q4_mlp_ps(dev, act, n):
         assert _build.launch_counts["q4_mlp_ps"] == before + 1
         ref = q4_mlp_ps_plain(x, pfc, sfc, bfc, pproj, sproj, bproj, act)
         assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
-        # bit-identical from run to run: a reduce pass, no atomics
+        # bit-identical from run to run: fixed sum orders, no atomics
         again = q4_mlp_ps(x, pfc, sfc, bfc, pproj, sproj, bproj, act)
         assert torch.equal(got, again)
     with pytest.raises(ValueError, match="F %"):
         q4_mlp_ps(x, pfc[:, :960].contiguous(), sfc[:, :960].contiguous(),
                   None, pproj[:480].contiguous(), sproj[:30].contiguous(),
                   None, act)
+
+
+def test_q4_mlp_ps_wide_f32(dev):
+    """K11 with f32 x of a wide dynamic range (|x| from 2^-20 to 2^20): the
+    three-piece split keeps every product exact, so only the f32 sums
+    differ from the plain version."""
+    E, F = 1024, 2048  # noqa: N806
+    pfc, sfc = _weight(E, F, dev, 11)
+    pproj, sproj = _weight(F, E, dev, 12)
+    g = torch.Generator(device=dev).manual_seed(3)
+    mag = torch.exp2(torch.randint(-20, 21, (4, E), generator=g, device=dev)
+                     .float())
+    x = torch.randn((4, E), generator=g, device=dev) * mag
+    got = q4_mlp_ps(x, pfc, sfc, None, pproj, sproj, None, "gelu_tanh")
+    ref = q4_mlp_ps_plain(x, pfc, sfc, None, pproj, sproj, None, "gelu_tanh")
+    assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
 
 
 def test_q4_kernels_reject_what_they_cannot_take(dev):

@@ -1,7 +1,9 @@
 """Q4_0 matmul kernels (counterpart of vsim_tpu/ops/pallas_q4.py).
 
 K1 ``q4_gemv_ps`` (csrc/q4_gemv_ps.cu): n <= 8 rows of bf16 x, the
-grouped-integer math of ``_kernel_ps_giw`` / ``_kernel_ps_gi[_bias]``.
+grouped-integer math of ``_kernel_ps_giw`` / ``_kernel_ps_gi[_bias]``, on
+the Q4 core of csrc/q4_core.cuh (mma.sync on conversion-free nibbles, K
+split over a thread-block cluster, ``core_plan``).
 K2 ``q4_matmul_ps`` (csrc/q4_matmul_ps.cu): n <= 128 rows, the per-element
 dequant math of ``_kernel_ps[_bias]``: planes (v - 8)·s rounded to bf16 (x
 too) or kept in f32, as ``round_planes`` says (ops/matmul.py decides it
@@ -12,7 +14,8 @@ interleaved ("i") layout of ``_kernel`` and ``_kernel_stacked``, n <= 128;
 K10 picks layer ``il`` (an int32 device tensor) of a stacked [L, K/2, O]
 weight inside the kernel.
 K11 ``q4_mlp_ps`` (csrc/q4_mlp_ps.cu): the fused ``act(x Wfc + bfc) Wproj +
-bproj`` of ``_kernel_mlp_ps``, both weights plane-split, n <= 8, all in f32.
+bproj`` of ``_kernel_mlp_ps``, both weights plane-split, n <= 8, all in f32:
+two launches of the same core, h in f32 between them.
 
 The dequant math (``set_dequant_math``: "i32", "f32x", "f32xf" or "gi", the
 JAX package's names and default) decides which kernel the routes take and
@@ -31,7 +34,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -41,10 +44,14 @@ from vsim_tpu_torch.quant.q4 import QK
 GEMV_MAX_ROWS = 8
 MATMUL_MAX_ROWS = 128
 MLP_MAX_ROWS = 8
-_GEMV_TILE_O = 1024  # output columns per K1 / K2 (n <= 8) / K9 / K10 block
+_GEMV_TILE_O = 1024  # output columns per K2 (n <= 8) / K9 / K10 block
 _MMA_TILE_O = 128  # output columns per block of K2's tensor-core instance
 _I_ROWS = 8  # x rows per K9 / K10 block (csrc/q4_matmul_i.cu kMaxRows)
-_MLP_BFH = 64  # K11: F columns per plane per block (csrc/q4_mlp_ps.cu)
+_MLP_F_MULTIPLE = 128  # K11's contract since its first port: F % 128 == 0
+# the Q4 core of K1 and K11 (csrc/q4_core.cuh)
+CORE_WARPS = 4  # warps a block
+CORE_TILE_O = 128  # output columns a warp
+CORE_MAX_CLUSTER = 8  # blocks a cluster (the portable limit)
 
 MATHS = ("i32", "f32x", "f32xf", "gi")
 _dequant_math = "gi"
@@ -53,11 +60,12 @@ _dequant_math = "gi"
 MLP_ACTS = {"gelu_tanh": 0, "relu": 1, "gelu_exact": 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_GEMV_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+_GEMV_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _MATMUL_ARGS = (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 _I_ARGS = (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 _STACKED_ARGS = (_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
-_MLP_ARGS = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+_MLP_ARGS = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+             _I, _I, _P)
 
 
 def set_dequant_math(name: str) -> None:
@@ -280,10 +288,65 @@ def _sm_count(index: int) -> int:
 
 def gemv_splits(K: int, O: int, sm_count: int, row_tiles: int = 1,  # noqa: N803
                 group: int = 2 * QK) -> int:
-    """K1's (and K9/K10's) split of K across blocks: enough blocks for two
-    per SM, never more splits than ``group``-wide slices of K."""
+    """K9/K10's split of K across blocks: enough blocks for two per SM,
+    never more splits than ``group``-wide slices of K."""
     tiles = -(-O // _GEMV_TILE_O) * row_tiles
     return max(1, min(K // group, -(-2 * sm_count // tiles)))
+
+
+def core_plan(K: int, O: int, sm_count: int,  # noqa: N803
+              max_clusters: Callable[[int], int]) -> Tuple[int, int]:
+    """(wc, cluster) of the Q4 core for a [K/2, O] weight: a block's 4 warps
+    take ``wc`` column tiles of 128 and split K ``4 / wc`` ways, and the
+    ``cluster`` blocks of a cluster split it further, so K is split
+    ``4 / wc * cluster`` ways without partials in HBM.  Only plans whose
+    clusters all fit on the card at once (``max_clusters(cluster)``) are
+    taken: one wave.  Of those with 1.5 blocks an SM or more (loads in
+    flight on every SM), else a block an SM, the ones whose busiest warp's
+    32-row groups times the blocks is within 5% of the least (the ideal,
+    tiles x groups / 4, when every warp has the same number of groups and
+    every block four warps on columns of the weight); of those the most
+    blocks, then the smallest cluster (the fastest plan at every GPT-J-6B
+    and Pythia-12B shape in ``tools/core_plans.py``'s sweep on the card,
+    PERF.md).  Depends on the shape and the card alone, so a shape sums in
+    one order."""
+    groups = K // (2 * QK)
+    tiles = -(-O // CORE_TILE_O)
+    plans = []  # (blocks, work, wc, cluster)
+    for wc in (1, 2, 4):
+        clusters = -(-tiles // wc)
+        for c in range(1, CORE_MAX_CLUSTER + 1):
+            if clusters <= max_clusters(c):
+                blocks = clusters * c
+                work = -(-groups // (CORE_WARPS // wc * c)) * blocks
+                plans.append((blocks, work, wc, c))
+    if not plans:  # more column tiles than the card holds clusters: waves
+        return CORE_WARPS, 1
+    plans = ([p for p in plans if 2 * p[0] >= 3 * sm_count]
+             or [p for p in plans if p[0] >= sm_count] or plans)
+    least = min(p[1] for p in plans)
+    _, _, wc, c = min((p for p in plans if 20 * p[1] <= 21 * least),
+                      key=lambda p: (-p[0], p[3], p[2]))
+    return wc, c
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(source: str, index: int, cluster: int) -> int:
+    with torch.cuda.device(index):
+        return _build.function(source, f"{source}_max_clusters",
+                               (_I,))(cluster)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(source: str, index: int, K: int, O: int) -> Tuple[int, int]:  # noqa: N803
+    return core_plan(K, O, _sm_count(index),
+                     functools.partial(_max_clusters, source, index))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied if its data does not start on 16 bytes (the core reads
+    x 16 bytes at a time)."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def q4_gemv_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -291,17 +354,24 @@ def q4_gemv_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     """K1: y [n, O] f32 for n <= 8 rows of bf16 x."""
     if x.device.type == "cpu":
         return q4_gemv_ps_plain(x, packed, scales, bias)
+    return q4_gemv_ps_planned(x, packed, scales, bias, None)
+
+
+def q4_gemv_ps_planned(x: torch.Tensor, packed: torch.Tensor,
+                       scales: torch.Tensor, bias: Optional[torch.Tensor],
+                       plan: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """K1 on the card under ``plan`` (wc, cluster), or ``core_plan``'s when
+    None: the card tests run every kind of plan on small shapes."""
     n, K, O = _check(x, packed, scales, bias, GEMV_MAX_ROWS,  # noqa: N806
                      (torch.bfloat16,), "q4_gemv_ps")
     _check_quads("q4_gemv_ps", O, packed, scales)
-    splits = gemv_splits(K, O, _sm_count(x.device.index))
+    wc, cluster = plan or _plan("q4_gemv_ps", x.device.index, K, O)
+    x = _aligned(x)
     out = torch.empty((n, O), dtype=torch.float32, device=x.device)
-    partial = (torch.empty((splits, n, O), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
     _build.launch("q4_gemv_ps", "q4_gemv_ps_launch", _GEMV_ARGS,
-                  _build.ptr(x), _build.ptr(packed), _build.ptr(scales),
-                  _build.ptr(bias), _build.ptr(partial), _build.ptr(out),
-                  n, K, O, splits, _build.stream_ptr(x.device))
+                  _build.ptr(x), _build.ptr(packed),
+                  _build.ptr(scales), _build.ptr(bias), _build.ptr(out),
+                  n, K, O, wc, cluster, _build.stream_ptr(x.device))
     return out
 
 
@@ -421,9 +491,10 @@ def q4_mlp_ps(x: torch.Tensor, fc_packed: torch.Tensor,
     what = "q4_mlp_ps"
     n, E, F = _check(x, fc_packed, fc_scales, fc_bias,  # noqa: N806
                      MLP_MAX_ROWS, (torch.bfloat16, torch.float32), what)
-    if fc_packed.dim() != 2 or F % (2 * _MLP_BFH):
+    if fc_packed.dim() != 2 or F % _MLP_F_MULTIPLE:
         raise ValueError(f"{what}: fc must be [E/2, F] with F % "
-                         f"{2 * _MLP_BFH} == 0, got {tuple(fc_packed.shape)}")
+                         f"{_MLP_F_MULTIPLE} == 0, got "
+                         f"{tuple(fc_packed.shape)}")
     for name, t, shape, dt in (
             ("proj packed", proj_packed, (F // 2, E), torch.uint8),
             ("proj scales", proj_scales, (F // QK, E), torch.bfloat16),
@@ -439,15 +510,17 @@ def q4_mlp_ps(x: torch.Tensor, fc_packed: torch.Tensor,
                              f"{tuple(t.shape)} on {t.device}")
     _check_quads(what, F, fc_packed, fc_scales)
     _check_quads(what, E, proj_packed, proj_scales)
-    blocks = F // (2 * _MLP_BFH)
+    index = x.device.index
+    fc_plan = _plan("q4_mlp_ps", index, E, F)
+    proj_plan = _plan("q4_mlp_ps", index, F, E)
+    x = _aligned(x)
+    h = torch.empty((n, F), dtype=torch.float32, device=x.device)
     out = torch.empty((n, E), dtype=torch.float32, device=x.device)
-    partial = torch.empty((blocks, n, E), dtype=torch.float32,
-                          device=x.device)
     _build.launch(what, "q4_mlp_ps_launch", _MLP_ARGS,
                   _build.ptr(x), int(x.dtype == torch.bfloat16),
                   _build.ptr(fc_packed), _build.ptr(fc_scales),
                   _build.ptr(fc_bias), _build.ptr(proj_packed),
                   _build.ptr(proj_scales), _build.ptr(proj_bias),
-                  _build.ptr(partial), _build.ptr(out), n, E, F,
-                  MLP_ACTS[act], _build.stream_ptr(x.device))
+                  _build.ptr(h), _build.ptr(out), n, E, F, MLP_ACTS[act],
+                  *fc_plan, *proj_plan, _build.stream_ptr(x.device))
     return out

@@ -154,6 +154,27 @@ def run_shape(K: int, O: int,  # noqa: N803
     return best, w0.nbytes
 
 
+def flat_ms(K: int, O: int, device: DeviceLike = None) -> float:  # noqa: N803
+    """``read_flat``'s device ms for a [K/2, O] Q4 weight and its scales at
+    n = 1, rotated past the L2, best of two rounds, its totals checked:
+    the bar chip_smoke.py holds K1 and K11 against."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("read_designs times kernels on a CUDA card")
+    w0 = lab_weight(K, O, 0, dev)
+    ws = rotation(lambda i: w0 if i == 0 else lab_weight(K, O, i, dev),
+                  w0.nbytes)
+    totals = torch.empty(2, dtype=torch.int64, device=dev)
+    read_flat(w0.packed, w0.scales, totals)
+    if not torch.equal(totals, _totals(w0.packed, w0.scales)):
+        raise RuntimeError(f"read_designs flat {K}->{O}: differs from "
+                           "PyTorch's sums of the same bytes")
+    cyc = itertools.cycle(ws)
+    return min(timed(lambda: (lambda w: read_flat(w.packed, w.scales,
+                                                  totals))(next(cyc)))
+               for _ in range(2))
+
+
 def run(device: DeviceLike = None) -> List[Dict]:
     """Every shape of ``SHAPES``, one printed line each."""
     dev = resolve_device(device)
