@@ -6,6 +6,8 @@
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi) and build the
      kernels from csrc/ (one nvcc per source, all at once, into build/);
+     every instance of K9/K10's kernel must run HMMA and convert nothing
+     between its first and last HMMA (tools/sass_ops.py on the build);
   2. kernels: each of K1-K6 at GPT-J-6B shapes (K2 at 1 and 8 rows under
      both plane contracts and at 9-128 rows, K5 on the B=8 ragged step, on
      phase 4's timed step and at B=1), K4 and K7/K8 (the flash
@@ -14,11 +16,14 @@ Phases, each fatal on failure:
      Pythia-12B shapes phase 7 gives them (K1 at 1 and 8 rows, K2 at 1, 8
      and 100 rows under both plane contracts, K3 on layer 35 of a 36-layer
      int8 and int4 cache, K4 at the prompt lengths; K9 and K11 at GPT-J's
-     too); K4 also at codegen-2b's D=80 and at D=72; each against its plain
-     PyTorch version on the card (K2-K5 also against a second run of
-     themselves, bit for bit), its device time (CUDA events, the calls held
-     back to back) beside its bound and a PyTorch yardstick the port never
-     calls (K2-K5 rows are printed with their ratio to it); then the lab's
+     too; K10 at every stacked shape of both models at n = 1 and fc at 8,
+     100 and 128 rows under both plane contracts; K1, K11, K9 and K10 with
+     their ratio to the flat read of their bytes); K4 also at codegen-2b's
+     D=80 and at D=72; each against its plain PyTorch version on the card
+     (K1, K2-K5 and K9-K11 also against a second run of themselves, bit
+     for bit), its device time (CUDA events, the calls held back to back)
+     beside its bound and a PyTorch yardstick the port never calls (K1-K5
+     and K9-K11 rows are printed with their ratio to it); then the lab's
      path, the five lab entry points' ``run`` (vsim_tpu_torch/tools): K12
      under every dequant math at GPT-J-6B's five Q4 weight shapes at n = 1
      and 8, K13 (a per-column read of every byte) in both layouts with
@@ -68,7 +73,8 @@ Phases, each fatal on failure:
      default engine under the f32xf math (K11 once a layer, K2) and under
      gi (K1, K2); K3 and K4 in each; one step timed alone (enqueue, wall,
      and the profiler's device busy time by kernel, K3's two passes and
-     K2's launches summed) against the weight bytes' bound.  Before its
+     K2's launches summed, K10's and K9's ms apart) against the weight
+     bytes' bound.  Before its
      run, K10 on layer 35 of the stacked engine's own weights is held
      against its plain version.
 Each path's launch counts are set to 0 just before it runs and read just
@@ -590,17 +596,24 @@ def _bwd_f64(q, k, v, do, lse, dsum, scale):
 PYTHIA_SHAPES = {"qkv": (5120, 15360, True), "wo": (5120, 5120, True),
                  "fc": (5120, 20480, True), "proj": (20480, 5120, True),
                  "lm_head": (5120, 51200, False)}
+# GPT-J-6B's stacked matmuls (E=4096, F=16384; no bias on qkv and wo)
+GPTJ_STACKED = {"qkv": (4096, 12288, False), "wo": (4096, 4096, False),
+                "fc": (4096, 16384, True), "proj": (16384, 4096, True)}
+
+
+# the kernels on the Q4 core (csrc/q4_core.cuh): K1, K11, K9 and K10
+CORE_ROWS = ("q4_gemv_ps", "q4_mlp_ps", "q4_matmul_i", "q4_matmul_stacked")
 
 
 def flat_ratios(rows):
-    """Each K1 and K11 row's time over the card's flat read of the same
-    weight bytes at n = 1 (``tools/read_designs.py:flat_ms``, this run;
-    fc's plus proj's for K11)."""
+    """Each K1, K11, K9 and K10 row's time over the card's flat read of the
+    same weight bytes at n = 1 (``tools/read_designs.py:flat_ms``, this
+    run; fc's plus proj's for K11)."""
     from vsim_tpu_torch.tools.read_designs import flat_ms
 
     flat = {}
     for r in rows:
-        if r["kernel"] not in ("q4_gemv_ps", "q4_mlp_ps"):
+        if r["kernel"] not in CORE_ROWS:
             continue
         for w in r["weights"]:
             if w not in flat:
@@ -653,7 +666,9 @@ def q4_layout_rows(peaks, bound, q4_weight):
     def matmul_case(kname, sname, n, K, O, has_bias, xdt, fn, plain, lib_w,  # noqa: N803
                     make, round_planes, planes=None):
         """``round_planes``: bf16 planes (bf16 peak and yardstick) or f32;
-        ``planes`` names them in the shape (K1's "gi": integer sums)."""
+        ``planes`` names them in the shape (K1's "gi": integer sums).  K9
+        and K10 count the bf16 peak under both contracts: with bf16 x their
+        products are exact bf16 tensor-core products either way."""
         w0 = make(0)
         ws = rotation(make, w0.nbytes)
         ws[0] = w0
@@ -664,8 +679,7 @@ def q4_layout_rows(peaks, bound, q4_weight):
                  f"planes={planes}")
         got = fn(x, w0, bias)
         err, rel = check(kname, shape, got, plain(x, w0, bias))
-        if (kname in ("q4_matmul_ps", "q4_gemv_ps")
-                and not torch.equal(got, fn(x, w0, bias))):
+        if not torch.equal(got, fn(x, w0, bias)):
             fail(f"{kname} {shape}: differs from run to run")
         cyc = itertools.cycle(ws)
         ms = timed(lambda: fn(x, next(cyc), bias))
@@ -679,7 +693,8 @@ def q4_layout_rows(peaks, bound, q4_weight):
                   + x.numel() * x.element_size() + n * O * 4
                   + (O * 4 if has_bias else 0))
         row(kname, shape, err, rel, ms, plain_ms, lib_ms, nbytes,
-            2 * n * K * O, bf16_peak if round_planes else f32_peak, [(K, O)])
+            2 * n * K * O, bf16_peak if round_planes or kname in (
+                "q4_matmul_i", "q4_matmul_stacked") else f32_peak, [(K, O)])
 
     # K1 (the gi engine's decode and 8-token prefill; fc at 2 and 4 rows
     # too), and K2: f32 planes for bf16 x (the f32xf engine's decode,
@@ -721,16 +736,18 @@ def q4_layout_rows(peaks, bound, q4_weight):
         rows[-1]["shape"] = rows[-1]["shape"].replace("pythia-12b", model)
 
     # K10 on layer L-1 of a stacked weight (L=2 at full width; layer 0
-    # checked too): each matmul of a Pythia-12B layer at n=1, fc at 8 and
-    # 128 rows, under both plane contracts
+    # checked too): each matmul of a Pythia-12B and a GPT-J layer at n=1, fc
+    # at 8, 100 and 128 rows, under both plane contracts
     L = 2  # noqa: N806
     il_last = torch.tensor(L - 1, dtype=torch.int32, device=dev)
     il_first = torch.tensor(0, dtype=torch.int32, device=dev)
     cases = ([(s, 1) for s in ("qkv", "wo", "fc", "proj")]
-             + [("fc", 8), ("fc", 128)])
-    for round_planes in (False, True):
-        for sname, n in cases:
-            K, O, has_bias = PYTHIA_SHAPES[sname]  # noqa: N806
+             + [("fc", n) for n in (8, 100, 128)])
+    for model, shapes in (("pythia-12b", PYTHIA_SHAPES),
+                          ("gpt-j-6b", GPTJ_STACKED)):
+        for round_planes, (sname, n) in itertools.product((False, True),
+                                                          cases):
+            K, O, has_bias = shapes[sname]  # noqa: N806
 
             def fn(x, w, b, il=il_last, r=round_planes):
                 return q4_matmul_stacked(x, w.packed, w.scales, il, b, r)
@@ -740,7 +757,7 @@ def q4_layout_rows(peaks, bound, q4_weight):
 
             w0 = stacked_weight(L, K, O, 13 * K + O)
             x0 = torch.randn((n, K), generator=g, device=dev).to(torch.bfloat16)
-            check("q4_matmul_stacked", f"{sname} n={n} il=0",
+            check("q4_matmul_stacked", f"{model} {sname} n={n} il=0",
                   q4_matmul_stacked(x0, w0.packed, w0.scales, il_first, None,
                                     round_planes),
                   q4_matmul_stacked_plain(x0, w0.packed, w0.scales, il_first,
@@ -751,8 +768,9 @@ def q4_layout_rows(peaks, bound, q4_weight):
                 lambda w: Q4Tensor(w.packed[L - 1], w.scales[L - 1], "i"),
                 lambda i, K=K, O=O: (w0 if i == 0 else stacked_weight(
                     L, K, O, 13 * K + O + i)), round_planes)
+            rows[-1]["shape"] = rows[-1]["shape"].replace("pythia-12b", model)
             del w0
-    torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
 
     # K11: Pythia-12B (gelu_exact, n=1 and 8), GPT-J (gelu_tanh), relu
     # small, with bf16 x and with f32 x (three bf16 pieces)
@@ -1237,7 +1255,7 @@ def phase_serving(cfg, params):
             wall_step.append(time.perf_counter() - a)
         enq.sort()
         wall_step.sort()
-        busy_ms, by_kernel, by_group = step_device_profile(
+        busy_ms, by_kernel, by_group, _ = step_device_profile(
             lambda: forward(cfg, srv.params, tok, srv.cache, npv), steps=5)
         out[kv] = dict(
             warmup_s=warmup_s, wall_s=wall, requests=len(reqs),
@@ -1643,14 +1661,17 @@ STEP_KERNELS = {"decode_attention": ("decode_split_kernel",
                                  "matmul_ps_kernel",
                                  "ps_split_reduce_kernel"),
                 # K1 and K11 (both launches): csrc/q4_core.cuh
-                "q4_core": ("q4_core_kernel",)}
+                "q4_core": ("q4_core_kernel",),
+                # K9 and K10: csrc/q4_matmul_i.cu
+                "q4_i": ("q4_i_kernel",)}
 
 
 def step_device_profile(step, steps: int = 3):
     """Device busy ms (the union of kernel and copy intervals), device ms by
     kernel and by each group of STEP_KERNELS of one step, from
-    torch.profiler over ``steps`` steps; (None, None, None) where the
-    profiler records no device activity."""
+    torch.profiler over ``steps`` steps, and each group's kernels' ms in
+    the order they started; (None, None, None, None) where the profiler
+    records no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1663,6 +1684,7 @@ def step_device_profile(step, steps: int = 3):
         torch.cuda.synchronize()
     intervals, by_name = [], collections.Counter()
     by_group = dict.fromkeys(STEP_KERNELS, 0.0)
+    started = {group: [] for group in STEP_KERNELS}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             s, e = ev.time_range.start, ev.time_range.end
@@ -1671,10 +1693,25 @@ def step_device_profile(step, steps: int = 3):
             for group, names in STEP_KERNELS.items():
                 if any(k in ev.name for k in names):
                     by_group[group] += (e - s) / 1e3 / steps
+                    started[group].append((s, (e - s) / 1e3))
     if not intervals:
-        return None, None, None
+        return None, None, None, None
     return (busy_us(intervals) / 1e3 / steps, dict(by_name.most_common(8)),
-            by_group)
+            by_group, {k: [ms for _, ms in sorted(v)]
+                       for k, v in started.items()})
+
+
+def k9_k10_step_ms(ordered, per_step, steps: int = 3):
+    """K10's and K9's device ms a step of the stacked engine from the
+    "q4_i" kernels in launch order (one kernel serves both): each step
+    launches K10 per_step["q4_matmul_stacked"] times, then K9 once for the
+    lm head; (None, None) when the trace holds another count."""
+    k10 = per_step.get("q4_matmul_stacked", 0)
+    m = k10 + per_step.get("q4_matmul_i", 0)
+    if not ordered or m != k10 + 1 or len(ordered) != m * steps:
+        return None, None
+    k9 = sum(ordered[m - 1::m]) / steps
+    return sum(ordered) / steps - k9, k9
 
 
 def phase_pythia(peaks):
@@ -1763,8 +1800,10 @@ def phase_pythia(peaks):
                 wall.append(time.perf_counter() - a)
             enq.sort()
             wall.sort()
-            busy_ms, by_kernel, by_group = step_device_profile(
+            busy_ms, by_kernel, by_group, ordered = step_device_profile(
                 lambda: forward(cfg, eng.params, tok, cache, 311))
+            k10_ms, k9_ms = (k9_k10_step_ms(ordered["q4_i"], per_step)
+                             if ordered else (None, None))
         finally:
             set_dequant_math("gi")
         bound_ms = step_bytes / peaks[0] * 1e3
@@ -1779,7 +1818,8 @@ def phase_pythia(peaks):
             step_device_ms_by_kernel=by_kernel,
             step_k3_device_ms=by_group and by_group["decode_attention"],
             step_k2_device_ms=by_group and by_group["q4_matmul_ps"],
-            step_k1_k11_device_ms=by_group and by_group["q4_core"])
+            step_k1_k11_device_ms=by_group and by_group["q4_core"],
+            step_k10_device_ms=k10_ms, step_k9_device_ms=k9_ms)
         del cache
         torch.cuda.empty_cache()
     del engines
@@ -1849,6 +1889,25 @@ ROW_KERNEL = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
               "q4_batch_lab": "q4_batch_lab", "attn_lab": "attn_lab"}
 
 
+def sass_check():
+    """Every instance of K9/K10's kernel in the built library runs the
+    tensor cores (HMMA) and converts no integer to a float (or back)
+    between its first and last HMMA, where its loop runs
+    (``tools/sass_ops.py`` on ``build/kernels``): {function: opcode counts}."""
+    from vsim_tpu_torch.ops import _build
+    from vsim_tpu_torch.tools import sass_ops
+
+    found = {fn: got for fn, got in sass_ops.count_lib(
+        _build._lib_path("q4_matmul_i")).items() if "q4_i_kernel" in fn}
+    if not found:
+        fail("sass: no q4_i_kernel instance in the K9/K10 library")
+    for fn, got in found.items():
+        if not got["ops"]["HMMA"] or sass_ops.convert_in_mma_span(got):
+            fail(f"sass {fn}: HMMA {got['ops']['HMMA']}, conversions at "
+                 f"{got['convert_at']} inside the HMMA span {got['hmma']}")
+    return {fn: got["ops"] for fn, got in found.items()}
+
+
 def kernel_line(rows, launches):
     """One entry per kernel, at the representative shape named in
     KERNEL_META (every shape is in build/chip_smoke.json); ``launches``
@@ -1894,12 +1953,17 @@ def main() -> None:
     t0 = time.perf_counter()
     reports = _build.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    sass = sass_check()
+    hmma = sorted(ops["HMMA"] for ops in sass.values())
+    print(f"sass: {len(sass)} instances of K9/K10's kernel, HMMA "
+          f"{hmma[0]}-{hmma[-1]} each, no I2F/I2FP/F2I between the first "
+          "and last HMMA", flush=True)
     t0 = time.perf_counter()
     rows = phase_kernels(peaks)
     print(f"kernel phase: {len(rows)} cases pass in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for r in rows:  # the redesigned kernels, with their ratio to the library
-        if r["kernel"] in ("q4_gemv_ps", "q4_mlp_ps"):
+        if r["kernel"] in CORE_ROWS:
             print(f"  {r['kernel']} {r['shape']}: {r['ms']:.4g} ms, bound "
                   f"{r['bound_ms']:.2g}, flat read {r['flat_ms']:.4g} "
                   f"({r['vs_flat']:.2f}x), plain {r['plain_ms']:.4g}, "
@@ -1966,8 +2030,10 @@ def main() -> None:
         print(f"  {k}: {json.dumps(v)}", flush=True)
         print(f"  {k}: K2 {v['step_k2_device_ms']} ms, K3 "
               f"{v['step_k3_device_ms']} ms, K1/K11 "
-              f"{v['step_k1_k11_device_ms']} ms of a step's "
-              f"{v['step_device_busy_ms']} device ms", flush=True)
+              f"{v['step_k1_k11_device_ms']} ms, K10 "
+              f"{v['step_k10_device_ms']} ms, K9 {v['step_k9_device_ms']} "
+              f"ms of a step's {v['step_device_busy_ms']} device ms",
+              flush=True)
 
     total = collections.Counter(launches)
     for counts in serve_launches.values():
@@ -1983,7 +2049,8 @@ def main() -> None:
                        training=training, pythia=pythia,
                        launches_pythia=pythia_launches,
                        launches_labs=lab_launches,
-                       timings_unheld=UNHELD[0], ptxas=reports), f,
+                       timings_unheld=UNHELD[0], ptxas=reports,
+                       sass_k9_k10=sass), f,
                   indent=1)
     print(f"chip_smoke: all phases pass in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -167,41 +167,117 @@ def test_q4_matmul_ps_plane_contract(dev, n, dtype, round_planes):
     assert _rel(other, ref) > 1e-4  # the contracts differ beyond the tolerance
 
 
-@pytest.mark.parametrize("n", [1, 3, 8, 100])
-@pytest.mark.parametrize("K,O", [(512, 1024), (2048, 4100)])
-def test_q4_matmul_i(dev, n, K, O):
-    packed, scales = _weight(K, O, dev, n + 2)
-    x = torch.randn((n, K), device=dev).to(torch.bfloat16)
-    bias = torch.randn((O,), device=dev)
-    before = _build.launch_counts["q4_matmul_i"]
-    got = q4_matmul_i(x, packed, scales, bias)
-    assert _build.launch_counts["q4_matmul_i"] == before + 1
-    assert _rel(got, q4_matmul_i_plain(x, packed, scales, bias)) < 1e-4
+I_ROWS = [1, 2, 3, 4, 5, 7, 8, 9, 16, 33, 64, 100, 128]
 
 
-@pytest.mark.parametrize("n", [1, 8, 128])
-@pytest.mark.parametrize("round_planes", [False, True])
+@pytest.mark.parametrize("n", I_ROWS)
+@pytest.mark.parametrize("K,O", [(512, 1024), (2048, 4100), (288, 1028)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_q4_matmul_stacked(dev, n, round_planes, dtype):
-    L, K, O = 3, 1024, 2048  # noqa: N806
-    g = torch.Generator(device=dev).manual_seed(n)
+def test_q4_matmul_i(dev, n, K, O, dtype):
+    """K9 at every instance's n (1-8 on K1's geometry, 9-128 on 2-16
+    n-tiles of x staged in shared memory); K = 288 is 9 groups (32 * odd:
+    the last unit of two groups holds one), O = 4100 and 1028 no multiple
+    of 16 (4-byte loads, a ragged last tile); with and without a bias, one
+    launch a call, the same bits from run to run."""
+    packed, scales = _weight(K, O, dev, n + 2)
+    x = torch.randn((n, K), device=dev).to(dtype)
+    for bias in (None, torch.randn((O,), device=dev)):
+        before = _build.launch_counts["q4_matmul_i"]
+        got = q4_matmul_i(x, packed, scales, bias)
+        assert _build.launch_counts["q4_matmul_i"] == before + 1
+        ref = q4_matmul_i_plain(x, packed, scales, bias)
+        assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
+        assert torch.equal(got, q4_matmul_i(x, packed, scales, bias))
+
+
+def _stacked(L, K, O, dev, seed):  # noqa: N803
+    g = torch.Generator(device=dev).manual_seed(seed)
     packed = torch.randint(0, 256, (L, K // 2, O), generator=g, device=dev,
                            dtype=torch.uint8)
     scales = (torch.rand((L, K // 32, O), generator=g, device=dev)
               * 0.01).to(torch.bfloat16)
-    x = torch.randn((n, K), generator=g, device=dev).to(dtype)
-    for il in (0, L - 1):
+    return packed, scales
+
+
+@pytest.mark.parametrize("n", I_ROWS)
+@pytest.mark.parametrize("round_planes", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,O", [(1024, 2048), (288, 4100)])
+def test_q4_matmul_stacked(dev, n, round_planes, dtype, K, O):  # noqa: N803
+    """K10 under both plane contracts, bf16 and f32 x, on the first and the
+    last layer and on indices past either end (clamped on the device); one
+    launch a call, the same bits from run to run, and the contracts differ
+    beyond the tolerance."""
+    L = 3  # noqa: N806
+    packed, scales = _stacked(L, K, O, dev, n)
+    x = torch.randn((n, K), device=dev).to(dtype)
+    bias = torch.randn((O,), device=dev)
+    for il, layer in ((0, 0), (L - 1, L - 1), (-5, 0), (L + 4, L - 1)):
         ilt = torch.tensor(il, dtype=torch.int32, device=dev)
         before = _build.launch_counts["q4_matmul_stacked"]
-        got = q4_matmul_stacked(x, packed, scales, ilt, None, round_planes)
+        got = q4_matmul_stacked(x, packed, scales, ilt, bias, round_planes)
         assert _build.launch_counts["q4_matmul_stacked"] == before + 1
-        ref = q4_matmul_stacked_plain(x, packed, scales, ilt, None,
-                                      round_planes)
-        assert _rel(got, ref) < 1e-4
-        assert _rel(got, q4_matmul_i_plain(x, packed[il], scales[il], None,
-                                           round_planes)) < 1e-4
+        ref = q4_matmul_i_plain(x, packed[layer], scales[layer], bias,
+                                round_planes)
+        assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
+        assert torch.equal(got, q4_matmul_stacked(x, packed, scales, ilt,
+                                                  bias, round_planes))
+        if 0 <= il < L:
+            assert _rel(got, q4_matmul_stacked_plain(
+                x, packed, scales, ilt, bias, round_planes)) < 1e-4
+    other = q4_matmul_i_plain(x, packed[0], scales[0], bias, not round_planes)
+    assert _rel(other, q4_matmul_i_plain(x, packed[0], scales[0], bias,
+                                         round_planes)) > 1e-4
     with pytest.raises(ValueError, match="int32"):
         q4_matmul_stacked(x, packed, scales, 1)
+
+
+@pytest.mark.parametrize("plan", [(1, 1, 1), (1, 1, 3), (1, 1, 8), (1, 2, 1),
+                                  (1, 2, 5), (1, 4, 1), (1, 4, 2), (2, 4, 1),
+                                  (4, 4, 3), (8, 4, 8), (16, 4, 1),
+                                  (16, 4, 2), (16, 4, 7)])
+@pytest.mark.parametrize("K,O", [(1376, 1028), (4096, 2048)])
+@pytest.mark.parametrize("round_planes", [False, True])
+def test_q4_matmul_i_plans(dev, plan, K, O, round_planes):  # noqa: N803
+    """Every kind of plan, at the fewest rows and the most its n-tiles
+    hold: warps on one column tile or several, clusters of 1-8 blocks,
+    splits that divide the units or not (K = 1376 is 43 groups, 22 units;
+    64 units over 24 splits), more n-tiles than the rows need; within the
+    tolerance, the same bits run to run."""
+    from vsim_tpu_torch.ops.q4_cuda import q4_matmul_i_planned
+
+    nt = plan[0]
+    packed, scales = _stacked(2, K, O, dev, sum(plan))
+    ilt = torch.tensor(1, dtype=torch.int32, device=dev)
+    bias = torch.randn((O,), device=dev)
+    for n in (1, 8 * nt):
+        x = torch.randn((n, K), device=dev).to(torch.bfloat16)
+        got = q4_matmul_i_planned(x, packed, scales, ilt, bias, round_planes,
+                                  plan)
+        ref = q4_matmul_i_plain(x, packed[1], scales[1], bias, round_planes)
+        assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
+        assert torch.equal(got, q4_matmul_i_planned(
+            x, packed, scales, ilt, bias, round_planes, plan))
+    if nt < 16:  # more rows than the plan's n-tiles hold: refused
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            q4_matmul_i_planned(torch.zeros((8 * nt + 1, K), device=dev,
+                                            dtype=torch.bfloat16), packed,
+                                scales, ilt, bias, round_planes, plan)
+
+
+@pytest.mark.parametrize("n", [1, 100])
+def test_q4_matmul_i_unaligned_x(dev, n):
+    """x that starts off a 16-byte boundary (rows of a larger tensor) is
+    taken as it is by K9 and K10."""
+    packed, scales = _weight(512, 256, dev, 5)
+    big = torch.randn((n + 1, 513), device=dev).to(torch.bfloat16)
+    x = big.reshape(-1)[1:1 + n * 512].reshape(n, 512)
+    assert x.data_ptr() % 16
+    ref = q4_matmul_i_plain(x, packed, scales)
+    assert _rel(q4_matmul_i(x, packed, scales), ref) < 1e-4
+    ilt = torch.tensor(0, dtype=torch.int32, device=dev)
+    assert _rel(q4_matmul_stacked(x, packed[None], scales[None], ilt),
+                ref) < 1e-4
 
 
 def test_q4_matmul_refuses_a_gradient_it_cannot_carry(dev):

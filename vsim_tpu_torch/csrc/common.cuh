@@ -195,6 +195,13 @@ __device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
   return d;
 }
 
+// a * b rounded once to bf16, for each half (two bf16 pairs)
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
 // The contract's round((v - 8) s) for the nibbles of bytes J, J + 1 of
 // ``nib`` (each v < 16) and their scale pair s2, as a bf16 pair, two weights
 // an instruction: bf16 128 + v is the byte under exponent 0x43; minus 136

@@ -262,6 +262,57 @@ __device__ __forceinline__ void compute_group(const Group<XF32>& G,
   }
 }
 
+// The end of a split of K over warps and a cluster, shared by every kernel
+// on this core: red[w][row][c] (row stride STRIDE, ROWS rows a warp) holds
+// warp w's partial sum of column c of its tile w & (wc - 1), split w >> lwc,
+// and the block has synchronised since the warps stored them.  A line is
+// one (row, tile) pair, line = row * wc + tile.  Each line is summed over
+// the block's splits in split order into the first split's slot; then,
+// after the cluster barrier, rank r sums lines r, r + C, ... over the
+// cluster's blocks in rank order through distributed shared memory (their
+// loads issued together), adds the bias, applies act and stores rows < n:
+// out[row, col0 + tile * TW + c].  A fixed order: the same bits run to run.
+template <int ACT, int TW, int ROWS, int STRIDE>
+__device__ __forceinline__ void cluster_sum_store(
+    float* red, int n, int lwc, int col0, int O, const float* __restrict__ bias,
+    float* __restrict__ out) {
+  static_assert(kThreads % TW == 0, "a pass covers whole lines");
+  constexpr int kLines = kThreads / TW;  // lines a pass
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int wc = 1 << lwc, wk = kWarps >> lwc;
+  const int c = threadIdx.x % TW, sub = threadIdx.x / TW;
+  const int lines = n << lwc;
+  auto slot = [&](int w, int row) {
+    return red + (w * ROWS + row) * STRIDE + c;
+  };
+  for (int line = sub; line < lines; line += kLines) {
+    const int row = line >> lwc, w = line & (wc - 1);
+    float v = *slot(w, row);
+    for (int s = 1; s < wk; ++s) v += *slot((s << lwc) + w, row);
+    *slot(w, row) = v;
+  }
+  cluster.sync();
+  for (int line = rank + C * sub; line < lines; line += C * kLines) {
+    const int row = line >> lwc, w = line & (wc - 1);
+    float part[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      part[r] = r < C ? cluster.map_shared_rank(slot(w, row), r)[0] : 0.f;
+    float v = part[0];
+#pragma unroll
+    for (int r = 1; r < 8; ++r)
+      if (r < C) v += part[r];
+    const int ocol = col0 + w * TW + c;
+    if (ocol < O) {
+      if (bias) v += bias[ocol];
+      out[static_cast<size_t>(row) * O + ocol] = activate<ACT>(v);
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its partials
+}
+
 // Launched as clusters of C blocks along x: cluster i owns column tiles
 // [wc * i, wc * i + wc), 128 columns each; wc = 1 << lwc.  Two blocks an
 // SM, at most 255 registers a thread (three blocks, 168 registers, spill).
@@ -329,41 +380,40 @@ q4_core_kernel(const void* __restrict__ x,            // [n, K] bf16 or f32
         make_float2(acc[j][1], acc[j][3]);
   }
   __syncthreads();
-  // thread c of the block owns column c of every (row, tile): the block's
-  // sum over its warps of a tile, in split order, into the first split's
-  // slot; then, after the cluster barrier, rank r sums the (row, tile)
-  // pairs r, r + C, ... over the cluster's blocks in rank order (their
-  // loads issued together)
-  const int c = threadIdx.x;
-  for (int row = 0; row < n; ++row)
-    for (int w = 0; w < wc; ++w) {
-      float v = red[w][row][c];
-      for (int s = 1; s < wk; ++s) v += red[(s << lwc) + w][row][c];
-      red[w][row][c] = v;
-    }
-  cluster.sync();
-  int owner = 0;
-  for (int row = 0; row < n; ++row)
-    for (int w = 0; w < wc; ++w) {
-      if (owner == rank) {
-        float part[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-          part[r] =
-              r < C ? cluster.map_shared_rank(&red[w][row][c], r)[0] : 0.f;
-        float v = part[0];
-#pragma unroll
-        for (int r = 1; r < 8; ++r)
-          if (r < C) v += part[r];
-        const int ocol = (tile0 + w) * kTileO + c;
-        if (ocol < O) {
-          if (bias) v += bias[ocol];
-          out[static_cast<size_t>(row) * O + ocol] = activate<ACT>(v);
-        }
-      }
-      owner = owner + 1 == C ? 0 : owner + 1;
-    }
-  cluster.sync();  // no block leaves while another reads its partials
+  cluster_sum_store<ACT, kTileO, kRows, kRedStride>(
+      &red[0][0][0], n, lwc, tile0 * kTileO, O, bias, out);
+}
+
+// A launch of `blocks` blocks in clusters of C along x, with `smem` bytes of
+// dynamic shared memory; cfg points into the object, so use it in place.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int blocks, int C, size_t smem, cudaStream_t stream) {
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// How many clusters of C blocks of `kernel` the card holds at once (0 on an
+// error).
+template <class Kernel>
+inline int max_active_clusters(Kernel kernel, int C, size_t smem) {
+  ClusterLaunch l(C, C, smem, nullptr);
+  int count = 0;
+  if (cudaOccupancyMaxActiveClusters(&count, kernel, &l.cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return count;
 }
 
 // Launch one instance on (wc, C); every argument was checked by the caller.
@@ -375,45 +425,19 @@ inline cudaError_t launch(const void* x, const uint8_t* packed,
   const bool vec = O % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(scales) % 16 == 0;
   const int tiles = (O + kTileO - 1) / kTileO;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((tiles + wc - 1) / wc) * C);
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  ClusterLaunch l(((tiles + wc - 1) / wc) * C, C, 0, stream);
   const int lwc = wc == 4 ? 2 : wc - 1;
   if (vec)
-    return cudaLaunchKernelEx(&cfg, q4_core_kernel<XF32, ACT, true>, x, packed,
-                              scales, bias, out, n, K, O, lwc);
-  return cudaLaunchKernelEx(&cfg, q4_core_kernel<XF32, ACT, false>, x, packed,
-                            scales, bias, out, n, K, O, lwc);
+    return cudaLaunchKernelEx(&l.cfg, q4_core_kernel<XF32, ACT, true>, x,
+                              packed, scales, bias, out, n, K, O, lwc);
+  return cudaLaunchKernelEx(&l.cfg, q4_core_kernel<XF32, ACT, false>, x,
+                            packed, scales, bias, out, n, K, O, lwc);
 }
 
 // How many clusters of C blocks the card holds at once (0 on an error).
 template <bool XF32, int ACT>
 inline int max_clusters(int C) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C);
-  cfg.blockDim = dim3(kThreads);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int count = 0;
-  if (cudaOccupancyMaxActiveClusters(&count, q4_core_kernel<XF32, ACT, true>,
-                                     &cfg) != cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
-  return count;
+  return max_active_clusters(q4_core_kernel<XF32, ACT, true>, C, 0);
 }
 
 inline bool valid(int n, int K, int O, int wc, int C) {

@@ -11,8 +11,8 @@ Every kernel wrapper counts its launches in ``launch_counts`` under the
 kernel's name in ``KERNELS`` (one per kernel launch, nowhere else), so a run
 can show which kernels it went through.  A source may hold more than one
 kernel: K3 and K5 are two modes of ``decode_attention.cu``, K7 and K8 the
-two passes of ``flash_attention_bwd.cu``, K9 and K10 the single and the
-stacked-layer launchers of ``q4_matmul_i.cu``, K12-K14 the three lab kernels
+two passes of ``flash_attention_bwd.cu``, K9 and K10 the single-weight and
+the stacked-layer calls of the one kernel of ``q4_matmul_i.cu``, K12-K14 the three lab kernels
 of ``q4_lab.cu``; K15 (``q4_batch_lab.cu``) and K16 (``attn_lab.cu``) are
 the batch and attention labs'.  ``read_designs.cu`` holds the reads K13 is held against
 (``tools/read_designs.py``); no path runs it, so it is built at its first

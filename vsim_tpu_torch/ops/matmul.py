@@ -14,7 +14,8 @@ math (ops/q4_cuda.py:set_dequant_math):
   * interleaved ("i") weight                 → K9 ``q4_matmul_i``, f32 planes
   * ``Q4Layer`` (stacked "i" weight)         → K10 ``q4_matmul_stacked``,
     which reads the layer index on the device; bf16 planes and x under
-    i32/f32x, f32 under f32xf/gi (``stacked_round_planes``)
+    i32/f32x, f32 under f32xf/gi (``stacked_round_planes``).  K9 and K10
+    are one kernel (csrc/q4_matmul_i.cu), one launch a call at every n
 
 ``q4_matmul_act_quant`` first Q4_0 quantize-dequantizes x along K (the
 reference's matmul INIT phase) and always takes dequantize + torch.matmul,

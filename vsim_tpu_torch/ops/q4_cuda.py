@@ -10,9 +10,11 @@ too) or kept in f32, as ``round_planes`` says (ops/matmul.py decides it
 from the math).  A GEMV at n <= 8, tensor cores at 9-128 rows with bf16
 planes, f32 FMA tiles at 9-128 rows with f32 planes.
 K9 ``q4_matmul_i`` and K10 ``q4_matmul_stacked`` (csrc/q4_matmul_i.cu): the
-interleaved ("i") layout of ``_kernel`` and ``_kernel_stacked``, n <= 128;
-K10 picks layer ``il`` (an int32 device tensor) of a stacked [L, K/2, O]
-weight inside the kernel.
+interleaved ("i") layout of ``_kernel`` and ``_kernel_stacked``, n <= 128,
+one kernel: K1's core in that layout (mma.sync at every n, K split over a
+cluster, ``i_plan``), reading the weight once at 9-128 rows; K10 picks
+layer ``il`` (an int32 device tensor) of a stacked [L, K/2, O] weight
+inside the kernel.
 K11 ``q4_mlp_ps`` (csrc/q4_mlp_ps.cu): the fused ``act(x Wfc + bfc) Wproj +
 bproj`` of ``_kernel_mlp_ps``, both weights plane-split, n <= 8, all in f32:
 two launches of the same core, h in f32 between them.
@@ -44,14 +46,15 @@ from vsim_tpu_torch.quant.q4 import QK
 GEMV_MAX_ROWS = 8
 MATMUL_MAX_ROWS = 128
 MLP_MAX_ROWS = 8
-_GEMV_TILE_O = 1024  # output columns per K2 (n <= 8) / K9 / K10 block
+_GEMV_TILE_O = 1024  # output columns per block of K2's GEMV (n <= 8)
 _MMA_TILE_O = 128  # output columns per block of K2's tensor-core instance
-_I_ROWS = 8  # x rows per K9 / K10 block (csrc/q4_matmul_i.cu kMaxRows)
 _MLP_F_MULTIPLE = 128  # K11's contract since its first port: F % 128 == 0
 # the Q4 core of K1 and K11 (csrc/q4_core.cuh)
 CORE_WARPS = 4  # warps a block
 CORE_TILE_O = 128  # output columns a warp
 CORE_MAX_CLUSTER = 8  # blocks a cluster (the portable limit)
+# K9/K10 (csrc/q4_matmul_i.cu): instances by 8-row n-tiles of x
+I_TILES = (1, 2, 4, 8, 16)
 
 MATHS = ("i32", "f32x", "f32xf", "gi")
 _dequant_math = "gi"
@@ -62,8 +65,7 @@ MLP_ACTS = {"gelu_tanh": 0, "relu": 1, "gelu_exact": 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _GEMV_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _MATMUL_ARGS = (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-_I_ARGS = (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-_STACKED_ARGS = (_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_I_ARGS = (_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
 _MLP_ARGS = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _I, _I, _P)
 
@@ -286,34 +288,29 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def gemv_splits(K: int, O: int, sm_count: int, row_tiles: int = 1,  # noqa: N803
-                group: int = 2 * QK) -> int:
-    """K9/K10's split of K across blocks: enough blocks for two per SM,
-    never more splits than ``group``-wide slices of K."""
-    tiles = -(-O // _GEMV_TILE_O) * row_tiles
-    return max(1, min(K // group, -(-2 * sm_count // tiles)))
-
-
 def core_plan(K: int, O: int, sm_count: int,  # noqa: N803
-              max_clusters: Callable[[int], int]) -> Tuple[int, int]:
+              max_clusters: Callable[[int], int], tile_o: int = CORE_TILE_O,
+              wcs: Tuple[int, ...] = (1, 2, 4)) -> Tuple[int, int]:
     """(wc, cluster) of the Q4 core for a [K/2, O] weight: a block's 4 warps
-    take ``wc`` column tiles of 128 and split K ``4 / wc`` ways, and the
-    ``cluster`` blocks of a cluster split it further, so K is split
-    ``4 / wc * cluster`` ways without partials in HBM.  Only plans whose
-    clusters all fit on the card at once (``max_clusters(cluster)``) are
-    taken: one wave.  Of those with 1.5 blocks an SM or more (loads in
-    flight on every SM), else a block an SM, the ones whose busiest warp's
-    32-row groups times the blocks is within 5% of the least (the ideal,
-    tiles x groups / 4, when every warp has the same number of groups and
-    every block four warps on columns of the weight); of those the most
+    take ``wc`` column tiles of ``tile_o`` (``wc`` one of ``wcs``) and split
+    K ``4 / wc`` ways in units of 64 values of K (the last may be half of
+    one: K = 32 * odd in the "i" layout), and the ``cluster`` blocks of a
+    cluster split it further, so K is split ``4 / wc * cluster`` ways
+    without partials in HBM.  Only plans whose clusters all fit on the card
+    at once (``max_clusters(cluster)``) are taken: one wave.  Of those with
+    1.5 blocks an SM or more (loads in flight on every SM), else a block an
+    SM, the ones whose busiest warp's units times the blocks is within 5% of
+    the least (the ideal, tiles x units / 4, when every warp has the same
+    number of units and every block four warps on columns of the weight);
+    of those the most
     blocks, then the smallest cluster (the fastest plan at every GPT-J-6B
     and Pythia-12B shape in ``tools/core_plans.py``'s sweep on the card,
     PERF.md).  Depends on the shape and the card alone, so a shape sums in
     one order."""
-    groups = K // (2 * QK)
-    tiles = -(-O // CORE_TILE_O)
+    groups = -(-K // (2 * QK))
+    tiles = -(-O // tile_o)
     plans = []  # (blocks, work, wc, cluster)
-    for wc in (1, 2, 4):
+    for wc in wcs:
         clusters = -(-tiles // wc)
         for c in range(1, CORE_MAX_CLUSTER + 1):
             if clusters <= max_clusters(c):
@@ -321,7 +318,7 @@ def core_plan(K: int, O: int, sm_count: int,  # noqa: N803
                 work = -(-groups // (CORE_WARPS // wc * c)) * blocks
                 plans.append((blocks, work, wc, c))
     if not plans:  # more column tiles than the card holds clusters: waves
-        return CORE_WARPS, 1
+        return max(wcs), 1
     plans = ([p for p in plans if 2 * p[0] >= 3 * sm_count]
              or [p for p in plans if p[0] >= sm_count] or plans)
     least = min(p[1] for p in plans)
@@ -341,6 +338,46 @@ def _max_clusters(source: str, index: int, cluster: int) -> int:
 def _plan(source: str, index: int, K: int, O: int) -> Tuple[int, int]:  # noqa: N803
     return core_plan(K, O, _sm_count(index),
                      functools.partial(_max_clusters, source, index))
+
+
+def i_tile_o(nt: int) -> int:
+    """Output columns a warp of K9/K10 takes at ``nt`` n-tiles of x: fewer
+    as n grows, so the nt * tile_o / 4 accumulators a thread holds stay in
+    registers (csrc/q4_matmul_i.cu:cols_j)."""
+    return 128 if nt == 1 else 64 if nt <= 4 else 32
+
+
+def i_plan(n: int, K: int, O: int, sm_count: int,  # noqa: N803
+           max_clusters: Callable[[int, int], int]) -> Tuple[int, int, int]:
+    """(nt, wc, cluster) of K9/K10 for n rows of x and a [K/2, O] "i"
+    weight: the fewest 8-row n-tiles of ``I_TILES`` that hold n, then
+    ``core_plan`` on that instance's clusters (``max_clusters(nt,
+    cluster)``).  At n <= 8, K1's plans; past 8 rows every warp of a block
+    takes its own columns of the same units of K (wc = 4: they share the
+    x staged in shared memory) and only the cluster splits K."""
+    nt = next(t for t in I_TILES if 8 * t >= n)
+    fits = functools.partial(max_clusters, nt)
+    if nt == 1:
+        return (nt, *core_plan(K, O, sm_count, fits))
+    return (nt, *core_plan(K, O, sm_count, fits, tile_o=i_tile_o(nt),
+                           wcs=(CORE_WARPS,)))
+
+
+@functools.lru_cache(maxsize=None)
+def _i_max_clusters(index: int, x_bf16: bool, round_planes: bool, nt: int,
+                    cluster: int) -> int:
+    with torch.cuda.device(index):
+        return _build.function("q4_matmul_i", "q4_matmul_i_max_clusters",
+                               (_I, _I, _I, _I))(nt, int(x_bf16),
+                                                 int(round_planes), cluster)
+
+
+@functools.lru_cache(maxsize=None)
+def _i_plan(index: int, n: int, K: int, O: int, x_bf16: bool,  # noqa: N803
+            round_planes: bool) -> Tuple[int, int, int]:
+    return i_plan(n, K, O, _sm_count(index),
+                  functools.partial(_i_max_clusters, index, x_bf16,
+                                    round_planes))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -416,35 +453,13 @@ def q4_matmul_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     return out
 
 
-def _i_launch_shape(x, K, O):  # noqa: N803
-    """K9/K10's grid: 8-row tiles of x, 1024-column tiles of y, K split in
-    16-row slices (one scale row each) for two blocks per SM."""
-    n = x.shape[0]
-    row_tiles = -(-n // _I_ROWS)
-    splits = gemv_splits(K, O, _sm_count(x.device.index), row_tiles, QK)
-    out = torch.empty((n, O), dtype=torch.float32, device=x.device)
-    partial = (torch.empty((splits, n, O), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
-    return n, splits, out, partial
-
-
 def q4_matmul_i(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K9: y [n, O] f32 for n <= 128 rows of x and an interleaved weight;
     f32 planes, as ``q4_matmul`` calls ``pallas_q4_matmul`` (acc f32)."""
     if x.device.type == "cpu":
         return q4_matmul_i_plain(x, packed, scales, bias)
-    what = "q4_matmul_i"
-    _, K, O = _check(x, packed, scales, bias, MATMUL_MAX_ROWS,  # noqa: N806
-                     (torch.bfloat16, torch.float32), what, group=QK)
-    _check_quads(what, O, packed, scales)
-    n, splits, out, partial = _i_launch_shape(x, K, O)
-    _build.launch(what, "q4_matmul_i_launch", _I_ARGS,
-                  _build.ptr(x), int(x.dtype == torch.bfloat16),
-                  _build.ptr(packed), _build.ptr(scales), _build.ptr(bias),
-                  _build.ptr(partial), _build.ptr(out), n, K, O, splits,
-                  _build.stream_ptr(x.device))
-    return out
+    return q4_matmul_i_planned(x, packed, scales, None, bias, False, None)
 
 
 def q4_matmul_stacked(x: torch.Tensor, packed: torch.Tensor,
@@ -457,21 +472,39 @@ def q4_matmul_stacked(x: torch.Tensor, packed: torch.Tensor,
     if x.device.type == "cpu":
         return q4_matmul_stacked_plain(x, packed, scales, il, bias,
                                        round_planes)
-    what = "q4_matmul_stacked"
+    return q4_matmul_i_planned(x, packed, scales, il, bias, round_planes,
+                               None)
+
+
+def q4_matmul_i_planned(x: torch.Tensor, packed: torch.Tensor,
+                        scales: torch.Tensor, il: Optional[torch.Tensor],
+                        bias: Optional[torch.Tensor], round_planes: bool,
+                        plan: Optional[Tuple[int, int, int]]) -> torch.Tensor:
+    """K10 on the card (K9 when ``il`` is None: a [K/2, O] weight, f32
+    planes) under ``plan`` (nt, wc, cluster), or ``i_plan``'s when None:
+    the card tests run every kind of plan on small shapes.  One launch."""
+    what = "q4_matmul_i" if il is None else "q4_matmul_stacked"
     _, K, O = _check(x, packed, scales, bias, MATMUL_MAX_ROWS,  # noqa: N806
-                     (torch.bfloat16, torch.float32), what, group=QK, ndim=3)
-    if (not isinstance(il, torch.Tensor) or il.dtype != torch.int32
+                     (torch.bfloat16, torch.float32), what, group=QK,
+                     ndim=2 if il is None else 3)
+    if il is not None and (
+            not isinstance(il, torch.Tensor) or il.dtype != torch.int32
             or il.numel() != 1 or il.device != x.device):
         raise ValueError(f"{what}: il must be a one-element int32 tensor on "
                          f"{x.device}")
     _check_quads(what, O, packed, scales)
-    n, splits, out, partial = _i_launch_shape(x, K, O)
-    _build.launch(what, "q4_matmul_stacked_launch", _STACKED_ARGS,
-                  _build.ptr(x), int(x.dtype == torch.bfloat16),
-                  _build.ptr(packed), _build.ptr(scales), _build.ptr(il),
-                  packed.shape[0], _build.ptr(bias), _build.ptr(partial),
-                  _build.ptr(out), n, K, O, splits, int(round_planes),
-                  _build.stream_ptr(x.device))
+    n = x.shape[0]
+    x_bf16 = x.dtype == torch.bfloat16
+    nt, wc, cluster = plan or _i_plan(x.device.index, n, K, O, x_bf16,
+                                      bool(round_planes))
+    x = _aligned(x)
+    out = torch.empty((n, O), dtype=torch.float32, device=x.device)
+    _build.launch(what, "q4_matmul_i_launch", _I_ARGS,
+                  _build.ptr(x), int(x_bf16), _build.ptr(packed),
+                  _build.ptr(scales), _build.ptr(il),
+                  1 if il is None else packed.shape[0], _build.ptr(bias),
+                  _build.ptr(out), n, K, O, nt, wc, cluster,
+                  int(round_planes), _build.stream_ptr(x.device))
     return out
 
 

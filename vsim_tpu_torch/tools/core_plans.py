@@ -1,22 +1,27 @@
-"""K1 under every plan of its split, beside the plan ``core_plan`` picks.
+"""K1, and K9/K10, under every plan of their split, beside the plan the
+wrapper picks.
 
-    python -m vsim_tpu_torch.tools.core_plans [--n 1]
+    python -m vsim_tpu_torch.tools.core_plans [--n 1] [--kernel k1 i]
 
 At every Q4 weight shape of GPT-J-6B and Pythia-12B (``read_designs.SHAPES``),
 on random weights rotated past the 50 MB L2, times K1
-(``q4_gemv_ps_planned``) under each (wc, cluster) whose clusters all fit on
-the card at once, best of two rounds of ``timing.timed``, after checking
-each plan within ``TOL_LAB`` of the plain version.  Prints one line a
-shape: the card's flat read of the same bytes (``read_designs.flat_ms``),
-the fastest plans, and ``core_plan``'s pick with its time and its ratio to
-the flat read and to the fastest plan.  Runs on the CUDA card only.
+(``q4_gemv_ps_planned``, plane-split weights) and the "i"-layout kernel
+(``q4_matmul_i_planned`` with f32 planes: K9, and K10 under the stacked
+engine's gi math) under each (wc, cluster) whose clusters all fit on the
+card at once, best of two rounds of ``timing.timed``, after checking each
+plan within ``TOL_LAB`` of the plain version.  Prints one line a shape and
+kernel: the card's flat read of the same bytes (``read_designs.flat_ms``),
+the fastest plans, and the wrapper's pick (``core_plan``, ``i_plan``) with
+its time and its ratio to the flat read and to the fastest plan.  n <= 8
+(K1's rows; the "i" kernel's one n-tile).  Runs on the CUDA card only.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import itertools
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -27,64 +32,96 @@ from vsim_tpu_torch.timing import rel_err, rotation, timed
 from vsim_tpu_torch.tools.lab import lab_weight
 from vsim_tpu_torch.tools.read_designs import SHAPES, flat_ms
 
+KERNELS = ("k1", "i")
 
-def run(n: int = 1) -> List[Dict]:
+
+def _k1_weight(K, O, i, dev):  # noqa: N803
+    return to_plane_split(lab_weight(K, O, i, dev))
+
+
+def _kernel(kind: str, index: int):
+    """(weight maker, planned call, plain call, clusters that fit, pick)."""
+    if kind == "k1":
+        return (_k1_weight,
+                lambda x, w, plan: q4_cuda.q4_gemv_ps_planned(
+                    x, w.packed, w.scales, None, plan),
+                lambda x, w: q4_cuda.q4_gemv_ps_plain(x, w.packed, w.scales),
+                functools.partial(q4_cuda._max_clusters, "q4_gemv_ps", index),
+                lambda n, k, o: q4_cuda._plan("q4_gemv_ps", index, k, o))
+    return (lab_weight,
+            lambda x, w, plan: q4_cuda.q4_matmul_i_planned(
+                x, w.packed, w.scales, None, None, False, (1, *plan)),
+            lambda x, w: q4_cuda.q4_matmul_i_plain(x, w.packed, w.scales),
+            functools.partial(q4_cuda._i_max_clusters, index, True, False, 1),
+            lambda n, k, o: q4_cuda._i_plan(index, n, k, o, True, False)[1:])
+
+
+def run(n: int = 1, kernels: Sequence[str] = KERNELS) -> List[Dict]:
+    if not 1 <= n <= q4_cuda.GEMV_MAX_ROWS:
+        raise ValueError(f"core_plans times n <= {q4_cuda.GEMV_MAX_ROWS}")
     dev = torch.device("cuda")
     index = dev.index or 0
     card = torch.cuda.get_device_name(dev)
-    fits = [q4_cuda._max_clusters("q4_gemv_ps", index, c)
-            for c in range(1, q4_cuda.CORE_MAX_CLUSTER + 1)]
-    print(f"core_plans: device={card}, n = {n}, clusters that fit by size "
-          f"1-{q4_cuda.CORE_MAX_CLUSTER}: {fits}", flush=True)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     rows = []
-    for model, name, K, O in SHAPES:  # noqa: N806
-        w0 = to_plane_split(lab_weight(K, O, 0, dev))
-        ws = rotation(lambda i: w0 if i == 0 else to_plane_split(
-            lab_weight(K, O, i, dev)), w0.nbytes)
-        x = torch.randn((n, K), generator=g, device=dev).to(torch.bfloat16)
-        ref = q4_cuda.q4_gemv_ps_plain(x, w0.packed, w0.scales)
-        tiles = -(-O // q4_cuda.CORE_TILE_O)
-        times = {}
-        for wc, c in itertools.product((1, 2, 4), range(1, len(fits) + 1)):
-            if -(-tiles // wc) > fits[c - 1]:
-                continue
-            plan = (wc, c)
-            err, rel = rel_err(q4_cuda.q4_gemv_ps_planned(
-                x, w0.packed, w0.scales, None, plan), ref)
-            if rel > TOL_LAB:
-                raise RuntimeError(f"core_plans {plan} {K}->{O}: max|err| "
-                                   f"{err:.3g} (rel {rel:.3g} > {TOL_LAB})")
-            cyc = itertools.cycle(ws)
+    for kind in kernels:
+        make, planned, plain, max_clusters, pick_of = _kernel(kind, index)
+        fits = [max_clusters(c)
+                for c in range(1, q4_cuda.CORE_MAX_CLUSTER + 1)]
+        print(f"core_plans {kind}: device={card}, n = {n}, clusters that "
+              f"fit by size 1-{q4_cuda.CORE_MAX_CLUSTER}: {fits}", flush=True)
+        for model, name, K, O in SHAPES:  # noqa: N806
+            w0 = make(K, O, 0, dev)
 
-            def call(plan=plan):
-                w = next(cyc)
-                return q4_cuda.q4_gemv_ps_planned(x, w.packed, w.scales, None,
-                                                  plan)
+            def weight(i, K=K, O=O):  # noqa: N803
+                return w0 if i == 0 else make(K, O, i, dev)  # noqa: B023
 
-            times[plan] = min(timed(call) for _ in range(2))
-        pick = q4_cuda._plan("q4_gemv_ps", index, K, O)
-        flat = flat_ms(K, O, dev)
-        best = min(times.values())
-        order = sorted(times, key=times.get)
-        print(f"  {model} {name} {K}->{O}: flat {flat * 1e3:.2f} us; "
-              + ", ".join(f"{p} {times[p] * 1e3:.2f}" for p in order[:4])
-              + f"; pick {pick} {times[pick] * 1e3:.2f} us "
-              f"({times[pick] / flat:.2f}x flat, {times[pick] / best:.2f}x "
-              "the fastest plan)", flush=True)
-        rows.append(dict(model=model, weight=name, K=K, O=O, n=n,
-                         flat_ms=flat, pick=pick, device=card,
-                         times={str(p): t for p, t in times.items()}))
-        del ws, w0
-        torch.cuda.empty_cache()
+            ws = rotation(weight, w0.nbytes)
+            x = torch.randn((n, K), generator=g, device=dev).to(torch.bfloat16)
+            ref = plain(x, w0)
+            tiles = -(-O // q4_cuda.CORE_TILE_O)
+            times = {}
+            for wc, c in itertools.product((1, 2, 4), range(1, len(fits) + 1)):
+                if -(-tiles // wc) > fits[c - 1]:
+                    continue
+                plan = (wc, c)
+                err, rel = rel_err(planned(x, w0, plan), ref)
+                if rel > TOL_LAB:
+                    raise RuntimeError(f"core_plans {kind} {plan} {K}->{O}: "
+                                       f"max|err| {err:.3g} (rel {rel:.3g} > "
+                                       f"{TOL_LAB})")
+                cyc = itertools.cycle(ws)
+
+                def call(plan=plan):
+                    return planned(x, next(cyc), plan)  # noqa: B023
+
+                times[plan] = min(timed(call) for _ in range(2))
+            pick = pick_of(n, K, O)
+            flat = flat_ms(K, O, dev)
+            best = min(times.values())
+            order = sorted(times, key=times.get)
+            print(f"  {kind} {model} {name} {K}->{O}: flat {flat * 1e3:.2f} "
+                  "us; " + ", ".join(f"{p} {times[p] * 1e3:.2f}"
+                                     for p in order[:4])
+                  + f"; pick {pick} {times[pick] * 1e3:.2f} us "
+                  f"({times[pick] / flat:.2f}x flat, {times[pick] / best:.2f}x "
+                  "the fastest plan)", flush=True)
+            rows.append(dict(kernel=kind, model=model, weight=name, K=K, O=O,
+                             n=n, flat_ms=flat, pick=pick, device=card,
+                             times={str(p): t for p, t in times.items()}))
+            del ws, w0
+            torch.cuda.empty_cache()
     return rows
 
 
 def main(argv=None) -> List[Dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1)
-    return run(ap.parse_args(argv).n)
+    ap.add_argument("--kernel", nargs="+", choices=KERNELS,
+                    default=list(KERNELS))
+    args = ap.parse_args(argv)
+    return run(args.n, args.kernel)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
     python -m vsim_tpu_torch.tools.sass_ops [--csrc DIR] [NAME ...]
 
 Compiles each ``NAME.cu`` of ``DIR`` (default: the package's ``csrc/``;
-names default to K1's and K11's sources) with the port's nvcc flags into
+names default to the sources of K1, K11 and K9/K10) with the port's nvcc flags into
 ``build/sass/``, disassembles it with ``cuobjdump -sass`` and prints, for
 every kernel function, how many instructions of each opcode in ``OPS`` it
 holds: I2F and I2FP (integer-to-float conversions) show whether nibbles are
@@ -38,13 +38,19 @@ def _cuobjdump() -> str:
 
 
 def count(source: Path) -> Dict[str, Dict]:
-    """{kernel function: {"ops": {opcode: count}, "convert_at": offsets of
-    its I2F, I2FP and F2I, "hmma": (first, last) HMMA offset or None}} of
-    one ``.cu`` source."""
+    """``count_lib`` of one ``.cu`` source, compiled with the port's flags
+    into ``build/sass/``."""
     OUT.mkdir(parents=True, exist_ok=True)
     lib = OUT / f"lib{source.stem}.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
                     str(source)], check=True, capture_output=True, text=True)
+    return count_lib(lib)
+
+
+def count_lib(lib: Path) -> Dict[str, Dict]:
+    """{kernel function: {"ops": {opcode: count}, "convert_at": offsets of
+    its I2F, I2FP and F2I, "hmma": (first, last) HMMA offset or None}} of
+    a built library."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
     out: Dict[str, Dict] = {}
@@ -71,10 +77,20 @@ def count(source: Path) -> Dict[str, Dict]:
     return out
 
 
+def convert_in_mma_span(fn: Dict) -> int:
+    """How many of a function's conversions sit between its first and last
+    HMMA (a loop that runs the tensor cores converts nothing when 0)."""
+    if fn["hmma"] is None:
+        return 0
+    lo, hi = fn["hmma"]
+    return sum(lo <= at <= hi for at in fn["convert_at"])
+
+
 def main(argv=None) -> Dict[str, Dict[str, Dict]]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--csrc", type=Path, default=_build.CSRC)
-    ap.add_argument("names", nargs="*", default=["q4_gemv_ps", "q4_mlp_ps"])
+    ap.add_argument("names", nargs="*",
+                    default=["q4_gemv_ps", "q4_mlp_ps", "q4_matmul_i"])
     args = ap.parse_args(argv)
     result = {}
     for name in args.names:
