@@ -7,7 +7,9 @@ Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi) and build the
      kernels from csrc/ (one nvcc per source, all at once, into build/);
      every instance of K9/K10's kernel must run HMMA and convert nothing
-     between its first and last HMMA (tools/sass_ops.py on the build);
+     between its first and last HMMA, and every instance of K15's must run
+     HMMA (tools/sass_ops.py on the build; K15's opcode counts printed by
+     math);
   2. kernels: each of K1-K6 at GPT-J-6B shapes (K2 at 1 and 8 rows under
      both plane contracts and at 9-128 rows, K5 on the B=8 ragged step, on
      phase 4's timed step and at B=1), K4 and K7/K8 (the flash
@@ -40,8 +42,10 @@ Phases, each fatal on failure:
      the einsum route over a whole L-layer int8 cache for GPT-J-6B at
      B=32 x 128 and B=8 x 2048 and Pythia-12B at B=1 x 2048; prints each
      math's GB/s by shape, each shape's K13 rate with K9's, K1's and K2's
-     share of it, each batch_lab variant's GB/s by shape and each
-     attn_lab configuration's ms a pass;
+     share of it, each batch_lab variant's GB/s by shape with its ratio to
+     the bound and the library and K15's plan, and each attn_lab
+     configuration's ms a pass with K16's plan; then an empty kernel's
+     time (the launch floor) beside K6's and K14's rows;
   3. InferenceEngine on GPT-J-6B at full width (28 layers, random Q4
      weights from seed 0, bf16 compute) with int8 and with int4 KV, serving
      prompts of 8, 100 and 300 tokens (64 new tokens, greedy) and one
@@ -91,6 +95,7 @@ import functools
 import itertools
 import json
 import math
+import re
 import os
 import subprocess
 import sys
@@ -1005,8 +1010,53 @@ def phase_labs(peaks):
     missing = [k for k in LAB_KERNELS if not launches.get(k)]
     if missing:
         fail(f"the lab path launched no {missing}")
+    lab_plan_checks(rows)
     _build.reset_launch_counts()
     return rows, launches
+
+
+def lab_plan_checks(rows):
+    """K16 splits Pythia-12B's B=1 x 2048 heads over a cluster of more than
+    one block, and K15's 2d geometry fills a wave at GPT-J-6B's wo and proj
+    (O = 4096) at n = 64."""
+    import torch
+
+    from vsim_tpu_torch.ops.q4_batch_lab import BATCH_WARPS, batch_tile_o
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for r in rows:
+        if (r["tool"] == "attn_lab" and r["model"] == "pythia-12b"
+                and r["plan"] is not None and r["plan"][1] < 2):
+            fail(f"attn_lab {r['variant']} at Pythia-12B B=1: plan "
+                 f"{tuple(r['plan'])}, a cluster of one")
+        if (r["tool"] == "batch_lab" and r["plan"] is not None
+                and r["geometry"] == "2d" and r["n"] == 64 and r["O"] == 4096
+                and r["shape"].startswith("gpt-j-6b ")):
+            nt, c = r["plan"]
+            blocks = -(-r["O"] // (BATCH_WARPS * batch_tile_o(nt))) * c
+            if blocks < sms:
+                fail(f"batch_lab {r['shape']}: plan {tuple(r['plan'])} "
+                     f"launches {blocks} blocks on {sms} SMs")
+
+
+def launch_floor_ms():
+    """An empty kernel's device ms a call (tools/read_designs.py)."""
+    from vsim_tpu_torch.tools.read_designs import launch_floor_ms as floor
+
+    return floor("cuda")
+
+
+def launch_floor_lines(rows, floor_ms):
+    """K6's and K14's rows beside an empty kernel's time: what a redesign
+    of either has left to take."""
+    lines = [f"  launch floor: an empty kernel {floor_ms * 1e3:.2f} us a call "
+             "(timing.timed)"]
+    for r in rows:
+        if r["kernel"] in ("scatter_rows", "pair_bitcast"):
+            lines.append(f"    {r['kernel']} {r['shape']}: {r['ms'] * 1e3:.2f} "
+                         f"us, bound {r['bound_ms'] * 1e3:.2f} us, "
+                         f"{r['ms'] / floor_ms:.2f}x the floor")
+    return lines
 
 
 def lab_bound(peaks, nbytes, ops, peak):
@@ -1059,7 +1109,11 @@ def lab_summary(rows, peaks):
                  and r["shape"].startswith(label + " ")]
         for v in dict.fromkeys(r["variant"] for r in batch):
             rates = [f"{r['K']}->{r['O']} {r['gbs']:.0f} ({r['ms']:.4f} ms, "
-                     f"{r['ms'] / r['bound_ms']:.1f}x bound)"
+                     f"{r['ms'] / r['bound_ms']:.1f}x bound"
+                     + ("" if r["library_ms"] is None else
+                        f", {r['ms'] / r['library_ms']:.2f}x library")
+                     + ("" if r.get("plan") is None else
+                        f", plan {tuple(r['plan'])}") + ")"
                      for r in batch if r["variant"] == v]
             lines.append(f"  batch_lab {label} {v} n={n} GB/s: "
                          + ", ".join(rates))
@@ -1068,7 +1122,11 @@ def lab_summary(rows, peaks):
             lines.append(f"  attn_lab {r['model']} B={r['B']} S={r['S']} "
                          f"{r['variant']}: {r['ms']:.3f} ms a pass of "
                          f"{r['L']} layers, {r['gbs']:.0f} GB/s on KV, bound "
-                         f"{r['bound_ms']:.3f}, library {r['library_ms']:.3f}"
+                         f"{r['bound_ms']:.3f} ({r['ms'] / r['bound_ms']:.2f}x), "
+                         f"library {r['library_ms']:.3f} "
+                         f"({r['ms'] / r['library_ms']:.2f}x)"
+                         + ("" if r.get("plan") is None else
+                            f", plan {tuple(r['plan'])} (threads, cluster)")
                          + ("" if r.get("vpu3d_err") is None else
                             f", max|err| {r['max_abs_err']:.3g} against its "
                             f"plain version, {r['vpu3d_err']:.3g} against "
@@ -1892,8 +1950,9 @@ ROW_KERNEL = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
 def sass_check():
     """Every instance of K9/K10's kernel in the built library runs the
     tensor cores (HMMA) and converts no integer to a float (or back)
-    between its first and last HMMA, where its loop runs
-    (``tools/sass_ops.py`` on ``build/kernels``): {function: opcode counts}."""
+    between its first and last HMMA, where its loop runs; every instance of
+    K15's runs HMMA (``tools/sass_ops.py`` on ``build/kernels``):
+    {function: opcode counts}."""
     from vsim_tpu_torch.ops import _build
     from vsim_tpu_torch.tools import sass_ops
 
@@ -1905,7 +1964,39 @@ def sass_check():
         if not got["ops"]["HMMA"] or sass_ops.convert_in_mma_span(got):
             fail(f"sass {fn}: HMMA {got['ops']['HMMA']}, conversions at "
                  f"{got['convert_at']} inside the HMMA span {got['hmma']}")
-    return {fn: got["ops"] for fn, got in found.items()}
+    batch = {fn: got for fn, got in sass_ops.count_lib(
+        _build._lib_path("q4_batch_lab")).items() if "batch_kernel" in fn}
+    if len(batch) != len(BATCH_INSTANCES):
+        fail(f"sass: {len(batch)} instances of K15's kernel, not "
+             f"{len(BATCH_INSTANCES)}")
+    for fn, got in batch.items():
+        if not got["ops"]["HMMA"]:
+            fail(f"sass {fn}: K15 runs no HMMA")
+    return ({fn: got["ops"] for fn, got in found.items()},
+            {fn: got["ops"] for fn, got in batch.items()})
+
+
+# K15's instances: (n-tiles, math, band) of csrc/q4_batch_lab.cu
+BATCH_INSTANCES = [(nt, m, b) for nt in (1, 2, 4, 8, 16) for m in range(3)
+                   for b in (0, 1)]
+
+
+def batch_sass_lines(batch):
+    """One line a math: the opcodes of K15's 2d instances at 8 and 16
+    n-tiles (n = 64 and 128), read from the mangled template arguments."""
+    from vsim_tpu_torch.ops.q4_batch_lab import BATCH_MATHS
+
+    lines = []
+    for m, name in enumerate(BATCH_MATHS):
+        parts = []
+        for fn, ops in batch.items():
+            got = re.search(r"batch_kernelILi(\d+)ELi(\d)ELb(\d)E", fn)
+            if got and int(got[2]) == m and got[3] == "0" and got[1] in (
+                    "8", "16"):
+                parts.append(f"nt {got[1]}: " + ", ".join(
+                    f"{op} {c}" for op, c in ops.items() if c))
+        lines.append(f"  sass K15 2d {name}: " + "; ".join(sorted(parts)))
+    return lines
 
 
 def kernel_line(rows, launches):
@@ -1953,11 +2044,14 @@ def main() -> None:
     t0 = time.perf_counter()
     reports = _build.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
-    sass = sass_check()
+    sass, sass_batch = sass_check()
     hmma = sorted(ops["HMMA"] for ops in sass.values())
     print(f"sass: {len(sass)} instances of K9/K10's kernel, HMMA "
           f"{hmma[0]}-{hmma[-1]} each, no I2F/I2FP/F2I between the first "
-          "and last HMMA", flush=True)
+          f"and last HMMA; {len(sass_batch)} of K15's, HMMA in each",
+          flush=True)
+    for line in batch_sass_lines(sass_batch):
+        print(line, flush=True)
     t0 = time.perf_counter()
     rows = phase_kernels(peaks)
     print(f"kernel phase: {len(rows)} cases pass in "
@@ -1991,6 +2085,9 @@ def main() -> None:
     for line in lab_summary(lab_rows, peaks):
         print(line, flush=True)
     rows += lab_rows
+    floor_ms = launch_floor_ms()
+    for line in launch_floor_lines(rows, floor_ms):
+        print(line, flush=True)
     t0 = time.perf_counter()
     model, launches, cfg, params = phase_model(peaks)
     print(f"InferenceEngine in {time.perf_counter() - t0:.1f} s: "
@@ -2050,7 +2147,8 @@ def main() -> None:
                        launches_pythia=pythia_launches,
                        launches_labs=lab_launches,
                        timings_unheld=UNHELD[0], ptxas=reports,
-                       sass_k9_k10=sass), f,
+                       sass_k9_k10=sass, sass_k15=sass_batch,
+                       launch_floor_ms=floor_ms), f,
                   indent=1)
     print(f"chip_smoke: all phases pass in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -15,9 +15,12 @@ passes ``interpret=True``) and compiled with XLA's excess precision off
 
 The tests marked ``cuda`` hold K16 against its plain version on the card at
 ragged n_past including S − 1 (and against a second run, bit for bit),
-hold mxu at GPT-J-6B's widths over six caches to 1e-5 of its plain version
-and ten times nearer it than vpu3d's, and refuse a layer index or n_past
-left on the CPU; they need no JAX:
+under every plan (4- and 8-warp blocks, clusters 1–8,
+``attn_lab_planned``) at head widths 64, 72, 128 and 256, hold mxu at GPT-J-6B's widths over six caches to 1e-5 of its
+plain version and ten times nearer it than vpu3d's, check the planner's
+picks (one block a head at one tile, more at Pythia-12B's 40 heads over
+2048 rows), and refuse a layer index or n_past left on the CPU; they need
+no JAX:
 
     python -m pytest --noconftest tests/test_torch_attn_lab.py -q -m cuda
 """
@@ -215,3 +218,47 @@ def test_attn_lab_refuses_host_indices_on_card(card):
         al.attn_lab(*inp, il, npt.to(card), "vpu3d", 0.1)
     with pytest.raises(ValueError, match="n_past must be contiguous on"):
         al.attn_lab(*inp, il.to(card), npt, "vpu3d", 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 72, 128, 256])
+@pytest.mark.parametrize("threads", al.ATTN_THREADS)
+@pytest.mark.parametrize("cluster", range(1, al.ATTN_MAX_CLUSTER + 1))
+@pytest.mark.parametrize("variant", al.ATTN_VARIANTS)
+def test_attn_lab_every_cluster_on_card(card, variant, cluster, threads, d):
+    """Every plan the planner can pick (both block sizes, clusters 1-8),
+    forced through ``attn_lab_planned``, at head widths with 16-byte rows
+    (64, 128, 256)
+    and without (72), over 1100 rows (nine tiles, the last partial) with
+    n_past in the first tile, at a tile edge, at S − 1 and past whole
+    ranks: within TOL_ATTN of the plain version, the same bits run to
+    run."""
+    c = t_attn_lab.make_cache(2, 4, 3, 1100, d, cluster, card)
+    kv = (c["k_q"], c["k_s"], c["v_q"], c["v_s"])
+    g = torch.Generator(device=card)
+    g.manual_seed(d)
+    q = torch.randn((4, 3, d), generator=g, device=card).to(torch.bfloat16)
+    il = torch.tensor([1], dtype=torch.int32, device=card)
+    npt = torch.tensor([5, 127, 1099, 300], dtype=torch.int32, device=card)
+    plan = (threads, cluster)
+    got = al.attn_lab_planned(q, *kv, il, npt, variant, d ** -0.5, plan)
+    ref = al.attn_lab_plain(q, *kv, il, npt, variant, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= al.TOL_ATTN[variant] * ref.abs().max()
+    assert torch.equal(got, al.attn_lab_planned(q, *kv, il, npt, variant,
+                                                d ** -0.5, plan))
+
+
+@pytest.mark.cuda
+def test_attn_lab_plans_on_card(card):
+    """The planner's picks on this card: one block a head at one tile, a
+    cluster of more than one at Pythia-12B's B=1 x 2048 (40 heads)."""
+    assert al.attn_lab_plan(card, 32, 16, 128, 256, "vpu3d")[1] == 1
+    assert al.attn_lab_plan(card, 1, 40, 2048, 128, "mxu")[1] > 1
+    with pytest.raises(ValueError, match="does not take"):
+        inp = _torch(*_inputs(), device=card)
+        al.attn_lab_planned(*inp, torch.tensor([1], dtype=torch.int32,
+                                               device=card),
+                            torch.tensor([1, 2, 3], dtype=torch.int32,
+                                         device=card), "vpu3d", 0.1,
+                            (128, 9))

@@ -17,8 +17,12 @@ bnos's bf16 products, which XLA's CPU backend may otherwise keep in f32).
   * the tool's ``--check`` against the f32 oracle, and its entry point.
 
 The tests marked ``cuda`` hold K15 and the touches against their plain
-versions on the card (and against a second run, bit for bit), and skip
-without one; they need no JAX:
+versions on the card (and against a second run, bit for bit), K15 also
+under every plan its planners could pick (``q4_batch_lab_planned``: 2d at
+each n-tile count that holds n under clusters of 1–8, band at 1, 2, 3 and
+K/64 bands), check that the 2d plans fill a wave at GPT-J-6B's wo and
+proj and that an over-full plan is refused, and skip without one; they
+need no JAX:
 
     python -m pytest --noconftest tests/test_torch_batch_lab.py -q -m cuda
 """
@@ -262,3 +266,55 @@ def test_batch_touch_on_card(card, layout, n):
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert all(torch.equal(a, b) for a, b in zip(
         got, q4_lab.q4_lab_dma(x, p, s, layout, BLOCK_KH[layout])))
+
+
+def _plans(geometry, n, k):
+    """Every plan a planner could pick for n rows and K = k: 2d, each
+    instance that holds n under clusters of 1-8; band, 1..K/64 bands."""
+    tiles = [t for t in bl.BATCH_TILES if 8 * t >= n]
+    if geometry == "2d":
+        return [(t, c) for t in tiles
+                for c in range(1, bl.BATCH_MAX_CLUSTER + 1)]
+    return [(t, b) for t in tiles[:2] for b in (1, 2, 3, k // 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 9, 64, 128])
+@pytest.mark.parametrize("math_", bl.BATCH_MATHS)
+@pytest.mark.parametrize("geometry", bl.GEOMETRIES)
+def test_batch_lab_every_plan_on_card(card, geometry, math_, n):
+    """K15 under every plan of ``_plans``, forced through
+    ``q4_batch_lab_planned`` (K = 1024, O = 272: a ragged last tile):
+    within TOL_BATCH of the plain version, the same bits run to run."""
+    k, o = 1024, 272
+    rng = np.random.default_rng(7 + n)
+    packed = rng.integers(0, 256, (k // 2, o), dtype=np.uint8)
+    scales = _bf16_np(rng.standard_normal((k // 32, o)) * 0.3)
+    p, s, x = (t.to(card) for t in _torch(packed, scales, _x(n, k=k)))
+    corr = bl.batch_corr(x, s) if math_ == "bnos" else None
+    ref = bl.q4_batch_lab_plain(x, p, s, math_, geometry, corr)
+    for plan in _plans(geometry, n, k):
+        got = bl.q4_batch_lab_planned(x, p, s, math_, geometry, corr, plan)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        assert err <= bl.TOL_BATCH * ref.abs().max().item(), (plan, err)
+        assert torch.equal(got, bl.q4_batch_lab_planned(
+            x, p, s, math_, geometry, corr, plan)), plan
+
+
+@pytest.mark.cuda
+def test_batch_lab_plans_on_card(card):
+    """The planners' picks on this card fill one wave at GPT-J-6B's wo and
+    proj at n = 64, and an over-full forced plan is refused."""
+    index = card.index or 0
+    for k, o in [(4096, 4096), (16384, 4096)]:
+        nt, c = bl._plan(index, 0, "2d", 64, k, o)
+        tiles = -(-o // (bl.BATCH_WARPS * bl.batch_tile_o(nt)))
+        assert tiles * c >= bl._sm_count(index)
+        assert tiles <= bl._max_clusters(index, 0, False, nt, c)
+    nt = bl.batch_tiles(64)
+    x = torch.zeros((64, 4096), dtype=torch.bfloat16, device=card)
+    p = torch.zeros((2048, 1 << 16), dtype=torch.uint8, device=card)
+    s = torch.zeros((128, 1 << 16), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="over-full"):
+        bl.q4_batch_lab_planned(x, p, s, "f32x", "2d", None, (nt, 8))

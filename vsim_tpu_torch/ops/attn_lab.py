@@ -15,6 +15,13 @@ both an online softmax over tiles of min(128, S) keys walked in order:
          sums of exact terms), so kernel and plain version round the same
          p·vs at any order of the sums
 
+The kernel is one launch a layer: each (b, h) is a cluster of blocks that
+split the key tiles, keep the walk's running maxima exactly (each tile's
+m_j from the earlier ranks' maxima, read through distributed shared
+memory) and fold the tiles in order.  ``attn_plan`` picks the plan, the
+block's threads (128 or 256) and the cluster size, from the shapes and the
+card, never from ``n_past``; ``attn_lab_planned`` takes a forced one.
+
 A CPU tensor goes through the plain PyTorch version, which follows the
 body's tiles in order; a CUDA tensor launches the kernel or raises.  The
 kernel has no backward.
@@ -23,6 +30,8 @@ kernel has no backward.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -31,6 +40,9 @@ from vsim_tpu_torch.ops import _build
 ATTN_VARIANTS = ("vpu3d", "mxu")
 BLOCK_S = 128  # the body's key tile (attn_lab.py: block_s=min(128, S))
 MAX_D = 256
+ATTN_MAX_CLUSTER = 8  # blocks a cluster (csrc/attn_lab.cu:kMaxCluster)
+ATTN_MAX_TILES = 32  # key tiles a block may own (attn_lab.cu:kMaxTiles)
+ATTN_THREADS = (128, 256)  # a block's threads: 4 or 8 warps
 NEG_INF = float(torch.finfo(torch.float32).min)
 # max|kernel − plain| / max|plain| on the card: both differ in the order of
 # their f32 sums over keys only (mxu's scores, and so its p·vs, are the same
@@ -40,7 +52,7 @@ TOL_ATTN = {"vpu3d": 1e-5, "mxu": 1e-5}
 # version than vpu3d's: the two functions differ by the rounding of p·vs
 MXU_SEPARATION = 10.0
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = (_P,) * 8 + (_I,) * 5 + (ctypes.c_float, _I, _P)
+_ARGS = (_P,) * 8 + (_I,) * 5 + (ctypes.c_float, _I, _I, _I, _P)
 
 
 def attn_lab_plain(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
@@ -117,17 +129,88 @@ def _check(what, q, k_q, k_s, v_q, v_s, il, n_past, variant):
         raise ValueError(f"{what}: n_past must be int32 [B]")
 
 
+def key_tiles(S: int) -> int:  # noqa: N803
+    """The body's key tiles of min(128, S) keys over a cache of S rows."""
+    return -(-S // min(BLOCK_S, S))
+
+
+def attn_plan(B: int, H: int, S: int,  # noqa: N803
+              max_clusters: Callable[[int, int], int]) -> Tuple[int, int]:
+    """K16's plan (threads, cluster) for B x H heads over S cache rows, from
+    the shapes and the card alone (never n_past, so the wrapper never
+    syncs).  Of the blocks of ``ATTN_THREADS`` and clusters c <= min(8,
+    tiles) whose ranks own at most ``ATTN_MAX_TILES`` tiles: those whose
+    B x H clusters all fit on the card at once (``max_clusters(threads,
+    c)``) first, then the fewest tiles a rank (waves x tiles where none
+    fits), then the more threads, then the smaller cluster.  A second wave
+    costs more than its share (on an H100, GPT-J-6B's B=8 x 2048 ran slower
+    at 8 blocks of 4 warps a head, two waves, than at 2, one); 4-warp
+    blocks fit four an SM, so one-tile heads (GPT-J B=32 x 128, 512
+    blocks) run in one wave; where both fit, 8-warp blocks keep more warps
+    an SM.  Pythia-12B's 40 heads at S = 2048 take (128, 8): 320 blocks,
+    two tiles each."""
+    tiles = key_tiles(S)
+    plans = []
+    for threads in ATTN_THREADS:
+        for c in range(1, min(ATTN_MAX_CLUSTER, tiles) + 1):
+            per_rank = -(-tiles // c)
+            fit = (max_clusters(threads, c) if per_rank <= ATTN_MAX_TILES
+                   else 0)
+            if fit > 0:
+                waves = -(-(B * H) // fit)
+                plans.append((waves > 1, waves * per_rank, -threads, c))
+    if not plans:
+        raise ValueError(f"attn_lab: no cluster of <= {ATTN_MAX_CLUSTER} "
+                         f"blocks takes S={S} ({tiles} tiles; a block owns "
+                         f"at most {ATTN_MAX_TILES})")
+    _, _, threads, c = min(plans)
+    return -threads, c
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(index: int, S: int, D: int, math: int,  # noqa: N803
+                  threads: int, cluster: int) -> int:
+    with torch.cuda.device(index):
+        return _build.function("attn_lab", "attn_lab_max_clusters",
+                               (_I,) * 5)(S, D, math, threads, cluster)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(index: int, B: int, H: int, S: int, D: int,  # noqa: N803
+          math: int) -> Tuple[int, int]:
+    return attn_plan(B, H, S,
+                     functools.partial(_max_clusters, index, S, D, math))
+
+
+def attn_lab_plan(device: torch.device, B: int, H: int, S: int,  # noqa: N803
+                  D: int, variant: str) -> Tuple[int, int]:  # noqa: N803
+    """The plan (threads, cluster) ``attn_lab`` takes on ``device`` (a CUDA
+    card)."""
+    return _plan(device.index or 0, B, H, S, D, ATTN_VARIANTS.index(variant))
+
+
 def attn_lab(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
              v_q: torch.Tensor, v_s: torch.Tensor, il: torch.Tensor,
              n_past: torch.Tensor, variant: str, scale: float) -> torch.Tensor:
     """K16: the attention of q [B, H, D] over layer ``il`` (int32, one
     element, on q's device) of the cache, keys s <= n_past[b] → [B, H, D]
     f32, under ``variant``."""
-    what = "attn_lab"
-    _check(what, q, k_q, k_s, v_q, v_s, il, n_past, variant)
     if q.device.type == "cpu":
+        _check("attn_lab", q, k_q, k_s, v_q, v_s, il, n_past, variant)
         return attn_lab_plain(q, k_q, k_s, v_q, v_s, il, n_past, variant,
                               scale)
+    return attn_lab_planned(q, k_q, k_s, v_q, v_s, il, n_past, variant,
+                            scale, None)
+
+
+def attn_lab_planned(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+                     v_q: torch.Tensor, v_s: torch.Tensor, il: torch.Tensor,
+                     n_past: torch.Tensor, variant: str, scale: float,
+                     plan: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """K16 on the card under ``plan`` (threads, cluster), or ``attn_plan``'s
+    when None: the card tests run every kind.  One launch."""
+    what = "attn_lab"
+    _check(what, q, k_q, k_s, v_q, v_s, il, n_past, variant)
     if q.device.type != "cuda":
         raise ValueError(f"{what}: q must be a CUDA or a CPU tensor")
     tensors = {"q": q, "k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s,
@@ -142,10 +225,17 @@ def attn_lab(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     if k_q.data_ptr() % 4 or v_q.data_ptr() % 4:
         raise ValueError(f"{what}: the caches must be 4-byte aligned")
     L, B, H, S, D = k_q.shape  # noqa: N806
+    math = ATTN_VARIANTS.index(variant)
+    threads, cluster = plan or _plan(q.device.index or 0, B, H, S, D, math)
+    if not (threads in ATTN_THREADS and 1 <= cluster <= ATTN_MAX_CLUSTER
+            and -(-key_tiles(S) // cluster) <= ATTN_MAX_TILES):
+        raise ValueError(f"{what}: plan {(threads, cluster)} does not take "
+                         f"S={S} (threads {ATTN_THREADS}, 1..{ATTN_MAX_CLUSTER}"
+                         f" blocks, at most {ATTN_MAX_TILES} tiles a block)")
     out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     p = _build.ptr
     _build.launch(what, "attn_lab_launch", _ARGS, p(q), p(k_q), p(k_s),
                   p(v_q), p(v_s), p(il), p(n_past), p(out), L, B, H, S, D,
-                  float(scale), ATTN_VARIANTS.index(variant),
+                  float(scale), math, threads, cluster,
                   _build.stream_ptr(q.device))
     return out

@@ -23,7 +23,8 @@ route against K16's plain vpu3d at a bf16 tolerance; mxu must also lie
 ``MXU_SEPARATION`` times nearer its own plain version than vpu3d's.
 Prints ms per pass, GB/s on the KV bytes (2·L·B·S·H·D, the TPU tool's
 count), the plain version's ms and a library yardstick the port never
-calls (SDPA over the layer's K/V dequantized to bf16 beforehand).
+calls (SDPA over the layer's K/V dequantized to bf16 beforehand), and
+K16's plan on the card (a block's threads, its cluster a head).
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ from vsim_tpu_torch.device import DeviceLike, resolve_device
 from vsim_tpu_torch.models.config import PRESETS
 from vsim_tpu_torch.models.transformer import _attend_plain, _kv_read
 from vsim_tpu_torch.ops.attn_lab import (ATTN_VARIANTS, MXU_SEPARATION,
-                                         TOL_ATTN, attn_lab, attn_lab_plain)
+                                         TOL_ATTN, attn_lab, attn_lab_plain,
+                                         attn_lab_plan)
 from vsim_tpu_torch.ops.decode_attention import (decode_attention_plain,
                                                  decode_attention_q)
 from vsim_tpu_torch.timing import rel_err, timed
@@ -175,7 +177,9 @@ def run(model: str = "gpt-j-6b", batch: int = 32, kv_len: int = 128,
         # the bound's bytes: each row's keys up to n_past (values, scales),
         # q read and out written, every layer
         nbytes = L * B * H * (2 * n_keys * (D + 2) + D * 2 + D * 4)
-        row = dict(tool="attn_lab", variant=v,
+        plan = (list(attn_lab_plan(dev, B, H, S, D, v))
+                if on_card and v in ATTN_VARIANTS else None)
+        row = dict(tool="attn_lab", variant=v, plan=plan,
                    kernel={"xla": None, "pallas": "decode_attention_q"}.get(
                        v, "attn_lab"),
                    shape=f"{model} {v} L={L} B={B} H={H} D={D} S={S} "
@@ -199,8 +203,10 @@ def format_row(r: Dict) -> str:
         return head + f"ms not measured (on {r['device']})  {err}"
     plain = ("" if r["plain_ms"] is None
              else f"  plain {r['plain_ms']:.3f} ms")
+    plan = ("" if r.get("plan") is None
+            else f"  plan {tuple(r['plan'])} (threads, cluster)")
     return (head + f"{r['ms']:8.3f} ms a pass {r['gbs']:7.1f} GB/s on KV  "
-            f"{err}{plain}  library {r['library_ms']:.3f} ms")
+            f"{err}{plain}  library {r['library_ms']:.3f} ms{plan}")
 
 
 def main(argv=None) -> List[Dict]:

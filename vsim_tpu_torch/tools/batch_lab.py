@@ -15,8 +15,9 @@ held against its plain version (and K13/K15 against a second run, bit for
 bit), then timed on the card over a rotation of weights past the 50 MB
 L2; bnos's time includes its correction (``batch_corr``: torch ops outside
 the kernel), as the TPU tool charges it.  Prints ms, GB/s of weight bytes,
-the ratio to the geometry's dma rate, max|err| and the library yardstick
-(``dequantize_km`` + ``torch.matmul`` in bf16).  ``--check`` runs the
+the ratio to the geometry's dma rate, max|err|, the library yardstick
+(``dequantize_km`` + ``torch.matmul`` in bf16) and K15's plan on the card
+((n-tiles, cluster) for 2d, (n-tiles, bands) for band).  ``--check`` runs the
 numerics only, each K15 variant against an f32 oracle (f32 dequantize and
 a matmul), and prints its relative error.  ``--block-kh`` is part of the
 dma touch's function (band's needs 256 or more); the TPU's ``--ochunk`` and
@@ -35,7 +36,7 @@ import torch
 from vsim_tpu_torch.device import DeviceLike, resolve_device
 from vsim_tpu_torch.ops.q4_batch_lab import (BATCH_MATHS, GEOMETRIES,
                                              TOL_BATCH, batch_corr,
-                                             q4_batch_lab,
+                                             batch_plan, q4_batch_lab,
                                              q4_batch_lab_plain)
 from vsim_tpu_torch.ops.q4_lab import q4_lab_dma, q4_lab_dma_plain
 from vsim_tpu_torch.quant.q4 import QK, Q4Tensor, dequantize_km, to_plane_split
@@ -137,7 +138,10 @@ def run(batch: int = 64, shapes: Sequence[Tuple[int, int]] = SHAPES["gptj"],
                       + (2 * O * 4 if math_ == "dma" else 0)
                       + (K // QK * O * 2 + batch * O * 4
                          if math_ == "bnos" else 0))
+            plan = (list(batch_plan(dev, math_, geom, batch, K, O))
+                    if on_card and math_ != "dma" else None)
             row = dict(tool="batch_lab", variant=v, geometry=geom, math=math_,
+                       plan=plan,
                        kernel="q4_lab_dma" if math_ == "dma"
                        else "q4_batch_lab",
                        shape=f"{v} n={batch} {K}->{O}", n=batch, K=K, O=O,
@@ -165,8 +169,11 @@ def format_row(r: Dict) -> str:
     ratio = "" if r["vs_dma"] is None else f"  {r['vs_dma']:.2f}x dma"
     lib = ("" if r["library_ms"] is None
            else f"  library {r['library_ms']:.4f} ms")
+    what = "nt, cluster" if r["geometry"] == "2d" else "nt, bands"
+    plan = ("" if r.get("plan") is None
+            else f"  plan {tuple(r['plan'])} ({what})")
     return (head + f"{r['ms']:8.4f} ms {r['gbs']:7.1f} GB/s{ratio}  {err}"
-            + lib)
+            + lib + plan)
 
 
 def check(n: int = 16, device: DeviceLike = None) -> Dict[str, float]:

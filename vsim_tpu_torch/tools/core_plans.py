@@ -1,7 +1,7 @@
-"""K1, and K9/K10, under every plan of their split, beside the plan the
-wrapper picks.
+"""K1, K9/K10 and K15, under every plan of their split, beside the plan
+the wrapper picks.
 
-    python -m vsim_tpu_torch.tools.core_plans [--n 1] [--kernel k1 i]
+    python -m vsim_tpu_torch.tools.core_plans [--n 1] [--kernel k1 i batch]
 
 At every Q4 weight shape of GPT-J-6B and Pythia-12B (``read_designs.SHAPES``),
 on random weights rotated past the 50 MB L2, times K1
@@ -13,7 +13,11 @@ plan within ``TOL_LAB`` of the plain version.  Prints one line a shape and
 kernel: the card's flat read of the same bytes (``read_designs.flat_ms``),
 the fastest plans, and the wrapper's pick (``core_plan``, ``i_plan``) with
 its time and its ratio to the flat read and to the fastest plan.  n <= 8
-(K1's rows; the "i" kernel's one n-tile).  Runs on the CUDA card only.
+(K1's rows; the "i" kernel's one n-tile).  ``--kernel batch`` times K15's
+2d geometry (``q4_batch_lab_planned``, f32x) at GPT-J-6B's four Q4 shapes at
+n = 64 and 128 under every cluster (1-8) whose clusters all fit at once,
+on the n-tiles the wrapper takes, marking its pick (``batch_2d_plan``).
+Runs on the CUDA card only.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Dict, List, Sequence
 
 import torch
 
+from vsim_tpu_torch.ops import q4_batch_lab as bl
 from vsim_tpu_torch.ops import q4_cuda
 from vsim_tpu_torch.ops.q4_lab import TOL_LAB
 from vsim_tpu_torch.quant.q4 import to_plane_split
@@ -32,7 +37,9 @@ from vsim_tpu_torch.timing import rel_err, rotation, timed
 from vsim_tpu_torch.tools.lab import lab_weight
 from vsim_tpu_torch.tools.read_designs import SHAPES, flat_ms
 
-KERNELS = ("k1", "i")
+KERNELS = ("k1", "i", "batch")
+BATCH_SHAPES = (("qkv", 4096, 12288), ("wo", 4096, 4096), ("fc", 4096, 16384),
+                ("proj", 16384, 4096))  # GPT-J-6B's (name, K, O)
 
 
 def _k1_weight(K, O, i, dev):  # noqa: N803
@@ -56,15 +63,73 @@ def _kernel(kind: str, index: int):
             lambda n, k, o: q4_cuda._i_plan(index, n, k, o, True, False)[1:])
 
 
+def run_batch(ns: Sequence[int] = (64, 128), math_: str = "f32x") -> List[Dict]:
+    """K15's 2d geometry under every cluster that fits, at GPT-J-6B's four
+    shapes, one printed line a (shape, n)."""
+    dev = torch.device("cuda")
+    index = dev.index or 0
+    card = torch.cuda.get_device_name(dev)
+    m = bl.BATCH_MATHS.index(math_)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    rows = []
+    for n in ns:
+        nt = bl.batch_tiles(n)
+        fits = [bl._max_clusters(index, m, False, nt, c)
+                for c in range(1, bl.BATCH_MAX_CLUSTER + 1)]
+        print(f"core_plans batch: device={card}, n = {n}, {math_}, {nt} "
+              f"n-tiles, clusters that fit by size 1-{len(fits)}: {fits}",
+              flush=True)
+        for name, K, O in BATCH_SHAPES:  # noqa: N806
+            w0 = to_plane_split(lab_weight(K, O, 0, dev))
+            ws = rotation(lambda i: w0 if i == 0 else to_plane_split(  # noqa: B023
+                lab_weight(K, O, i, dev)), w0.nbytes)  # noqa: B023
+            x = torch.randn((n, K), generator=g, device=dev).to(torch.bfloat16)
+            ref = bl.q4_batch_lab_plain(x, w0.packed, w0.scales, math_, "2d")
+            tiles = -(-O // (bl.BATCH_WARPS * bl.batch_tile_o(nt)))
+            times = {}
+            for c in range(1, len(fits) + 1):
+                if c > 1 and tiles > fits[c - 1]:
+                    continue
+                plan = (nt, c)
+                err, rel = rel_err(bl.q4_batch_lab_planned(
+                    x, w0.packed, w0.scales, math_, "2d", None, plan), ref)
+                if rel > bl.TOL_BATCH:
+                    raise RuntimeError(f"core_plans batch {plan} {K}->{O}: "
+                                       f"max|err| {err:.3g} (rel {rel:.3g})")
+                cyc = itertools.cycle(ws)
+
+                def call(plan=plan):
+                    w = next(cyc)  # noqa: B023
+                    return bl.q4_batch_lab_planned(x, w.packed, w.scales,  # noqa: B023
+                                                   math_, "2d", None, plan)
+
+                times[plan] = min(timed(call) for _ in range(2))
+            pick = bl.batch_plan(dev, math_, "2d", n, K, O)
+            best = min(times.values())
+            print(f"  batch gpt-j-6b {name} n={n} {K}->{O}: " + ", ".join(
+                f"{p}{' (pick)' if p == pick else ''} {times[p] * 1e3:.1f}"
+                for p in sorted(times, key=times.get)) + f" us; pick {pick} "
+                f"{times[pick] / best:.2f}x the fastest plan", flush=True)
+            rows.append(dict(kernel="batch", model="gpt-j-6b", weight=name,
+                             K=K, O=O, n=n, math=math_, pick=pick,
+                             device=card,
+                             times={str(p): t for p, t in times.items()}))
+            del ws, w0
+            torch.cuda.empty_cache()
+    return rows
+
+
 def run(n: int = 1, kernels: Sequence[str] = KERNELS) -> List[Dict]:
-    if not 1 <= n <= q4_cuda.GEMV_MAX_ROWS:
+    rows = run_batch() if "batch" in kernels else []
+    kernels = [k for k in kernels if k != "batch"]
+    if kernels and not 1 <= n <= q4_cuda.GEMV_MAX_ROWS:
         raise ValueError(f"core_plans times n <= {q4_cuda.GEMV_MAX_ROWS}")
     dev = torch.device("cuda")
     index = dev.index or 0
     card = torch.cuda.get_device_name(dev)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    rows = []
     for kind in kernels:
         make, planned, plain, max_clusters, pick_of = _kernel(kind, index)
         fits = [max_clusters(c)

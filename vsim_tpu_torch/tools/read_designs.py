@@ -154,6 +154,18 @@ def run_shape(K: int, O: int,  # noqa: N803
     return best, w0.nbytes
 
 
+def launch_floor_ms(device: DeviceLike = None) -> float:
+    """An empty kernel's device ms a call (``empty_launch``: one warp that
+    does nothing), best of two rounds of ``timing.timed``: the floor under
+    any one-launch kernel's time."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("read_designs times kernels on a CUDA card")
+    stream = _build.stream_ptr(dev)
+    return min(timed(lambda: _launch("empty_launch", [_P], stream), reps=50)
+               for _ in range(2))
+
+
 def flat_ms(K: int, O: int, device: DeviceLike = None) -> float:  # noqa: N803
     """``read_flat``'s device ms for a [K/2, O] Q4 weight and its scales at
     n = 1, rotated past the L2, best of two rounds, its totals checked:
