@@ -47,14 +47,25 @@ Phases, each fatal on failure:
      configuration's ms a pass with K16's plan; then an empty kernel's
      time (the launch floor) beside K6's and K14's rows;
   3. InferenceEngine on GPT-J-6B at full width (28 layers, random Q4
-     weights from seed 0, bf16 compute) with int8 and with int4 KV, serving
+     weights from seed 0, bf16 compute) with int8 and with int4 KV, its
+     decode step replayed from a captured CUDA graph (the default), serving
      prompts of 8, 100 and 300 tokens (64 new tokens, greedy) and one
-     sampled request; the launch counts of K1-K4 must grow;
-  4. ServingEngine on the same params, max_batch 8, int8 and int4 KV: 12
-     requests (seeded prompt lengths 8-300, 32 or 64 new tokens, greedy,
-     chunks of 8 steps) and one submitted mid-flight; every request returns
-     its token count; the launch counts of K1, K4, K5 and K6 must grow; one
-     B=8 step's device time, K5's share of it from the profiler;
+     seeded sampled request twice (the same tokens both times); the launch
+     counts of K1-K4 (replays included) must grow; one prompt and the
+     sampled request again with the graph off must give the same tokens;
+     the step after a 300-token prompt, replayed and eager: host ms (a
+     replay's is ``replay()`` alone), wall ms, device busy ms, idle share
+     and ms by kernel (torch.profiler), the replay's device ms from CUDA
+     events, and launches a step, equal in both modes;
+  4. ServingEngine on the same params, max_batch 8, int8 and int4 KV,
+     graphed (``warmup()`` captures the step): 12 requests (seeded prompt
+     lengths 8-300, 32 or 64 new tokens, greedy, chunks of 8 steps) and one
+     submitted mid-flight; every request returns its token count; the
+     launch counts of K1, K4, K5 and K6 must grow; the same traffic through
+     an engine with the graph off must give the same 13 streams; a B=8
+     step alone, replayed and eager (as phase 3's), with K5's, K6's and
+     K1's device ms in the replayed step beside an empty kernel's launch
+     inside a graph (``tools/read_designs.py:graph_launch_floor_ms``);
   5. card against CPU, each part's seconds printed: GPT-J width at depth
      2, f32 greedy streams must be identical (InferenceEngine, 8 tokens,
      and ServingEngine card vs CPU vs the card's InferenceEngine, 6
@@ -71,16 +82,17 @@ Phases, each fatal on failure:
      evaluate.perplexity on random Q4 params over a seeded 4096-token
      stream at window 2048;
   7. Pythia-12B at full width (36 layers, random Q4 weights from seed 0,
-     bf16 compute, int8 KV) through three InferenceEngines serving prompts
-     of 8, 100 and 300 tokens (64 new tokens, greedy): stacked layers
-     (unroll_layers=False: K10 4 launches a layer and K9 1 a step), the
-     default engine under the f32xf math (K11 once a layer, K2) and under
-     gi (K1, K2); K3 and K4 in each; one step timed alone (enqueue, wall,
-     and the profiler's device busy time by kernel, K3's two passes and
-     K2's launches summed, K10's and K9's ms apart) against the weight
-     bytes' bound.  Before its
-     run, K10 on layer 35 of the stacked engine's own weights is held
-     against its plain version.
+     bf16 compute, int8 KV) through three InferenceEngines, graphed,
+     serving prompts of 8, 100 and 300 tokens (64 new tokens, greedy) and a
+     seeded sampled request: stacked layers (unroll_layers=False: K10 4
+     launches a layer and K9 1 a step), the default engine under the f32xf
+     math (K11 once a layer, K2) and under gi (K1, K2; one engine object,
+     a graph for each math); K3 and K4 in each; one prompt and the sampled
+     request with the graph off must give the same tokens; the step after
+     a 300-token prompt, replayed and eager, as phase 3's (K3's two passes
+     and K2's launches summed, K10's and K9's ms apart), against the weight
+     bytes' bound.  Before its run, K10 on layer 35 of the stacked
+     engine's own weights is held against its plain version.
 Each path's launch counts are set to 0 just before it runs and read just
 after (the lab's too: K12-K16 launch only there).  Prints the run's total
 seconds, a JSON line {"kernels": [...]} (K1-K16) and, last, the device line.
@@ -1046,6 +1058,14 @@ def launch_floor_ms():
     return floor("cuda")
 
 
+def graph_launch_floor_ms():
+    """An empty kernel's device ms a launch inside a replayed CUDA graph
+    (tools/read_designs.py)."""
+    from vsim_tpu_torch.tools.read_designs import graph_launch_floor_ms as f
+
+    return f("cuda")
+
+
 def launch_floor_lines(rows, floor_ms):
     """K6's and K14's rows beside an empty kernel's time: what a redesign
     of either has left to take."""
@@ -1157,6 +1177,106 @@ SERVING_KERNELS = ("q4_gemv_ps", "flash_attention", "decode_attention_fresh",
                    "scatter_rows")
 
 
+def step_times(step, reps: int = 10):
+    """Median host ms of ``step()`` (its enqueue; a graph's ``replay()``)
+    and median wall ms to its end, each step alone after a synchronize."""
+    import torch
+
+    enq, wall = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        step()
+        b = time.perf_counter()
+        torch.cuda.synchronize()
+        enq.append(b - a)
+        wall.append(time.perf_counter() - a)
+    enq.sort()
+    wall.sort()
+    return enq[reps // 2] * 1e3, wall[reps // 2] * 1e3
+
+
+def decode_step_report(step):
+    """An engine's decode step (a ``GraphedStep`` whose graph is captured)
+    replayed and the same step run eagerly (``step.fn``), each on the
+    engine's live state: the kernel launches of one step, host ms, wall ms,
+    device busy ms and idle share, device ms by kernel and by STEP_KERNELS
+    group (torch.profiler), and the replay's device ms a step from CUDA
+    events around replays held back to back (``timing.timed``).  The host
+    clocks run before this report's profiler sessions: after a session a
+    graph's launch took ~1 ms of host time, in a fresh process ~0.05 ms
+    (``decode_profile``), so phase 3's replay host time is the one read
+    before any session of the run."""
+    from vsim_tpu_torch.ops import _build
+
+    if step.graph is None:
+        fail("decode step report: the step has no captured graph")
+    modes = (("eager", step.fn), ("graphed", step))
+    out = {}
+    for mode, fn in modes:
+        _build.reset_launch_counts()
+        fn()
+        launches = dict(_build.launch_counts)
+        host_ms, wall_ms = step_times(fn)
+        out[mode] = dict(launches_per_step=launches, host_ms=host_ms,
+                         wall_ms=wall_ms)
+    for mode, fn in modes:
+        busy, by_kernel, by_group, ordered = step_device_profile(fn)
+        wall_ms = out[mode]["wall_ms"]
+        out[mode].update(
+            device_busy_ms=busy,
+            device_idle_share=None if busy is None else 1 - busy / wall_ms,
+            device_ms_by_kernel=by_kernel, device_ms_by_group=by_group,
+            ordered=ordered)
+    if out["graphed"]["launches_per_step"] != out["eager"][
+            "launches_per_step"]:
+        fail(f"a replay counts {out['graphed']['launches_per_step']} "
+             f"launches, an eager step {out['eager']['launches_per_step']}")
+    out["graphed"]["device_ms_events"] = timed(step, reps=10)
+    return out
+
+
+def step_line(label, rep):
+    """One line a decode step: graphed against eager."""
+    g, e = rep["graphed"], rep["eager"]
+
+    def f(x, fmt=".3f"):
+        return "null" if x is None else format(x, fmt)
+
+    return (f"  {label}: graphed host {f(g['host_ms'])} ms (replay), wall "
+            f"{f(g['wall_ms'])}, device busy {f(g['device_busy_ms'])} "
+            f"(idle {f(g['device_idle_share'], '.2f')}), events "
+            f"{f(g['device_ms_events'])} ms a step; eager host "
+            f"{f(e['host_ms'])}, wall {f(e['wall_ms'])}, busy "
+            f"{f(e['device_busy_ms'])} (idle "
+            f"{f(e['device_idle_share'], '.2f')}); graphed by group "
+            + json.dumps({k: None if v is None else round(v, 4) for k, v in
+                          (g["device_ms_by_group"] or {}).items()}))
+
+
+def eager_check(label, make_eager, prompt, want, sampled_prompt,
+                want_sampled):
+    """One prompt through an engine with the graph off: its greedy stream
+    and a seeded sampled one must equal the replayed engine's token for
+    token.  Returns the eager run's numbers."""
+    from vsim_tpu_torch.engine.sampling import SamplingParams
+
+    eng = make_eager()
+    r = eng.generate(prompt, len(want), SamplingParams(greedy=True))
+    if r.token_ids != want:
+        fail(f"{label}: eager greedy stream {r.token_ids[:12]}... differs "
+             f"from the replayed one {want[:12]}...")
+    s = eng.generate(sampled_prompt, len(want_sampled),
+                     SamplingParams(seed=42)).token_ids
+    if s != want_sampled:
+        fail(f"{label}: eager sampled stream {s[:12]}... differs from the "
+             f"replayed one {want_sampled[:12]}...")
+    tm = r.timings
+    return dict(prefill_ms=tm["prefill_s"] * 1e3,
+                decode_ms_per_token=tm["decode_s"] * 1e3 / (tm["tokens"] - 1),
+                greedy_equal=True, sampled_equal=True)
+
+
 def phase_model(peaks):
     import torch
 
@@ -1164,7 +1284,6 @@ def phase_model(peaks):
     from vsim_tpu_torch.engine.sampling import SamplingParams
     from vsim_tpu_torch.models.config import PRESETS
     from vsim_tpu_torch.models.init import iter_tensors, random_q4_params
-    from vsim_tpu_torch.models.transformer import forward
     from vsim_tpu_torch.ops import _build
     from vsim_tpu_torch.quant.q4 import Q4Tensor
 
@@ -1187,55 +1306,50 @@ def phase_model(peaks):
     rng = torch.Generator().manual_seed(0)
     prompts = {n: torch.randint(0, cfg.n_vocab, (n,), generator=rng).tolist()
                for n in (8, 100, 300)}
-    results = {}
+    greedy = SamplingParams(greedy=True)
+    results, streams, sampled = {}, {}, {}
     _build.reset_launch_counts()
     for kv, eng in engines.items():
         for n, prompt in prompts.items():
-            r = eng.generate(prompt, 64, SamplingParams(greedy=True))
+            r = eng.generate(prompt, 64, greedy)
             if len(r.token_ids) != 64 or not all(
                     0 <= t < cfg.n_vocab for t in r.token_ids):
                 fail(f"{kv} prompt {n}: bad tokens {r.token_ids[:8]}...")
             tm = r.timings
+            streams[kv, n] = r.token_ids
             results[f"{kv} prompt={n}"] = dict(
                 prefill_ms=tm["prefill_s"] * 1e3,
                 decode_ms_per_token=tm["decode_s"] * 1e3 / (tm["tokens"] - 1),
                 tokens_per_s=tm["tokens_per_s"])
-        r = eng.generate(prompts[8], 32, SamplingParams(seed=42))
-        if len(r.token_ids) != 32:
-            fail(f"{kv} sampled request returned {len(r.token_ids)} tokens")
-        results[f"{kv} sampled"] = dict(tokens=r.token_ids[:8])
+        # a seeded sampled request replays the same tokens twice
+        runs = [eng.generate(prompts[8], 32, SamplingParams(seed=42)).token_ids
+                for _ in range(2)]
+        if len(runs[0]) != 32 or runs[0] != runs[1]:
+            fail(f"{kv} sampled request: {runs[0][:8]}... then "
+                 f"{runs[1][:8]}...")
+        sampled[kv] = runs[0]
+        results[f"{kv} sampled"] = dict(tokens=runs[0][:8])
     launches = dict(_build.launch_counts)
     for name in INFERENCE_KERNELS:
         if launches.get(name, 0) == 0:
             fail(f"InferenceEngine never launched {name}: {launches}")
+    for kv, eng in engines.items():  # one prompt with the graph off
+        results[f"{kv} eager prompt=100"] = eager_check(
+            f"gpt-j {kv}", lambda: InferenceEngine(
+                cfg, eng.params, kv_dtype=kv, cuda_graph=False),
+            prompts[100], streams[kv, 100], prompts[8], sampled[kv])
+        torch.cuda.empty_cache()
 
-    # one bf16 decode step at n_past=300, timed alone: launches per step,
-    # host enqueue time, and wall time to completion
+    # the decode step after a 300-token prompt, alone
     eng = engines["int8"]
-    cache = eng.new_cache()
-    ids = torch.tensor([prompts[300]], device="cuda")
-    _, cache = forward(cfg, eng.params, ids, cache, 0, fresh_kv=True)
-    tok = ids[:, -1:]
-    torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    forward(cfg, eng.params, tok, cache, 300)
-    per_step = dict(_build.launch_counts)
-    enq, wall = [], []
-    for i in range(20):
-        torch.cuda.synchronize()
-        a = time.perf_counter()
-        forward(cfg, eng.params, tok, cache, 301 + i)
-        b = time.perf_counter()
-        torch.cuda.synchronize()
-        enq.append(b - a)
-        wall.append(time.perf_counter() - a)
-    enq.sort()
-    wall.sort()
-    step = dict(launches_per_step=per_step,
-                enqueue_ms_median=enq[10] * 1e3, wall_ms_median=wall[10] * 1e3,
-                bound_ms_per_token=bound_ms, weight_bytes_per_step=step_bytes)
+    logits = eng.prefill(prompts[300])
+    _, _, step = eng.start(prompts[300], logits[:, -1], greedy)
+    report = decode_step_report(step)
+    for mode in ("eager", "graphed"):
+        report[mode].pop("ordered")
+    report.update(bound_ms_per_token=bound_ms, weight_bytes_per_step=step_bytes)
     return dict(setup_s=setup_s, weight_gb=weight_gb, requests=results,
-                step=step), launches, cfg, p
+                step=report), launches, cfg, p
 
 
 # ---------------------------------------------------------------------------
@@ -1243,12 +1357,33 @@ def phase_model(peaks):
 # ---------------------------------------------------------------------------
 
 
-def phase_serving(cfg, params):
+def serve_scenario(srv, prompts, n_pred):
+    """12 requests submitted at once and a 13th after two chunks of 8
+    steps: (wall s, the finished requests in id order, monitor stats)."""
     import torch
 
     from vsim_tpu_torch import monitor
+
+    monitor.reset()
+    t0 = time.perf_counter()
+    for p, n in zip(prompts[:12], n_pred[:12]):
+        srv.submit(p, n, stop_tokens=())
+    chunks = 0
+    while srv._queue or srv._active:
+        if chunks == 2:  # joins while the first eight decode
+            srv.submit(prompts[12], n_pred[12], stop_tokens=())
+        srv.step_chunk(8)
+        chunks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, [srv._results[i] for i in sorted(srv._results)], \
+        monitor.stats()
+
+
+def phase_serving(cfg, params):
+    import torch
+
     from vsim_tpu_torch.engine.serving import ServingEngine
-    from vsim_tpu_torch.models.transformer import forward
     from vsim_tpu_torch.ops import _build
 
     rng = torch.Generator().manual_seed(1)
@@ -1259,26 +1394,14 @@ def phase_serving(cfg, params):
     out, launches = {}, {}
     for kv in ("int8", "int4"):
         srv = ServingEngine(cfg, params, max_batch=8, kv_dtype=kv)
-        warmup_s = srv.warmup()
-        monitor.reset()
+        warmup_s = srv.warmup()  # captures the step's graph
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        for p, n in zip(prompts[:12], n_pred[:12]):
-            srv.submit(p, n, stop_tokens=())
-        chunks = 0
-        while srv._queue or srv._active:
-            if chunks == 2:  # joins while the first eight decode
-                srv.submit(prompts[12], n_pred[12], stop_tokens=())
-            srv.step_chunk(8)
-            chunks += 1
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall, reqs, st = serve_scenario(srv, prompts, n_pred)
         launches[kv] = run_counts = dict(_build.launch_counts)
         for name in SERVING_KERNELS:
             if run_counts.get(name, 0) == 0:
                 fail(f"ServingEngine ({kv}) never launched {name}: "
                      f"{run_counts}")
-        reqs = [srv._results[i] for i in sorted(srv._results)]
         if len(reqs) != 13:
             fail(f"serving {kv}: {len(reqs)} of 13 requests finished")
         for r, n in zip(reqs, n_pred):
@@ -1286,35 +1409,37 @@ def phase_serving(cfg, params):
                     0 <= t < cfg.n_vocab for t in r.generated):
                 fail(f"serving {kv} request {r.request_id}: "
                      f"{len(r.generated)} tokens of {n}")
-        st = monitor.stats()  # read now: later spans add to these entries
         chunk_calls, chunk_s = st["serve/step_chunk"].calls, \
             st["serve/step_chunk"].wall_s
         admit_calls, admit_s = (st["serve/admit"].calls,
                                 st["serve/admit"].wall_s)
         n_tok = sum(len(r.generated) for r in reqs)
 
+        # the same traffic with the graph off: the same streams
+        eager = ServingEngine(cfg, params, max_batch=8, kv_dtype=kv,
+                              cuda_graph=False)
+        eager.warmup()
+        e_wall, e_reqs, e_st = serve_scenario(eager, prompts, n_pred)
+        if [r.generated for r in e_reqs] != [r.generated for r in reqs]:
+            bad = [r.request_id for r, e in zip(reqs, e_reqs)
+                   if r.generated != e.generated]
+            fail(f"serving {kv}: requests {bad} differ between the replayed "
+                 "and the eager engine")
+        e_chunk = e_st["serve/step_chunk"]
+        del eager
+        torch.cuda.empty_cache()
+
         # one B=8 decode step alone, every slot live at its own n_past
         for p in prompts[:8]:
             srv.submit(p[:100], 4, stop_tokens=())
         srv._admit()
-        tok, npv = srv.tokens[:, None].clone(), srv.n_past.clone()
-        torch.cuda.synchronize()
-        _build.reset_launch_counts()
-        forward(cfg, srv.params, tok, srv.cache, npv)
-        per_step = dict(_build.launch_counts)
-        enq, wall_step = [], []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            a = time.perf_counter()
-            forward(cfg, srv.params, tok, srv.cache, npv)
-            b = time.perf_counter()
-            torch.cuda.synchronize()
-            enq.append(b - a)
-            wall_step.append(time.perf_counter() - a)
-        enq.sort()
-        wall_step.sort()
-        busy_ms, by_kernel, by_group, _ = step_device_profile(
-            lambda: forward(cfg, srv.params, tok, srv.cache, npv), steps=5)
+        B = srv.max_batch  # noqa: N806
+        step = srv._load_chunk(64, [True] * B, [10 ** 6] * B, ())
+        step()  # the ring grew: a new capture
+        report = decode_step_report(step)
+        for mode in ("eager", "graphed"):
+            report[mode].pop("ordered")
+        g = report["graphed"]["device_ms_by_group"]
         out[kv] = dict(
             warmup_s=warmup_s, wall_s=wall, requests=len(reqs),
             generated_tokens=n_tok, tokens_per_s=n_tok / wall,
@@ -1322,15 +1447,13 @@ def phase_serving(cfg, params):
             chunks=chunk_calls,
             ms_per_chunk_step=chunk_s * 1e3 / (chunk_calls * 8),
             admit_ms_total=admit_s * 1e3, admissions=admit_calls,
-            launches_per_decode_step=per_step,
-            step_b8_enqueue_ms_median=enq[5] * 1e3,
-            step_b8_wall_ms_median=wall_step[5] * 1e3,
-            step_b8_device_busy_ms=busy_ms,
-            step_b8_device_idle_share=(None if busy_ms is None else
-                                       1 - busy_ms / (wall_step[5] * 1e3)),
-            step_b8_device_ms_by_kernel=by_kernel,
-            step_b8_k5_device_ms=by_group and by_group["decode_attention"],
-            step_b8_k1_device_ms=by_group and by_group["q4_core"])
+            eager=dict(wall_s=e_wall, tokens_per_s=n_tok / e_wall,
+                       ms_per_chunk_step=e_chunk.wall_s * 1e3
+                       / (e_chunk.calls * 8), streams_equal=True),
+            step_b8=report,
+            step_b8_k5_device_ms=g and g["decode_attention"],
+            step_b8_k6_device_ms=g and g["scatter_rows"],
+            step_b8_k1_device_ms=g and g["q4_core"])
         del srv
         torch.cuda.empty_cache()
     return out, launches
@@ -1721,7 +1844,9 @@ STEP_KERNELS = {"decode_attention": ("decode_split_kernel",
                 # K1 and K11 (both launches): csrc/q4_core.cuh
                 "q4_core": ("q4_core_kernel",),
                 # K9 and K10: csrc/q4_matmul_i.cu
-                "q4_i": ("q4_i_kernel",)}
+                "q4_i": ("q4_i_kernel",),
+                # K6: csrc/kv_scatter_rows.cu (the serving step's)
+                "scatter_rows": ("scatter_rows_kernel",)}
 
 
 def step_device_profile(step, steps: int = 3):
@@ -1754,7 +1879,7 @@ def step_device_profile(step, steps: int = 3):
                     started[group].append((s, (e - s) / 1e3))
     if not intervals:
         return None, None, None, None
-    return (busy_us(intervals) / 1e3 / steps, dict(by_name.most_common(8)),
+    return (busy_us(intervals) / 1e3 / steps, dict(by_name.most_common(12)),
             by_group, {k: [ms for _, ms in sorted(v)]
                        for k, v in started.items()})
 
@@ -1783,7 +1908,6 @@ def phase_pythia(peaks):
     from vsim_tpu_torch.engine.sampling import SamplingParams
     from vsim_tpu_torch.models.config import PRESETS
     from vsim_tpu_torch.models.init import random_q4_params
-    from vsim_tpu_torch.models.transformer import forward
     from vsim_tpu_torch.ops import _build
     from vsim_tpu_torch.ops.q4_cuda import set_dequant_math
 
@@ -1807,38 +1931,45 @@ def phase_pythia(peaks):
     out = dict(setup_s=setup_s, engines={},
                k10_last_layer=dict(max_abs_err=last_err, rel_err=last_rel))
     launches = {}
-    for name, (_, math_name, kernels) in PYTHIA_ENGINES.items():
+    greedy = SamplingParams(greedy=True)
+    for name, (kw, math_name, kernels) in PYTHIA_ENGINES.items():
         eng = engines[name]
         step_bytes = q4_step_bytes(eng.params)
         set_dequant_math(math_name)
         try:
             _build.reset_launch_counts()
-            requests = {}
+            requests, streams = {}, {}
             for n, prompt in prompts.items():
-                r = eng.generate(prompt, 64, SamplingParams(greedy=True))
+                r = eng.generate(prompt, 64, greedy)
                 if len(r.token_ids) != 64 or not all(
                         0 <= t < cfg.n_vocab for t in r.token_ids):
                     fail(f"pythia-12b {name} prompt {n}: bad tokens "
                          f"{r.token_ids[:8]}...")
                 tm = r.timings
+                streams[n] = r.token_ids
                 requests[f"prompt={n}"] = dict(
                     prefill_ms=tm["prefill_s"] * 1e3,
                     decode_ms_per_token=tm["decode_s"] * 1e3
                     / (tm["tokens"] - 1), tokens=r.token_ids[:8])
+            sampled = eng.generate(prompts[8], 16,
+                                   SamplingParams(seed=42)).token_ids
             launches[name] = run = dict(_build.launch_counts)
             for k in kernels:
                 if run.get(k, 0) == 0:
                     fail(f"pythia-12b {name} engine never launched {k}: {run}")
+            # one prompt with the graph off (the f32xf and gi engines
+            # share their params)
+            requests["eager prompt=100"] = eager_check(
+                f"pythia-12b {name}", lambda: InferenceEngine(
+                    cfg, eng.params, kv_dtype="int8", cuda_graph=False,
+                    **kw), prompts[100], streams[100], prompts[8], sampled)
+            torch.cuda.empty_cache()
 
-            # one decode step at n_past=300, alone
-            cache = eng.new_cache()
-            ids = torch.tensor([prompts[300]], device="cuda")
-            forward(cfg, eng.params, ids, cache, 0, fresh_kv=True)
-            tok = ids[:, -1:]
-            torch.cuda.synchronize()
-            _build.reset_launch_counts()
-            forward(cfg, eng.params, tok, cache, 300)
-            per_step = dict(_build.launch_counts)
+            # the decode step after a 300-token prompt, alone
+            logits = eng.prefill(prompts[300])
+            _, _, step = eng.start(prompts[300], logits[:, -1], greedy)
+            report = decode_step_report(step)
+            per_step = report["graphed"]["launches_per_step"]
             want = {"stacked": {"q4_matmul_stacked": 4 * L,
                                 "q4_matmul_i": 1},
                     "f32xf": {"q4_mlp_ps": L, "q4_matmul_ps": 2 * L + 1},
@@ -1847,38 +1978,18 @@ def phase_pythia(peaks):
                 if per_step.get(k, 0) != v:
                     fail(f"pythia-12b {name}: {k} launched "
                          f"{per_step.get(k, 0)} times a step, not {v}")
-            enq, wall = [], []
-            for i in range(10):
-                torch.cuda.synchronize()
-                a = time.perf_counter()
-                forward(cfg, eng.params, tok, cache, 301 + i)
-                b = time.perf_counter()
-                torch.cuda.synchronize()
-                enq.append(b - a)
-                wall.append(time.perf_counter() - a)
-            enq.sort()
-            wall.sort()
-            busy_ms, by_kernel, by_group, ordered = step_device_profile(
-                lambda: forward(cfg, eng.params, tok, cache, 311))
-            k10_ms, k9_ms = (k9_k10_step_ms(ordered["q4_i"], per_step)
-                             if ordered else (None, None))
+            for mode in ("eager", "graphed"):
+                ordered = report[mode].pop("ordered")
+                k10_ms, k9_ms = (k9_k10_step_ms(ordered["q4_i"], per_step)
+                                 if ordered else (None, None))
+                report[mode].update(k10_device_ms=k10_ms, k9_device_ms=k9_ms)
         finally:
             set_dequant_math("gi")
         bound_ms = step_bytes / peaks[0] * 1e3
         out["engines"][name] = dict(
-            math=math_name, requests=requests, launches_per_step=per_step,
+            math=math_name, requests=requests,
             weight_bytes_per_step=step_bytes, bound_ms_per_token=bound_ms,
-            step_enqueue_ms_median=enq[5] * 1e3,
-            step_wall_ms_median=wall[5] * 1e3,
-            step_device_busy_ms=busy_ms,
-            step_device_idle_share=(None if busy_ms is None
-                                    else 1 - busy_ms / (wall[5] * 1e3)),
-            step_device_ms_by_kernel=by_kernel,
-            step_k3_device_ms=by_group and by_group["decode_attention"],
-            step_k2_device_ms=by_group and by_group["q4_matmul_ps"],
-            step_k1_k11_device_ms=by_group and by_group["q4_core"],
-            step_k10_device_ms=k10_ms, step_k9_device_ms=k9_ms)
-        del cache
+            step=report)
         torch.cuda.empty_cache()
     del engines
     torch.cuda.empty_cache()
@@ -2090,19 +2201,32 @@ def main() -> None:
         print(line, flush=True)
     t0 = time.perf_counter()
     model, launches, cfg, params = phase_model(peaks)
-    print(f"InferenceEngine in {time.perf_counter() - t0:.1f} s: "
-          f"{json.dumps(model['step'])}", flush=True)
+    print(f"InferenceEngine in {time.perf_counter() - t0:.1f} s "
+          f"(GPT-J-6B, bound {model['step']['bound_ms_per_token']:.3f} ms "
+          "a token)", flush=True)
     for k, v in model["requests"].items():
         print(f"  {k}: {json.dumps(v)}", flush=True)
+    print(step_line("int8 step at n_past 300", model["step"]), flush=True)
     t0 = time.perf_counter()
     serving, serve_launches = phase_serving(cfg, params)
     del params
+    graph_floor_ms = graph_launch_floor_ms()
     print(f"ServingEngine in {time.perf_counter() - t0:.1f} s", flush=True)
     for k, v in serving.items():
-        print(f"  {k}: {json.dumps(v)}", flush=True)
-        print(f"  {k}: K5 {v['step_b8_k5_device_ms']} ms, K1 "
-              f"{v['step_b8_k1_device_ms']} ms of a B=8 step's "
-              f"{v['step_b8_device_busy_ms']} device ms", flush=True)
+        print(f"  {k}: graphed {v['tokens_per_s']:.1f} tokens/s, "
+              f"{v['ms_per_chunk_step']:.2f} ms a chunk step, TTFT "
+              f"{min(v['ttft_ms']):.1f}-{max(v['ttft_ms']):.1f} ms; eager "
+              f"{v['eager']['tokens_per_s']:.1f} tokens/s, "
+              f"{v['eager']['ms_per_chunk_step']:.2f} ms a chunk step; "
+              "streams equal", flush=True)
+        print(step_line(f"{k} B=8 step", v["step_b8"]), flush=True)
+        k6 = v["step_b8_k6_device_ms"]
+        print(f"  {k}: K6 {'null' if k6 is None else f'{k6 * 1e3:.2f}'} us "
+              f"in the replayed step, an empty kernel "
+              f"{graph_floor_ms * 1e3:.2f} us a launch in a graph "
+              f"({floor_ms * 1e3:.2f} us alone); K5 "
+              f"{v['step_b8_k5_device_ms']} ms, K1 "
+              f"{v['step_b8_k1_device_ms']} ms", flush=True)
     t0 = time.perf_counter()
     clock = PartTimer()
     vs_cpu = phase_card_vs_cpu(clock)
@@ -2124,13 +2248,12 @@ def main() -> None:
           f"(setup {pythia['setup_s']:.1f} s), K10 on the last layer: "
           f"{json.dumps(pythia['k10_last_layer'])}", flush=True)
     for k, v in pythia["engines"].items():
-        print(f"  {k}: {json.dumps(v)}", flush=True)
-        print(f"  {k}: K2 {v['step_k2_device_ms']} ms, K3 "
-              f"{v['step_k3_device_ms']} ms, K1/K11 "
-              f"{v['step_k1_k11_device_ms']} ms, K10 "
-              f"{v['step_k10_device_ms']} ms, K9 {v['step_k9_device_ms']} "
-              f"ms of a step's {v['step_device_busy_ms']} device ms",
-              flush=True)
+        print(f"  {k}: {json.dumps(v['requests'])}", flush=True)
+        print(step_line(f"{k} step at n_past 300", v["step"]), flush=True)
+        g = v["step"]["graphed"]
+        print(f"  {k}: K10 {g['k10_device_ms']} ms, K9 {g['k9_device_ms']} "
+              f"ms of the replayed step's {g['device_busy_ms']} device ms; "
+              f"bound {v['bound_ms_per_token']:.3f} ms", flush=True)
 
     total = collections.Counter(launches)
     for counts in serve_launches.values():
@@ -2148,7 +2271,8 @@ def main() -> None:
                        launches_labs=lab_launches,
                        timings_unheld=UNHELD[0], ptxas=reports,
                        sass_k9_k10=sass, sass_k15=sass_batch,
-                       launch_floor_ms=floor_ms), f,
+                       launch_floor_ms=floor_ms,
+                       graph_launch_floor_ms=graph_floor_ms), f,
                   indent=1)
     print(f"chip_smoke: all phases pass in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,12 +1,14 @@
 """Where a decode step's time goes, on the card.
 
-    python -m vsim_tpu_torch.decode_profile [--out build/decode_profile.json]
+    python -m vsim_tpu_torch.decode_profile [--eager] [--out build/decode_profile.json]
 
-Builds InferenceEngine params for GPT-J-6B at full width (random Q4
-weights, seed 0, bf16 compute, int8 KV), prefills 300 tokens, then measures
-single-token decode steps at B=1:
+Builds an InferenceEngine for GPT-J-6B at full width (random Q4 weights,
+seed 0, bf16 compute, int8 KV), prefills 300 tokens, then measures the
+engine's single-token decode step at B=1, replayed from its CUDA graph
+(``--eager``: the same step run op by op):
   * wall ms per step (host clock around a step that ends in a synchronize)
-    and the host's enqueue ms (the same step without the synchronize);
+    and the host's enqueue ms (the same step without the synchronize; a
+    replay's is ``replay()``);
   * from a torch.profiler trace over 10 steps: device busy ms per
     step (the union of kernel, memcpy and memset intervals), the idle share
     1 - busy / (the unprofiled wall), and device time by kernel name.
@@ -39,6 +41,8 @@ def busy_us(intervals):
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/decode_profile.json")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the step op by op, not from its graph")
     args = ap.parse_args(argv)
     kv, n_past, steps = "int8", 300, 10
 
@@ -46,9 +50,9 @@ def main(argv=None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from vsim_tpu_torch.engine.generate import InferenceEngine
+    from vsim_tpu_torch.engine.sampling import SamplingParams
     from vsim_tpu_torch.models.config import PRESETS
     from vsim_tpu_torch.models.init import random_q4_params
-    from vsim_tpu_torch.models.transformer import forward
 
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile: needs a CUDA device")
@@ -57,17 +61,11 @@ def main(argv=None) -> dict:
                           text=True, check=True).stdout.strip().splitlines()[0]
     cfg = PRESETS["gpt-j-6b"].replace(compute_dtype="bfloat16")
     eng = InferenceEngine(cfg, random_q4_params(cfg, seed=0), kv_dtype=kv)
-    cache = eng.new_cache()
     g = torch.Generator().manual_seed(0)
-    ids = torch.randint(0, cfg.n_vocab, (1, n_past), generator=g).cuda()
-    _, cache = forward(cfg, eng.params, ids, cache, 0, fresh_kv=True)
-    tok = ids[:, -1:]
-    pos = n_past
-
-    def step():
-        nonlocal pos
-        forward(cfg, eng.params, tok, cache, pos)
-        pos += 1
+    ids = torch.randint(0, cfg.n_vocab, (n_past,), generator=g).tolist()
+    logits = eng.prefill(ids)
+    _, _, graphed = eng.start(ids, logits[:, -1], SamplingParams(greedy=True))
+    step = graphed.fn if args.eager else graphed
 
     for _ in range(3):  # warm up
         step()
@@ -100,7 +98,7 @@ def main(argv=None) -> dict:
     busy_ms = busy_us(intervals) / 1e3 / steps if intervals else None
     wall_ms = sorted(wall)[len(wall) // 2] * 1e3
     out = dict(
-        card=card, kv=kv, n_past=n_past,
+        card=card, kv=kv, n_past=n_past, mode="eager" if args.eager else "graphed",
         steps=steps,
         wall_ms_per_step_median=wall_ms,
         enqueue_ms_per_step_median=sorted(enq)[len(enq) // 2] * 1e3,

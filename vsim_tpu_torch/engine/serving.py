@@ -14,38 +14,64 @@ head-major [L, max_batch, H, n_ctx, D] block, one slot per request.
     into the claimed slots.  Slots past a prompt's end hold padding that is
     never read: a decode step attends rows < n_past only.
   * ``step()`` / ``step_chunk(n)`` advance every active slot by one / up to
-    n tokens.  The slot state (next token, n_past, repeat window) lives on
-    the device.  A chunk runs its steps with no host sync and brings its
-    tokens back in one transfer at its end.  Within a chunk a slot stops on
-    the device when it emits a stop id that all active requests share or
-    spends its token budget; from then on it carries n_past = n_ctx, the
-    write-nothing sentinel, and its token, n_past and window stay as they
-    are.  Request-specific stop ids are honoured on the host.
+    n tokens.  The slot state (next token, n_past, repeat window, active
+    mask, token budget) lives in static device buffers, updated in place.
+    A chunk runs its steps with no host sync and brings its tokens back in
+    one transfer at its end, from a device ring of tokens and active masks.
+    Within a chunk a slot stops on the device when it emits a stop id that
+    all active requests share (a fixed-width vector padded with -1,
+    ``pad_stop_ids``) or spends its token budget; from then on it carries
+    n_past = n_ctx, the write-nothing sentinel, and its token, n_past and
+    window stay as they are.  Request-specific stop ids are honoured on the
+    host.
+  * On the card the step (``_serve_step``) is captured once as a CUDA
+    graph per dequant math, after one eager step, and replayed
+    (engine/graph.py): the JAX engine's ``_step_many`` chunk, one dispatch
+    a step.  ``warmup()`` captures it; ``cuda_graph=False`` runs the step
+    eagerly on the card, and the CPU always does.  Admission stays eager.
   * ``run()`` serves a list of prompts to completion.
 
-The JAX engine's recompile guards have no counterpart here (PyTorch runs
-eagerly): kv-length buckets, the fixed-width stop-id vector, admission
-padded to [max_batch, 16 * 2^k] with sentinel rows, and warmup's per-bucket
-builds.  Monitor spans: ``serve/admit``, ``serve/step``,
-``serve/step_chunk``.
+The JAX engine's recompile guards have no counterpart here: kv-length
+buckets and admission padded to [max_batch, 16 * 2^k] with sentinel rows.
+Monitor spans: ``serve/admit``, ``serve/step``, ``serve/step_chunk``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from vsim_tpu_torch import monitor
 from vsim_tpu_torch.device import DeviceLike, resolve_device
-from vsim_tpu_torch.engine.generate import engine_params
+from vsim_tpu_torch.engine.generate import (
+    engine_params,
+    graph_maker,
+    sampling_kw,
+)
+from vsim_tpu_torch.engine.graph import GraphedStep
 from vsim_tpu_torch.engine.sampling import SamplingParams, sample_torch
 from vsim_tpu_torch.models.config import ModelConfig
-from vsim_tpu_torch.models.transformer import forward, init_cache
+from vsim_tpu_torch.models.transformer import alibi_slopes, forward, init_cache
 from vsim_tpu_torch.ops import _build
+from vsim_tpu_torch.ops.q4_cuda import get_dequant_math
+
+
+def pad_stop_ids(ids: Sequence[int], width: int = 4) -> List[int]:
+    """Stop ids padded with the -1 sentinel to ``width``, or to the next
+    doubling of it that holds them all (vsim_tpu/engine/serving.py:
+    _pad_stop_ids): a captured step keeps one static shape whatever number
+    of stop ids the active requests share."""
+    ids = [int(t) for t in ids]
+    w = width
+    while w < len(ids):
+        w *= 2
+    return ids + [-1] * (w - len(ids))
 
 
 @dataclasses.dataclass
@@ -73,31 +99,44 @@ class ServingEngine:
                  n_ctx: Optional[int] = None,
                  sampling: Optional[SamplingParams] = None, seed: int = 0,
                  repeat_window: int = 64, kv_dtype=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 cuda_graph: Optional[bool] = None):
+        """``cuda_graph`` (default: on for a CUDA device) replays each
+        serving step from a captured graph; False runs it eagerly."""
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.params = engine_params(cfg, params, dev)
+        self.slopes = alibi_slopes(cfg.n_head, dev) if cfg.alibi else None
         self.max_batch = max_batch
         self.n_ctx = n_ctx or cfg.n_ctx
         self.kv_dtype = kv_dtype or cfg.kv_dtype
         self.sampling = sp = sampling or SamplingParams(greedy=True)
-        self._sample_kw = dict(top_k=sp.top_k, top_p=sp.top_p,
-                               temperature=sp.temperature,
-                               repeat_penalty=sp.repeat_penalty,
-                               greedy=sp.greedy)
+        self._sample_kw = sampling_kw(sp)
         self.repeat_window = W = max(repeat_window, 1)  # noqa: N806
 
         self.cache = init_cache(cfg, max_batch, n_ctx=self.n_ctx,
                                 dtype=self.kv_dtype, device=dev)
-        # device-resident per-slot state
+        # device-resident per-slot state, updated in place
         self.tokens = torch.zeros(max_batch, dtype=torch.long, device=dev)
         self.n_past = torch.zeros(max_batch, dtype=torch.int32, device=dev)
         self.last_tokens = torch.full((max_batch, W), -1, dtype=torch.long,
                                       device=dev)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
+        # a chunk's inputs and outputs: the active mask and token budget
+        # the chunk starts with, the shared stop ids, and the ring of each
+        # step's tokens and active masks (rows grow with the longest chunk)
+        self._live = torch.zeros(max_batch, dtype=torch.bool, device=dev)
+        self._remaining = torch.zeros(max_batch, dtype=torch.int32,
+                                      device=dev)
+        self._stop_ids = torch.tensor(pad_stop_ids(()), dtype=torch.long,
+                                      device=dev)
+        self._ring_tok = self._ring_act = None
+        self._ring_pos = torch.zeros(1, dtype=torch.long, device=dev)
+        self._make_graph = graph_maker(dev, cuda_graph, self.generator)
+        self._steps: Dict[str, GraphedStep] = {}  # dequant math -> step
 
         # host-side bookkeeping
         self._free: List[int] = list(range(max_batch))
@@ -119,7 +158,7 @@ class ServingEngine:
         scratch = init_cache(self.cfg, n, n_ctx=T, dtype=self.kv_dtype,
                              device=self.device)
         logits, scratch = forward(self.cfg, self.params, ids, scratch, 0,
-                                  fresh_kv=True)
+                                  fresh_kv=True, slopes=self.slopes)
         if slots is not None:
             for side in ("k", "v"):
                 dst, src = self.cache[side], scratch[side]
@@ -130,32 +169,73 @@ class ServingEngine:
         sel = logits[torch.arange(n, device=self.device), last]
         return sample_torch(sel, windows, generator, **self._sample_kw)
 
-    def _run_steps(self, n_steps: int, active: torch.Tensor,
-                   remaining: torch.Tensor, stop_ids: torch.Tensor,
-                   generator: torch.Generator):
+    def _serve_step(self) -> None:
+        """One batched decode step on the static buffers: active slots
+        advance (the deferred K5/K6 route at n_past, inactive ones at the
+        sentinel), their token and active mask go into ring row
+        ``_ring_pos``, and a slot that emits a shared stop id or spends its
+        budget turns inactive."""
+        tokens, n_past, last = self.tokens, self.n_past, self.last_tokens
+        active, remaining = self._live, self._remaining
+        np_eff = torch.where(active, n_past, self.n_ctx)
+        logits, _ = forward(self.cfg, self.params, tokens[:, None],
+                            self.cache, np_eff, slopes=self.slopes)
+        nxt = sample_torch(logits[:, -1, :], last, self.generator,
+                           **self._sample_kw)
+        nxt = torch.where(active, nxt, tokens)
+        self._ring_tok.index_copy_(0, self._ring_pos, nxt[None])
+        self._ring_act.index_copy_(0, self._ring_pos, active[None])
+        self._ring_pos.add_(1)
+        left = torch.where(active, remaining - 1, remaining)
+        hit_stop = (nxt[:, None] == self._stop_ids[None, :]).any(dim=1)
+        last.copy_(torch.where(
+            active[:, None], torch.cat([last[:, 1:], nxt[:, None]], dim=1),
+            last))
+        n_past.copy_(torch.where(active, n_past + 1, n_past))
+        tokens.copy_(nxt)
+        remaining.copy_(left)
+        active.copy_(active & ~hit_stop & (left > 0))
+
+    def _load_chunk(self, n_steps: int, active: Sequence[bool],
+                    remaining: Sequence[int], stop_ids: Sequence[int]
+                    ) -> GraphedStep:
+        """Write a chunk's inputs into the static buffers, in place, and
+        return the step of the current dequant math.  A longer ring or a
+        wider stop vector than any before is a new buffer, so the captured
+        steps are dropped and captured again at their next use."""
+        dev = self.device
+        stops = pad_stop_ids(stop_ids)
+        if self._ring_tok is None or self._ring_tok.shape[0] < n_steps:
+            shape = (max(n_steps, 8), self.max_batch)
+            self._ring_tok = torch.zeros(shape, dtype=torch.long, device=dev)
+            self._ring_act = torch.zeros(shape, dtype=torch.bool, device=dev)
+            self._steps.clear()
+        if len(stops) > self._stop_ids.shape[0]:
+            self._stop_ids = torch.empty(len(stops), dtype=torch.long,
+                                         device=dev)
+            self._steps.clear()
+        stops += [-1] * (self._stop_ids.shape[0] - len(stops))
+        self._live.copy_(torch.tensor(active, dtype=torch.bool))
+        self._remaining.copy_(torch.tensor(remaining, dtype=torch.int32))
+        self._stop_ids.copy_(torch.tensor(stops, dtype=torch.long))
+        self._ring_pos.zero_()
+        math_name = get_dequant_math()
+        step = self._steps.get(math_name)
+        if step is None:
+            # through a weak proxy, as InferenceEngine's steps
+            step = self._steps[math_name] = GraphedStep(
+                functools.partial(ServingEngine._serve_step,
+                                  weakref.proxy(self)), self._make_graph)
+        return step
+
+    def _run_steps(self, n_steps: int, active: Sequence[bool],
+                   remaining: Sequence[int], stop_ids: Sequence[int]):
         """``n_steps`` batched decode steps, all on the device.  Returns the
         tokens [n_steps, B] and the active mask each step started with."""
-        tokens, n_past, last = self.tokens, self.n_past, self.last_tokens
-        toks, actives = [], []
+        step = self._load_chunk(n_steps, active, remaining, stop_ids)
         for _ in range(n_steps):
-            np_eff = torch.where(active, n_past, self.n_ctx)
-            logits, _ = forward(self.cfg, self.params, tokens[:, None],
-                                self.cache, np_eff)
-            nxt = sample_torch(logits[:, -1, :], last, generator,
-                               **self._sample_kw)
-            nxt = torch.where(active, nxt, tokens)
-            last = torch.where(active[:, None],
-                               torch.cat([last[:, 1:], nxt[:, None]], dim=1),
-                               last)
-            n_past = torch.where(active, n_past + 1, n_past)
-            remaining = torch.where(active, remaining - 1, remaining)
-            toks.append(nxt)
-            actives.append(active)
-            hit_stop = (nxt[:, None] == stop_ids[None, :]).any(dim=1)
-            active = active & ~hit_stop & (remaining > 0)
-            tokens = nxt
-        self.tokens, self.n_past, self.last_tokens = tokens, n_past, last
-        return torch.stack(toks), torch.stack(actives)
+            step()
+        return self._ring_tok[:n_steps], self._ring_act[:n_steps]
 
     # ------------------------------------------------------------------
 
@@ -163,8 +243,9 @@ class ServingEngine:
         """Build the kernels and run the serving loop's device work once:
         one all-sentinel admission (a prefill of max_batch rows whose cache
         rows go nowhere) and one all-inactive step (every slot at the
-        sentinel n_past, so nothing is written).  Slots, cache and the
-        seeded generator are left as they were.  Returns its seconds."""
+        sentinel n_past, so nothing is written), which on the card also
+        captures the step's graph.  Slots, cache and the seeded generator
+        are left as they were.  Returns its seconds."""
         t0 = time.perf_counter()
         dev, B = self.device, self.max_batch  # noqa: N806
         if dev.type == "cuda":
@@ -177,10 +258,9 @@ class ServingEngine:
                       torch.full((B, self.repeat_window), -1,
                                  dtype=torch.long, device=dev),
                       None, throwaway)
-        self._run_steps(1, torch.zeros(B, dtype=torch.bool, device=dev),
-                        torch.zeros(B, dtype=torch.int32, device=dev),
-                        torch.zeros(0, dtype=torch.long, device=dev),
-                        throwaway)
+        state = self.generator.get_state()
+        self._run_steps(1, [False] * B, [0] * B, ())
+        self.generator.set_state(state)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
@@ -263,7 +343,7 @@ class ServingEngine:
     def _advance(self, n_steps: int) -> List[int]:
         """Up to ``n_steps`` tokens for every active slot, one host
         transfer; returns the request ids that finished."""
-        B, dev = self.max_batch, self.device  # noqa: N806
+        B = self.max_batch  # noqa: N806
         active, remaining = [False] * B, [0] * B
         stop_common = None
         for slot, req in self._active.items():
@@ -271,12 +351,8 @@ class ServingEngine:
             remaining[slot] = max(req.n_predict - len(req.generated), 0)
             stop_common = (set(req.stop_tokens) if stop_common is None
                            else stop_common & req.stop_tokens)
-        toks, actives = self._run_steps(
-            n_steps, torch.tensor(active, device=dev),
-            torch.tensor(remaining, dtype=torch.int32, device=dev),
-            torch.tensor(sorted(stop_common or ()), dtype=torch.long,
-                         device=dev),
-            self.generator)
+        toks, actives = self._run_steps(n_steps, active, remaining,
+                                        sorted(stop_common or ()))
         toks_h, act_h = torch.stack([toks, actives.long()]).tolist()
         finished = []
         for slot, req in list(self._active.items()):

@@ -15,8 +15,10 @@ continuous-batching serving step).  A ragged row whose slots fall outside
 [0, S) writes nothing, so n_past = S marks an inactive serving slot.
 
 Attention routes:
-  * one new token over an int8/int4 cache, uniform n_past → write the row,
-    then K3 over rows <= n_past (ops/decode_attention.py);
+  * one new token over an int8/int4 cache, uniform n_past, or ragged with
+    ``write_first`` (InferenceEngine's graphed step, whose n_past lives on
+    the device) → write the row, then K3 over rows <= n_past[b]
+    (ops/decode_attention.py); both give the same cache bytes and logits;
   * one new token over an int8/int4 cache, ragged n_past → the deferred
     write: each layer quantizes its row and K5 attends rows < n_past[b]
     plus that row; after the layer loop K6 writes every layer's rows at
@@ -25,12 +27,16 @@ Attention routes:
     training and perplexity) → ``flash_attention`` (ops/attention.py), K4
     forward and K7/K8 backward, for every T;
   * anything else (a float cache, a multi-token step over the cache) →
-    the plain einsum over the dequantized cache.
+    the plain einsum over the dequantized cache: all S rows, masked, for
+    a one-token step or a ragged n_past, rows < n_past + T otherwise.
 Every Q4 matmul goes through ops/matmul.py:q4_matmul, or with
 ``cfg.act_quant`` through q4_matmul_act_quant; off the gi dequant math an
 MLP of n <= 8 rows with plane-split weights is one K11 launch (``mlp``).
 On the ragged path
-``n_past`` never becomes a Python int, so a step makes no host sync.
+``n_past`` never becomes a Python int, so a step makes no host sync and
+can be captured in a CUDA graph; BLOOM's ALiBi slopes, the one tensor a
+step would copy from the host, are built once by the engines and passed
+in.
 """
 
 from __future__ import annotations
@@ -106,10 +112,20 @@ def _is_packed4(store) -> bool:
     return isinstance(store, tuple) and store[0].dtype == torch.uint8
 
 
-def _kv_write(store, new: torch.Tensor, il: int, n_past) -> None:
+def _row_slots(n_past: torch.Tensor, S: int):  # noqa: N803
+    """A one-token ragged write's targets: (slot [B] int64, n_past[b]
+    clamped into [0, S); keep [B] bool, n_past[b] in [0, S))."""
+    n = n_past.long()
+    slot = n.clamp(0, S - 1)
+    return slot, slot == n
+
+
+def _kv_write(store, new: torch.Tensor, il: int, n_past,
+              rows: Optional[tuple] = None) -> None:
     """Write a [B, T, H, D] slice into layer ``il`` at slots
     [n_past, n_past + T), in place, quantizing for an int8/int4 cache.
-    A ragged ``n_past`` ([B] tensor) drops the slots outside [0, S)."""
+    A ragged ``n_past`` ([B] tensor) drops the slots outside [0, S);
+    ``rows`` is its ``_row_slots`` for T = 1, made once a step."""
     B, T, H = new.shape[:3]  # noqa: N806
     S = (store[0] if isinstance(store, tuple) else store).shape[3]  # noqa: N806
     new = new.transpose(1, 2)  # [B, H, T, D]
@@ -125,11 +141,20 @@ def _kv_write(store, new: torch.Tensor, il: int, n_past) -> None:
         for dst, x in pairs:
             dst[il, :, :, n_past:n_past + T] = x
         return
+    dev = new.device
+    if T == 1:  # one row a batch row: slot n_past[b] if it is in [0, S)
+        slot, keep = rows if rows is not None else _row_slots(n_past, S)
+        slot, keep = slot.view(B, 1, 1), keep.view(B, 1, 1)
+        for dst, x in pairs:
+            layer = dst[il]  # [B, H, S(, Dp)], a view
+            k = keep if x.dim() == 3 else keep[..., None]
+            ix = (slot if x.dim() == 3 else slot[..., None]).expand_as(x)
+            layer.scatter_(2, ix, torch.where(k, x, layer.gather(2, ix)))
+        return
     # Ragged: every chunk position t targets slot clamp(n_past + t, 0, S-1).
     # A target that is a real slot of the chunk takes that slot's value
     # (several writers of one slot all carry it); any other keeps the
     # cache's value, so dropped rows write nothing, with no host sync.
-    dev = new.device
     npl = n_past.long()[:, None]
     slot = (npl + torch.arange(T, device=dev)).clamp(0, S - 1)  # [B, T]
     rel = slot - npl
@@ -182,11 +207,11 @@ def _attend_plain(q, keys, values, n_past, slopes, cdt):
 def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
               k_all, v_all, il: int, positions: torch.Tensor, n_past,
               n_past_vec: Optional[torch.Tensor], slopes: Optional[torch.Tensor],
-              fresh_kv: bool = False,
-              pending: Optional[list] = None) -> torch.Tensor:
+              fresh_kv: bool = False, pending: Optional[list] = None,
+              rows: Optional[tuple] = None) -> torch.Tensor:
     """``pending`` (a list) selects the deferred ragged decode step: this
     layer's quantized k/v rows are appended to it, for the caller's one
-    all-layer K6 write after the loop."""
+    all-layer K6 write after the loop.  ``rows``: ``_kv_write``'s."""
     B, T, E = h.shape  # noqa: N806
     H, D = cfg.n_head, cfg.head_dim  # noqa: N806
     cdt, aq = h.dtype, cfg.act_quant
@@ -217,8 +242,8 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
         ctx = ctx.to(cdt).reshape(B, 1, E)
         return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq)
     if k_all is not None:
-        _kv_write(k_all, k, il, n_past)
-        _kv_write(v_all, v, il, n_past)
+        _kv_write(k_all, k, il, n_past, rows)
+        _kv_write(v_all, v, il, n_past, rows)
         if T == 1 and not fresh_kv and isinstance(k_all, tuple):
             ctx = decode_attention_q(q[:, 0], k_all, v_all, il, n_past_vec,
                                      scale=scale, slopes=slopes)
@@ -230,8 +255,10 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                               slopes=slopes)
         ctx = out.transpose(1, 2).to(cdt).reshape(B, T, E)
     else:
+        # a ragged step reads every row (n_past is on the device); so does
+        # a uniform one-token step, so that the two give the same bits
         n = (k_all[0] if isinstance(k_all, tuple) else k_all).shape[3] \
-            if isinstance(n_past, torch.Tensor) else n_past + T
+            if isinstance(n_past, torch.Tensor) or T == 1 else n_past + T
         keys = _kv_read(k_all, il, n, cdt)
         values = _kv_read(v_all, il, n, cdt)
         ctx = _attend_plain(q, keys, values, n_past, slopes, cdt).reshape(B, T, E)
@@ -266,12 +293,13 @@ def mlp(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
 def decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, k_all,
                   v_all, il: int, positions: torch.Tensor, n_past,
                   n_past_vec, slopes, fresh_kv: bool = False,
-                  pending: Optional[list] = None) -> torch.Tensor:
+                  pending: Optional[list] = None,
+                  rows: Optional[tuple] = None) -> torch.Tensor:
     """One block; residual topology per arch (NeoX parallel, GPT-J parallel
     with one shared LN, BLOOM/GPT-2 sequential)."""
     h1 = layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps)
     attn_out = attention(cfg, lp, h1, k_all, v_all, il, positions, n_past,
-                         n_past_vec, slopes, fresh_kv, pending)
+                         n_past_vec, slopes, fresh_kv, pending, rows)
     if cfg.parallel_residual:
         h2 = h1 if cfg.shared_layernorm else layer_norm(
             x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps)
@@ -309,14 +337,19 @@ def per_layer(layers, n_layer: int) -> List[Params]:
 
 def forward(cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
             cache: Optional[Dict[str, Any]], n_past=0,
-            fresh_kv: bool = False
+            fresh_kv: bool = False, *, write_first: bool = False,
+            slopes: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Token ids [B, T] → (logits [B, T, n_vocab] f32, cache).
 
     ``n_past`` is the cache length before this chunk: an int for every row,
     or an int32 [B] tensor on the tokens' device (ragged).  The cache is
     updated in place and returned.  ``fresh_kv`` (a prefill from an empty
-    cache, n_past = 0) attends over the chunk's own full-precision k/v."""
+    cache, n_past = 0) attends over the chunk's own full-precision k/v.
+    ``write_first`` sends a ragged T=1 step over a quantized cache through
+    the uniform route's write-then-K3 instead of the deferred K5/K6 one.
+    ``slopes``: ALiBi slopes built once (``alibi_slopes``); built here from
+    the config when None."""
     cdt = torch_dtype(cfg.compute_dtype)
     B, T = token_ids.shape  # noqa: N806
     dev = token_ids.device
@@ -334,7 +367,10 @@ def forward(cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
         x = x + wpe[positions.clamp(max=wpe.shape[0] - 1)].to(cdt)
     if "emb_ln_w" in params:
         x = layer_norm(x, params["emb_ln_w"], params["emb_ln_b"], cfg.ln_eps)
-    slopes = alibi_slopes(cfg.n_head, dev) if cfg.alibi else None
+    if not cfg.alibi:
+        slopes = None
+    elif slopes is None:
+        slopes = alibi_slopes(cfg.n_head, dev)
     k_all = cache["k"] if cache is not None else None
     v_all = cache["v"] if cache is not None else None
     if ragged:
@@ -342,11 +378,16 @@ def forward(cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
     else:
         n_past_vec = (torch.full((B,), n_past, dtype=torch.int32, device=dev)
                       if k_all is not None and T == 1 else None)
-    deferred = ragged and T == 1 and isinstance(k_all, tuple)
+    deferred = ragged and T == 1 and isinstance(k_all, tuple) \
+        and not write_first
     pending: Optional[list] = [] if deferred else None
+    rows = None  # a one-token ragged write's targets, made once a step
+    if ragged and T == 1 and k_all is not None and not deferred:
+        S = (k_all[0] if isinstance(k_all, tuple) else k_all).shape[3]  # noqa: N806
+        rows = _row_slots(n_past, S)
     for il, lp in enumerate(per_layer(params["layers"], cfg.n_layer)):
         x = decoder_layer(cfg, lp, x, k_all, v_all, il, positions, n_past,
-                          n_past_vec, slopes, fresh_kv, pending)
+                          n_past_vec, slopes, fresh_kv, pending, rows)
     if deferred:  # every layer's rows at once, after the last K5 read
         rows = tuple(torch.stack(r) for r in zip(*pending))
         scatter_rows(k_all, v_all, rows, n_past)

@@ -166,6 +166,23 @@ def launch_floor_ms(device: DeviceLike = None) -> float:
                for _ in range(2))
 
 
+def graph_launch_floor_ms(device: DeviceLike = None, n: int = 100) -> float:
+    """An empty kernel's device ms a launch inside a CUDA graph: ``n``
+    ``empty_launch`` calls captured in one graph, the graph replayed under
+    ``timing.timed``, best of two rounds, over ``n``: the floor under a
+    one-launch kernel of a replayed decode step."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("read_designs times kernels on a CUDA card")
+    _launch("empty_launch", [_P], _build.stream_ptr(dev))  # load, outside
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = _build.stream_ptr(dev)  # the capturing stream
+        for _ in range(n):
+            _launch("empty_launch", [_P], stream)
+    return min(timed(graph.replay, reps=20) for _ in range(2)) / n
+
+
 def flat_ms(K: int, O: int, device: DeviceLike = None) -> float:  # noqa: N803
     """``read_flat``'s device ms for a [K/2, O] Q4 weight and its scales at
     n = 1, rotated past the L2, best of two rounds, its totals checked:
