@@ -8,8 +8,8 @@ Phases, each fatal on failure:
      kernels from csrc/ (one nvcc per source, all at once, into build/);
      every instance of K9/K10's kernel must run HMMA and convert nothing
      between its first and last HMMA, and every instance of K15's must run
-     HMMA (tools/sass_ops.py on the build; K15's opcode counts printed by
-     math);
+     HMMA, and so must every instance of K12's (tools/sass_ops.py on the
+     build; K15's opcode counts printed by math);
   2. kernels: each of K1-K6 at GPT-J-6B shapes (K2 at 1 and 8 rows under
      both plane contracts and at 9-128 rows, K5 on the B=8 ragged step, on
      phase 4's timed step and at B=1), K4 and K7/K8 (the flash
@@ -21,7 +21,10 @@ Phases, each fatal on failure:
      too; K10 at every stacked shape of both models at n = 1 and fc at 8,
      100 and 128 rows under both plane contracts; K1, K11, K9 and K10 with
      their ratio to the flat read of their bytes); K4 also at codegen-2b's
-     D=80 and at D=72; each against its plain PyTorch version on the card
+     D=80 and at D=72; K6's two instances (every layer of the B=8 serving
+     cache, and one layer at B=1 of GPT-J-6B's and Pythia-12B's, as the
+     graphed one-token step calls it), byte for byte; each against its
+     plain PyTorch version on the card
      (K1, K2-K5 and K9-K11 also against a second run of themselves, bit
      for bit), its device time (CUDA events, the calls held back to back)
      beside its bound and a PyTorch yardstick the port never calls (K1-K5
@@ -44,8 +47,11 @@ Phases, each fatal on failure:
      math's GB/s by shape, each shape's K13 rate with K9's, K1's and K2's
      share of it, each batch_lab variant's GB/s by shape with its ratio to
      the bound and the library and K15's plan, and each attn_lab
-     configuration's ms a pass with K16's plan; then an empty kernel's
-     time (the launch floor) beside K6's and K14's rows;
+     configuration's ms a pass with K16's plan, and each K12 case at GPT-J's
+     fc and the tools' defaults with its ratio to the flat read of its
+     bytes and the earlier FMA design's recorded time; then an empty
+     kernel's time (the
+     launch floor) beside K6's and K14's rows;
   3. InferenceEngine on GPT-J-6B at full width (28 layers, random Q4
      weights from seed 0, bf16 compute) with int8 and with int4 KV, its
      decode step replayed from a captured CUDA graph (the default), serving
@@ -53,10 +59,12 @@ Phases, each fatal on failure:
      seeded sampled request twice (the same tokens both times); the launch
      counts of K1-K4 (replays included) must grow; one prompt and the
      sampled request again with the graph off must give the same tokens;
-     the step after a 300-token prompt, replayed and eager: host ms (a
-     replay's is ``replay()`` alone), wall ms, device busy ms, idle share
-     and ms by kernel (torch.profiler), the replay's device ms from CUDA
-     events, and launches a step, equal in both modes;
+     the step after a 300-token prompt under each KV dtype, replayed and
+     eager: host ms (a replay's is ``replay()`` alone), wall ms, device
+     busy ms, idle share and ms by kernel (torch.profiler), the replay's
+     device ms from CUDA events, and launches a step, equal in both modes,
+     K6 once a layer (its one-layer instance writes the row) and fewer of
+     PyTorch's gather/scatter kernels a step than layers;
   4. ServingEngine on the same params, max_batch 8, int8 and int4 KV,
      graphed (``warmup()`` captures the step): 12 requests (seeded prompt
      lengths 8-300, 32 or 64 new tokens, greedy, chunks of 8 steps) and one
@@ -90,8 +98,8 @@ Phases, each fatal on failure:
      a graph for each math); K3 and K4 in each; one prompt and the sampled
      request with the graph off must give the same tokens; the step after
      a 300-token prompt, replayed and eager, as phase 3's (K3's two passes
-     and K2's launches summed, K10's and K9's ms apart), against the weight
-     bytes' bound.  Before its run, K10 on layer 35 of the stacked
+     and K2's launches summed, K10's and K9's ms apart; K6 once a layer),
+     against the weight bytes' bound.  Before its run, K10 on layer 35 of the stacked
      engine's own weights is held against its plain version.
 Each path's launch counts are set to 0 just before it runs and read just
 after (the lab's too: K12-K16 launch only there).  Prints the run's total
@@ -381,6 +389,46 @@ def phase_kernels(peaks):
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
 
+    def k6_rows(k_store, v_store, new, npv, il, live, shape):
+        """K6 (every layer, or layer ``il`` alone) byte for byte against its
+        plain version, then timed beside its plain version and
+        ``index_put_`` of the rows that land."""
+        k_ref, v_ref = (tuple(t.clone() for t in st)
+                        for st in (k_store, v_store))
+        scatter_rows(k_store, v_store, new, npv, il)
+        scatter_rows_plain(k_ref, v_ref, new, npv, il)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((*k_store, *v_store),
+                                                     (*k_ref, *v_ref))):
+            fail(f"scatter_rows {shape}: differs from its plain version")
+        del k_ref, v_ref
+        ms = timed(lambda: scatter_rows(k_store, v_store, new, npv, il),
+                   reps=50)
+        plain_ms = timed(lambda: scatter_rows_plain(k_store, v_store, new,
+                                                    npv, il), reps=5, warmup=1)
+        # yardstick: index_put_ of the rows that land (the host picks them)
+        lv = torch.tensor(live, device=dev)
+        sel = [t[:, lv] if il is None else t[None, lv] for t in new]
+        Lw, Bw, Hw = sel[1].shape  # noqa: N806
+        ix = (torch.arange(Lw, device=dev)[:, None, None]
+              + (0 if il is None else il), lv[None, :, None],
+              torch.arange(Hw, device=dev)[None, None, :],
+              npv.long()[lv][None, :, None])
+
+        def index_put():
+            for (vals, sc), (rq, rs) in ((k_store, sel[:2]),
+                                         (v_store, sel[2:])):
+                vals.index_put_(ix, rq)
+                sc.index_put_(ix, rs)
+
+        lib_ms = timed(index_put, reps=50)
+        Dp = new[0].shape[-1]  # noqa: N806
+        nbytes = 2 * 2 * Lw * Bw * Hw * (Dp + 2)  # read + write, rows landing
+        b_ms, b_by = bound(nbytes, 0, bf16_peak)
+        rows.append(dict(kernel="scatter_rows", shape=shape, max_abs_err=0.0,
+                         rel_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms, layers=Lw))
+
     B = 8  # noqa: N806
     n_list = [0, 1, 127, 128, 300, 1500, 2047, 2048]
     npv = torch.tensor(n_list, dtype=torch.int32, device=dev)
@@ -405,41 +453,35 @@ def phase_kernels(peaks):
         L6 = 28  # noqa: N806
         k_store, v_store = side((L6, B, H, S, Dp)), side((L6, B, H, S, Dp))
         new = (*side((L6, B, H, Dp)), *side((L6, B, H, Dp)))
-        k_ref, v_ref = (tuple(t.clone() for t in st)
-                        for st in (k_store, v_store))
-        scatter_rows(k_store, v_store, new, npv)
-        scatter_rows_plain(k_ref, v_ref, new, npv)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip((*k_store, *v_store),
-                                                     (*k_ref, *v_ref))):
-            fail(f"scatter_rows {kv}: differs from its plain version")
-        del k_ref, v_ref
-        ms = timed(lambda: scatter_rows(k_store, v_store, new, npv), reps=50)
-        plain_ms = timed(lambda: scatter_rows_plain(k_store, v_store, new,
-                                                    npv), reps=5, warmup=1)
-        # yardstick: index_put_ of the rows that land (the host picks them)
-        lv = torch.tensor(live, device=dev)
-        ix = (torch.arange(L6, device=dev)[:, None, None], lv[None, :, None],
-              torch.arange(H, device=dev)[None, None, :],
-              npv.long()[lv][None, :, None])
-        sel = [t[:, lv] for t in new]
-
-        def index_put():
-            for (vals, sc), (rq, rs) in ((k_store, sel[:2]),
-                                         (v_store, sel[2:])):
-                vals.index_put_(ix, rq)
-                sc.index_put_(ix, rs)
-
-        lib_ms = timed(index_put, reps=50)
-        nbytes = 2 * 2 * L6 * len(live) * H * (Dp + 2)  # read + write
-        b_ms, b_by = bound(nbytes, 0, bf16_peak)
-        rows.append(dict(kernel="scatter_rows",
-                         shape=f"{kv} L={L6} B={B} H={H} Dp={Dp} S={S} "
-                         f"n_past={n_list}", max_abs_err=0.0, rel_err=0.0,
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=lib_ms))
-        del k_store, v_store, new, sel
+        k6_rows(k_store, v_store, new, npv, None, live,
+                f"{kv} L={L6} B={B} H={H} Dp={Dp} S={S} n_past={n_list}")
+        del k_store, v_store, new
         torch.cuda.empty_cache()
+
+    # K6's one-layer instance, as the graphed one-token step calls it: B=1,
+    # n_past 1500, the last layer of GPT-J-6B's and Pythia-12B's caches
+    for model, L6, H6, D6 in (("gpt-j-6b", 28, 16, 256),  # noqa: N806
+                              ("pythia-12b", 36, 40, 128)):
+        for kv in ("int8", "int4"):
+            Dp = D6 // 2 if kv == "int4" else D6  # noqa: N806
+            vdt = torch.uint8 if kv == "int4" else torch.int8
+            lo, hi = (0, 256) if kv == "int4" else (-127, 128)
+
+            def side1(shape):
+                vals = torch.randint(lo, hi, shape, generator=g, device=dev,
+                                     dtype=vdt)
+                sc = (torch.rand(shape[:-1], generator=g, device=dev)
+                      * 0.05).to(torch.bfloat16)
+                return vals, sc
+
+            k_store, v_store = (side1((L6, 1, H6, S, Dp)) for _ in range(2))
+            new = (*side1((1, H6, Dp)), *side1((1, H6, Dp)))
+            np1 = torch.tensor([1500], dtype=torch.int32, device=dev)
+            k6_rows(k_store, v_store, new, np1, L6 - 1, [0],
+                    f"one-layer {model} {kv} il={L6 - 1} of {L6} B=1 H={H6} "
+                    f"Dp={Dp} S={S} n_past=1500")
+            del k_store, v_store, new
+            torch.cuda.empty_cache()
 
     # K4: prefill flash attention, H=16, D=256
     for dt in (torch.bfloat16, torch.float32):
@@ -1023,8 +1065,76 @@ def phase_labs(peaks):
     if missing:
         fail(f"the lab path launched no {missing}")
     lab_plan_checks(rows)
+    k12_flat_ratios(rows)
     _build.reset_launch_counts()
     return rows, launches
+
+
+# K12's times under its earlier FMA design (a GEMV of f32 multiply-adds
+# with K split through HBM partials), recorded in PERF.md section 6 (rows
+# 13, 16-19, 23-26; an NVIDIA H100 80GB HBM3 at 700 W): (tool, variant,
+# shape label, n) -> ms, printed beside this run's
+K12_OLD_MS = {
+    **{("kernel_lab", m, "gpt-j-6b fc", 1): ms for m, ms in (
+        ("i32", 0.0372), ("u16", 0.0272), ("f32x", 0.0311), ("f32f", 0.0260),
+        ("f32xf", 0.0273), ("i32f", 0.0315))},
+    **{("pair_lab", m, "gpt-j-6b fc", 1): ms for m, ms in (
+        ("f32b", 0.0371), ("pairA", 0.0327), ("pairB", 0.0310))},
+    **{("pair_lab", m, "pair_lab default", 32): ms for m, ms in (
+        ("f32b", 0.515), ("pairA", 0.523), ("pairB", 0.505))},
+    ("pair_sweep", "pairC", "gpt-j-6b fc", 1): 0.0324,
+    ("pair_sweep", "pairA", "pair_sweep default", 8): 0.183,
+    ("pair_sweep", "pairC", "pair_sweep default", 8): 0.169,
+    ("kernel_lab", "u16", "kernel_lab default", 16): 0.0351,
+    ("kernel_lab", "res", "gpt-j-6b fc", 1): 0.134,
+    ("kernel_lab", "res", "gpt-j-6b fc", 8): 0.303,
+    ("kernel_lab", "w32", "gpt-j-6b fc", 1): 0.0355,
+    ("kernel_lab", "w32", "gpt-j-6b fc", 8): 0.0676,
+    ("kernel_lab", "ps", "gpt-j-6b fc", 1): 0.0319,
+    ("kernel_lab", "ps", "gpt-j-6b fc", 8): 0.0673,
+    ("decode_lab", "v2", "gpt-j-6b stacked", 1): 0.0302,
+    ("decode_lab", "v2", "gpt-j-6b stacked", 8): 0.0608,
+    ("pair_probe", "pairA", "pair_probe", 8): 0.0074,
+}
+
+
+def k12_flat_ratios(rows):
+    """Each K12 row's time over the card's flat read of the same weight
+    bytes at n = 1 (``tools/read_designs.py:flat_ms``, this run)."""
+    from vsim_tpu_torch.tools.read_designs import flat_ms
+
+    flat = {}
+    for r in rows:
+        if r["kernel"] != "q4_lab_gemv":
+            continue
+        w = (r["K"], r["O"])
+        if w not in flat:
+            flat[w] = flat_ms(*w)
+        r["flat_ms"] = flat[w]
+        r["vs_flat"] = r["ms"] / flat[w]
+
+
+def k12_lines(rows):
+    """K12 at GPT-J-6B's fc (decode_lab: w_fc) and the tools' defaults:
+    this run's ms, its ratio to the flat read and to the bound, and the FMA
+    design's recorded time in brackets where PERF.md holds one."""
+    lines = []
+    for r in rows:
+        if r["kernel"] != "q4_lab_gemv":
+            continue
+        old = next((ms for (tool, v, lab, n), ms in K12_OLD_MS.items()
+                    if (r["tool"], r["variant"], r["n"]) == (tool, v, n)
+                    and r["shape"].startswith(lab + " ")
+                    and r.get("group", "w_fc") == "w_fc"), None)
+        if old is None and not (r["shape"].startswith("gpt-j-6b fc ")
+                                and r["n"] in (1, 8)):
+            continue
+        lines.append(
+            f"  K12 {r['shape']}: {r['ms']:.4f} ms"
+            + ("" if old is None else f" [{old}]")
+            + f", {r['vs_flat']:.2f}x flat, {r['ms'] / r['bound_ms']:.2f}x "
+            f"bound ({r['bound_by']})")
+    return lines
 
 
 def lab_plan_checks(rows):
@@ -1080,10 +1190,19 @@ def launch_floor_lines(rows, floor_ms):
 
 
 def lab_bound(peaks, nbytes, ops, peak):
-    """(the least ms the card could take, "bytes" or "operations")."""
+    """(the least ms the card could take, "bytes" or "operations"); ``peak``
+    names the operations' type: "bf16", "tf32" (K12's f32 maths, exact
+    TF32 tensor-core products) or "f32"."""
+    import torch
+
     bw, bf16_peak, f32_peak = peaks
     t_b = nbytes / bw * 1e3
-    t_o = ops / (bf16_peak if peak == "bf16" else f32_peak) * 1e3
+    if peak == "tf32":
+        name = torch.cuda.get_device_name(0)
+        rate = next(v for key, v in TF32_PEAKS.items() if key in name)
+    else:
+        rate = bf16_peak if peak == "bf16" else f32_peak
+    t_o = ops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -1172,7 +1291,7 @@ def lab_summary(rows, peaks):
 # ---------------------------------------------------------------------------
 
 INFERENCE_KERNELS = ("q4_gemv_ps", "q4_matmul_ps", "decode_attention",
-                     "flash_attention")
+                     "flash_attention", "scatter_rows")
 SERVING_KERNELS = ("q4_gemv_ps", "flash_attention", "decode_attention_fresh",
                    "scatter_rows")
 
@@ -1234,6 +1353,40 @@ def decode_step_report(step):
              f"launches, an eager step {out['eager']['launches_per_step']}")
     out["graphed"]["device_ms_events"] = timed(step, reps=10)
     return out
+
+
+def row_write_check(label, report, n_layer):
+    """A one-token step of InferenceEngine over an int8/int4 cache writes
+    its row through K6's one-layer instance: one launch a layer, replayed
+    and eager, and fewer of PyTorch's gather/scatter kernels a step than
+    layers (the index route of the write launched 8 a layer).  Drops the
+    report's kernel order and records the index kernels a step."""
+    for mode in ("eager", "graphed"):
+        per_step = report[mode]["launches_per_step"]
+        if per_step.get("scatter_rows", 0) != n_layer:
+            fail(f"{label} {mode} step: K6 launched "
+                 f"{per_step.get('scatter_rows', 0)} times, not once a layer "
+                 f"({n_layer})")
+        ordered = report[mode].pop("ordered")
+        index = None if ordered is None else len(ordered["index_kernels"]) / 3
+        report[mode]["index_kernels_per_step"] = index
+        if index is not None and index >= n_layer:
+            fail(f"{label} {mode} step: {index} gather/scatter kernels a "
+                 "step, the index route of the row write")
+
+
+def k6_step_line(label, rep, n_layer):
+    """K6's device time a launch in a one-token step (one launch a layer),
+    replayed and eager, and the gather/scatter kernels left a step."""
+    parts = []
+    for mode in ("graphed", "eager"):
+        r = rep[mode]
+        ms = (r["device_ms_by_group"] or {}).get("scatter_rows")
+        parts.append(f"{mode} {'null' if ms is None else f'{ms / n_layer * 1e3:.2f}'}"
+                     f" us a launch ({r['launches_per_step']['scatter_rows']} a "
+                     f"step), {r['index_kernels_per_step']} gather/scatter "
+                     "kernels a step")
+    return f"  {label}: K6 one-layer " + "; ".join(parts)
 
 
 def step_line(label, rep):
@@ -1340,16 +1493,18 @@ def phase_model(peaks):
             prompts[100], streams[kv, 100], prompts[8], sampled[kv])
         torch.cuda.empty_cache()
 
-    # the decode step after a 300-token prompt, alone
-    eng = engines["int8"]
-    logits = eng.prefill(prompts[300])
-    _, _, step = eng.start(prompts[300], logits[:, -1], greedy)
-    report = decode_step_report(step)
-    for mode in ("eager", "graphed"):
-        report[mode].pop("ordered")
-    report.update(bound_ms_per_token=bound_ms, weight_bytes_per_step=step_bytes)
+    # the decode step after a 300-token prompt, alone, under each KV dtype
+    steps = {}
+    for kv, eng in engines.items():
+        logits = eng.prefill(prompts[300])
+        _, _, step = eng.start(prompts[300], logits[:, -1], greedy)
+        report = decode_step_report(step)
+        row_write_check(f"gpt-j {kv}", report, cfg.n_layer)
+        report.update(bound_ms_per_token=bound_ms,
+                      weight_bytes_per_step=step_bytes)
+        steps[kv] = report
     return dict(setup_s=setup_s, weight_gb=weight_gb, requests=results,
-                step=report), launches, cfg, p
+                step=steps["int8"], step_int4=steps["int4"]), launches, cfg, p
 
 
 # ---------------------------------------------------------------------------
@@ -1776,11 +1931,11 @@ def phase_training(peaks):
 PYTHIA_ENGINES = {
     "stacked": (dict(unroll_layers=False), "gi",
                 ("q4_matmul_stacked", "q4_matmul_i", "decode_attention",
-                 "flash_attention")),
+                 "flash_attention", "scatter_rows")),
     "f32xf": ({}, "f32xf", ("q4_mlp_ps", "q4_matmul_ps", "decode_attention",
-                            "flash_attention")),
+                            "flash_attention", "scatter_rows")),
     "gi": ({}, "gi", ("q4_gemv_ps", "q4_matmul_ps", "decode_attention",
-                      "flash_attention")),
+                      "flash_attention", "scatter_rows")),
 }
 
 
@@ -1845,8 +2000,12 @@ STEP_KERNELS = {"decode_attention": ("decode_split_kernel",
                 "q4_core": ("q4_core_kernel",),
                 # K9 and K10: csrc/q4_matmul_i.cu
                 "q4_i": ("q4_i_kernel",),
-                # K6: csrc/kv_scatter_rows.cu (the serving step's)
-                "scatter_rows": ("scatter_rows_kernel",)}
+                # K6: csrc/kv_scatter_rows.cu (every layer's rows after
+                # the serving step; one layer's in InferenceEngine's step)
+                "scatter_rows": ("scatter_rows_kernel",),
+                # PyTorch's gather and scatter_ (the sampler's, and the
+                # index route a one-token row write took before K6)
+                "index_kernels": ("scatter_gather_elementwise",)}
 
 
 def step_device_profile(step, steps: int = 3):
@@ -1928,7 +2087,7 @@ def phase_pythia(peaks):
     rng = torch.Generator().manual_seed(7)
     prompts = {n: torch.randint(0, cfg.n_vocab, (n,), generator=rng).tolist()
                for n in (8, 100, 300)}
-    out = dict(setup_s=setup_s, engines={},
+    out = dict(setup_s=setup_s, engines={}, n_layer=L,
                k10_last_layer=dict(max_abs_err=last_err, rel_err=last_rel))
     launches = {}
     greedy = SamplingParams(greedy=True)
@@ -1970,6 +2129,9 @@ def phase_pythia(peaks):
             _, _, step = eng.start(prompts[300], logits[:, -1], greedy)
             report = decode_step_report(step)
             per_step = report["graphed"]["launches_per_step"]
+            ordered_q4_i = {m: (report[m]["ordered"] or {}).get("q4_i")
+                            for m in ("eager", "graphed")}
+            row_write_check(f"pythia-12b {name}", report, L)
             want = {"stacked": {"q4_matmul_stacked": 4 * L,
                                 "q4_matmul_i": 1},
                     "f32xf": {"q4_mlp_ps": L, "q4_matmul_ps": 2 * L + 1},
@@ -1979,8 +2141,8 @@ def phase_pythia(peaks):
                     fail(f"pythia-12b {name}: {k} launched "
                          f"{per_step.get(k, 0)} times a step, not {v}")
             for mode in ("eager", "graphed"):
-                ordered = report[mode].pop("ordered")
-                k10_ms, k9_ms = (k9_k10_step_ms(ordered["q4_i"], per_step)
+                ordered = ordered_q4_i[mode]
+                k10_ms, k9_ms = (k9_k10_step_ms(ordered, per_step)
                                  if ordered else (None, None))
                 report[mode].update(k10_device_ms=k10_ms, k9_device_ms=k9_ms)
         finally:
@@ -2062,8 +2224,8 @@ def sass_check():
     """Every instance of K9/K10's kernel in the built library runs the
     tensor cores (HMMA) and converts no integer to a float (or back)
     between its first and last HMMA, where its loop runs; every instance of
-    K15's runs HMMA (``tools/sass_ops.py`` on ``build/kernels``):
-    {function: opcode counts}."""
+    K15's and of K12's runs HMMA (``tools/sass_ops.py`` on
+    ``build/kernels``): {function: opcode counts}, one dict a kernel."""
     from vsim_tpu_torch.ops import _build
     from vsim_tpu_torch.tools import sass_ops
 
@@ -2083,10 +2245,22 @@ def sass_check():
     for fn, got in batch.items():
         if not got["ops"]["HMMA"]:
             fail(f"sass {fn}: K15 runs no HMMA")
+    lab = {fn: got for fn, got in sass_ops.count_lib(
+        _build._lib_path("q4_lab")).items() if "lab_gemv_kernel" in fn}
+    if len(lab) != K12_INSTANCES:
+        fail(f"sass: {len(lab)} instances of K12's kernel, not "
+             f"{K12_INSTANCES}")
+    for fn, got in lab.items():
+        if not got["ops"]["HMMA"]:
+            fail(f"sass {fn}: K12 runs no HMMA")
     return ({fn: got["ops"] for fn, got in found.items()},
-            {fn: got["ops"] for fn, got in batch.items()})
+            {fn: got["ops"] for fn, got in batch.items()},
+            {fn: got["ops"] for fn, got in lab.items()})
 
 
+# K12's instances (csrc/q4_lab.cu): ten maths on the "i" layout and f32x on
+# "w32", "ps" and "res", each at 1, 2 and 4 n-tiles
+K12_INSTANCES = (10 + 3) * 3
 # K15's instances: (n-tiles, math, band) of csrc/q4_batch_lab.cu
 BATCH_INSTANCES = [(nt, m, b) for nt in (1, 2, 4, 8, 16) for m in range(3)
                    for b in (0, 1)]
@@ -2155,12 +2329,12 @@ def main() -> None:
     t0 = time.perf_counter()
     reports = _build.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
-    sass, sass_batch = sass_check()
+    sass, sass_batch, sass_lab = sass_check()
     hmma = sorted(ops["HMMA"] for ops in sass.values())
     print(f"sass: {len(sass)} instances of K9/K10's kernel, HMMA "
           f"{hmma[0]}-{hmma[-1]} each, no I2F/I2FP/F2I between the first "
-          f"and last HMMA; {len(sass_batch)} of K15's, HMMA in each",
-          flush=True)
+          f"and last HMMA; {len(sass_batch)} of K15's and {len(sass_lab)} of "
+          "K12's, HMMA in each", flush=True)
     for line in batch_sass_lines(sass_batch):
         print(line, flush=True)
     t0 = time.perf_counter()
@@ -2193,7 +2367,7 @@ def main() -> None:
     lab_rows, lab_launches = phase_labs(peaks)
     print(f"lab phase: {len(lab_rows)} cases pass in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in lab_summary(lab_rows, peaks):
+    for line in lab_summary(lab_rows, peaks) + k12_lines(lab_rows):
         print(line, flush=True)
     rows += lab_rows
     floor_ms = launch_floor_ms()
@@ -2206,7 +2380,9 @@ def main() -> None:
           "a token)", flush=True)
     for k, v in model["requests"].items():
         print(f"  {k}: {json.dumps(v)}", flush=True)
-    print(step_line("int8 step at n_past 300", model["step"]), flush=True)
+    for kv, rep in (("int8", model["step"]), ("int4", model["step_int4"])):
+        print(step_line(f"{kv} step at n_past 300", rep), flush=True)
+        print(k6_step_line(kv, rep, cfg.n_layer), flush=True)
     t0 = time.perf_counter()
     serving, serve_launches = phase_serving(cfg, params)
     del params
@@ -2250,6 +2426,7 @@ def main() -> None:
     for k, v in pythia["engines"].items():
         print(f"  {k}: {json.dumps(v['requests'])}", flush=True)
         print(step_line(f"{k} step at n_past 300", v["step"]), flush=True)
+        print(k6_step_line(k, v["step"], pythia["n_layer"]), flush=True)
         g = v["step"]["graphed"]
         print(f"  {k}: K10 {g['k10_device_ms']} ms, K9 {g['k9_device_ms']} "
               f"ms of the replayed step's {g['device_busy_ms']} device ms; "
@@ -2271,6 +2448,7 @@ def main() -> None:
                        launches_labs=lab_launches,
                        timings_unheld=UNHELD[0], ptxas=reports,
                        sass_k9_k10=sass, sass_k15=sass_batch,
+                       sass_k12=sass_lab,
                        launch_floor_ms=floor_ms,
                        graph_launch_floor_ms=graph_floor_ms), f,
                   indent=1)

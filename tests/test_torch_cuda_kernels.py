@@ -489,8 +489,9 @@ def test_decode_attention_refuses_a_gradient_it_cannot_carry(dev):
 
 @pytest.mark.parametrize("kv", ["int8", "int4"])
 @pytest.mark.parametrize("D", [20, 256])  # Dp % 16 != 0: the byte copy
-def test_scatter_rows(dev, kv, D):
-    L, B, H, S = 3, 4, 2, 200  # noqa: N806
+@pytest.mark.parametrize("H", [2, 16])
+def test_scatter_rows(dev, kv, D, H):
+    L, B, S = 3, 4, 200  # noqa: N806
     g = torch.Generator(device=dev).manual_seed(D + 2)
     Dp = D // 2 if kv == "int4" else D  # noqa: N806
     k, v = (_kv_side(dev, g, kv, (L, B, H, S, Dp)) for _ in range(2))
@@ -505,6 +506,36 @@ def test_scatter_rows(dev, kv, D):
     for got, ref in zip((*k, *v), (*k_ref, *v_ref)):
         assert torch.equal(got, ref)
     assert torch.equal(k[0][:, 1, :, 77], rows[0][:, 1])
+
+
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+@pytest.mark.parametrize("D,H", [(20, 2), (256, 16), (128, 40)])
+@pytest.mark.parametrize("il", [0, 2])
+def test_scatter_rows_one_layer(dev, kv, D, H, il):
+    """The graphed one-token step's write: layer il byte for byte as the
+    plain version's, every other layer untouched, n_past = S and < 0
+    writing nothing."""
+    L, B, S = 3, 5, 200  # noqa: N806
+    g = torch.Generator(device=dev).manual_seed(D + H + il)
+    Dp = D // 2 if kv == "int4" else D  # noqa: N806
+    k, v = (_kv_side(dev, g, kv, (L, B, H, S, Dp)) for _ in range(2))
+    rows = (*_kv_side(dev, g, kv, (B, H, Dp)), *_kv_side(dev, g, kv, (B, H, Dp)))
+    n_past = torch.tensor([0, 77, S - 1, S, -2], dtype=torch.int32,
+                          device=dev)
+    k_ref, v_ref = (tuple(t.clone() for t in side) for side in (k, v))
+    k_before, v_before = (tuple(t.clone() for t in side) for side in (k, v))
+    before = _build.launch_counts["scatter_rows"]
+    scatter_rows(k, v, rows, n_past, il)
+    scatter_rows_plain(k_ref, v_ref, rows, n_past, il)
+    assert _build.launch_counts["scatter_rows"] == before + 1
+    untouched = [i for i in range(L) if i != il]
+    for got, ref, b4 in zip((*k, *v), (*k_ref, *v_ref),
+                            (*k_before, *v_before)):
+        assert torch.equal(got, ref)
+        assert torch.equal(got[untouched], b4[untouched])
+        assert torch.equal(got[:, 3:], b4[:, 3:])
+    assert torch.equal(k[0][il, 1, :, 77], rows[0][1])
+    assert torch.equal(v[1][il, 2, :, S - 1], rows[3][2])
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),

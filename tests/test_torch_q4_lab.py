@@ -32,10 +32,15 @@ without one; JAX and the TPU tools are imported by a fixture, so they run
 where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_q4_lab.py -q -m cuda
+
+K12's plan (``lab_plan``) is held to one wave of clusters at the lab's
+shapes, and every math's weight under every finite bf16 scale to be exact
+in the operand type the kernel gives the tensor cores (bf16 or TF32).
 """
 
 import functools
 import importlib
+import itertools
 import types
 
 import numpy as np
@@ -43,10 +48,12 @@ import pytest
 import torch
 
 from vsim_tpu_torch.ops import q4_lab
+from vsim_tpu_torch.ops.q4_cuda import CORE_MAX_CLUSTER, CORE_WARPS
 from vsim_tpu_torch.quant.q4 import Q4Tensor, tensor_from_np, to_plane_split
 from vsim_tpu_torch.tools import decode_lab as t_decode_lab
 from vsim_tpu_torch.tools import gi_sweep as t_gi_sweep
 from vsim_tpu_torch.tools import kernel_lab as t_kernel_lab
+from vsim_tpu_torch.tools import lab as t_lab
 from vsim_tpu_torch.tools import pair_lab as t_pair_lab
 from vsim_tpu_torch.tools import pair_probe as t_pair_probe
 from vsim_tpu_torch.tools import pair_sweep as t_pair_sweep
@@ -374,8 +381,106 @@ def test_wrappers_raise_on_what_they_do_not_take():
 def test_launch_plans_cover_the_weight(KH, O):  # noqa: N803
     blocks = q4_lab.dma_blocks(KH, O, 132)
     assert 1 <= blocks <= min(4 * 132, -(-O // 512) * KH)
-    splits = q4_lab.lab_splits(2 * KH, O, 132)
-    assert 1 <= splits <= 2 * KH // 32
+    for n, layout in itertools.product((1, 8, 9, 32), ("i", "res")):
+        nt, wc, c = q4_lab.lab_plan(n, 2 * KH, O, layout, 132,
+                                    lambda nt, c: 2 * 132 // c)
+        splits = CORE_WARPS // wc * c  # of K's units of 64 values
+        assert 8 * nt >= n and 1 <= splits <= max(CORE_WARPS, KH // 32)
+
+
+# the lab's weights: GPT-J-6B's five Q4 shapes, pair_lab's and pair_sweep's
+# 50432 x 4096 (K, O)
+LAB_SHAPES = [(4096, 12288), (4096, 4096), (4096, 16384), (16384, 4096),
+              (4096, 51200), (4096, 50432)]
+
+
+@pytest.mark.parametrize("n", [1, 8, 16, 32])
+@pytest.mark.parametrize("K,O", LAB_SHAPES)  # noqa: N803
+@pytest.mark.parametrize("layout", ["i", "res"])
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+def test_lab_plan_one_wave(n, K, O, layout, blocks_per_sm):  # noqa: N803
+    """K12's plan on an H100's 132 SMs holding 1 or 2 blocks each: the
+    fewest n-tiles that hold n, every cluster resident at once (one wave)
+    where any plan allows it, at least 1.5 blocks an SM or the most blocks
+    one wave holds, the busiest warp's units of 64 values of K times the
+    blocks within 10% of the ideal, at most 8 blocks a cluster (partial
+    sums in shared memory, never in HBM); past 8 rows every warp takes its
+    own columns; "res" never splits K across the grid (a cluster of one)."""
+    sm = 132
+
+    def max_clusters(nt, c):
+        return blocks_per_sm * sm // c
+
+    nt, wc, c = q4_lab.lab_plan(n, K, O, layout, sm, max_clusters)
+    assert nt == min(t for t in q4_lab.LAB_TILES if 8 * t >= n)
+    assert nt == 1 or wc == CORE_WARPS
+    assert layout != "res" or c == 1
+    tiles, units = -(-O // q4_lab.lab_tile_o(nt, layout)), -(-K // 64)
+    clusters, splits = -(-tiles // wc), CORE_WARPS // wc * c
+    allowed = range(1, 2) if layout == "res" else range(1, CORE_MAX_CLUSTER + 1)
+    fit = [d for d in allowed if clusters <= max_clusters(nt, d)]
+    if not fit:  # more column tiles than one wave holds: waves of c = 1
+        assert (wc, c) == (max((1, 2, 4) if nt == 1 else (4,)), 1)
+        return
+    assert c in fit
+    most = max(clusters * d for d in fit)
+    assert 2 * clusters * c >= min(3 * sm, 2 * most)
+    work = -(-units // splits) * clusters * c * CORE_WARPS
+    assert tiles * units <= work <= 1.1 * tiles * units
+
+
+def _finite_bf16_scales():
+    """Every finite bf16 value (both signs, zero and subnormals), f32."""
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    bits = bits[(bits & 0x7F80) != 0x7F80]
+    return (bits << 16).view(np.float32)
+
+
+def _tf32(a):
+    """f32 rounded to TF32 as the kernel's tf32_rna: half an ulp of the
+    10-bit mantissa added to the magnitude, the 13 low bits cleared."""
+    return ((a.view(np.uint32) + 0x1000) & 0xFFFFE000).view(np.float32)
+
+
+@pytest.mark.parametrize("math", q4_lab.LAB_MATHS)
+def test_lab_weights_exact_in_the_operand_type(math):
+    """For every bf16 scale whose weights are finite and every nibble, each
+    math's weight (``lab_planes``, the plain version's) is exact in what
+    the kernel feeds the tensor cores: bf16 for the bf16 maths, TF32 for
+    f32xf and i32f,
+    and for f32f the sum of two TF32 terms (big = its TF32 rounding,
+    small = the rest, itself exact in TF32).  So every product of a bf16 x
+    and a weight is exact, and K12 differs from its plain version in the
+    order of its f32 sums alone."""
+    s = _finite_bf16_scales()
+    packed = (np.arange(16, dtype=np.uint8) * 0x11)[:, None].repeat(
+        s.size, axis=1)  # row r: both nibbles r
+    scales = torch.from_numpy(s[None]).to(torch.bfloat16)  # exact
+    we, wo = q4_lab.lab_planes(torch.from_numpy(packed), scales, math)
+    w = torch.cat([we, wo]).numpy()
+    finite = np.isfinite(w).all(axis=0)  # f32f's 2^23 s overflows first
+    assert finite[np.abs(s) < 2.0 ** 100].all()
+    w = w[:, finite]
+    if math in q4_lab.F32_MATHS:
+        np.testing.assert_array_equal(_tf32(w), w)
+    else:
+        bf = torch.from_numpy(w).to(torch.bfloat16).float().numpy()
+        np.testing.assert_array_equal(bf, w)
+
+
+def test_lab_scales_are_bf16():
+    """The lab's weights carry bf16 scales (the tools' weight makers), and
+    K12 refuses any other: no scale reaches the kernel that would need the
+    split of an inexact TF32 weight."""
+    assert t_lab.lab_weight(64, 16, 0, "cpu").scales.dtype == torch.bfloat16
+    assert t_decode_lab.stacked_weight(2, 64, 16, 0, "cpu")[1].dtype == \
+        torch.bfloat16
+    packed, scales = _weight()
+    p, s, x = _torch(packed, scales, _x(1))
+    with pytest.raises(ValueError, match="scales must be bf16"):
+        q4_lab.q4_lab_gemv(x, p, s.float(), "f32xf")
+    with pytest.raises(ValueError, match="scales must be bf16"):
+        q4_lab.q4_lab_gemv_layout(x, p, s.float(), "res")
 
 
 @pytest.mark.parametrize("tool", sorted(TOOLS) + ["pair_probe"])
@@ -479,6 +584,61 @@ def test_lab_gemv_layouts_on_card(card, layout, n):
     torch.cuda.synchronize()
     assert (got - ref).abs().max() <= q4_lab.TOL_LAB * ref.abs().max()
     assert torch.equal(got, q4_lab.q4_lab_gemv_layout(x, p, s, layout, il))
+
+
+# forced plans (nt, wc, cluster) with n rows each takes: K12's every
+# geometry, K split over warps and clusters of 2-8 blocks
+LAB_PLANS = [((1, 1, 1), 5), ((1, 2, 2), 8), ((1, 4, 8), 1), ((1, 1, 3), 3),
+             ((2, 4, 1), 13), ((2, 4, 3), 16), ((4, 4, 2), 29),
+             ((4, 4, 8), 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan,n", LAB_PLANS)
+@pytest.mark.parametrize("math", ["u16", "f32f", "i32f", "pairB", "pairC"])
+@pytest.mark.parametrize("K,O", [(288, 260), (512, 256)])  # noqa: N803
+def test_lab_gemv_plans_on_card(card, plan, n, math, K, O):  # noqa: N803
+    """Every kind of plan, at K = 32 * odd (the last unit half empty) with
+    O = 260 (4-byte loads, masked columns) and at K = 512, O = 256 (16-byte
+    loads): within the tolerance, bit-identical run to run."""
+    g = torch.Generator(device=card).manual_seed(K + n)
+    p = torch.randint(0, 256, (K // 2, O), generator=g, device=card,
+                      dtype=torch.uint8)
+    s = (torch.randn((K // 32, O), generator=g, device=card) * 0.3).to(
+        torch.bfloat16)
+    x = torch.randn((n, K), generator=g, device=card).to(torch.bfloat16)
+    xs = q4_lab.block_sums(x) if math == "pairC" else None
+    got = q4_lab.q4_lab_gemv_planned(x, p, s, math, "i", xs=xs, plan=plan)
+    ref = q4_lab.q4_lab_gemv_plain(x, p, s, math, xs)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= q4_lab.TOL_LAB * ref.abs().max()
+    assert torch.equal(got, q4_lab.q4_lab_gemv_planned(
+        x, p, s, math, "i", xs=xs, plan=plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan,n", LAB_PLANS)
+@pytest.mark.parametrize("layout", ["w32", "ps", "v2", "res"])
+def test_lab_gemv_layout_plans_on_card(card, plan, n, layout):
+    packed, scales = _weight(seed=9)
+    p, s, x = (t.to(card) for t in _torch(packed, scales, _x(n)))
+    il = None
+    if layout == "w32":
+        p = q4_lab.pack_w32(p)
+    elif layout == "ps":
+        p = to_plane_split(Q4Tensor(p, s, "i")).packed
+    elif layout == "v2":
+        p, s = torch.stack([p.flip(0), p]), torch.stack([s.flip(0), s])
+        il = torch.tensor([1], dtype=torch.int32, device=card)
+    else:  # res: K whole across the grid, a cluster of one
+        plan = (*plan[:2], 1)
+    got = q4_lab.q4_lab_gemv_planned(x, p, s, "f32x", layout, il=il,
+                                     plan=plan)
+    ref = q4_lab.q4_lab_gemv_layout_plain(x, p, s, layout, il)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= q4_lab.TOL_LAB * ref.abs().max()
+    assert torch.equal(got, q4_lab.q4_lab_gemv_planned(
+        x, p, s, "f32x", layout, il=il, plan=plan))
 
 
 @pytest.mark.cuda

@@ -7,7 +7,9 @@
     f32 sum order differs);
   * (b) the plain version of K6 (``scatter_rows_plain``) against the JAX
     writer kernel ``scatter_rows_inplace`` in interpret mode: bit for bit,
-    a sentinel row writing nothing;
+    a sentinel row writing nothing; its one-layer instance against the JAX
+    writer on that layer alone, the other layers untouched and a negative
+    n_past writing nothing too;
   * the ragged ``_kv_write`` against the JAX one: bit for bit, with rows
     wholly and partly past the cache dropped;
   * (c) a ragged ``forward`` on the tiny GPT-J config at f32 compute:
@@ -163,6 +165,42 @@ def test_scatter_rows_plain_matches_jax_writer(kv):
     for b4, p in zip(before, (*pk, *pv)):
         np.testing.assert_array_equal(b4[:, 3], _to_np(p)[:, 3])
     assert (_to_np(pk[0])[:, 1, :, 77] == _to_np(prows[0])[:, 1]).all()
+
+
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+@pytest.mark.parametrize("il", [0, 2])
+def test_one_layer_scatter_rows_plain_matches_jax_writer(kv, il):
+    """K6's one-layer instance (the graphed one-token step's write): layer
+    ``il`` equal to the JAX writer's output on that layer alone, every
+    other layer untouched; n_past = S and n_past < 0 write nothing."""
+    L, B, H, S, D = 3, 5, 2, 128, 64  # noqa: N806
+    (jk, pk), (jv, pv) = (_cache_pair(kv, L, B, H, S, D, s) for s in (11, 12))
+    rng = np.random.default_rng(13)
+    Dp = D // 2 if kv == "int4" else D  # noqa: N806
+    lo, hi, dt = (0, 256, np.uint8) if kv == "int4" else (-127, 128, np.int8)
+    jrows = (jnp.asarray(rng.integers(lo, hi, (1, B, H, Dp), dtype=dt)),
+             jnp.asarray(rng.random((1, B, H), dtype=np.float32),
+                         jnp.bfloat16),
+             jnp.asarray(rng.integers(lo, hi, (1, B, H, Dp), dtype=dt)),
+             jnp.asarray(rng.random((1, B, H), dtype=np.float32),
+                         jnp.bfloat16))
+    prows = tuple(_to_torch(r)[0] for r in jrows)  # [B, H, Dp], [B, H]
+    n_past = np.asarray([0, 77, S - 1, S, -3], np.int32)
+    before = [_to_np(t).copy() for t in (*pk, *pv)]
+    # the JAX writer on layer il alone; its rows of the sentinel S stay
+    jn = np.where(n_past < 0, S, n_past).astype(np.int32)
+    jk2, jv2 = scatter_rows_inplace(tuple(t[il:il + 1] for t in jk),
+                                    tuple(t[il:il + 1] for t in jv), jrows,
+                                    jnp.asarray(jn), interpret=True)
+    scatter_rows(pk, pv, prows, torch.from_numpy(n_past), il)  # CPU: plain
+    for b4, j, p in zip(before, (*jk2, *jv2), (*pk, *pv)):
+        got = _to_np(p)
+        np.testing.assert_array_equal(_to_np(_to_torch(j))[0], got[il])
+        others = [i for i in range(L) if i != il]
+        np.testing.assert_array_equal(b4[others], got[others])
+        np.testing.assert_array_equal(b4[:, 3:], got[:, 3:])  # S and -3
+    assert (_to_np(pk[0])[il, 1, :, 77] == _to_np(prows[0])[1]).all()
+    assert (_to_np(pv[1])[il, 2, :, S - 1] == _to_np(prows[3])[2]).all()
 
 
 @pytest.mark.parametrize("kv", ["int8", "float32"])

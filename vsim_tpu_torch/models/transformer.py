@@ -18,7 +18,10 @@ Attention routes:
   * one new token over an int8/int4 cache, uniform n_past, or ragged with
     ``write_first`` (InferenceEngine's graphed step, whose n_past lives on
     the device) → write the row, then K3 over rows <= n_past[b]
-    (ops/decode_attention.py); both give the same cache bytes and logits;
+    (ops/decode_attention.py); both give the same cache bytes and logits.
+    A uniform n_past writes by slicing; a ragged one through K6's one-layer
+    instance (``scatter_rows(..., il)``: k and v of the layer in one launch,
+    a row outside [0, S) writing nothing);
   * one new token over an int8/int4 cache, ragged n_past → the deferred
     write: each layer quantizes its row and K5 attends rows < n_past[b]
     plus that row; after the layer loop K6 writes every layer's rows at
@@ -113,8 +116,9 @@ def _is_packed4(store) -> bool:
 
 
 def _row_slots(n_past: torch.Tensor, S: int):  # noqa: N803
-    """A one-token ragged write's targets: (slot [B] int64, n_past[b]
-    clamped into [0, S); keep [B] bool, n_past[b] in [0, S))."""
+    """A one-token ragged write's targets into a float cache: (slot [B]
+    int64, n_past[b] clamped into [0, S); keep [B] bool, n_past[b] in
+    [0, S))."""
     n = n_past.long()
     slot = n.clamp(0, S - 1)
     return slot, slot == n
@@ -125,7 +129,8 @@ def _kv_write(store, new: torch.Tensor, il: int, n_past,
     """Write a [B, T, H, D] slice into layer ``il`` at slots
     [n_past, n_past + T), in place, quantizing for an int8/int4 cache.
     A ragged ``n_past`` ([B] tensor) drops the slots outside [0, S);
-    ``rows`` is its ``_row_slots`` for T = 1, made once a step."""
+    ``rows`` is its ``_row_slots`` for T = 1 into a float cache, made once
+    a step (a quantized cache's one-token ragged row goes to K6)."""
     B, T, H = new.shape[:3]  # noqa: N806
     S = (store[0] if isinstance(store, tuple) else store).shape[3]  # noqa: N806
     new = new.transpose(1, 2)  # [B, H, T, D]
@@ -142,14 +147,13 @@ def _kv_write(store, new: torch.Tensor, il: int, n_past,
             dst[il, :, :, n_past:n_past + T] = x
         return
     dev = new.device
-    if T == 1:  # one row a batch row: slot n_past[b] if it is in [0, S)
+    if T == 1 and not isinstance(store, tuple):  # slot n_past[b] if in [0, S)
         slot, keep = rows if rows is not None else _row_slots(n_past, S)
-        slot, keep = slot.view(B, 1, 1), keep.view(B, 1, 1)
-        for dst, x in pairs:
-            layer = dst[il]  # [B, H, S(, Dp)], a view
-            k = keep if x.dim() == 3 else keep[..., None]
-            ix = (slot if x.dim() == 3 else slot[..., None]).expand_as(x)
-            layer.scatter_(2, ix, torch.where(k, x, layer.gather(2, ix)))
+        ((_, x),) = pairs
+        layer = store[il]  # [B, H, S, D], a view
+        ix = slot.view(B, 1, 1, 1).expand_as(x)
+        layer.scatter_(2, ix, torch.where(keep.view(B, 1, 1, 1), x,
+                                          layer.gather(2, ix)))
         return
     # Ragged: every chunk position t targets slot clamp(n_past + t, 0, S-1).
     # A target that is a real slot of the chunk takes that slot's value
@@ -166,6 +170,17 @@ def _kv_write(store, new: torch.Tensor, il: int, n_past,
         layer = dst[il]  # [B, H, S(, Dp)], a view
         keep = real if x.dim() == 3 else real[..., None]
         layer[ix] = torch.where(keep, x[src], layer[ix])
+
+
+def _quantized_row(k_all, k: torch.Tensor, v: torch.Tensor):
+    """This step's one k/v row [B, 1, H, D] quantized for the int8/int4
+    cache ``k_all``, as ``_kv_write`` quantizes a slice: (kq [B, H, Dp],
+    ks [B, H], vq, vs)."""
+    quantize = _kv_quantize4 if _is_packed4(k_all) else _kv_quantize
+    sdt = k_all[1].dtype
+    kq, ks = quantize(k.transpose(1, 2), sdt)  # [B, H, 1, Dp], [B, H, 1]
+    vq, vs = quantize(v.transpose(1, 2), sdt)
+    return kq[:, :, 0], ks[:, :, 0], vq[:, :, 0], vs[:, :, 0]
 
 
 def _kv_read(store, il: int, n: int, dtype) -> torch.Tensor:
@@ -231,19 +246,20 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
     scale = 1.0 / math.sqrt(D)
 
     if pending is not None:
-        quantize = _kv_quantize4 if _is_packed4(k_all) else _kv_quantize
-        sdt = k_all[1].dtype
-        kq, ks = quantize(k.transpose(1, 2), sdt)  # [B, H, 1, Dp], [B, H, 1]
-        vq, vs = quantize(v.transpose(1, 2), sdt)
-        rows = (kq[:, :, 0], ks[:, :, 0], vq[:, :, 0], vs[:, :, 0])
+        rows = _quantized_row(k_all, k, v)
         pending.append(rows)
         ctx = decode_attention_fresh(q[:, 0], k_all, v_all, il, n_past_vec,
                                      rows, scale=scale, slopes=slopes)
         ctx = ctx.to(cdt).reshape(B, 1, E)
         return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq)
     if k_all is not None:
-        _kv_write(k_all, k, il, n_past, rows)
-        _kv_write(v_all, v, il, n_past, rows)
+        if T == 1 and isinstance(n_past, torch.Tensor) and isinstance(
+                k_all, tuple):  # K6's one-layer instance: one launch
+            scatter_rows(k_all, v_all, _quantized_row(k_all, k, v), n_past,
+                         il)
+        else:
+            _kv_write(k_all, k, il, n_past, rows)
+            _kv_write(v_all, v, il, n_past, rows)
         if T == 1 and not fresh_kv and isinstance(k_all, tuple):
             ctx = decode_attention_q(q[:, 0], k_all, v_all, il, n_past_vec,
                                      scale=scale, slopes=slopes)
@@ -382,9 +398,8 @@ def forward(cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
         and not write_first
     pending: Optional[list] = [] if deferred else None
     rows = None  # a one-token ragged write's targets, made once a step
-    if ragged and T == 1 and k_all is not None and not deferred:
-        S = (k_all[0] if isinstance(k_all, tuple) else k_all).shape[3]  # noqa: N806
-        rows = _row_slots(n_past, S)
+    if ragged and T == 1 and isinstance(k_all, torch.Tensor):
+        rows = _row_slots(n_past, k_all.shape[3])
     for il, lp in enumerate(per_layer(params["layers"], cfg.n_layer)):
         x = decoder_layer(cfg, lp, x, k_all, v_all, il, positions, n_past,
                           n_past_vec, slopes, fresh_kv, pending, rows)

@@ -1,5 +1,5 @@
-"""Single-token attention over the quantized KV cache, and the all-layer
-row writer of the ragged serving step (port of
+"""Single-token attention over the quantized KV cache, and the row writer
+of the ragged serving step and of the graphed one-token step (port of
 vsim_tpu/ops/decode_attention.py).
 
 K3 ``decode_attention_q`` (csrc/decode_attention.cu) attends one query per
@@ -20,7 +20,9 @@ s < min(n_past[b], S) of the cache plus this step's own quantized row
 cache does not hold yet.  K6 ``scatter_rows`` (csrc/kv_scatter_rows.cu)
 then writes every layer's rows ``(kq [L, B, H, Dp], ks [L, B, H], vq, vs)``
 at slot n_past[b], in place; a row with n_past[b] outside [0, S) writes
-nothing (n_past = S is the serving engine's inactive-slot sentinel).
+nothing (n_past = S is the serving engine's inactive-slot sentinel).  With
+a layer ``il`` it writes that layer's rows ([B, H, Dp], [B, H]) alone: the
+graphed one-token step writes its row so before K3 reads the layer.
 
 A CPU tensor goes through the plain version beside each kernel; a CUDA
 tensor launches the kernel or raises, and raises too when q or another
@@ -158,9 +160,15 @@ def decode_attention_fresh_plain(q: torch.Tensor, k_store: Store,
 
 
 def scatter_rows_plain(k_store: Store, v_store: Store, rows: Rows,
-                       n_past: torch.Tensor) -> None:
-    """Plain version of K6: index assignment of every layer's rows at slot
-    n_past[b], in place; a row outside [0, S) keeps the cache's bytes."""
+                       n_past: torch.Tensor, il: Optional[int] = None) -> None:
+    """Plain version of K6: index assignment of the rows at slot n_past[b],
+    in place; a row outside [0, S) keeps the cache's bytes.  Every layer's
+    rows (kq [L, B, H, Dp], ks [L, B, H], vq, vs), or with ``il`` one
+    layer's (kq [B, H, Dp], ks [B, H], ...) into layer ``il`` alone."""
+    if il is not None:
+        k_store = tuple(t[il:il + 1] for t in k_store)
+        v_store = tuple(t[il:il + 1] for t in v_store)
+        rows = tuple(r[None] for r in rows)
     kq, ks, vq, vs = rows
     L, B, H = ks.shape  # noqa: N806
     S = k_store[0].shape[3]  # noqa: N806
@@ -296,45 +304,53 @@ def decode_attention_fresh(q: torch.Tensor, k_store: Store, v_store: Store,
 
 
 def scatter_rows(k_store: Store, v_store: Store, rows: Rows,
-                 n_past: torch.Tensor) -> None:
+                 n_past: torch.Tensor, il: Optional[int] = None) -> None:
     """K6: write rows (kq [L, B, H, Dp], ks [L, B, H], vq, vs) into every
     layer of the cache at slot n_past[b], in place, on the current stream
-    (after the layer loop whose K5 calls read the cache)."""
+    (after the layer loop whose K5 calls read the cache); with ``il``, one
+    layer's rows (kq [B, H, Dp], ks [B, H], ...) into layer ``il`` alone,
+    one launch (the graphed one-token step, before K3 reads the layer)."""
     if n_past.device.type == "cpu":
-        scatter_rows_plain(k_store, v_store, rows, n_past)
+        scatter_rows_plain(k_store, v_store, rows, n_past, il)
         return
     k_q, k_s = k_store
     v_q, v_s = v_store
-    kq, ks, vq, vs = rows
     what = "scatter_rows"
-    tensors = {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s, "kq": kq,
-               "ks": ks, "vq": vq, "vs": vs, "n_past": n_past}
+    tensors = {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s,
+               **dict(zip(("kq", "ks", "vq", "vs"), rows)), "n_past": n_past}
     for name, t in tensors.items():
         if t.device != n_past.device:
             raise ValueError(f"{what}: {name} on {t.device}, n_past on "
                              f"{n_past.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    L, B, H, S, Dp = k_q.shape  # noqa: N806
+    Lc, B, H, S, Dp = k_q.shape  # noqa: N806
+    kq, ks, vq, vs = rows
     if k_q.dtype not in (torch.int8, torch.uint8) or any(
             t.dtype != k_q.dtype for t in (v_q, kq, vq)):
         raise ValueError(f"{what}: cache values and rows must share one dtype,"
                          " int8 or uint8")
     if any(t.dtype != torch.bfloat16 for t in (k_s, v_s, ks, vs)):
         raise ValueError(f"{what}: scales must be bf16")
-    if tuple(v_q.shape) != (L, B, H, S, Dp) or any(
-            tuple(t.shape) != (L, B, H, S) for t in (k_s, v_s)):
+    if tuple(v_q.shape) != (Lc, B, H, S, Dp) or any(
+            tuple(t.shape) != (Lc, B, H, S) for t in (k_s, v_s)):
         raise ValueError(f"{what}: k/v cache shapes disagree")
-    if any(tuple(t.shape) != (L, B, H, Dp) for t in (kq, vq)) or any(
-            tuple(t.shape) != (L, B, H) for t in (ks, vs)):
-        raise ValueError(f"{what}: rows must be [L, B, H, Dp] and [L, B, H] "
-                         f"for a cache {tuple(k_q.shape)}")
+    lead = (Lc,) if il is None else ()
+    if any(tuple(t.shape) != lead + (B, H, Dp) for t in (kq, vq)) or any(
+            tuple(t.shape) != lead + (B, H) for t in (ks, vs)):
+        raise ValueError(f"{what}: rows must be {lead + (B, H, Dp)} and "
+                         f"{lead + (B, H)} for a cache {tuple(k_q.shape)}"
+                         + ("" if il is None else f" and layer {il}"))
     if n_past.dtype != torch.int32 or tuple(n_past.shape) != (B,):
         raise ValueError(f"{what}: n_past must be int32 [B]")
+    if il is not None and not 0 <= il < Lc:
+        raise ValueError(f"{what}: layer {il} outside [0, {Lc})")
+    cache = (k_q, k_s, v_q, v_s) if il is None else tuple(
+        t[il] for t in (k_q, k_s, v_q, v_s))  # contiguous views of layer il
     p = _build.ptr
     _build.launch("scatter_rows", "scatter_rows_launch", _SCATTER_ARGS,
-                  p(kq), p(ks), p(vq), p(vs), p(n_past), p(k_q), p(k_s),
-                  p(v_q), p(v_s), L, B, H, S, Dp,
+                  p(kq), p(ks), p(vq), p(vs), p(n_past), *(p(t) for t in cache),
+                  Lc if il is None else 1, B, H, S, Dp,
                   _build.stream_ptr(n_past.device))
 
 

@@ -2,13 +2,16 @@
 
 K12 ``q4_lab_gemv`` (csrc/q4_lab.cu): y [n, O] f32 = x [n, K] · W for
 n <= 32 rows of bf16 x and an interleaved ("i" layout) Q4 weight, under one
-of ten dequant maths (``LAB_MATHS``), one GEMV skeleton for all of them:
+of ten dequant maths (``LAB_MATHS``), one tensor-core kernel for all of
+them (K9/K10's "i"-layout core, the math's own sequence building the
+``mma.sync`` weight operand: bf16 for seven maths, TF32 for the f32 ones;
+K split over a cluster as ``lab_plan`` says):
 kernel_lab.py's ``_k_i32``, ``_k_u16``, ``_k_f32x``, ``_k_f32f``,
 ``_k_f32xf`` and ``_k_i32f`` (:76-:202), pair_lab.py's ``_k_f32b`` and
 ``_pair_kernel`` (pairA, pairB; :53, :77), pair_sweep.py's ``_k_pairA`` and
 ``_k_pairC`` (:41, :58) and pair_probe.py's ``k_pairA`` (:38, pairA with
 unit scales: ``unit_scales``).
-K12 ``q4_lab_gemv_layout`` (the same skeleton, csrc/q4_lab.cu): f32x over
+K12 ``q4_lab_gemv_layout`` (the same kernel, csrc/q4_lab.cu): f32x over
 the operand layouts of ``GEMV_LAYOUTS``: kernel_lab.py's ``_k_res`` (:225,
 "i", K never split), ``_k_w32`` (:281, [K/8, O] int32 words of 4 packed
 rows, ``pack_w32``) and ``_k_ps`` (:384, the plane-split repack with raw
@@ -46,12 +49,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from vsim_tpu_torch.ops import _build
-from vsim_tpu_torch.ops.q4_cuda import stacked_layer
+from vsim_tpu_torch.ops.q4_cuda import (CORE_WARPS, _aligned, core_plan,
+                                        i_tile_o, stacked_layer)
 from vsim_tpu_torch.quant.q4 import QK
 
 LAB_MATHS = ("i32", "u16", "f32x", "f32f", "f32xf", "i32f", "f32b", "pairA",
@@ -63,23 +67,27 @@ SAME_FUNCTION = (("i32", "u16", "f32x", "pairA"), ("f32xf", "i32f"))
 LAB_MAX_ROWS = 32
 # K12's operand layouts besides "i", each under f32x (csrc/q4_lab.cu)
 GEMV_LAYOUTS = ("res", "w32", "ps", "v2")
-# the kernel's layouts (csrc/q4_lab.cu LabLayout): "res" is "i" in one split
-_KERNEL_LAYOUTS = ("i", "w32", "ps", "v2")
+# the kernel's layouts (csrc/q4_lab.cu LabLayout)
+_KERNEL_LAYOUTS = ("i", "w32", "ps", "v2", "res")
 # K13's touch outputs: "i" and "ps" up to 32 rows, batch_lab's "2d" and
 # "band" (on the "ps" repack) from 8 to 128
 DMA_LAYOUTS = ("i", "ps", "2d", "band")
 BATCH_TOUCH_ROWS = (8, 128)
 # max|kernel − plain| / max|plain| on the card: only the order of the f32
-# sums differs (pairC's too: its two terms are ~30x its result, and it
-# reads at most 1.6e-5 at GPT-J-6B's shapes)
+# sums differs, every product being exact (pairC's too: its two terms are
+# ~30x its result, and it read at most 1.6e-5 at GPT-J-6B's shapes)
 TOL_LAB = 1e-4
 
-_GEMV_TILE_O = 1024  # output columns per K12 block (csrc/q4_lab.cu kTileO)
+# K12's n-tiles of 8 rows of x (csrc/q4_lab.cu lab_cols_j: 128 columns a
+# warp at one n-tile, 64 at two or four)
+LAB_TILES = (1, 2, 4)
 _DMA_TILE_B = 512  # bytes of a K13 tile row (csrc/q4_lab.cu kDmaTileB)
 _MAGIC = 0x4B000000  # f32 bits of 2^23: | v gives 2^23 + v exactly
 _OFF = 8388616.0  # 2^23 + 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_GEMV_ARGS = (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+# x, xsum, packed, scales, il, n_layers, out; n, K, O, math, layout, nt,
+# wc, cluster; stream
+_GEMV_ARGS = (_P,) * 5 + (_I, _P) + (_I,) * 8 + (_P,)
 _DMA_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _BITCAST_ARGS = (_P, _P, _I, _I, _P)
 
@@ -361,11 +369,51 @@ def _check_weight(what, x, packed, scales, cols=4, max_rows=LAB_MAX_ROWS):
     return n, K, O
 
 
-def lab_splits(K: int, O: int, sm_count: int) -> int:  # noqa: N803
-    """K12's split of K in whole 32-value groups: enough blocks of 1024
-    columns for two an SM, never more splits than groups."""
-    tiles = -(-O // _GEMV_TILE_O)
-    return max(1, min(K // QK, -(-2 * sm_count // tiles)))
+def lab_plan(n: int, K: int, O: int, layout: str, sm_count: int,  # noqa: N803
+             max_clusters: Callable[[int, int], int]
+             ) -> Tuple[int, int, int]:
+    """(nt, wc, cluster) of K12 for n rows of x and a [K/2, O] weight, as
+    K9's ``i_plan``: the fewest 8-row n-tiles of ``LAB_TILES`` that hold n,
+    then ``core_plan`` on that instance's clusters (``max_clusters(nt,
+    cluster)``): at n <= 8 a block's 4 warps take 1, 2 or 4 column tiles of
+    ``lab_tile_o`` and split K the rest of the way, past 8 rows they take 4
+    tiles and share the x staged in shared memory; a cluster splits K
+    further.  "res" keeps its definition, K never split across the grid: a
+    cluster of one block, so each block walks all of K for its columns (its
+    warps may split it inside the block at n <= 8).  Depends on the shape, the layout
+    and the card alone, so a shape sums in one order."""
+    nt = next(t for t in LAB_TILES if 8 * t >= n)
+
+    def fits(c):
+        return max_clusters(nt, c) if layout != "res" or c == 1 else 0
+
+    return (nt, *core_plan(K, O, sm_count, fits,
+                           tile_o=lab_tile_o(nt, layout),
+                           wcs=(1, 2, 4) if nt == 1 else (CORE_WARPS,)))
+
+
+def lab_tile_o(nt: int, layout: str) -> int:
+    """Output columns a warp of K12 takes at ``nt`` n-tiles (csrc/q4_lab.cu
+    lab_cols_j): K9's (``i_tile_o``), but 64 for "res" at every nt, whose
+    K is never split across the grid, so that its blocks fill the card."""
+    return 64 if layout == "res" else i_tile_o(nt)
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(index: int, math: str, layout: str, nt: int,
+                  cluster: int) -> int:
+    with torch.cuda.device(index):
+        return _build.function("q4_lab", "q4_lab_gemv_max_clusters",
+                               (_I, _I, _I, _I))(
+            LAB_MATHS.index(math), _KERNEL_LAYOUTS.index(layout), nt,
+            cluster)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(index: int, math: str, layout: str, n: int, K: int,  # noqa: N803
+          O: int) -> Tuple[int, int, int]:  # noqa: N803
+    return lab_plan(n, K, O, layout, _sm_count(index),
+                    functools.partial(_max_clusters, index, math, layout))
 
 
 def q4_lab_gemv(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -383,21 +431,7 @@ def q4_lab_gemv(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"{what}: xs must be bf16 {(n, K // QK)}")
     if x.device.type == "cpu":
         return q4_lab_gemv_plain(x, packed, scales, math, xs)
-    _check_cuda(what, x, [("x", x), ("packed", packed), ("scales", scales)]
-                + ([("xs", xs)] if xs is not None else []))
-    if x.data_ptr() % 4:
-        raise ValueError(f"{what}: x must be 4-byte aligned (read as (even, "
-                         "odd) pairs)")
-    splits = lab_splits(K, O, _sm_count(x.device.index))
-    out = torch.empty((n, O), dtype=torch.float32, device=x.device)
-    partial = (torch.empty((splits, n, O), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
-    _build.launch(what, "q4_lab_gemv_launch", _GEMV_ARGS,
-                  _build.ptr(x), _build.ptr(xs), _build.ptr(packed),
-                  _build.ptr(scales), _build.ptr(None), 0,
-                  _build.ptr(partial), _build.ptr(out), n, K, O, splits,
-                  LAB_MATHS.index(math), 0, _build.stream_ptr(x.device))
-    return out
+    return q4_lab_gemv_planned(x, packed, scales, math, "i", xs=xs)
 
 
 def _check_layout_weight(what, x, weight, scales, layout, il):
@@ -444,29 +478,50 @@ def q4_lab_gemv_layout(x: torch.Tensor, weight: torch.Tensor,
     """K12 under f32x for a weight in one of ``GEMV_LAYOUTS`` (as
     ``q4_lab_gemv_layout_plain`` says); "v2" takes the layer index ``il``
     (int32, one element, on x's device), which the kernel reads itself."""
-    what = "q4_lab_gemv"
-    n, K, O, L = _check_layout_weight(what, x, weight, scales,  # noqa: N806
-                                      layout, il)
+    _check_layout_weight("q4_lab_gemv", x, weight, scales, layout, il)
     if x.device.type == "cpu":
         return q4_lab_gemv_layout_plain(x, weight, scales, layout, il)
+    return q4_lab_gemv_planned(x, weight, scales, "f32x", layout, il=il)
+
+
+def q4_lab_gemv_planned(x: torch.Tensor, weight: torch.Tensor,
+                        scales: torch.Tensor, math: str, layout: str,
+                        xs: Optional[torch.Tensor] = None,
+                        il: Optional[torch.Tensor] = None,
+                        plan: Optional[Tuple[int, int, int]] = None
+                        ) -> torch.Tensor:
+    """K12 on the card: ``math`` over a weight in ``layout`` ("i", or one
+    of ``GEMV_LAYOUTS`` under f32x) under ``plan`` (nt, wc, cluster), or
+    ``lab_plan``'s when None: the card tests run every kind of plan.  One
+    launch."""
+    what = "q4_lab_gemv"
+    if math not in LAB_MATHS:
+        raise ValueError(f"{what}: unknown math {math!r}; known: {LAB_MATHS}")
+    if layout == "i":
+        n, K, O = _check_weight(what, x, weight, scales)  # noqa: N806
+        L = 1  # noqa: N806
+    elif math != "f32x":
+        raise ValueError(f"{what}: the {layout!r} layout takes f32x only")
+    else:
+        n, K, O, L = _check_layout_weight(what, x, weight,  # noqa: N806
+                                          scales, layout, il)
+    if (xs is None) != (math != "pairC"):
+        raise ValueError(f"{what}: xs is pairC's input, and only pairC's")
     _check_cuda(what, x, [("x", x), ("weight", weight), ("scales", scales)]
-                + ([("il", il)] if il is not None else []))
+                + ([("il", il)] if il is not None else [])
+                + ([("xs", xs)] if xs is not None else []))
     walign = 16 if layout == "w32" else 4
-    if (O % 4 or weight.data_ptr() % walign or scales.data_ptr() % 8
-            or x.data_ptr() % 4):
+    if O % 4 or weight.data_ptr() % walign or scales.data_ptr() % 8:
         raise ValueError(f"{what}: O must be a multiple of 4, the weight "
-                         f"{walign}-byte, the scales 8-byte and x 4-byte "
-                         "aligned")
-    splits = 1 if layout == "res" else lab_splits(K, O,
-                                                  _sm_count(x.device.index))
+                         f"{walign}-byte and the scales 8-byte aligned")
+    nt, wc, cluster = plan or _plan(x.device.index, math, layout, n, K, O)
+    x = _aligned(x)
     out = torch.empty((n, O), dtype=torch.float32, device=x.device)
-    partial = (torch.empty((splits, n, O), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
     _build.launch(what, "q4_lab_gemv_launch", _GEMV_ARGS,
-                  _build.ptr(x), _build.ptr(None), _build.ptr(weight),
-                  _build.ptr(scales), _build.ptr(il), L, _build.ptr(partial),
-                  _build.ptr(out), n, K, O, splits, LAB_MATHS.index("f32x"),
-                  _KERNEL_LAYOUTS.index("i" if layout == "res" else layout),
+                  _build.ptr(x), _build.ptr(xs), _build.ptr(weight),
+                  _build.ptr(scales), _build.ptr(il), L, _build.ptr(out), n,
+                  K, O, LAB_MATHS.index(math),
+                  _KERNEL_LAYOUTS.index(layout), nt, wc, cluster,
                   _build.stream_ptr(x.device))
     return out
 

@@ -1,21 +1,22 @@
-"""K1, K9/K10 and K15, under every plan of their split, beside the plan
-the wrapper picks.
+"""K1, K9/K10, K12 and K15, under every plan of their split, beside the
+plan the wrapper picks.
 
-    python -m vsim_tpu_torch.tools.core_plans [--n 1] [--kernel k1 i batch]
+    python -m vsim_tpu_torch.tools.core_plans [--n 1] [--kernel k1 i lab batch]
 
 At every Q4 weight shape of GPT-J-6B and Pythia-12B (``read_designs.SHAPES``),
 on random weights rotated past the 50 MB L2, times K1
 (``q4_gemv_ps_planned``, plane-split weights) and the "i"-layout kernel
 (``q4_matmul_i_planned`` with f32 planes: K9, and K10 under the stacked
-engine's gi math) under each (wc, cluster) whose clusters all fit on the
-card at once, best of two rounds of ``timing.timed``, after checking each
-plan within ``TOL_LAB`` of the plain version.  Prints one line a shape and
-kernel: the card's flat read of the same bytes (``read_designs.flat_ms``),
-the fastest plans, and the wrapper's pick (``core_plan``, ``i_plan``) with
-its time and its ratio to the flat read and to the fastest plan.  n <= 8
-(K1's rows; the "i" kernel's one n-tile).  ``--kernel batch`` times K15's
-2d geometry (``q4_batch_lab_planned``, f32x) at GPT-J-6B's four Q4 shapes at
-n = 64 and 128 under every cluster (1-8) whose clusters all fit at once,
+engine's gi math) and K12 (``q4_lab_gemv_planned``, f32x, "i" layout)
+under each (wc, cluster) whose clusters all fit on the card at once, best
+of two rounds of ``timing.timed``, after checking each plan within
+``TOL_LAB`` of the plain version.  Prints one line a shape and kernel: the
+card's flat read of the same bytes (``read_designs.flat_ms``), the fastest
+plans, and the wrapper's pick (``core_plan``, ``i_plan``, ``lab_plan``)
+with its time and its ratio to the flat read and to the fastest plan.
+n <= 8 (K1's rows; the "i" kernels' one n-tile).  ``--kernel batch`` times
+K15's 2d geometry (``q4_batch_lab_planned``, f32x) at GPT-J-6B's four Q4
+shapes at n = 64 and 128 under every cluster (1-8) whose clusters all fit at once,
 on the n-tiles the wrapper takes, marking its pick (``batch_2d_plan``).
 Runs on the CUDA card only.
 """
@@ -30,14 +31,14 @@ from typing import Dict, List, Sequence
 import torch
 
 from vsim_tpu_torch.ops import q4_batch_lab as bl
-from vsim_tpu_torch.ops import q4_cuda
+from vsim_tpu_torch.ops import q4_cuda, q4_lab
 from vsim_tpu_torch.ops.q4_lab import TOL_LAB
 from vsim_tpu_torch.quant.q4 import to_plane_split
 from vsim_tpu_torch.timing import rel_err, rotation, timed
 from vsim_tpu_torch.tools.lab import lab_weight
 from vsim_tpu_torch.tools.read_designs import SHAPES, flat_ms
 
-KERNELS = ("k1", "i", "batch")
+KERNELS = ("k1", "i", "lab", "batch")
 BATCH_SHAPES = (("qkv", 4096, 12288), ("wo", 4096, 4096), ("fc", 4096, 16384),
                 ("proj", 16384, 4096))  # GPT-J-6B's (name, K, O)
 
@@ -55,6 +56,16 @@ def _kernel(kind: str, index: int):
                 lambda x, w: q4_cuda.q4_gemv_ps_plain(x, w.packed, w.scales),
                 functools.partial(q4_cuda._max_clusters, "q4_gemv_ps", index),
                 lambda n, k, o: q4_cuda._plan("q4_gemv_ps", index, k, o))
+    if kind == "lab":
+        return (lab_weight,
+                lambda x, w, plan: q4_lab.q4_lab_gemv_planned(
+                    x, w.packed, w.scales, "f32x", "i", plan=(1, *plan)),
+                lambda x, w: q4_lab.q4_lab_gemv_plain(x, w.packed, w.scales,
+                                                      "f32x"),
+                functools.partial(q4_lab._max_clusters, index, "f32x", "i",
+                                  1),
+                lambda n, k, o: q4_lab._plan(index, "f32x", "i", n, k,
+                                             o)[1:])
     return (lab_weight,
             lambda x, w, plan: q4_cuda.q4_matmul_i_planned(
                 x, w.packed, w.scales, None, None, False, (1, *plan)),

@@ -218,7 +218,8 @@ def run_variants(tool: str, O: int, K: int, batch: int,  # noqa: N803
                    library_ms=None if v == "dma" else lib_ms.get(wdt),
                    nbytes=nbytes,
                    ops=0 if v == "dma" else 2 * batch * K * O,
-                   peak="bf16" if bf16_planes else "f32", device=card)
+                   peak=("tf32" if v in F32_MATHS else
+                         "bf16" if bf16_planes else "f32"), device=card)
         rows.append(row)
         print(format_row(row), flush=True)
     return rows
