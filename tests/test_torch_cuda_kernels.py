@@ -458,6 +458,35 @@ def test_decode_attention_fresh(dev, kv, D):
                                                        rows, **kw))
 
 
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+@pytest.mark.parametrize("D", [64, 80, 96])
+def test_decode_attention_f32_q(dev, kv, D):
+    """K3 and K5 with ``round_q=False`` (q read in f32, the einsum route's
+    numerics the model keeps where D % 128 != 0) against their plain
+    versions under the same flag, the same bits from run to run, and not
+    the bf16-q instance's output."""
+    L, B, H, S = 2, 4, 4, 700  # noqa: N806
+    g = torch.Generator(device=dev).manual_seed(D + 2)
+    Dp = D // 2 if kv == "int4" else D  # noqa: N806
+    k, v = (_kv_side(dev, g, kv, (L, B, H, S, Dp)) for _ in range(2))
+    rows = (*_kv_side(dev, g, kv, (B, H, Dp)),
+            *_kv_side(dev, g, kv, (B, H, Dp)))
+    q = torch.randn((B, H, D), generator=g, device=dev)
+    n_past = torch.tensor([0, 63, 64, S - 1], dtype=torch.int32, device=dev)
+    kw = dict(scale=D ** -0.5, slopes=torch.linspace(0.01, 0.1, H,
+                                                     device=dev))
+    for fn, plain, args in (
+            (decode_attention_q, decode_attention_plain, ()),
+            (decode_attention_fresh, decode_attention_fresh_plain, (rows,))):
+        got = fn(q, k, v, 1, n_past, *args, round_q=False, **kw)
+        ref = plain(q, k, v, 1, n_past, *args, round_q=False, **kw)
+        assert torch.isfinite(got).all()
+        assert _rel(got, ref) < 1e-3
+        assert torch.equal(got, fn(q, k, v, 1, n_past, *args, round_q=False,
+                                   **kw))
+        assert not torch.equal(got, fn(q, k, v, 1, n_past, *args, **kw))
+
+
 def test_decode_attention_refuses_a_gradient_it_cannot_carry(dev):
     """K3 and K5 have no backward: a q (or fresh-row scale) that needs a
     gradient raises on the card instead of leaving the output without a

@@ -11,7 +11,9 @@
 //   score[s] = (q . k_int[s]) * ks[s] * scale (+ slope_h * s),
 //              s <= n_past[b] (K3) or s < n_past[b] (K5), s < S
 //   out      = sum_s p[s] vs[s] v_int[s] / sum_s p[s]   (online softmax, f32)
-// with q bf16 (rounded by the wrapper, as the JAX wrapper does), int8 values,
+// with q bf16 (rounded by the wrapper, as the JAX wrapper does) or f32 (the
+// QF32 instances: the reference's einsum route, taken where D % 128 != 0,
+// leaves q unrounded; the wrapper's round_q says which), int8 values,
 // or int4 plane-packed bytes (byte c holds dims c | c + D/2, value nibble - 8),
 // and one bf16 scale per (token, head).
 //
@@ -102,13 +104,20 @@ __device__ __forceinline__ float int8_val(uint32_t u) {
   return static_cast<float>(static_cast<int8_t>(u));
 }
 
+// q[i] as f32: f32 q as is (QF32), else bf16 bits widened
+template <bool QF32>
+__device__ __forceinline__ float q_at(const void* q, size_t i) {
+  if constexpr (QF32) return static_cast<const float*>(q)[i];
+  else return bf16_to_float(static_cast<const uint16_t*>(q)[i]);
+}
+
 // Pass 1.  W: the load width in bytes (16 unless Dp or an address forbids);
 // U: the row loads a thread keeps in flight in each pass (4 where a key
 // takes 16 lanes, as an int8 D=256 row does, so that a 64-key tile is one
-// round of key loads and one of value loads; else 2).
-template <bool FRESH, bool PACKED4, int W, int U>
+// round of key loads and one of value loads; else 2).  QF32: q is f32.
+template <bool FRESH, bool PACKED4, int W, int U, bool QF32>
 __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
-decode_split_kernel(const uint16_t* __restrict__ q,    // [B, H, D] bf16
+decode_split_kernel(const void* __restrict__ q,        // [B, H, D] bf16 or f32
                     const uint8_t* __restrict__ kq,    // [L, B, H, S, Dp]
                     const uint16_t* __restrict__ ks,   // [L, B, H, S] bf16
                     const uint8_t* __restrict__ vq,
@@ -155,7 +164,7 @@ decode_split_kernel(const uint16_t* __restrict__ q,    // [B, H, D] bf16
 
   float* q_s = sm;
   for (int d = tid; d < D; d += kSplitThreads)
-    q_s[d] = bf16_to_float(q[(static_cast<size_t>(b) * H + h) * D + d]);
+    q_s[d] = q_at<QF32>(q, (static_cast<size_t>(b) * H + h) * D + d);
   __syncthreads();
   float ql[CPL][W], qh[PACKED4 ? CPL : 1][W];
 #pragma unroll
@@ -313,10 +322,10 @@ decode_split_kernel(const uint16_t* __restrict__ q,    // [B, H, D] bf16
   }
 }
 
-// K5's own row for the combine: q [B, H, D] bf16, knq/vnq [B, H, Dp],
-// kns/vns [B, H] bf16 (all null for K3).
+// K5's own row for the combine: q [B, H, D] (bf16, or f32 under QF32),
+// knq/vnq [B, H, Dp], kns/vns [B, H] bf16 (all null for K3).
 struct FreshRow {
-  const uint16_t* q;
+  const void* q;
   const uint8_t* knq;
   const uint16_t* kns;
   const uint8_t* vnq;
@@ -327,7 +336,7 @@ constexpr int kCombineThreads = 128;
 
 // Pass 2: merge the splits of one (b, h) in index order, then (FRESH) the
 // fresh row.
-template <bool FRESH, bool PACKED4>
+template <bool FRESH, bool PACKED4, bool QF32>
 __global__ void __launch_bounds__(kCombineThreads)
 decode_combine_kernel(const float* __restrict__ part, float* __restrict__ out,
                       FreshRow fr, const int* __restrict__ n_past,
@@ -342,16 +351,16 @@ decode_combine_kernel(const float* __restrict__ part, float* __restrict__ out,
   const float* p = part + row * n_split * (D + 2);
   float s_new = VSIM_NEG_INF;
   if (FRESH) {  // q . knq over D: a block sum in warp order
-    const uint16_t* qr = fr.q + row * D;
+    const size_t qr = row * D;
     const uint8_t* kr = fr.knq + row * Dp;
     float dot = 0.f;
     for (int c = tid; c < Dp; c += kCombineThreads) {
       const uint32_t u = kr[c];
       if (PACKED4) {
-        dot = fmaf(bf16_to_float(qr[c]), lo_nibble(u), dot);
-        dot = fmaf(bf16_to_float(qr[c + Dp]), hi_nibble(u), dot);
+        dot = fmaf(q_at<QF32>(fr.q, qr + c), lo_nibble(u), dot);
+        dot = fmaf(q_at<QF32>(fr.q, qr + c + Dp), hi_nibble(u), dot);
       } else {
-        dot = fmaf(bf16_to_float(qr[c]), int8_val(u), dot);
+        dot = fmaf(q_at<QF32>(fr.q, qr + c), int8_val(u), dot);
       }
     }
     dot = warp_sum(dot);
@@ -399,7 +408,7 @@ decode_combine_kernel(const float* __restrict__ part, float* __restrict__ out,
   }
 }
 
-template <bool FRESH, bool PACKED4, int W, int U>
+template <bool FRESH, bool PACKED4, bool QF32, int W, int U>
 cudaError_t launch_w(const void* q, const void* kq, const void* ks,
                      const void* vq, const void* vs, const int* np,
                      const float* sl, float* part, int il, int B, int H, int S,
@@ -407,21 +416,21 @@ cudaError_t launch_w(const void* q, const void* kq, const void* ks,
   const int Dp = PACKED4 ? D / 2 : D;
   const int RG = kSplitThreads / (Dp / W);
   const size_t smem = sizeof(float) * static_cast<size_t>(D) * (1 + RG);
-  auto kern = decode_split_kernel<FRESH, PACKED4, W, U>;
+  auto kern = decode_split_kernel<FRESH, PACKED4, W, U, QF32>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   kern<<<dim3(n_split, H, B), kSplitThreads, smem, st>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint8_t*>(kq),
+      q, static_cast<const uint8_t*>(kq),
       static_cast<const uint16_t*>(ks), static_cast<const uint8_t*>(vq),
       static_cast<const uint16_t*>(vs), np, sl, part, il, B, H, S, D, c, scale);
   return cudaGetLastError();
 }
 
 // Pass 1 at load width W, then the combine.
-template <bool FRESH, bool PACKED4>
+template <bool FRESH, bool PACKED4, bool QF32>
 cudaError_t launch_mode(int W, const void* q, const void* kq, const void* ks,
                         const void* vq, const void* vs, const int* np,
                         const float* sl, FreshRow fr, float* part, float* out,
@@ -430,24 +439,34 @@ cudaError_t launch_mode(int W, const void* q, const void* kq, const void* ks,
   cudaError_t err;
   const bool wide = (PACKED4 ? D / 2 : D) / W > 8;  // a key takes 16+ lanes
   switch (W) {
-    case 16: err = wide ? launch_w<FRESH, PACKED4, 16, 4>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st)
-                        : launch_w<FRESH, PACKED4, 16, 2>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st); break;
-    case 8: err = wide ? launch_w<FRESH, PACKED4, 8, 4>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st)
-                       : launch_w<FRESH, PACKED4, 8, 2>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st); break;
-    case 4: err = launch_w<FRESH, PACKED4, 4, 2>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st); break;
-    case 2: err = launch_w<FRESH, PACKED4, 2, 2>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st); break;
-    case 1: err = launch_w<FRESH, PACKED4, 1, 2>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st); break;
+    case 16: err = wide ? launch_w<FRESH, PACKED4, QF32, 16, 4>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st)
+                        : launch_w<FRESH, PACKED4, QF32, 16, 2>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st); break;
+    case 8: err = wide ? launch_w<FRESH, PACKED4, QF32, 8, 4>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st)
+                       : launch_w<FRESH, PACKED4, QF32, 8, 2>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st); break;
+    case 4: err = launch_w<FRESH, PACKED4, QF32, 4, 2>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st); break;
+    case 2: err = launch_w<FRESH, PACKED4, QF32, 2, 2>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st); break;
+    case 1: err = launch_w<FRESH, PACKED4, QF32, 1, 2>(q, kq, ks, vq, vs, np, sl, part, il, B, H, S, D, c, n_split, scale, st); break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<FRESH, PACKED4>
+  decode_combine_kernel<FRESH, PACKED4, QF32>
       <<<dim3(H, B), kCombineThreads, sizeof(float) * n_split, st>>>(
           part, out, fr, np, sl, H, D, n_split, scale);
   return cudaGetLastError();
 }
 
+template <bool FRESH, bool PACKED4>
+int launch_q(int q_f32, int W, const void* q, const void* kq, const void* ks,
+             const void* vq, const void* vs, const int* np, const float* sl,
+             FreshRow fr, float* part, float* out, int il, int B, int H, int S,
+             int D, int c, int n_split, float scale, cudaStream_t st) {
+  return static_cast<int>(
+      q_f32 ? launch_mode<FRESH, PACKED4, true>(W, q, kq, ks, vq, vs, np, sl, fr, part, out, il, B, H, S, D, c, n_split, scale, st)
+            : launch_mode<FRESH, PACKED4, false>(W, q, kq, ks, vq, vs, np, sl, fr, part, out, il, B, H, S, D, c, n_split, scale, st));
+}
+
 template <bool FRESH>
-int launch(int packed4, int W, const void* q, const void* kq, const void* ks,
+int launch(int packed4, int q_f32, int W, const void* q, const void* kq, const void* ks,
            const void* vq, const void* vs, const void* n_past,
            const void* slopes, FreshRow fr, void* part, void* out, int il,
            int B, int H, int S, int D, int c, int n_split, float scale,
@@ -459,25 +478,25 @@ int launch(int packed4, int W, const void* q, const void* kq, const void* ks,
   auto sl = static_cast<const float*>(slopes);
   auto pp = static_cast<float*>(part);
   auto op = static_cast<float*>(out);
-  return static_cast<int>(
-      packed4 ? launch_mode<FRESH, true>(W, q, kq, ks, vq, vs, np, sl, fr, pp, op, il, B, H, S, D, c, n_split, scale, st)
-              : launch_mode<FRESH, false>(W, q, kq, ks, vq, vs, np, sl, fr, pp, op, il, B, H, S, D, c, n_split, scale, st));
+  return packed4 ? launch_q<FRESH, true>(q_f32, W, q, kq, ks, vq, vs, np, sl, fr, pp, op, il, B, H, S, D, c, n_split, scale, st)
+                 : launch_q<FRESH, false>(q_f32, W, q, kq, ks, vq, vs, np, sl, fr, pp, op, il, B, H, S, D, c, n_split, scale, st);
 }
 
 }  // namespace
 
 // Both modes: pass 1 over n_split splits of c keys into ``part``
 // [B, H, n_split, D + 2], then the combine; W is the load width in bytes (it
-// divides Dp and the cache's base addresses).
+// divides Dp and the cache's base addresses); q is f32 where q_f32, else bf16.
 // K3: the cache already holds this step's row.
 extern "C" int decode_attention_launch(const void* q, const void* kq,
                                        const void* ks, const void* vq,
                                        const void* vs, const void* n_past,
                                        const void* slopes, void* part,
-                                       void* out, int packed4, int il, int B,
-                                       int H, int S, int D, int c, int n_split,
-                                       int W, float scale, void* stream) {
-  return launch<false>(packed4, W, q, kq, ks, vq, vs, n_past, slopes,
+                                       void* out, int packed4, int q_f32,
+                                       int il, int B, int H, int S, int D,
+                                       int c, int n_split, int W, float scale,
+                                       void* stream) {
+  return launch<false>(packed4, q_f32, W, q, kq, ks, vq, vs, n_past, slopes,
                        FreshRow{}, part, out, il, B, H, S, D, c, n_split,
                        scale, stream);
 }
@@ -487,13 +506,13 @@ extern "C" int decode_attention_fresh_launch(
     const void* q, const void* kq, const void* ks, const void* vq,
     const void* vs, const void* n_past, const void* slopes, const void* knq,
     const void* kns, const void* vnq, const void* vns, void* part, void* out,
-    int packed4, int il, int B, int H, int S, int D, int c, int n_split, int W,
-    float scale, void* stream) {
-  const FreshRow fr{static_cast<const uint16_t*>(q),
+    int packed4, int q_f32, int il, int B, int H, int S, int D, int c,
+    int n_split, int W, float scale, void* stream) {
+  const FreshRow fr{q,
                     static_cast<const uint8_t*>(knq),
                     static_cast<const uint16_t*>(kns),
                     static_cast<const uint8_t*>(vnq),
                     static_cast<const uint16_t*>(vns)};
-  return launch<true>(packed4, W, q, kq, ks, vq, vs, n_past, slopes, fr, part,
+  return launch<true>(packed4, q_f32, W, q, kq, ks, vq, vs, n_past, slopes, fr, part,
                       out, il, B, H, S, D, c, n_split, scale, stream);
 }

@@ -264,8 +264,8 @@ def param_bytes(params) -> int:
 
 def params_to(params, device: DeviceLike, _moved=None):
     """Copy of a params tree on ``device`` (tensors already there are
-    shared, not copied; a stacked weight that several Q4Layers share is
-    moved once)."""
+    shared, not copied; a Q4 weight that several leaves share, as a tied
+    lm head or the stacked weight of several Q4Layers, is moved once)."""
     moved = {} if _moved is None else _moved
     if isinstance(params, torch.Tensor):
         return params.to(device)
@@ -275,7 +275,9 @@ def params_to(params, device: DeviceLike, _moved=None):
             moved[key] = params.stacked.to(device)
         return Q4Layer(moved[key], params.il.to(device))
     if isinstance(params, Q4Tensor):
-        return params.to(device)
+        if id(params) not in moved:
+            moved[id(params)] = params.to(device)
+        return moved[id(params)]
     if isinstance(params, dict):
         return {k: params_to(v, device, moved) for k, v in params.items()}
     if isinstance(params, (list, tuple)):

@@ -244,12 +244,16 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
         k = apply_rope(k, positions, cfg.n_rot,
                        interleaved=cfg.rotary_interleaved, base=cfg.rope_base)
     scale = 1.0 / math.sqrt(D)
+    # the reference's decode kernel rounds q to bf16, and it takes that
+    # kernel only where D % 128 == 0; elsewhere its einsum keeps q in f32
+    round_q = D % 128 == 0
 
     if pending is not None:
         rows = _quantized_row(k_all, k, v)
         pending.append(rows)
         ctx = decode_attention_fresh(q[:, 0], k_all, v_all, il, n_past_vec,
-                                     rows, scale=scale, slopes=slopes)
+                                     rows, scale=scale, slopes=slopes,
+                                     round_q=round_q)
         ctx = ctx.to(cdt).reshape(B, 1, E)
         return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq)
     if k_all is not None:
@@ -262,7 +266,8 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
             _kv_write(v_all, v, il, n_past, rows)
         if T == 1 and not fresh_kv and isinstance(k_all, tuple):
             ctx = decode_attention_q(q[:, 0], k_all, v_all, il, n_past_vec,
-                                     scale=scale, slopes=slopes)
+                                     scale=scale, slopes=slopes,
+                                     round_q=round_q)
             ctx = ctx.to(cdt).reshape(B, 1, E)
             return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq)
     if k_all is None or fresh_kv:  # attend over this chunk's own k/v

@@ -7,7 +7,10 @@ K3 ``decode_attention_q`` (csrc/decode_attention.cu) attends one query per
 across blocks by ``decode_split_plan`` (flash-decoding: partials, then an
 in-order combine; K5 shares both):
 
-  q        [B, H, D]          rounded to bf16 (as the JAX wrapper does)
+  q        [B, H, D]          rounded to bf16 (as the JAX wrapper does), or
+                              left f32 with ``round_q=False`` (the JAX
+                              einsum route's numerics, which the reference
+                              takes where D % 128 != 0)
   k_q/v_q  [L, B, H, S, Dp]   int8 (Dp = D) or plane-packed uint8 int4
                               (Dp = D/2, byte c = dims c | c + D/2)
   k_s/v_s  [L, B, H, S]       bf16 per-(token, head) scales
@@ -43,12 +46,12 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 _MAX_DP = 512  # packed columns a K3 / K5 block covers (csrc/decode_attention.cu)
 _SPLIT_TILE = 64  # keys per tile of K3/K5's pass 1 (kSplitTile)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# q, kq, ks, vq, vs, n_past, slopes, part, out; packed4, il, B, H, S, D, c,
-# n_split, W; scale; stream
-_ARGS = (_P,) * 9 + (_I,) * 9 + (ctypes.c_float, _P)
+# q, kq, ks, vq, vs, n_past, slopes, part, out; packed4, q_f32, il, B, H, S,
+# D, c, n_split, W; scale; stream
+_ARGS = (_P,) * 9 + (_I,) * 10 + (ctypes.c_float, _P)
 # q, kq, ks, vq, vs, n_past, slopes, knq, kns, vnq, vns, part, out; packed4,
-# il, B, H, S, D, c, n_split, W; scale; stream
-_FRESH_ARGS = (_P,) * 13 + (_I,) * 9 + (ctypes.c_float, _P)
+# q_f32, il, B, H, S, D, c, n_split, W; scale; stream
+_FRESH_ARGS = (_P,) * 13 + (_I,) * 10 + (ctypes.c_float, _P)
 _SCATTER_ARGS = (_P,) * 9 + (_I,) * 5 + (_P,)
 
 Store = Tuple[torch.Tensor, torch.Tensor]
@@ -65,17 +68,22 @@ def kv_int(vals: torch.Tensor) -> torch.Tensor:
     return vals.to(torch.float32)
 
 
+def _q_f32(q: torch.Tensor, round_q: bool) -> torch.Tensor:
+    return (q.to(torch.bfloat16) if round_q else q).to(torch.float32)
+
+
 def decode_attention_plain(q: torch.Tensor, k_store: Store, v_store: Store,
                            il: int, n_past: torch.Tensor, *, scale: float,
-                           slopes: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           slopes: Optional[torch.Tensor] = None,
+                           round_q: bool = True) -> torch.Tensor:
     """Plain version of K3: same scores, mask and softmax, materialized
-    over the keys up to the longest row's horizon."""
+    over the keys up to the longest row's horizon.  ``round_q``: q rounded
+    to bf16 first (the JAX kernel), else taken in f32 (its einsum route)."""
     k_q, k_s = k_store
     v_q, v_s = v_store
     S = k_q.shape[3]  # noqa: N806
     n = min(int(n_past.max()) + 1, S)
-    qf = q.to(torch.bfloat16).to(torch.float32)
+    qf = _q_f32(q, round_q)
     keys = kv_int(k_q[il, :, :, :n])  # [B, H, n, D]
     s = torch.einsum("bhd,bhsd->bhs", qf, keys) \
         * k_s[il, :, :, :n].to(torch.float32) * scale
@@ -128,17 +136,17 @@ def _load_width(Dp: int, tensors) -> int:  # noqa: N803
 def decode_attention_fresh_plain(q: torch.Tensor, k_store: Store,
                                  v_store: Store, il: int, n_past: torch.Tensor,
                                  fresh_rows: Rows, *, scale: float,
-                                 slopes: Optional[torch.Tensor] = None
-                                 ) -> torch.Tensor:
+                                 slopes: Optional[torch.Tensor] = None,
+                                 round_q: bool = True) -> torch.Tensor:
     """Plain version of K5: the masked scores of cache rows
     s < min(n_past[b], S) and the fresh row's score (ALiBi at position
     n_past[b]) in one softmax.  Materialized over all S rows, so it makes
-    no host sync."""
+    no host sync.  ``round_q`` as in ``decode_attention_plain``."""
     k_q, k_s = k_store
     v_q, v_s = v_store
     knq, kns, vnq, vns = fresh_rows
     S = k_q.shape[3]  # noqa: N806
-    qf = q.to(torch.bfloat16).to(torch.float32)
+    qf = _q_f32(q, round_q)
     s = torch.einsum("bhd,bhsd->bhs", qf, kv_int(k_q[il])) \
         * k_s[il].to(torch.float32) * scale
     s_new = (qf * kv_int(knq)).sum(-1) * kns.to(torch.float32) * scale
@@ -252,16 +260,23 @@ def _split_scratch(what, qb, k_store, v_store,
     return c, n_split, w, part, out
 
 
+def _q_arg(q: torch.Tensor, round_q: bool) -> torch.Tensor:
+    """q as the kernel reads it: bf16 (rounded here), or f32."""
+    return q.to(torch.bfloat16 if round_q else torch.float32).contiguous()
+
+
 def decode_attention_q(q: torch.Tensor, k_store: Store, v_store: Store,
                        il: int, n_past: torch.Tensor, *, scale: float,
-                       slopes: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-    """K3: attention of q [B, H, D] over layer ``il`` → [B, H, D] f32."""
+                       slopes: Optional[torch.Tensor] = None,
+                       round_q: bool = True) -> torch.Tensor:
+    """K3: attention of q [B, H, D] over layer ``il`` → [B, H, D] f32;
+    q rounded to bf16 where ``round_q``, else read in f32."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_store, v_store, il, n_past,
-                                      scale=scale, slopes=slopes)
+                                      scale=scale, slopes=slopes,
+                                      round_q=round_q)
     what = "decode_attention_q"
-    qb = q.to(torch.bfloat16).contiguous()
+    qb = _q_arg(q, round_q)
     packed4, B, H, S, D = _check(  # noqa: N806
         what, qb, k_store, v_store, il, n_past, slopes)
     c, n_split, w, part, out = _split_scratch(what, qb, k_store, v_store, B,
@@ -270,7 +285,8 @@ def decode_attention_q(q: torch.Tensor, k_store: Store, v_store: Store,
     _build.launch("decode_attention", "decode_attention_launch", _ARGS,
                   p(qb), p(k_store[0]), p(k_store[1]), p(v_store[0]),
                   p(v_store[1]), p(n_past), p(slopes), p(part), p(out),
-                  int(packed4), int(il), B, H, S, D, c, n_split, w,
+                  int(packed4), int(not round_q), int(il), B, H, S, D, c,
+                  n_split, w,
                   float(scale), _build.stream_ptr(q.device))
     return out
 
@@ -278,16 +294,16 @@ def decode_attention_q(q: torch.Tensor, k_store: Store, v_store: Store,
 def decode_attention_fresh(q: torch.Tensor, k_store: Store, v_store: Store,
                            il: int, n_past: torch.Tensor, fresh_rows: Rows, *,
                            scale: float,
-                           slopes: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           slopes: Optional[torch.Tensor] = None,
+                           round_q: bool = True) -> torch.Tensor:
     """K5: attention of q [B, H, D] over layer ``il``'s rows < n_past[b]
-    and this step's ``fresh_rows`` → [B, H, D] f32."""
+    and this step's ``fresh_rows`` → [B, H, D] f32; ``round_q`` as K3's."""
     if q.device.type == "cpu":
         return decode_attention_fresh_plain(q, k_store, v_store, il, n_past,
                                             fresh_rows, scale=scale,
-                                            slopes=slopes)
+                                            slopes=slopes, round_q=round_q)
     what = "decode_attention_fresh"
-    qb = q.to(torch.bfloat16).contiguous()
+    qb = _q_arg(q, round_q)
     rows = tuple(r.contiguous() for r in fresh_rows)
     packed4, B, H, S, D = _check(  # noqa: N806
         what, qb, k_store, v_store, il, n_past, slopes, rows)
@@ -298,7 +314,8 @@ def decode_attention_fresh(q: torch.Tensor, k_store: Store, v_store: Store,
                   _FRESH_ARGS, p(qb), p(k_store[0]), p(k_store[1]),
                   p(v_store[0]), p(v_store[1]), p(n_past), p(slopes),
                   *(p(r) for r in rows), p(part), p(out), int(packed4),
-                  int(il), B, H, S, D, c, n_split, w, float(scale),
+                  int(not round_q), int(il), B, H, S, D, c, n_split, w,
+                  float(scale),
                   _build.stream_ptr(q.device))
     return out
 

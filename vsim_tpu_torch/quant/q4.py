@@ -13,7 +13,9 @@ Layouts of a packed byte c (``layout``):
        low nibble and K/64 + c//32 for the high nibble.
 
 Quantization follows ggml.c:209-250: d = amax/7, q = round(v/d) + 8 with C
-``round`` (half away from zero).
+``round`` (half away from zero).  Q4_1 (ggml.c:252-299, min + delta) and the
+reference's on-disk streams (20-byte Q4_0 blocks, per-row planar Q4_1) are
+read and written here too, in the row-major [O, K] view of the reference.
 
 NumPy has no bfloat16, so the numpy functions here carry a bf16 array as its
 uint16 bit pattern; ``tensor_from_np`` turns it back into a bf16 tensor.
@@ -30,6 +32,7 @@ import torch
 from vsim_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
 
 QK = 32  # block size along K (ggml.c:204)
+GGML_BLOCK_BYTES = 4 + QK // 2  # reference stream: f32 scale + 16 nibble bytes
 DEFAULT_SCALE_DTYPE = torch.bfloat16
 
 
@@ -37,6 +40,15 @@ def f32_to_bf16_bits(a: np.ndarray) -> np.ndarray:
     """Round f32 to bf16 (round to nearest even) → uint16 bit pattern."""
     t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
     return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def scales_f32_np(s: np.ndarray) -> np.ndarray:
+    """Scales as f32 numpy: uint16 (or "bfloat16") arrays are bf16 bits,
+    widened exactly; other dtypes are cast."""
+    s = np.asarray(s)
+    if s.dtype == np.uint16 or s.dtype.name == "bfloat16":
+        return (s.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return s.astype(np.float32)
 
 
 def _cast_scales_np(d: np.ndarray, scale_dtype) -> np.ndarray:
@@ -122,9 +134,23 @@ class Q4Tensor:
         packed = packed.reshape(*lead, O, K // 2)
         scales = scales.reshape(*lead, O, K // QK)
         return cls(
-            packed=tensor_from_np(np.swapaxes(packed, -1, -2), dev),
-            scales=tensor_from_np(np.swapaxes(scales, -1, -2), dev),
+            packed=tensor_from_np(np.ascontiguousarray(
+                np.swapaxes(packed, -1, -2)), dev),
+            scales=tensor_from_np(np.ascontiguousarray(
+                np.swapaxes(scales, -1, -2)), dev),
         )
+
+    @classmethod
+    def from_row_major(cls, packed_ok: np.ndarray, scales_ok: np.ndarray,
+                       device: DeviceLike = None) -> "Q4Tensor":
+        """Wrap reference-layout arrays (packed [..., O, K//2], scales
+        [..., O, K//QK], bf16 as uint16 bits) without requantizing."""
+        dev = resolve_device(device)
+        return cls(
+            packed=tensor_from_np(np.ascontiguousarray(
+                np.swapaxes(np.asarray(packed_ok), -1, -2)), dev),
+            scales=tensor_from_np(np.ascontiguousarray(
+                np.swapaxes(np.asarray(scales_ok), -1, -2)), dev))
 
     def pad_out(self, multiple: int = 256) -> "Q4Tensor":
         """Zero-pad the output dim to a multiple; padded columns carry scale
@@ -159,6 +185,24 @@ def quantize_q4_0_np(w: np.ndarray, scale_dtype=DEFAULT_SCALE_DTYPE
     q = q.astype(np.uint8).reshape(O, K // 2, 2)
     packed = (q[..., 0] | (q[..., 1] << 4)).astype(np.uint8)
     return packed, _cast_scales_np(d, scale_dtype)
+
+
+def dequantize_q4_0_np(packed: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """Inverse of quantize_q4_0_np → f32 [O, K] (ggml.c:301-334)."""
+    O, half_k = packed.shape  # noqa: N806
+    lo = (packed & 0x0F).astype(np.int8) - 8
+    hi = (packed >> 4).astype(np.int8) - 8
+    q = np.stack([lo, hi], axis=-1).reshape(O, half_k * 2).astype(np.float32)
+    return q * np.repeat(scales_f32_np(scales), QK, axis=-1)
+
+
+def quantize_q4_0_with_hist_np(w: np.ndarray, scale_dtype=DEFAULT_SCALE_DTYPE):
+    """quantize_q4_0_np and the 16-bin nibble histogram the reference
+    quantizer CLIs report (utils.cpp:425-482)."""
+    packed, scales = quantize_q4_0_np(w, scale_dtype)
+    hist = np.bincount(np.concatenate([(packed & 0x0F).ravel(),
+                                       (packed >> 4).ravel()]), minlength=16)
+    return packed, scales, hist.astype(np.int64)
 
 
 def quantize_q4_0(w: torch.Tensor, scale_dtype=DEFAULT_SCALE_DTYPE
@@ -211,6 +255,11 @@ def dequantize_km(w: Q4Tensor, dtype=torch.float32) -> torch.Tensor:
     return q.to(dtype) * s
 
 
+def dequantize_q4_0(w: Q4Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Dequantize to the logical row-major [..., O, K] view."""
+    return dequantize_km(w, dtype).transpose(-1, -2)
+
+
 def fake_quantize(w: torch.Tensor, scale_dtype=torch.float32) -> torch.Tensor:
     """Q4_0 quantize-dequantize round trip of an [O, K] tensor, f32 out:
     d = amax/7 per 32-block, q = round(v/d) (half away from zero) clipped
@@ -238,3 +287,99 @@ def q4_take_rows(w: Q4Tensor, ids: torch.Tensor,
     q = unpack_nibbles(packed, "i")  # [K, N]
     x = q.to(dtype) * scales.to(dtype).repeat_interleave(QK, dim=0)
     return x.T.reshape(*ids.shape, w.in_features)
+
+
+# Q4_1 (min + delta, ggml.c:252-299, 336-367), serialized per-row planar by
+# ggml_quantize_q4_1 (utils.cpp:484-536): row = [nb f32 mins][nb f32
+# deltas][nb × 16 nibble bytes]; value = nibble · delta + min.  Read and
+# written, run dense: Q4_0 stays the runtime format.
+
+
+def quantize_q4_1_np(w: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Quantize fp weights [O, K] → (packed uint8 [O, K//2], deltas f32
+    [O, K//QK], mins f32 [O, K//QK])."""
+    if w.ndim != 2:
+        raise ValueError(f"Q4_1 quantization needs a 2-D matrix, got {w.shape}")
+    O, K = w.shape  # noqa: N806
+    if K % QK != 0:
+        raise ValueError(f"K={K} not a multiple of QK={QK}")
+    blocks = np.ascontiguousarray(w, np.float32).reshape(O, K // QK, QK)
+    mn = blocks.min(axis=-1)
+    d = ((blocks.max(axis=-1) - mn) / 15.0).astype(np.float32)
+    with np.errstate(divide="ignore"):
+        inv = np.where(d != 0.0, np.float32(1.0) / d,
+                       np.float32(0.0)).astype(np.float32)
+    v = (blocks - mn[..., None]) * inv[..., None]
+    q = np.clip(_round_half_away_np(v), 0, 15).astype(np.uint8)
+    q = q.reshape(O, K // 2, 2)
+    packed = (q[..., 0] | (q[..., 1] << 4)).astype(np.uint8)
+    return packed, d, mn.astype(np.float32)
+
+
+def dequantize_q4_1_np(packed: np.ndarray, deltas: np.ndarray,
+                       mins: np.ndarray) -> np.ndarray:
+    """Inverse of quantize_q4_1_np → f32 [O, K]."""
+    O, half_k = packed.shape  # noqa: N806
+    lo = (packed & 0x0F).astype(np.float32)
+    hi = (packed >> 4).astype(np.float32)
+    q = np.stack([lo, hi], axis=-1).reshape(O, half_k * 2)
+    d = np.repeat(deltas.astype(np.float32), QK, axis=-1)
+    m = np.repeat(mins.astype(np.float32), QK, axis=-1)
+    return q * d + m
+
+
+def from_ggml_q4_1_bytes(raw: np.ndarray, O: int, K: int  # noqa: N803
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Reference per-row planar Q4_1 stream → (packed, deltas, mins)."""
+    nb = K // QK
+    rec = np.frombuffer(np.ascontiguousarray(raw), dtype=np.uint8)
+    rec = rec.reshape(O, nb * (8 + QK // 2))
+    mins = rec[:, : 4 * nb].copy().view(np.float32).reshape(O, nb)
+    deltas = rec[:, 4 * nb: 8 * nb].copy().view(np.float32).reshape(O, nb)
+    packed = rec[:, 8 * nb:].reshape(O, K // 2).copy()
+    return packed, deltas, mins
+
+
+def to_ggml_q4_1_bytes(packed: np.ndarray, deltas: np.ndarray,
+                       mins: np.ndarray) -> np.ndarray:
+    """Inverse of from_ggml_q4_1_bytes → the reference byte stream."""
+    O, half_k = packed.shape  # noqa: N806
+    nb = half_k // (QK // 2)
+    rec = np.empty((O, nb * (8 + QK // 2)), dtype=np.uint8)
+    rec[:, : 4 * nb] = np.ascontiguousarray(
+        mins.astype(np.float32)).view(np.uint8).reshape(O, 4 * nb)
+    rec[:, 4 * nb: 8 * nb] = np.ascontiguousarray(
+        deltas.astype(np.float32)).view(np.uint8).reshape(O, 4 * nb)
+    rec[:, 8 * nb:] = packed
+    return rec.reshape(-1)
+
+
+# The reference's Q4_0 stream (ggml.c:213-247): per row, K//32 blocks of 20
+# bytes, [f32 d][16 nibble bytes]; nibble byte j of block b holds elements
+# 32b+2j | 32b+2j+1, which is packed column 16b+j of the row-major view.
+
+
+def from_ggml_q4_0_bytes(raw: np.ndarray, O: int, K: int,  # noqa: N803
+                         scale_dtype=DEFAULT_SCALE_DTYPE
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """Reference Q4_0 stream → row-major (packed [O, K//2], scales
+    [O, K//QK]); bf16 scales come back as uint16 bits."""
+    nb = K // QK
+    rec = np.frombuffer(np.ascontiguousarray(raw), dtype=np.uint8)
+    rec = rec.reshape(O, nb, GGML_BLOCK_BYTES)
+    scales = rec[:, :, 0:4].copy().view(np.float32).reshape(O, nb)
+    packed = rec[:, :, 4:].reshape(O, K // 2).copy()
+    return packed, _cast_scales_np(scales, scale_dtype)
+
+
+def to_ggml_q4_0_bytes(packed: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """Inverse of from_ggml_q4_0_bytes (row-major in; scales widened to the
+    stream's f32) → the reference byte stream."""
+    O, half_k = packed.shape  # noqa: N806
+    nb = half_k // (QK // 2)
+    rec = np.empty((O, nb, GGML_BLOCK_BYTES), dtype=np.uint8)
+    rec[:, :, 0:4] = np.ascontiguousarray(
+        scales_f32_np(scales)).view(np.uint8).reshape(O, nb, 4)
+    rec[:, :, 4:] = packed.reshape(O, nb, QK // 2)
+    return rec.reshape(-1)
