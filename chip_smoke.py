@@ -79,12 +79,18 @@ Phases, each fatal on failure:
      2, f32 greedy streams must be identical (InferenceEngine, 5 tokens,
      and ServingEngine, 3 prompts on 2 slots, card vs CPU vs the card's
      InferenceEngine, 4 tokens), bf16 return_logits must agree within the
-     stated tolerance;
+     stated tolerance; SpeculativeEngine at the same widths, f32, int8 KV,
+     with NgramDrafter(3, 4) and with a ModelDrafter of pythia-70m's widths
+     at depth 2 (gamma 4): each stream (3 tokens) equal on the card and
+     the CPU and equal to the card's InferenceEngine greedy stream;
      Pythia-410M width at depth 2, three f32 training steps: losses and
      every leaf's step-0 gradient must agree; Pythia-12B width at depth 2
      through phase 7's three engines: f32 greedy streams (4 tokens)
      identical, bf16 logits within the tolerance (the gi engine's from a
-     12-token prompt, whose prefill takes K2's tensor cores);
+     12-token prompt, whose prefill takes K2's tensor cores); BLOOM-560m's,
+     GPT-2's and CodeGen-2B's widths at depth 2 (biases and GPT-2's
+     positions filled with seeded values): f32 greedy streams (4 tokens)
+     identical, bf16 logits within the tolerance;
   6. training: Pythia-410M at full width and depth, dense f32 weights from
      seed 0, make_train_step with the default AdamW, 5 steps on one seeded
      batch of 4 x 2049 tokens: finite losses, the last below the first, and
@@ -110,10 +116,45 @@ Phases, each fatal on failure:
      to the source, then AutoInference (bf16, int8 KV, the file's vocab as its
      tokenizer): a greedy text request twice, a seeded sampled one and
      return_logits, each equal bit for bit to an InferenceEngine on the
-     source params, and the chat CLI (exit 0); K1-K4 and K6 must launch.
+     source params, and the chat CLI (exit 0); K1-K4 and K6 must launch;
+  9. the other architectures at full width, random Q4 weights on the card
+     (biases and GPT-2's positions filled), bf16 compute, graphed engines,
+     one model on the card at a time: BLOOM-7b1 (ALiBi, the 250,880-row
+     lm head; first K1 on that head, K2 on the fused qkv with its bias,
+     K3, K5 and K4 with its slopes held against their plain versions) with
+     int8 KV, GPT-2 and CodeGen-2B (D = 80) with int8 and int4 KV, each
+     through InferenceEngine as phase 3 (prompts of 8, 100 and 300 tokens,
+     32 new tokens, a seeded sampled request twice, one prompt and the
+     sampled request again with the graph off, K1, K3, K4 and K6
+     launched, ids inside the vocab; the step after a 300-token prompt,
+     K6 once a layer, beside the Q4 weight-byte bound); BLOOM-7b1 and
+     Pythia-12B (phase 7's gi engine's params, shared, run right after
+     phase 7) through a graphed ServingEngine (int8, 8 slots) under phase
+     4's traffic, K1, K4, K5 and K6 launched, tokens/s and TTFT; its first
+     4 prompts (16 new tokens each) then run through it and through an
+     engine with the graph off: the same streams;
+ 10. speculative decoding at full width (SpeculativeEngine and the
+     ServingEngine drafter hook, each replayed from its captured graph;
+     the same tokens bit for bit with the graph off: an engine's first 16
+     tokens, the serving engine's 4 prompts as in phase 9): GPT-J-6B
+     (phase 3's params, right after phase 4) with NgramDrafter(3, 4) on a
+     repeating prompt, 64 tokens, and the verify cycle alone after a
+     300-token prompt (decode_step_report); the GPT-J-6B ServingEngine
+     with NgramDrafter(3, 4) under phase 4's traffic; Pythia-12B (right
+     after phase 7) with a ModelDrafter of pythia-70m's widths (its K5/K6
+     steps), 48 tokens; each against the plain engine's stream by the
+     split rule (``split_check``: equal up to the first position where the
+     plain step's top-2 margin is no larger than the largest verify-plain
+     logit gap measured before it, teacher-forced by ``route_gaps``; at
+     D % 128 == 0 the plain step rounds q to bf16 and the verify does
+     not); CodeGen-2B (phase 9's params) at f32 compute, where neither
+     route rounds q: the speculative streams of two prompts must equal the
+     plain greedy streams token for token.  Prints ms/token and tokens a
+     cycle beside the plain engine's, and spec serving tokens/s beside
+     phase 4's.
 Each path's launch counts are set to 0 just before it runs and read just
-after (the lab's too: K12-K16 launch only there).  Prints the run's total
-seconds, a JSON line {"kernels": [...]} (K1-K16) and, last, the device line.
+after (the lab's too: K12-K16 launch only there).  Prints each phase's
+seconds (phases 9 and 10 by part), the run's total seconds, a JSON line {"kernels": [...]} (K1-K16) and, last, the device line.
 Details go to build/chip_smoke.json.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
 """
@@ -1579,17 +1620,25 @@ def serve_scenario(srv, prompts, n_pred):
         monitor.stats()
 
 
+def serve_traffic(n_vocab: int):
+    """Phase 4's traffic: 13 seeded prompts of 8-300 tokens, 64 or 32 new
+    tokens each."""
+    import torch
+
+    rng = torch.Generator().manual_seed(1)
+    lens = torch.randint(8, 301, (13,), generator=rng).tolist()
+    prompts = [torch.randint(0, n_vocab, (n,), generator=rng).tolist()
+               for n in lens]
+    return prompts, [64 if i % 2 == 0 else 32 for i in range(13)]
+
+
 def phase_serving(cfg, params):
     import torch
 
     from vsim_tpu_torch.engine.serving import ServingEngine
     from vsim_tpu_torch.ops import _build
 
-    rng = torch.Generator().manual_seed(1)
-    lens = torch.randint(8, 301, (13,), generator=rng).tolist()
-    prompts = [torch.randint(0, cfg.n_vocab, (n,), generator=rng).tolist()
-               for n in lens]
-    n_pred = [64 if i % 2 == 0 else 32 for i in range(13)]
+    prompts, n_pred = serve_traffic(cfg.n_vocab)
     out, launches = {}, {}
     for kv in ("int8", "int4"):
         srv = ServingEngine(cfg, params, max_batch=8, kv_dtype=kv)
@@ -1652,7 +1701,8 @@ def phase_serving(cfg, params):
             step_b8=report,
             step_b8_k5_device_ms=g and g["decode_attention"],
             step_b8_k6_device_ms=g and g["scatter_rows"],
-            step_b8_k1_device_ms=g and g["q4_core"])
+            step_b8_k1_device_ms=g and g["q4_core"],
+            streams=[r.generated for r in reqs])
         del srv
         torch.cuda.empty_cache()
     return out, launches
@@ -1735,6 +1785,109 @@ def phase_card_vs_cpu(clock: PartTimer):
              f"{TOL_LOGITS_BF16})")
     out["bf16_logits_max_abs_err"] = err
     out["bf16_logits_rel_err"] = rel
+    out["speculative"] = spec_card_vs_cpu(clock, base, params)
+    return out
+
+
+# f32 speculative streams at GPT-J width, depth 2, seed-1 weights: SPEC_PROMPT
+# is one 6-token pattern twice.  The plain greedy steps' top-2 margins on the
+# CPU are 3.9e-3, 7.5e-2 and 6.5e-2 of max|logit| (D = 256: the plain
+# step rounds q to bf16 and the verify does not, so a near-tie could part
+# them); both drafters' CPU streams equal the plain one.
+SPEC_PROMPT = [4242, 17, 999, 30000, 5, 123] * 2
+
+
+def spec_card_vs_cpu(clock: PartTimer, base, params):
+    """SpeculativeEngine at GPT-J width, depth 2, f32, int8 KV, with
+    NgramDrafter(3, 4) and with a ModelDrafter of pythia-70m's widths at
+    depth 2 (seed 2, gamma 4): each 3-token stream equal on the card and
+    the CPU, and equal to the card's InferenceEngine greedy stream."""
+    import torch
+
+    from vsim_tpu_torch.engine.generate import InferenceEngine, engine_params
+    from vsim_tpu_torch.engine.sampling import SamplingParams
+    from vsim_tpu_torch.engine.speculative import (ModelDrafter,
+                                                   NgramDrafter,
+                                                   SpeculativeEngine)
+    from vsim_tpu_torch.models.init import random_q4_params
+
+    cfg = base.replace(compute_dtype="float32", kv_dtype="int8")
+    dcfg = pythia_drafter_cfg(cfg).replace(n_layer=2, n_ctx=base.n_ctx)
+    dparams = random_q4_params(dcfg, seed=2, device="cpu")
+    n_tok = 3
+    want = InferenceEngine(cfg, params, kv_dtype="int8", device="cuda").generate(
+        SPEC_PROMPT, n_tok, SamplingParams(greedy=True)).token_ids
+    # each device's params laid out once, shared by both drafters' engines
+    laid = {dev: clock("gpt-j spec params", dev, lambda: engine_params(
+        cfg, params, torch.device(dev))) for dev in ("cuda", "cpu")}
+    out = dict(plain_tokens=want)
+    for name, make in (("ngram", lambda: NgramDrafter(3, 4)),
+                       ("model", lambda: ModelDrafter(dcfg, dparams,
+                                                      gamma=4))):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            res = clock(f"gpt-j spec {name}", dev, lambda: SpeculativeEngine(
+                cfg, laid[dev], make(), device=dev).generate(SPEC_PROMPT,
+                                                             n_tok))
+            got[dev] = res.token_ids
+        if not got["cuda"] == got["cpu"] == want:
+            fail(f"speculative {name} f32: card {got['cuda']} cpu "
+                 f"{got['cpu']} card InferenceEngine {want}")
+        out[name] = dict(tokens=got["cuda"], cycles=res.cycles)
+    return out
+
+
+# f32 greedy steps of these prompts at depth 2, seed-1 weights with
+# fill_vectors(seed 1): every top-2 logit margin of the 4 steps on the CPU is
+# at least 4.3e-3 of max|logit| (bloom-560m 8.7e-3, gpt2 4.3e-3 at its fourth
+# step, codegen-2b 3.9e-2)
+ARCH_CPU_PROMPTS = {"bloom-560m": [1, 2500, 77, 250000, 13, 42, 9000, 7],
+                    "gpt2": [464, 2068, 7586, 21831, 18045, 625, 262, 16931],
+                    "codegen-2b": [50, 1201, 7, 40000, 333, 9, 2024, 11]}
+
+
+def phase_archs_card_vs_cpu(clock: PartTimer):
+    """BLOOM-560m's widths (its 250,880-token vocab, ALiBi, embedding LN),
+    GPT-2's (learned positions, the padded vocab) and CodeGen-2B's (D = 80,
+    interleaved RoPE on 64 of 80 dims) at depth 2, biases and positions
+    filled: f32 greedy streams (4 tokens) identical on the card and the
+    CPU, bf16 prompt logits within TOL_LOGITS_BF16."""
+    import torch
+
+    from vsim_tpu_torch.engine.generate import InferenceEngine
+    from vsim_tpu_torch.engine.sampling import SamplingParams
+    from vsim_tpu_torch.models.config import PRESETS
+    from vsim_tpu_torch.models.init import random_q4_params
+
+    out = {}
+    for name, prompt in ARCH_CPU_PROMPTS.items():
+        base = PRESETS[name].replace(n_layer=2, n_ctx=64)
+        params = fill_vectors(base, random_q4_params(base, seed=1,
+                                                     device="cpu"), 1)
+        streams, logits = {}, {}
+        for dev in ("cuda", "cpu"):
+            cfg = base.replace(compute_dtype="float32")
+            streams[dev] = clock(
+                f"{name} f32 stream", dev, lambda: InferenceEngine(
+                    cfg, params, kv_dtype="int8", device=dev).generate(
+                        prompt, 4, SamplingParams(greedy=True)).token_ids)
+            cfg = base.replace(compute_dtype="bfloat16")
+            logits[dev] = torch.from_numpy(clock(
+                f"{name} bf16 logits", dev, lambda: InferenceEngine(
+                    cfg, params, kv_dtype="int8", device=dev).generate(
+                        prompt, 1, return_logits=True).logits))
+        if streams["cuda"] != streams["cpu"]:
+            fail(f"{name} f32 greedy streams differ: card {streams['cuda']} "
+                 f"cpu {streams['cpu']}")
+        if not torch.isfinite(logits["cuda"]).all():
+            fail(f"{name} bf16 logits on the card are not finite")
+        err, rel = rel_err(logits["cuda"], logits["cpu"])
+        if rel > TOL_LOGITS_BF16:
+            fail(f"{name} bf16 logits card vs cpu: max|err| {err:.3g} (rel "
+                 f"{rel:.3g} > {TOL_LOGITS_BF16})")
+        out[name] = dict(f32_greedy_tokens=streams["cuda"],
+                         bf16_logits_max_abs_err=err, bf16_logits_rel_err=rel)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2198,12 +2351,14 @@ def phase_pythia(peaks):
             weight_bytes_per_step=step_bytes, bound_ms_per_token=bound_ms,
             step=report)
         torch.cuda.empty_cache()
+    # the gi and f32xf engines' params serve phases 9 and 10 after this
+    kept = cfg, engines["gi"].params
     del engines
     torch.cuda.empty_cache()
     total = collections.Counter()
     for counts in launches.values():
         total.update(counts)
-    return out, launches, total
+    return out, launches, total, kept
 
 
 
@@ -2408,6 +2563,680 @@ def phase_loading():
     out.update(requests=requests, q4_leaves=n_q4, n_layer=base.n_layer,
                seconds=time.perf_counter() - t0)
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: BLOOM, GPT-2 and CodeGen at full width, Pythia-12B serving
+# ---------------------------------------------------------------------------
+
+# K1, K3, K4 and K6 on an InferenceEngine's path; K1, K4, K5 and K6 on a
+# ServingEngine's (SERVING_KERNELS)
+ARCH_KERNELS = ("q4_gemv_ps", "decode_attention", "flash_attention",
+                "scatter_rows")
+# (preset, the KV dtypes of its InferenceEngines, whether it also serves)
+ARCH_RUNS = (("bloom-7b1", ("int8",), True),
+             ("gpt2", ("int8", "int4"), False),
+             ("codegen-2b", ("int8", "int4"), False))
+
+
+def fill_vectors(cfg, params, seed: int):
+    """Seeded small values in the bias vectors the architecture has and in
+    GPT-2's position table (random_q4_params leaves them 0), so that the
+    kernels' bias inputs and the position lookup carry data."""
+    import torch
+
+    layers = params["layers"]
+    dev = layers["b_fc"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    names = ["b_fc", "b_proj"] + (["bq", "bk", "bv"] if cfg.qkv_bias
+                                  else []) + (["bo"] if cfg.attn_out_bias
+                                              else [])
+    for t in [layers[k] for k in names] + (
+            [params["wpe"]] if cfg.learned_pos else []):
+        t.copy_(torch.randn(t.shape, generator=g, device=dev) * 0.02)
+    return params
+
+
+def arch_params(name: str, seed: int = 0, **replace):
+    """A preset's config (bf16 compute unless ``replace`` says otherwise)
+    and random Q4 params on the card with filled vectors."""
+    from vsim_tpu_torch.models.config import PRESETS
+    from vsim_tpu_torch.models.init import random_q4_params
+
+    cfg = PRESETS[name].replace(**dict(dict(compute_dtype="bfloat16"),
+                                       **replace))
+    return cfg, fill_vectors(cfg, random_q4_params(cfg, seed=seed), seed)
+
+
+def bloom_kernel_checks(cfg, params):
+    """The kernels at the shapes BLOOM-7b1's path gives them that phase 2
+    does not hold: K1 over the 250,880-column lm head at n = 1, K2 on the
+    fused qkv weight with its bias at 100 rows (a prefill), K3 (B = 1) and
+    K5 (B = 8) with its ALiBi slopes at H = 32, D = 128 over int8 caches,
+    and K4 with them at T = 300; each against its plain version:
+    {case: (max|err|, rel)}."""
+    import torch
+
+    from vsim_tpu_torch.models.transformer import alibi_slopes
+    from vsim_tpu_torch.ops.attention import (flash_attention_fwd,
+                                              flash_attention_plain)
+    from vsim_tpu_torch.ops.decode_attention import (
+        decode_attention_fresh, decode_attention_fresh_plain,
+        decode_attention_plain, decode_attention_q)
+    from vsim_tpu_torch.ops.matmul import ps_round_planes
+    from vsim_tpu_torch.ops.q4_cuda import (get_dequant_math, q4_gemv_ps,
+                                            q4_gemv_ps_plain, q4_matmul_ps,
+                                            q4_matmul_ps_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    H, D, S = cfg.n_head, cfg.head_dim, 2048  # noqa: N806
+    slopes = alibi_slopes(H, "cuda")
+    out = {}
+
+    def check(case, got, ref, tol):
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        if not torch.isfinite(got).all() or rel > tol:
+            fail(f"bloom {case}: max|err| {err:.3g} (rel {rel:.3g} > {tol})")
+        out[case] = (err, rel)
+
+    lm = params["lm_head"]
+    x = torch.randn((1, cfg.n_embd), generator=g, device="cuda").to(
+        torch.bfloat16)
+    check(f"K1 lm_head n=1 {cfg.n_embd}->{lm.out_features}",
+          q4_gemv_ps(x, lm.packed, lm.scales),
+          q4_gemv_ps_plain(x, lm.packed, lm.scales), TOL_Q4)
+    lp = params["layers"][0]
+    w, b = lp["w_qkv"], lp["b_qkv"].to(torch.float32).contiguous()
+    x = torch.randn((100, cfg.n_embd), generator=g, device="cuda").to(
+        torch.bfloat16)
+    r = ps_round_planes(100, x.dtype, get_dequant_math())
+    check("K2 qkv+bias n=100", q4_matmul_ps(x, w.packed, w.scales, b, r),
+          q4_matmul_ps_plain(x, w.packed, w.scales, b, r), TOL_Q4)
+
+    def side(B):  # noqa: N803
+        vals = torch.randint(-127, 128, (2, B, H, S, D), generator=g,
+                             device="cuda", dtype=torch.int8)
+        sc = (torch.rand((2, B, H, S), generator=g, device="cuda")
+              * 0.05).to(torch.bfloat16)
+        return vals, sc
+
+    kw = dict(scale=D ** -0.5, slopes=slopes, round_q=True)
+    k, v = side(1), side(1)
+    q = torch.randn((1, H, D), generator=g, device="cuda")
+    npv = torch.tensor([1500], dtype=torch.int32, device="cuda")
+    check("K3 alibi B=1 n_past=1500", decode_attention_q(q, k, v, 1, npv, **kw),
+          decode_attention_plain(q, k, v, 1, npv, **kw), TOL_DECODE)
+    k, v = side(8), side(8)
+    q = torch.randn((8, H, D), generator=g, device="cuda")
+    npv = torch.tensor([0, 1, 127, 300, 1024, 1500, 2047, 2048],
+                       dtype=torch.int32, device="cuda")
+    rows = (torch.randint(-127, 128, (8, H, D), generator=g, device="cuda",
+                          dtype=torch.int8),
+            torch.rand((8, H), generator=g, device="cuda").to(torch.bfloat16),
+            torch.randint(-127, 128, (8, H, D), generator=g, device="cuda",
+                          dtype=torch.int8),
+            torch.rand((8, H), generator=g, device="cuda").to(torch.bfloat16))
+    check("K5 alibi B=8", decode_attention_fresh(q, k, v, 1, npv, rows, **kw),
+          decode_attention_fresh_plain(q, k, v, 1, npv, rows, **kw),
+          TOL_DECODE)
+    del k, v
+    q, kk, vv = (torch.randn((1, H, 300, D), generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    fkw = dict(n_past=0, scale=D ** -0.5, slopes=slopes)
+    check("K4 alibi T=300", flash_attention_fwd(q, kk, vv, **fkw)[0],
+          flash_attention_plain(q, kk, vv, **fkw)[0], TOL_FLASH_BF16)
+    torch.cuda.empty_cache()
+    return out
+
+
+def arch_inference(label, cfg, params, kvs, peaks, n_tok: int = 32):
+    """Graphed InferenceEngines (one a KV dtype, sharing one load): prompts
+    of 8, 100 and 300 tokens (``n_tok`` new tokens, greedy) and a seeded
+    sampled request twice, with ARCH_KERNELS launched; one prompt and the
+    sampled request again with the graph off; the step after a 300-token
+    prompt (decode_step_report, K6 once a layer).  Returns (numbers,
+    launches by KV dtype, the engines' params)."""
+    import torch
+
+    from vsim_tpu_torch.engine.generate import InferenceEngine
+    from vsim_tpu_torch.engine.sampling import SamplingParams
+    from vsim_tpu_torch.ops import _build
+
+    greedy = SamplingParams(greedy=True)
+    rng = torch.Generator().manual_seed(3)
+    prompts = {n: torch.randint(0, cfg.n_vocab, (n,), generator=rng).tolist()
+               for n in (8, 100, 300)}
+    out, launches, p = {}, {}, params
+    for kv in kvs:
+        eng = InferenceEngine(cfg, p, kv_dtype=kv)
+        p = eng.params
+        step_bytes = q4_step_bytes(p)
+        _build.reset_launch_counts()
+        requests, streams = {}, {}
+        for n, prompt in prompts.items():
+            r = eng.generate(prompt, n_tok, greedy)
+            if len(r.token_ids) != n_tok or not all(
+                    0 <= t < cfg.n_vocab for t in r.token_ids):
+                fail(f"{label} {kv} prompt {n}: bad tokens "
+                     f"{r.token_ids[:8]}...")
+            tm = r.timings
+            streams[n] = r.token_ids
+            requests[f"prompt={n}"] = dict(
+                prefill_ms=tm["prefill_s"] * 1e3,
+                decode_ms_per_token=tm["decode_s"] * 1e3 / (tm["tokens"] - 1))
+        runs = [eng.generate(prompts[8], 16, SamplingParams(seed=42)).token_ids
+                for _ in range(2)]
+        if len(runs[0]) != 16 or runs[0] != runs[1] or not all(
+                0 <= t < cfg.n_vocab for t in runs[0]):
+            fail(f"{label} {kv} sampled request: {runs[0][:8]}... then "
+                 f"{runs[1][:8]}...")
+        launches[kv] = run = dict(_build.launch_counts)
+        for k in ARCH_KERNELS:
+            if run.get(k, 0) == 0:
+                fail(f"{label} {kv} InferenceEngine never launched {k}: {run}")
+        requests["eager prompt=100"] = eager_check(
+            f"{label} {kv}", lambda: InferenceEngine(
+                cfg, p, kv_dtype=kv, cuda_graph=False), prompts[100],
+            streams[100], prompts[8], runs[0])
+        torch.cuda.empty_cache()
+        logits = eng.prefill(prompts[300])
+        _, _, step = eng.start(prompts[300], logits[:, -1], greedy)
+        report = decode_step_report(step)
+        row_write_check(f"{label} {kv}", report, cfg.n_layer)
+        out[kv] = dict(requests=requests, step=report,
+                       weight_bytes_per_step=step_bytes,
+                       bound_ms_per_token=step_bytes / peaks[0] * 1e3)
+        del eng, step
+        torch.cuda.empty_cache()
+    return out, launches, p
+
+
+def serve_eager_check(label, srv, make_eager, prompts):
+    """The first 4 of phase 4's prompts, 16 new tokens each, through the
+    graphed engine ``srv`` (idle after its run) and an engine with the
+    graph off: the same streams.  Returns the eager run's tokens/s."""
+    import torch
+
+    def run(eng):  # run() also returns the requests of the earlier run
+        a = time.perf_counter()
+        out = eng.run(prompts[:4], 16, stop_tokens=())
+        torch.cuda.synchronize()
+        return [out[i].generated for i in sorted(out)[-4:]], \
+            time.perf_counter() - a
+
+    want, _ = run(srv)
+    eager = make_eager()
+    eager.warmup()
+    got, wall = run(eager)
+    if got != want:
+        fail(f"{label}: the eager engine's streams {[g[:6] for g in got]} "
+             f"differ from the replayed one's {[w[:6] for w in want]}")
+    del eager
+    torch.cuda.empty_cache()
+    return sum(len(g) for g in got) / wall
+
+
+def arch_serving(label, cfg, params):
+    """A graphed ServingEngine (int8 KV, 8 slots) under phase 4's traffic,
+    SERVING_KERNELS launched; then ``serve_eager_check``: (numbers,
+    launches)."""
+    from vsim_tpu_torch.engine.serving import ServingEngine
+    from vsim_tpu_torch.ops import _build
+
+    prompts, n_pred = serve_traffic(cfg.n_vocab)
+    srv = ServingEngine(cfg, params, max_batch=8, kv_dtype="int8")
+    warmup_s = srv.warmup()
+    _build.reset_launch_counts()
+    wall, reqs, st = serve_scenario(srv, prompts, n_pred)
+    launches = dict(_build.launch_counts)
+    for k in SERVING_KERNELS:
+        if launches.get(k, 0) == 0:
+            fail(f"{label} ServingEngine never launched {k}: {launches}")
+    if len(reqs) != 13 or any(
+            len(r.generated) != n or not all(0 <= t < cfg.n_vocab
+                                             for t in r.generated)
+            for r, n in zip(reqs, n_pred)):
+        fail(f"{label} serving: a request has the wrong tokens or count")
+    eager_tps = serve_eager_check(
+        f"{label} serving", srv, lambda: ServingEngine(
+            cfg, params, max_batch=8, kv_dtype="int8", cuda_graph=False),
+        prompts)
+    del srv
+    n_tok = sum(len(r.generated) for r in reqs)
+    chunk = st["serve/step_chunk"]
+    ttft = sorted((r.first_token_s - r.submitted_s) * 1e3 for r in reqs)
+    return dict(warmup_s=warmup_s, wall_s=wall, tokens=n_tok,
+                tokens_per_s=n_tok / wall, ttft_ms_min=ttft[0],
+                ttft_ms_median=ttft[6], ttft_ms_max=ttft[-1],
+                ms_per_chunk_step=chunk.wall_s * 1e3 / (chunk.calls * 8),
+                eager_tokens_per_s=eager_tps, streams_equal=True), launches
+
+
+def phase_archs(peaks, clock: PartTimer):
+    """Phase 9's BLOOM-7b1, GPT-2 and CodeGen-2B runs, one model on the card
+    at a time; CodeGen-2B's params also serve phase 10's f32 run (returned
+    with its config)."""
+    import torch
+
+    out, launches = {}, {}
+    keep = None
+    for name, kvs, serves in ARCH_RUNS:
+        t0 = time.perf_counter()
+        cfg, params = arch_params(name)
+        res = dict(setup_s=time.perf_counter() - t0)
+        if name == "bloom-7b1":
+            from vsim_tpu_torch.engine.generate import engine_params
+            params = engine_params(cfg, params, params["ln_f_w"].device)
+            res["kernel_checks"] = bloom_kernel_checks(cfg, params)
+        res["inference"], inf_launches, params = arch_inference(
+            name, cfg, params, kvs, peaks)
+        for kv, counts in inf_launches.items():
+            launches[f"{name} {kv}"] = counts
+        if serves:
+            res["serving"], launches[f"{name} serving"] = arch_serving(
+                name, cfg, params)
+        res["seconds"] = time.perf_counter() - t0
+        clock.seconds[name] += res["seconds"]
+        out[name] = res
+        if name == "codegen-2b":
+            keep = cfg, params
+        del params
+        torch.cuda.empty_cache()
+    return out, launches, keep
+
+
+# ---------------------------------------------------------------------------
+# phase 10: speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+SPEC_ENGINE_KERNELS = ("q4_gemv_ps", "flash_attention")  # K1 verify, K4
+SPEC_DRAFTER_KERNELS = ("decode_attention_fresh", "scatter_rows")  # K5, K6
+SPEC_SERVING_KERNELS = ("q4_matmul_ps", "flash_attention")  # K2 40 rows, K4
+
+
+def route_gaps(cfg, params, slopes, prompts, streams, gamma: int,
+               write_first: bool, n_ctx: int):
+    """The plain step's logits and the verify's, teacher-forced along the
+    plain ``streams`` (every row prefilled alone at its prompt's length,
+    then stepped together at ragged n_past; a finished row at the
+    sentinel): the plain route one token a step (``write_first``: the
+    InferenceEngine's write-then-K3 step, else the serving step's deferred
+    K5/K6 one), the verify route gamma + 1 tokens a forward, as the
+    speculative cycle runs it.  Returns per row (margins, gaps): index
+    k - 1 holds, for token k >= 1, the top-2 margin of the plain logits
+    that give it and max|verify - plain| over those logits (token 0 comes
+    from the prefill on both routes), the largest |plain logit| of the row
+    and the top-2 margin of the prefill's last logits (token 0's)."""
+    import torch
+
+    from vsim_tpu_torch.models.transformer import forward, init_cache
+
+    dev, B, G = params["ln_f_w"].device, len(prompts), gamma + 1  # noqa: N806
+    cache = init_cache(cfg, B, n_ctx=n_ctx, device=dev)
+    margins0 = []
+    for b, prompt in enumerate(prompts):
+        one = init_cache(cfg, 1, n_ctx=len(prompt), device=dev)
+        lg, _ = forward(cfg, params, torch.tensor([prompt], device=dev), one,
+                        0, fresh_kv=True, slopes=slopes)
+        top2 = lg[0, -1].topk(2).values
+        margins0.append(float(top2[0] - top2[1]))
+        for side in ("k", "v"):
+            for d, s in zip(*(t if isinstance(t, tuple) else (t,)
+                              for t in (cache[side], one[side]))):
+                d[:, b, :, :len(prompt)] = s[:, 0]
+    vcache = {side: tuple(t.clone() for t in c) if isinstance(c, tuple)
+              else c.clone() for side, c in cache.items()}
+    lens = torch.tensor([len(s) for s in streams])
+    L = int(lens.max())  # noqa: N806
+    toks = torch.zeros((B, L + G), dtype=torch.long)
+    for b, s in enumerate(streams):
+        toks[b, :len(s)] = torch.tensor(s)
+    toks = toks.to(dev)
+    n0 = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    plain = torch.zeros((B, L, cfg.n_vocab), device=dev)
+    verify = torch.zeros_like(plain)
+    for s in range(L - 1):
+        npv = torch.where(s < lens - 1, n0 + s, n_ctx).to(dev, torch.int32)
+        lg, _ = forward(cfg, params, toks[:, s:s + 1], cache, npv,
+                        write_first=write_first, slopes=slopes)
+        plain[:, s + 1] = lg[:, 0]
+    for s in range(0, L - 1, G):
+        npv = torch.where(s < lens - 1, n0 + s, n_ctx).to(dev, torch.int32)
+        lg, _ = forward(cfg, params, toks[:, s:s + G], vcache, npv,
+                        slopes=slopes)
+        k = min(G, L - 1 - s)
+        verify[:, s + 1:s + 1 + k] = lg[:, :k]
+    top2 = plain.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).tolist()
+    gap = (verify - plain).abs().amax(dim=-1).tolist()
+    scale = plain.abs().amax(dim=(1, 2)).tolist()
+    n = lens.tolist()
+    return ([margin[b][1:n[b]] for b in range(B)],
+            [gap[b][1:n[b]] for b in range(B)], scale, margins0)
+
+
+def split_check(label, got, want, margins, gaps, scales, margins0=None):
+    """Speculative streams ``got`` against the plain ones ``want``: each
+    equal up to its first differing token k, and there the plain step's
+    top-2 margin no larger than the largest |verify - plain| logit gap
+    measured at tokens 1..k of any row (teacher-forced along the plain
+    streams, so the gap at k is the two routes' own difference there: a
+    split at token 1 has no token before it).  At D % 128 == 0 the plain
+    step's decode kernel rounds q to bf16 and the verify's einsum does not,
+    so the routes may part at a near-tie; a split at a margin above the
+    gap fails.  At bf16 the einsum route also rounds the dequantized keys
+    and the probabilities to bf16 where the kernels keep f32, and over a
+    full-depth random-weight model the gap grows to a large share of
+    max|logit| (``gap_rel_max``, reported): the bf16 rule then bounds
+    little, the graphed-vs-eager and f32 checks bound the rest.  Token 0
+    comes from a prefill on both sides and must match, except where
+    ``margins0`` is given (serving: the two runs admit a request beside
+    other requests, so its prefill's rows are batched differently): a
+    split there is held to the largest gap of the run with the prefill's
+    margin.  Returns what was compared."""
+    rel = max(x / s for gp, s in zip(gaps, scales) for x in gp)
+    splits, compared = [], 0
+    for b, (g, w) in enumerate(zip(got, want)):
+        if len(g) != len(w):
+            fail(f"{label}: row {b} has {len(g)} tokens, the plain {len(w)}")
+        k = next((i for i, (x, y) in enumerate(zip(g, w)) if x != y), None)
+        compared += len(w) if k is None else k
+        if k is None:
+            continue
+        if k == 0 and margins0 is None:
+            fail(f"{label}: row {b} differs at the prefill's token")
+        bound = max(x for gp in gaps for x in (gp[:k] if k else gp))
+        margin = margins[b][k - 1] if k else margins0[b]
+        splits.append(dict(row=b, token=k, margin=margin, gap_upto=bound,
+                           gap_at=gaps[b][k - 1] if k else None))
+        if margin > bound:
+            fail(f"{label}: row {b} splits from the plain stream at token "
+                 f"{k}, where the plain margin {margin:.4g} exceeds the "
+                 f"largest route gap up to it {bound:.4g}")
+    return dict(compared_tokens=compared, rows=len(want),
+                gap_max=max(x for gp in gaps for x in gp), gap_rel_max=rel,
+                margin_min=min(x for m in margins for x in m), splits=splits)
+
+
+def repeat_prompt(n_vocab: int, seed: int, period: int = 12,
+                  times: int = 4):
+    """A seeded prompt that repeats one pattern: random-weight greedy
+    streams fall into loops, and the n-gram drafter then finds its
+    matches."""
+    import torch
+
+    rng = torch.Generator().manual_seed(seed)
+    return torch.randint(0, n_vocab, (period,), generator=rng).tolist() * times
+
+
+def spec_run(label, cfg, params, make_drafter, prompt, n_tok, plain_eng,
+             check_split=True, report_prompt=None):
+    """One speculative engine against the plain one on ``prompt``, each
+    timed after a 2-token request has captured its graph: the graphed
+    stream, the eager one's first 16 tokens (equal bit for bit), the plain
+    stream, and the split rule (or, ``check_split=False``, equality with the plain
+    stream, reported with the margins).  ``report_prompt``: the verify
+    cycle alone after it (decode_step_report).  Returns (numbers,
+    launches of the graphed run)."""
+    import torch
+
+    from vsim_tpu_torch.engine.sampling import SamplingParams
+    from vsim_tpu_torch.engine.speculative import SpeculativeEngine
+    from vsim_tpu_torch.ops import _build
+
+    greedy = SamplingParams(greedy=True)
+    plain_eng.generate(prompt, 2, greedy)  # its step captured: not timed
+    plain = plain_eng.generate(prompt, n_tok, greedy)
+    spec = SpeculativeEngine(cfg, params, make_drafter())
+    _build.reset_launch_counts()
+    spec.generate(prompt, 2)  # the cycle captured
+    res = spec.generate(prompt, n_tok)
+    launches = dict(_build.launch_counts)
+    # the eager cycle runs 7-30x slower: its first 16 tokens are compared
+    eager = SpeculativeEngine(cfg, spec.params, make_drafter(),
+                              cuda_graph=False).generate(prompt,
+                                                         min(n_tok, 16))
+    if eager.token_ids != res.token_ids[:len(eager.token_ids)]:
+        fail(f"{label}: the eager stream {eager.token_ids[:12]}... differs "
+             f"from the replayed one {res.token_ids[:12]}...")
+    if not all(0 <= t < cfg.n_vocab for t in res.token_ids):
+        fail(f"{label}: a token outside the vocab")
+    margins, gaps, scales, _ = route_gaps(cfg, spec.params, spec.slopes,
+                                          [prompt], [plain.token_ids],
+                                          spec.gamma, True, spec.n_ctx)
+    if not check_split and res.token_ids != plain.token_ids:
+        k = next(i for i, (x, y) in enumerate(zip(res.token_ids,
+                                                   plain.token_ids)) if x != y)
+        fail(f"{label}: the speculative stream parts from the plain one at "
+             f"token {k} (plain margin "
+             f"{margins[0][k - 1] if k else float('nan'):.4g})")
+    split = split_check(label, [res.token_ids], [plain.token_ids], margins,
+                        gaps, scales)
+    tm, pt = res.timings, plain.timings
+    out = dict(tokens=len(res.token_ids), cycles=res.cycles,
+               tokens_per_cycle=res.tokens_per_cycle,
+               ms_per_token=tm["decode_s"] * 1e3 / (tm["tokens"] - 1),
+               eager_ms_per_token=eager.timings["decode_s"] * 1e3
+               / (eager.timings["tokens"] - 1),
+               plain_ms_per_token=pt["decode_s"] * 1e3 / (pt["tokens"] - 1),
+               eager_equal=True, split=split)
+    if report_prompt is not None:
+        step = spec.start(report_prompt)
+        rep = decode_step_report(step)
+        for mode in ("eager", "graphed"):
+            rep[mode].pop("ordered")
+        out["cycle"] = rep
+    del spec
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def spec_serving(cfg, params, plain_streams):
+    """The GPT-J-6B ServingEngine with NgramDrafter(3, 4) under phase 4's
+    traffic, graphed (then ``serve_eager_check``), against phase 4's int8
+    plain streams by the split rule (the route gaps at B = 8, two batches
+    of rows, through the serving step's route): (numbers, launches)."""
+    from vsim_tpu_torch.engine.serving import ServingEngine
+    from vsim_tpu_torch.engine.speculative import NgramDrafter
+    from vsim_tpu_torch.ops import _build
+
+    cfg = cfg.replace(kv_dtype="int8")
+    prompts, n_pred = serve_traffic(cfg.n_vocab)
+
+    def engine(graphed):
+        return ServingEngine(cfg, params, max_batch=8, kv_dtype="int8",
+                             cuda_graph=graphed, drafter=NgramDrafter(3, 4))
+
+    srv = engine(True)
+    srv.warmup()
+    _build.reset_launch_counts()
+    wall, reqs, st = serve_scenario(srv, prompts, n_pred)
+    launches = dict(_build.launch_counts)
+    streams = [r.generated for r in reqs]
+    cycles, emitted = srv.spec_cycles, srv.spec_emitted
+    for k in SPEC_SERVING_KERNELS:
+        if launches.get(k, 0) == 0:
+            fail(f"speculative serving never launched {k}: {launches}")
+    eager_tps = serve_eager_check("speculative serving", srv,
+                                  lambda: engine(False), prompts)
+    slopes, gparams = srv.slopes, srv.params
+    del srv
+    if any(len(s) != n for s, n in zip(streams, n_pred)):
+        fail("speculative serving: a request has the wrong token count")
+    margins, gaps, scales, margins0 = [], [], [], []
+    for lo in (0, 8):
+        m, g, sc, m0 = route_gaps(cfg, gparams, slopes, prompts[lo:lo + 8],
+                                  plain_streams[lo:lo + 8], 4, False,
+                                  cfg.n_ctx)
+        margins += m
+        gaps += g
+        scales += sc
+        margins0 += m0
+    split = split_check("speculative serving", streams, plain_streams,
+                        margins, gaps, scales, margins0)
+    n_tok = sum(len(s) for s in streams)
+    spec = st["serve/spec_step"]
+    return dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+                eager_tokens_per_s=eager_tps,
+                spec_cycles=cycles, spec_emitted=emitted,
+                ms_per_spec_step=spec.wall_s * 1e3 / spec.calls,
+                eager_equal=True, split=split), launches
+
+
+def pythia_drafter_cfg(target):
+    """pythia-70m's widths with the target's vocab, bf16, int8 KV."""
+    from vsim_tpu_torch.models.config import PRESETS
+
+    return PRESETS["pythia-70m"].replace(
+        n_vocab=target.n_vocab, compute_dtype=target.compute_dtype,
+        kv_dtype="int8")
+
+
+def phase_spec_gptj(cfg, params):
+    """Phase 10's GPT-J-6B engine run on phase 3's params (bf16, int8 KV):
+    SpeculativeEngine with NgramDrafter(3, 4) on a repeating prompt (64 new
+    tokens), then the verify cycle's report after a 300-token prompt."""
+    import torch
+
+    from vsim_tpu_torch.engine.generate import InferenceEngine
+    from vsim_tpu_torch.engine.speculative import NgramDrafter
+
+    cfg = cfg.replace(kv_dtype="int8")
+    plain = InferenceEngine(cfg, params, kv_dtype="int8")
+    rng = torch.Generator().manual_seed(0)
+    long_prompt = torch.randint(0, cfg.n_vocab, (300,), generator=rng).tolist()
+    out, launches = spec_run(
+        "gpt-j ngram", cfg, params, lambda: NgramDrafter(3, 4),
+        repeat_prompt(cfg.n_vocab, 5), 64, plain, report_prompt=long_prompt)
+    for k in SPEC_ENGINE_KERNELS:
+        if launches.get(k, 0) == 0:
+            fail(f"gpt-j SpeculativeEngine never launched {k}")
+    return out, launches
+
+
+def phase_spec_pythia(cfg, params):
+    """Phase 10's Pythia-12B run on phase 7's params: a ModelDrafter of
+    pythia-70m's widths (seed 5, gamma 4), 48 new tokens."""
+    from vsim_tpu_torch.engine.generate import InferenceEngine
+    from vsim_tpu_torch.engine.speculative import ModelDrafter
+    from vsim_tpu_torch.models.init import random_q4_params
+
+    dcfg = pythia_drafter_cfg(cfg)
+    dparams = random_q4_params(dcfg, seed=5)
+    plain = InferenceEngine(cfg, params, kv_dtype="int8")
+    out, launches = spec_run(
+        "pythia-12b model drafter", cfg.replace(kv_dtype="int8"), params,
+        lambda: ModelDrafter(dcfg, dparams, gamma=4),
+        repeat_prompt(cfg.n_vocab, 6, period=16, times=2), 48, plain)
+    for k in SPEC_ENGINE_KERNELS + SPEC_DRAFTER_KERNELS:
+        if launches.get(k, 0) == 0:
+            fail(f"pythia-12b SpeculativeEngine never launched {k}")
+    return out, launches
+
+
+def phase_spec_codegen_f32(cfg, params):
+    """Phase 10's strict run: CodeGen-2B (D = 80, neither route rounds q)
+    with f32 compute and int8 KV, NgramDrafter(3, 4): on two prompts the
+    speculative stream must equal the plain greedy stream token for token;
+    each prompt's smallest top-2 margin is printed."""
+    from vsim_tpu_torch.engine.generate import InferenceEngine
+    from vsim_tpu_torch.engine.speculative import NgramDrafter
+
+    cfg = cfg.replace(compute_dtype="float32", kv_dtype="int8")
+    plain = InferenceEngine(cfg, params, kv_dtype="int8")
+    out, launches = {}, {}
+    for i, prompt in enumerate((repeat_prompt(cfg.n_vocab, 7),
+                                repeat_prompt(cfg.n_vocab, 8, period=40,
+                                              times=1))):
+        out[f"prompt {i}"], launches[f"prompt {i}"] = spec_run(
+            f"codegen-2b f32 prompt {i}", cfg, params,
+            lambda: NgramDrafter(3, 4), prompt, 48, plain, check_split=False)
+    return out, launches
+
+
+def arch_lines(archs, clock: PartTimer):
+    """Phase 9's lines: its seconds by part, then by model each engine's
+    ms a token beside its bound, its step after a 300-token prompt and
+    the serving runs."""
+    lines = [f"phase 9 (BLOOM-7b1, GPT-2, CodeGen-2B, Pythia-12B serving) in "
+             f"{sum(clock.seconds.values()):.1f} s: "
+             + json.dumps({k: round(v, 1) for k, v in clock.seconds.items()})]
+    for name, res in archs.items():
+        if "kernel_checks" in res:
+            lines.append(f"  {name} kernels vs plain (max|err|, rel): "
+                         + json.dumps({k: [float(f"{x:.3g}") for x in v]
+                                       for k, v in
+                                       res["kernel_checks"].items()}))
+        for kv, r in res.get("inference", {}).items():
+            reqs = r["requests"]
+            lines.append(
+                f"  {name} {kv}: ms a token "
+                + ", ".join(f"{k} {v['decode_ms_per_token']:.3f}"
+                            for k, v in reqs.items() if "eager" not in k)
+                + ", eager prompt=100 "
+                f"{reqs['eager prompt=100']['decode_ms_per_token']:.3f}; "
+                f"bound {r['bound_ms_per_token']:.3f} ms "
+                f"({r['weight_bytes_per_step'] / 1e9:.3f} GB of Q4 a step); "
+                "greedy and sampled streams equal with the graph off")
+            lines.append(step_line(f"{name} {kv} step at n_past 300",
+                                   r["step"]))
+            lines.append("    by kernel " + json.dumps(
+                {k: round(v, 4) for k, v in
+                 (r["step"]["graphed"]["device_ms_by_kernel"] or {}).items()}))
+        if "serving" in res:
+            v = res["serving"]
+            lines.append(
+                f"  {name} serving (int8, 8 slots, 13 requests): "
+                f"{v['tokens_per_s']:.1f} tokens/s graphed, "
+                f"{v['eager_tokens_per_s']:.1f} eager (streams equal), "
+                f"{v['ms_per_chunk_step']:.2f} ms a chunk step, TTFT "
+                f"{v['ttft_ms_min']:.1f}/{v['ttft_ms_median']:.1f}/"
+                f"{v['ttft_ms_max']:.1f} ms (min/median/max)")
+    return lines
+
+
+def spec_lines(spec, clock: PartTimer, serving):
+    """Phase 10's lines: its seconds by part, each run's ms a token and
+    tokens a cycle beside the plain engine's, the split rule's numbers,
+    the verify cycle's step, the speculative serving run beside phase 4's."""
+    lines = [f"phase 10 (speculative decoding) in "
+             f"{sum(clock.seconds.values()):.1f} s: "
+             + json.dumps({k: round(v, 1) for k, v in clock.seconds.items()})]
+    for label, r in spec.items():
+        sp = r["split"]
+        split = (f"compared {sp['compared_tokens']} tokens of "
+                 f"{sp['rows']} row(s), largest verify-plain logit gap "
+                 f"{sp['gap_max']:.4g} ({sp['gap_rel_max']:.3g} of "
+                 "max|logit|), smallest plain margin "
+                 f"{sp['margin_min']:.4g}, splits "
+                 + json.dumps([{k: (round(v, 5) if isinstance(v, float)
+                                    else v) for k, v in x.items()}
+                               for x in sp["splits"]]))
+        if "spec_cycles" in r:
+            lines.append(
+                f"  {label} (NgramDrafter(3, 4), phase 4's traffic): "
+                f"{r['tokens_per_s']:.1f} tokens/s graphed, "
+                f"{r['eager_tokens_per_s']:.1f} eager (streams equal); phase "
+                f"4's plain int8 {serving['int8']['tokens_per_s']:.1f}; "
+                f"{r['spec_emitted'] / r['spec_cycles']:.2f} tokens a step "
+                f"over the active slots ({r['spec_cycles']} steps), "
+                f"{r['ms_per_spec_step']:.2f} ms a step; {split}")
+            continue
+        lines.append(
+            f"  {label}: {r['ms_per_token']:.3f} ms a token graphed "
+            f"({r['eager_ms_per_token']:.3f} eager, equal), "
+            f"{r['tokens_per_cycle']:.2f} tokens a cycle ({r['cycles']} "
+            f"cycles, {r['tokens']} tokens); plain engine "
+            f"{r['plain_ms_per_token']:.3f} ms a token; {split}")
+        if "cycle" in r:
+            rep = r["cycle"]
+            lines.append(step_line(f"{label} verify cycle at n_past 300",
+                                   rep))
+            lines.append("    by kernel " + json.dumps(
+                {k: round(v, 4) for k, v in
+                 (rep["graphed"]["device_ms_by_kernel"] or {}).items()}))
+    return lines
 
 
 KERNEL_META = {
@@ -2634,7 +3463,6 @@ def main() -> None:
         print(k6_step_line(kv, rep, cfg.n_layer), flush=True)
     t0 = time.perf_counter()
     serving, serve_launches = phase_serving(cfg, params)
-    del params
     graph_floor_ms = graph_launch_floor_ms()
     print(f"ServingEngine in {time.perf_counter() - t0:.1f} s", flush=True)
     for k, v in serving.items():
@@ -2652,11 +3480,22 @@ def main() -> None:
               f"({floor_ms * 1e3:.2f} us alone); K5 "
               f"{v['step_b8_k5_device_ms']} ms, K1 "
               f"{v['step_b8_k1_device_ms']} ms", flush=True)
+    # phase 10's GPT-J-6B runs, on phase 3's params
+    p10 = PartTimer()
+    spec, spec_launches = {}, {}
+    spec["gpt-j-6b ngram"], spec_launches["gpt-j-6b ngram"] = p10(
+        "gpt-j-6b ngram", "cuda", lambda: phase_spec_gptj(cfg, params))
+    spec["gpt-j-6b serving"], spec_launches["gpt-j-6b serving"] = p10(
+        "gpt-j-6b serving", "cuda", lambda: spec_serving(
+            cfg, params, serving["int8"]["streams"]))
+    del params
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     clock = PartTimer()
     vs_cpu = phase_card_vs_cpu(clock)
     vs_cpu["training"] = phase_train_card_vs_cpu(clock)
     vs_cpu["pythia-12b"] = phase_pythia_card_vs_cpu(clock)
+    vs_cpu["archs"] = phase_archs_card_vs_cpu(clock)
     vs_cpu["seconds"] = {k: round(v, 1) for k, v in clock.seconds.items()}
     cpu_s = sum(v for k, v in clock.seconds.items() if k.endswith(" cpu"))
     print(f"card vs cpu, seconds by part (CPU side {cpu_s:.1f} s): "
@@ -2668,7 +3507,8 @@ def main() -> None:
     print(f"training and perplexity in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps(training)}", flush=True)
     t0 = time.perf_counter()
-    pythia, pythia_launches, pythia_total = phase_pythia(peaks)
+    pythia, pythia_launches, pythia_total, (p_cfg, p_params) = \
+        phase_pythia(peaks)
     print(f"Pythia-12B engines in {time.perf_counter() - t0:.1f} s "
           f"(setup {pythia['setup_s']:.1f} s), K10 on the last layer: "
           f"{json.dumps(pythia['k10_last_layer'])}", flush=True)
@@ -2680,6 +3520,21 @@ def main() -> None:
         print(f"  {k}: K10 {g['k10_device_ms']} ms, K9 {g['k9_device_ms']} "
               f"ms of the replayed step's {g['device_busy_ms']} device ms; "
               f"bound {v['bound_ms_per_token']:.3f} ms", flush=True)
+
+    # phase 9's Pythia-12B serving and phase 10's Pythia-12B run, on phase
+    # 7's params
+    p9 = PartTimer()
+    archs = {}
+    archs["pythia-12b"], arch_launches = {}, {}
+    archs["pythia-12b"]["serving"], arch_launches["pythia-12b serving"] = p9(
+        "pythia-12b serving", "cuda", lambda: arch_serving(
+            "pythia-12b", p_cfg, p_params))
+    spec["pythia-12b model drafter"], \
+        spec_launches["pythia-12b model drafter"] = p10(
+        "pythia-12b model drafter", "cuda",
+        lambda: phase_spec_pythia(p_cfg, p_params))
+    del p_params
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     loading, load_launches = phase_loading()
@@ -2701,8 +3556,29 @@ def main() -> None:
               f"engine's on the source params: {v['tokens'][:8]}...",
               flush=True)
 
+    t0 = time.perf_counter()
+    more, more_launches, (c_cfg, c_params) = phase_archs(peaks, p9)
+    archs.update(more)
+    arch_launches.update(more_launches)
+    strict, strict_launches = p10(
+        "codegen-2b f32", "cuda",
+        lambda: phase_spec_codegen_f32(c_cfg, c_params))
+    for k in strict:
+        spec[f"codegen-2b f32 {k}"] = strict[k]
+        spec_launches[f"codegen-2b f32 {k}"] = strict_launches[k]
+    del c_params
+    torch.cuda.empty_cache()
+    for line in arch_lines(archs, p9):
+        print(line, flush=True)
+    for line in spec_lines(spec, p10, serving):
+        print(line, flush=True)
+
     total = collections.Counter(launches)
     for counts in serve_launches.values():
+        total.update(counts)
+    for counts in arch_launches.values():
+        total.update(counts)
+    for counts in spec_launches.values():
         total.update(counts)
     total.update(train_launches)
     total.update(pythia_total)
@@ -2716,7 +3592,9 @@ def main() -> None:
                        training=training, pythia=pythia,
                        launches_pythia=pythia_launches,
                        launches_labs=lab_launches, loading=loading,
-                       launches_loading=load_launches,
+                       launches_loading=load_launches, archs=archs,
+                       launches_archs=arch_launches, speculative=spec,
+                       launches_speculative=spec_launches,
                        timings_unheld=UNHELD[0], ptxas=reports,
                        sass_k9_k10=sass, sass_k15=sass_batch,
                        sass_k12=sass_lab,

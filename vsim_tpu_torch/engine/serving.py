@@ -1,5 +1,4 @@
-"""Continuous-batching serving engine (port of vsim_tpu/engine/serving.py,
-without the speculative drafter).
+"""Continuous-batching serving engine (port of vsim_tpu/engine/serving.py).
 
 Many concurrent requests share one weights-resident model: each decode step
 is one batched forward over ``max_batch`` slots, every slot at its own cache
@@ -30,10 +29,23 @@ head-major [L, max_batch, H, n_ctx, D] block, one slot per request.
     a step.  ``warmup()`` captures it; ``cuda_graph=False`` runs the step
     eagerly on the card, and the CPU always does.  Admission stays eager.
   * ``run()`` serves a list of prompts to completion.
+  * With a ``drafter`` (an ``NgramDrafter``, engine/speculative.py; greedy
+    sampling only) every step is speculative (``_spec_step``): the drafter
+    proposes gamma tokens per slot from the slot's token history (a
+    [max_batch, n_ctx + 1] device buffer whose last column is a sink for
+    writes out of range), one ragged forward of gamma + 1 tokens a slot
+    verifies them (inactive slots at the sentinel n_past), and each slot
+    advances by its own accepted prefix + 1.  The host reads each step's
+    tokens.  While an active slot has no room for a full gamma + 1
+    advance, plain one-token steps run instead (they leave the history as
+    it is, as the JAX engine's do).  ``step_chunk`` takes one speculative
+    step and ``run`` steps one at a time.  The step is captured and
+    replayed like ``_serve_step``.
 
 The JAX engine's recompile guards have no counterpart here: kv-length
 buckets and admission padded to [max_batch, 16 * 2^k] with sentinel rows.
-Monitor spans: ``serve/admit``, ``serve/step``, ``serve/step_chunk``.
+Monitor spans: ``serve/admit``, ``serve/step``, ``serve/step_chunk``,
+``serve/spec_step``.
 """
 
 from __future__ import annotations
@@ -56,6 +68,7 @@ from vsim_tpu_torch.engine.generate import (
 )
 from vsim_tpu_torch.engine.graph import GraphedStep
 from vsim_tpu_torch.engine.sampling import SamplingParams, sample_torch
+from vsim_tpu_torch.engine.speculative import NgramDrafter, accept
 from vsim_tpu_torch.models.config import ModelConfig
 from vsim_tpu_torch.models.transformer import alibi_slopes, forward, init_cache
 from vsim_tpu_torch.ops import _build
@@ -100,11 +113,18 @@ class ServingEngine:
                  sampling: Optional[SamplingParams] = None, seed: int = 0,
                  repeat_window: int = 64, kv_dtype=None,
                  device: DeviceLike = None,
-                 cuda_graph: Optional[bool] = None):
+                 cuda_graph: Optional[bool] = None, drafter=None):
         """``cuda_graph`` (default: on for a CUDA device) replays each
-        serving step from a captured graph; False runs it eagerly."""
+        serving step from a captured graph; False runs it eagerly.
+        ``drafter``: an ``NgramDrafter`` makes every step speculative
+        (greedy sampling only)."""
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
+        if drafter is not None and not isinstance(drafter, NgramDrafter):
+            raise ValueError(
+                "ServingEngine drafts from the slots' token history only "
+                "(NgramDrafter); a ModelDrafter would need a draft cache per "
+                "slot: use SpeculativeEngine for one")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.params = engine_params(cfg, params, dev)
@@ -137,6 +157,22 @@ class ServingEngine:
         self._ring_pos = torch.zeros(1, dtype=torch.long, device=dev)
         self._make_graph = graph_maker(dev, cuda_graph, self.generator)
         self._steps: Dict[str, GraphedStep] = {}  # dequant math -> step
+
+        # speculative serving: the history, each step's emitted columns
+        # and count per slot, the target forwards taken and tokens they gave
+        self.drafter = drafter
+        self.spec_cycles = self.spec_emitted = 0
+        self._spec_steps: Dict[str, GraphedStep] = {}  # dequant math -> step
+        if drafter is not None:
+            if not sp.greedy:
+                raise ValueError("speculative serving verifies against the "
+                                 "greedy argmax: pass SamplingParams("
+                                 "greedy=True)")
+            G = drafter.gamma + 1  # noqa: N806
+            self.history = torch.full((max_batch, self.n_ctx + 1), -1,
+                                      dtype=torch.long, device=dev)
+            self._spec_out = torch.zeros((max_batch, G + 1),
+                                         dtype=torch.long, device=dev)
 
         # host-side bookkeeping
         self._free: List[int] = list(range(max_batch))
@@ -196,6 +232,44 @@ class ServingEngine:
         remaining.copy_(left)
         active.copy_(active & ~hit_stop & (left > 0))
 
+    def _spec_step(self) -> None:
+        """One speculative step on the static buffers: drafts for every
+        slot, one ragged forward over ``[token, d1..dgamma]`` (inactive
+        slots at the sentinel n_past, so they write nothing), the accepted
+        prefix and bonus token of each active slot into its history and
+        ``_spec_out`` (the emitted columns, then their count), its token =
+        the bonus token and n_past + a + 1."""
+        tokens, n_past, active = self.tokens, self.n_past, self._live
+        S = self.n_ctx  # noqa: N806
+        drafts = self.drafter.propose(None, tokens, self.history[:, :S],
+                                      n_past)
+        verify_in = torch.cat([tokens[:, None], drafts], dim=1)
+        np_eff = torch.where(active, n_past, S)
+        logits, _ = forward(self.cfg, self.params, verify_in, self.cache,
+                            np_eff, slopes=self.slopes)
+        a, emit = accept(drafts, torch.argmax(logits, dim=-1))
+        j = torch.arange(drafts.shape[1] + 1, device=self.device)[None, :]
+        ok = (j <= a[:, None]) & active[:, None]
+        # out-of-range targets go to the sink column S
+        hpos = torch.where(ok, n_past.long()[:, None] + 1 + j, S).clamp(
+            max=S)
+        self.history.scatter_(1, hpos, emit)
+        n_emit = torch.where(active, a + 1, 0)
+        self._spec_out.copy_(torch.cat([emit, n_emit[:, None]], dim=1))
+        tokens.copy_(torch.where(active, emit.gather(1, a[:, None])[:, 0],
+                                 tokens))
+        n_past.add_(n_emit.to(torch.int32))
+
+    def _spec_graphed(self) -> GraphedStep:
+        """The speculative step of the current dequant math."""
+        math_name = get_dequant_math()
+        step = self._spec_steps.get(math_name)
+        if step is None:  # through a weak proxy, as the plain step
+            step = self._spec_steps[math_name] = GraphedStep(
+                functools.partial(ServingEngine._spec_step,
+                                  weakref.proxy(self)), self._make_graph)
+        return step
+
     def _load_chunk(self, n_steps: int, active: Sequence[bool],
                     remaining: Sequence[int], stop_ids: Sequence[int]
                     ) -> GraphedStep:
@@ -244,8 +318,9 @@ class ServingEngine:
         one all-sentinel admission (a prefill of max_batch rows whose cache
         rows go nowhere) and one all-inactive step (every slot at the
         sentinel n_past, so nothing is written), which on the card also
-        captures the step's graph.  Slots, cache and the seeded generator
-        are left as they were.  Returns its seconds."""
+        captures the step's graph; with a drafter, one all-inactive
+        speculative step too.  Slots, cache and the seeded generator are
+        left as they were.  Returns its seconds."""
         t0 = time.perf_counter()
         dev, B = self.device, self.max_batch  # noqa: N806
         if dev.type == "cuda":
@@ -261,6 +336,9 @@ class ServingEngine:
         state = self.generator.get_state()
         self._run_steps(1, [False] * B, [0] * B, ())
         self.generator.set_state(state)
+        if self.drafter is not None:  # every slot inactive: no change
+            self._live.zero_()
+            self._spec_graphed()()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
@@ -317,6 +395,15 @@ class ServingEngine:
         self.n_past[slots] = (last + 1).to(device=dev, dtype=torch.int32)
         self.last_tokens[slots] = torch.cat([windows[:, 1:], toks[:, None]],
                                             dim=1)
+        if self.drafter is not None:
+            # the drafter's history: the prompt, then the pending token at
+            # position n_past (engine/speculative.py's history invariant)
+            hist = torch.full((n, self.n_ctx + 1), -1, dtype=torch.long)
+            for i, r in enumerate(admitted):
+                hist[i, :len(r.prompt_ids)] = torch.tensor(r.prompt_ids)
+            hist = hist.to(dev)
+            hist.scatter_(1, (last + 1).to(dev)[:, None], toks[:, None])
+            self.history[slots] = hist
         toks_host = toks.tolist()
         now = time.perf_counter()
         for r, tok in zip(admitted, toks_host):
@@ -364,24 +451,59 @@ class ServingEngine:
                 finished.append(req.request_id)
         return finished
 
+    def _spec_advance(self) -> List[int]:
+        """One speculative step: every active slot advances by its own
+        accepted prefix + 1, one host transfer; plain one-token steps while
+        a slot has no room for a full gamma + 1 advance.  Returns the
+        request ids that finished."""
+        G = self.drafter.gamma + 1  # noqa: N806
+        if any(len(r.prompt_ids) + len(r.generated) + G > self.n_ctx
+               for r in self._active.values()):
+            return self._advance(1)
+        active = [False] * self.max_batch
+        for slot in self._active:
+            active[slot] = True
+        self._live.copy_(torch.tensor(active, dtype=torch.bool))
+        self._spec_graphed()()
+        emit = self._spec_out.tolist()  # one host read
+        self.spec_cycles += 1
+        finished = []
+        for slot, req in list(self._active.items()):
+            row = emit[slot]
+            for tok in row[:row[-1]]:
+                self.spec_emitted += 1
+                self._emit(req, tok)
+                if req.done:
+                    finished.append(req.request_id)
+                    break
+        return finished
+
     def step(self) -> List[int]:
-        """Admit queued requests, advance all active slots one token.
-        Returns the request ids that finished this step."""
+        """Admit queued requests, advance all active slots one token (with
+        a drafter: one speculative step).  Returns the request ids that
+        finished this step."""
         self._admit()
         if not self._active:
             return []
+        if self.drafter is not None:
+            with monitor.span("serve/spec_step"):
+                return self._spec_advance()
         with monitor.span("serve/step"):
             return self._advance(1)
 
     def step_chunk(self, n_steps: int = 8) -> List[int]:
         """Admit, then advance every active slot by up to ``n_steps`` tokens
         with one host round trip.  A slot may compute past a stop id of its
-        own request within the chunk; those tokens are dropped."""
+        own request within the chunk; those tokens are dropped.  With a
+        drafter: one speculative step."""
         if n_steps < 1:
             raise ValueError("n_steps must be >= 1")
         self._admit()
         if not self._active:
             return []
+        if self.drafter is not None:
+            with monitor.span("serve/spec_step"):
+                return self._spec_advance()
         with monitor.span("serve/step_chunk"):
             return self._advance(n_steps)
 
@@ -389,11 +511,12 @@ class ServingEngine:
             stop_tokens: Sequence[int] = (2,),
             chunk_steps: int = 8) -> Dict[int, Request]:
         """Serve prompts to completion; returns every request finished
-        since the last ``run`` by id."""
+        since the last ``run`` by id.  With a drafter it steps one
+        speculative step at a time."""
         for p in prompts:
             self.submit(p, n_predict, stop_tokens=stop_tokens)
         while self._queue or self._active:
-            if chunk_steps > 1:
+            if chunk_steps > 1 and self.drafter is None:
                 self.step_chunk(chunk_steps)
             else:
                 self.step()
