@@ -78,14 +78,14 @@ Phases, each fatal on failure:
   5. card against CPU, each part's seconds printed: GPT-J width at depth
      2, f32 greedy streams must be identical (InferenceEngine, 5 tokens,
      and ServingEngine, 3 prompts on 2 slots, card vs CPU vs the card's
-     InferenceEngine, 4 tokens), bf16 return_logits must agree within the
+     InferenceEngine, 3 tokens), bf16 return_logits must agree within the
      stated tolerance; SpeculativeEngine at the same widths, f32, int8 KV,
      with NgramDrafter(3, 4) and with a ModelDrafter of pythia-70m's widths
      at depth 2 (gamma 4): each stream (3 tokens) equal on the card and
      the CPU and equal to the card's InferenceEngine greedy stream;
      Pythia-410M width at depth 2, three f32 training steps: losses and
      every leaf's step-0 gradient must agree; Pythia-12B width at depth 2
-     through phase 7's three engines: f32 greedy streams (4 tokens)
+     through phase 7's three engines: f32 greedy streams (3 tokens)
      identical, bf16 logits within the tolerance (the gi engine's from a
      12-token prompt, whose prefill takes K2's tensor cores); BLOOM-560m's,
      GPT-2's and CodeGen-2B's widths at depth 2 (biases and GPT-2's
@@ -152,6 +152,27 @@ Phases, each fatal on failure:
      plain greedy streams token for token.  Prints ms/token and tokens a
      cycle beside the plain engine's, and spec serving tokens/s beside
      phase 4's.
+ 11. tensor, sequence and pipeline parallelism (parallel/), last: K10,
+     K9, K5, K6 and K4 first held against their plain versions at the
+     shapes one rank of GPT-J-6B gives them at tp = 2 and 4; then the
+     ranks, this script re-run as ``chip_smoke.py --rank JOB`` with the
+     VSIM_* variables set, one process a rank: two on card 0 over gloo
+     (steps eager: gloo's collectives go through the host) and, where the
+     machine has four cards, four over NCCL (a card a rank, the serving
+     step replayed from its graph; otherwise the phase prints that it did
+     not run and why).  Each run: (a) GPT-J width at depth 2, f32, int8
+     KV: the TP prefill's and the sequence-parallel forward's logits
+     within 1e-4 of max|logit| of one card's, TP serving streams equal to
+     one card's ServingEngine's, a 2-stage pipeline equal to
+     forward_nocache bit for bit; (b) GPT-J-6B at full width (phase 3's
+     seed-0 weights, bf16, int8 KV), ServingEngine(mesh=...) on 8 slots
+     under phase 4's traffic: tokens/s, ms a chunk step, TTFT, each rank's
+     launches (K10, K9, K5, K6 and K4 all > 0, every rank's tokens the
+     same), and the streams held to phase 4's by ``split_check`` against
+     the TP-to-one-card logit gap teacher-forced along them (also the gap
+     of one card's stacked engine, the TP path's kernels at whole shapes).
+     A rank that fails fails the phase.  ``chip_smoke.py --parallel`` runs
+     phase 11 alone (after phase 4's int8 traffic, for its streams).
 Each path's launch counts are set to 0 just before it runs and read just
 after (the lab's too: K12-K16 launch only there).  Prints each phase's
 seconds (phases 9 and 10 by part), the run's total seconds, a JSON line {"kernels": [...]} (K1-K16) and, last, the device line.
@@ -1750,7 +1771,7 @@ def phase_card_vs_cpu(clock: PartTimer):
         fail(f"f32 greedy streams differ: card {streams['cuda']} "
              f"cpu {streams['cpu']}")
     out["f32_greedy_tokens"] = streams["cuda"]
-    # serving: 3 prompts on 2 slots (one waits for a slot), 4 tokens each.
+    # serving: 3 prompts on 2 slots (one waits for a slot), 3 tokens each.
     # Random weights give the odd near-tie, where card and CPU f32 sums may
     # pick different tokens (range(300, 320) has a top-2 logit margin of
     # 3e-4 of max|logit| at its third step): every greedy step of these
@@ -1761,10 +1782,10 @@ def phase_card_vs_cpu(clock: PartTimer):
     for dev in ("cuda", "cpu"):
         res = clock("gpt-j serving", dev, lambda: ServingEngine(
             cfg, params, max_batch=2, kv_dtype="int8", device=dev).run(
-                prompts, 4, stop_tokens=(), chunk_steps=4))
+                prompts, 3, stop_tokens=(), chunk_steps=3))
         served[dev] = [res[i].generated for i in sorted(res)]
     eng = InferenceEngine(cfg, params, kv_dtype="int8", device="cuda")
-    single = [eng.generate(p, 4, SamplingParams(greedy=True)).token_ids
+    single = [eng.generate(p, 3, SamplingParams(greedy=True)).token_ids
               for p in prompts]
     if not served["cuda"] == served["cpu"] == single:
         fail(f"f32 serving streams differ: card {served['cuda']} cpu "
@@ -1893,7 +1914,7 @@ def phase_archs_card_vs_cpu(clock: PartTimer):
 
 # f32 greedy steps of this prompt at Pythia-12B width, depth 2, seed-1
 # weights: every top-2 logit margin of the 4 steps on the CPU is at least
-# 2.1e-2 of max|logit|, for each engine
+# 2.1e-2 of max|logit|, for each engine (3 run, since phase 11 was added)
 PYTHIA_PROMPT = [50, 1201, 7, 40000, 333, 9, 2024, 11]
 # the gi engine's bf16 logits: more than 8 tokens, so that its prefill takes
 # K2's tensor-core instance (K1 takes n <= 8 rows)
@@ -1927,7 +1948,7 @@ def phase_pythia_card_vs_cpu(clock: PartTimer):
                     f"pythia-12b {name} f32 stream", dev,
                     lambda: InferenceEngine(
                         cfg, params, kv_dtype="int8", device=dev,
-                        **kw).generate(PYTHIA_PROMPT, 4, SamplingParams(
+                        **kw).generate(PYTHIA_PROMPT, 3, SamplingParams(
                             greedy=True)).token_ids)
                 cfg = base.replace(compute_dtype="bfloat16")
                 logits[dev] = torch.from_numpy(clock(
@@ -3239,6 +3260,557 @@ def spec_lines(spec, clock: PartTimer, serving):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# phase 11: tensor, sequence and pipeline parallelism (parallel/)
+# ---------------------------------------------------------------------------
+
+# what tensor-parallel serving launches on each rank: K10 (the layers), K9
+# (the lm head's rows), K5 + K6 (the deferred step over the rank's heads),
+# K4 (admission prefill)
+PARALLEL_KERNELS = ("q4_matmul_stacked", "q4_matmul_i",
+                    "decode_attention_fresh", "scatter_rows",
+                    "flash_attention")
+# phase 5's depth-2 prompts at GPT-J width (seed-1 weights, f32, int8 KV):
+# every greedy step's top-2 margin is >= 1.09e-3 of max|logit| on the CPU
+PARALLEL_PROMPTS = [list(range(100, 112)), list(range(7, 10)),
+                    list(range(1000, 1020))]
+TOL_TP = 1e-4  # TP / SP logits vs one card's, of max|logit|: sum order
+
+
+def shard_kernel_rows(peaks):
+    """K10, K9, K5, K6 and K4 against their plain versions at the shapes
+    one rank of GPT-J-6B's tensor-parallel serving gives them, tp = 2 and
+    4: K10 at K/tp (wo, proj) and O/tp (qkv, fc) on 8 rows in bf16, f32
+    planes (the gi math), fc with its bias slice; K9 on the lm head's
+    51200/tp rows; K5 and K6 over H/tp heads at B=8 (ragged n_past, the
+    sentinel included); K4 at admission (8 rows x 300 tokens).  Timed as
+    phase 2's rows; no library time (phase 2 holds each kernel's)."""
+    import torch
+
+    from vsim_tpu_torch.ops.attention import (flash_attention_fwd,
+                                              flash_attention_plain)
+    from vsim_tpu_torch.ops.decode_attention import (
+        decode_attention_fresh, decode_attention_fresh_plain, scatter_rows,
+        scatter_rows_plain)
+    from vsim_tpu_torch.ops.q4_cuda import (q4_matmul_i, q4_matmul_i_plain,
+                                            q4_matmul_stacked,
+                                            q4_matmul_stacked_plain)
+
+    bw, bf16_peak, f32_peak = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    rows = []
+
+    def bound(nbytes, ops, peak):
+        t_b, t_o = nbytes / bw * 1e3, ops / peak * 1e3
+        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+    def weight(L, K, O, seed):  # noqa: N803
+        gg = torch.Generator(device=dev)
+        gg.manual_seed(seed)
+        lead = (L,) if L else ()
+        return (torch.randint(0, 256, (*lead, K // 2, O), generator=gg,
+                              device=dev, dtype=torch.uint8),
+                (torch.rand((*lead, K // 32, O), generator=gg, device=dev)
+                 * 0.01).to(torch.bfloat16))
+
+    def check(kname, shape, got, ref, tol):
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        if not torch.isfinite(got).all() or rel > tol:
+            fail(f"{kname} {shape}: max|err| {err:.3g} (rel {rel:.3g} > "
+                 f"{tol})")
+        return err, rel
+
+    def row(kname, shape, err, rel, fn, plain, nbytes, ops, peak):
+        b_ms, b_by = bound(nbytes, ops, peak)
+        rows.append(dict(kernel=kname, shape=shape, max_abs_err=err,
+                         rel_err=rel, ms=timed(fn, reps=50),
+                         plain_ms=timed(plain, reps=3, warmup=1),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    n, L, S, D, B = 8, 2, 2048, 256, 8  # noqa: N806
+    n_list = [0, 1, 127, 128, 300, 1500, 2047, 2048]
+    for tp in (2, 4):
+        ilt = torch.tensor(1, dtype=torch.int32, device=dev)
+        for sname, K, O, has_bias in (  # noqa: N806
+                ("qkv", 4096, 12288 // tp, False),
+                ("wo", 4096 // tp, 4096, False),
+                ("fc", 4096, 16384 // tp, True),
+                ("proj", 16384 // tp, 4096, False)):
+            w0 = weight(L, K, O, K + O + tp)
+            nb = w0[0].numel() // L + w0[1].numel() // L * 2
+            ws = rotation(lambda i: weight(L, K, O, K + O + tp + i), nb * L)
+            ws[0] = w0
+            x = torch.randn((n, K), generator=g, device=dev).to(
+                torch.bfloat16)
+            bias = (torch.randn((O,), generator=g, device=dev)
+                    if has_bias else None)
+            shape = (f"gpt-j tp={tp} {sname} il=1 of 2 n={n} {K}->{O} "
+                     "x=bfloat16 planes=f32")
+            got = q4_matmul_stacked(x, *w0, ilt, bias, False)
+            err, rel = check("q4_matmul_stacked", shape, got,
+                             q4_matmul_stacked_plain(x, *w0, ilt, bias,
+                                                     False), TOL_Q4)
+            cyc = itertools.cycle(ws)
+            row("q4_matmul_stacked", shape, err, rel,
+                lambda: q4_matmul_stacked(x, *next(cyc), ilt, bias, False),
+                lambda: q4_matmul_stacked_plain(x, *w0, ilt, bias, False),
+                nb + n * K * 2 + n * O * 4 + (O * 4 if has_bias else 0),
+                2 * n * K * O, bf16_peak)
+        K, O = 4096, 51200 // tp  # noqa: N806
+        w0 = weight(0, K, O, 7 + tp)
+        nb = w0[0].numel() + w0[1].numel() * 2
+        ws = rotation(lambda i: weight(0, K, O, 7 + tp + i), nb)
+        ws[0] = w0
+        x = torch.randn((n, K), generator=g, device=dev).to(torch.bfloat16)
+        bias = torch.randn((O,), generator=g, device=dev)
+        shape = f"gpt-j tp={tp} lm_head n={n} {K}->{O} x=bfloat16"
+        err, rel = check("q4_matmul_i", shape, q4_matmul_i(x, *w0, bias),
+                         q4_matmul_i_plain(x, *w0, bias), TOL_Q4)
+        cyc = itertools.cycle(ws)
+        row("q4_matmul_i", shape, err, rel,
+            lambda: q4_matmul_i(x, *next(cyc), bias),
+            lambda: q4_matmul_i_plain(x, *w0, bias),
+            nb + n * K * 2 + n * O * 4 + O * 4, 2 * n * K * O, bf16_peak)
+        del ws, w0
+
+        H = 16 // tp  # noqa: N806
+
+        def side(shape):
+            return (torch.randint(-127, 128, shape, generator=g, device=dev,
+                                  dtype=torch.int8),
+                    (torch.rand(shape[:-1], generator=g, device=dev)
+                     * 0.05).to(torch.bfloat16))
+
+        npv = torch.tensor(n_list, dtype=torch.int32, device=dev)
+        k_store, v_store = side((2, B, H, S, D)), side((2, B, H, S, D))
+        fresh = (*side((B, H, D)), *side((B, H, D)))
+        q = torch.randn((B, H, D), generator=g, device=dev)
+        kw = dict(scale=D ** -0.5, round_q=True)
+        shape = f"gpt-j tp={tp} int8 B={B} H={H} D={D} S={S} n_past={n_list}"
+        err, rel = check("decode_attention_fresh", shape,
+                         decode_attention_fresh(q, k_store, v_store, 1, npv,
+                                                fresh, **kw),
+                         decode_attention_fresh_plain(q, k_store, v_store, 1,
+                                                      npv, fresh, **kw),
+                         TOL_DECODE)
+        read = sum(min(x, S) for x in n_list) + B
+        row("decode_attention_fresh", shape, err, rel,
+            lambda: decode_attention_fresh(q, k_store, v_store, 1, npv,
+                                           fresh, **kw),
+            lambda: decode_attention_fresh_plain(q, k_store, v_store, 1, npv,
+                                                 fresh, **kw),
+            2 * H * read * (D + 2) + B * H * D * (2 + 4), 4 * H * read * D,
+            bf16_peak)
+        del k_store, v_store
+        Lc = 28  # noqa: N806
+        k_store, v_store = side((Lc, B, H, S, D)), side((Lc, B, H, S, D))
+        new = (*side((Lc, B, H, D)), *side((Lc, B, H, D)))
+        k_ref, v_ref = (tuple(t.clone() for t in st)
+                        for st in (k_store, v_store))
+        scatter_rows(k_store, v_store, new, npv)
+        scatter_rows_plain(k_ref, v_ref, new, npv)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((*k_store, *v_store),
+                                                     (*k_ref, *v_ref))):
+            fail(f"scatter_rows gpt-j tp={tp}: differs from its plain "
+                 "version")
+        del k_ref, v_ref
+        live = sum(x < S for x in n_list)
+        row("scatter_rows", f"gpt-j tp={tp} int8 L={Lc} B={B} H={H} Dp={D} "
+            f"S={S} ({live} rows land)", 0.0, 0.0,
+            lambda: scatter_rows(k_store, v_store, new, npv),
+            lambda: scatter_rows_plain(k_store, v_store, new, npv),
+            2 * 2 * Lc * live * H * (D + 2), 0, bf16_peak)
+        del k_store, v_store, new
+        torch.cuda.empty_cache()
+        T = 300  # noqa: N806
+        qt, k, v = (torch.randn((B, H, T, D), generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(3))
+        shape = f"gpt-j tp={tp} B={B} T={T} H={H} D={D} bfloat16"
+        got, _ = flash_attention_fwd(qt, k, v, scale=D ** -0.5)
+        err, rel = check("flash_attention_fwd", shape, got,
+                         flash_attention_plain(qt, k, v, scale=D ** -0.5)[0],
+                         TOL_FLASH_BF16)
+        row("flash_attention_fwd", shape, err, rel,
+            lambda: flash_attention_fwd(qt, k, v, scale=D ** -0.5),
+            lambda: flash_attention_plain(qt, k, v, scale=D ** -0.5),
+            4 * B * H * T * D * 2 + B * H * T * 4,
+            4 * B * H * T * (T + 1) // 2 * D, bf16_peak)
+    return rows
+
+
+def forced_logits(cfg, params, slopes, prompts, streams, n_tok: int,
+                  heads: int, mesh=None):
+    """The serving step's logits teacher-forced along ``streams`` (their
+    first ``n_tok`` tokens; every row prefilled alone at its prompt's
+    length, then stepped together at ragged n_past through the deferred
+    K5/K6 route; a finished row at the sentinel), under ``mesh`` when given
+    (a rank's shard, ``heads`` of them): logits [B, n_tok, V], index k the
+    logits that give token k >= 1, and each row's prefill margin (token
+    0's)."""
+    import torch
+
+    from vsim_tpu_torch.models.transformer import forward, init_cache
+    from vsim_tpu_torch.parallel import context as pctx
+
+    dev, B = params["ln_f_w"].device, len(prompts)  # noqa: N806
+    S = cfg.n_ctx  # noqa: N806
+    margins0 = []
+    with pctx.use_mesh(mesh):
+        cache = init_cache(cfg, B, device=dev, heads=heads)
+        for b, prompt in enumerate(prompts):
+            one = init_cache(cfg, 1, n_ctx=len(prompt), device=dev,
+                             heads=heads)
+            lg, _ = forward(cfg, params, torch.tensor([prompt], device=dev),
+                            one, 0, fresh_kv=True, slopes=slopes)
+            top2 = lg[0, -1].topk(2).values
+            margins0.append(float(top2[0] - top2[1]))
+            for side in ("k", "v"):
+                for d, s in zip(*(t if isinstance(t, tuple) else (t,)
+                                  for t in (cache[side], one[side]))):
+                    d[:, b, :, :len(prompt)] = s[:, 0]
+        lens = torch.tensor([min(len(s), n_tok) for s in streams])
+        toks = torch.zeros((B, n_tok), dtype=torch.long)
+        for b, s in enumerate(streams):
+            toks[b, :lens[b]] = torch.tensor(s[:n_tok])
+        toks = toks.to(dev)
+        n0 = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+        out = torch.zeros((B, n_tok, cfg.n_vocab), device=dev)
+        for s in range(n_tok - 1):
+            npv = torch.where(s < lens - 1, n0 + s, S).to(dev, torch.int32)
+            lg, _ = forward(cfg, params, toks[:, s:s + 1], cache, npv,
+                            slopes=slopes)
+            out[:, s + 1] = lg[:, 0]
+    return out, margins0
+
+
+def parallel_depth2(mesh):
+    """Phase 11 (a), on every rank: GPT-J-6B's width at depth 2, seed-1
+    weights, f32 compute, int8 KV.  The TP prefill's logits (K4, K10, K9
+    at shard shapes) against one card's, the TP ServingEngine's greedy
+    streams against one card's ServingEngine, sequence parallelism against
+    ``forward_nocache``, and a 2-stage ``pipeline_forward_nocache`` bit for
+    bit against ``forward_nocache`` on each microbatch; rank 0 computes
+    the one-card references and fails the phase on a miss."""
+    import torch
+
+    from vsim_tpu_torch.engine.serving import ServingEngine
+    from vsim_tpu_torch.models.config import PRESETS
+    from vsim_tpu_torch.models.init import random_q4_params
+    from vsim_tpu_torch.models.transformer import (forward, forward_nocache,
+                                                   init_cache)
+    from vsim_tpu_torch.parallel import context as pctx
+    from vsim_tpu_torch.parallel import distributed
+    from vsim_tpu_torch.parallel.mesh import make_mesh
+    from vsim_tpu_torch.parallel.pipeline import (pipeline_forward_nocache,
+                                                  stage_params)
+    from vsim_tpu_torch.parallel.sharding import shard_params
+
+    dev, rank = mesh.device, distributed.process_index()
+    tp = mesh.size("model")
+    cfg = PRESETS["gpt-j-6b"].replace(n_layer=2, n_ctx=64,
+                                      compute_dtype="float32",
+                                      kv_dtype="int8")
+    params = random_q4_params(cfg, seed=1, device=dev)
+    local = shard_params(params, mesh)
+    ids = torch.tensor([PARALLEL_PROMPTS[0]], device=dev)
+    out = {}
+
+    def rel_to(got, ref, what):
+        err = float((got - ref).abs().max() / ref.abs().max())
+        if not math.isfinite(err) or err > TOL_TP:
+            fail(f"{what}: {err:.3g} of max|logit| > {TOL_TP}")
+        return err
+
+    with pctx.use_mesh(mesh):
+        got, _ = forward(cfg, local, ids, init_cache(
+            cfg, 1, device=dev, heads=cfg.n_head // tp), 0, fresh_kv=True)
+    if rank == 0:
+        ref, _ = forward(cfg, params, ids, init_cache(cfg, 1, device=dev), 0,
+                         fresh_kv=True)
+        out["tp_prefill_rel_err"] = rel_to(got, ref, f"tp={tp} prefill")
+
+    srv = ServingEngine(cfg, params, max_batch=2, mesh=mesh)
+    res = srv.run(PARALLEL_PROMPTS, 4, stop_tokens=(), chunk_steps=4)
+    streams = [res[i].generated for i in sorted(res)]
+    out["graphed"] = srv._make_graph is not None
+    out["serving_streams"] = streams
+    if rank == 0:
+        one = ServingEngine(cfg, params, max_batch=2, device=dev)
+        res = one.run(PARALLEL_PROMPTS, 4, stop_tokens=(), chunk_steps=4)
+        want = [res[i].generated for i in sorted(res)]
+        if streams != want:
+            fail(f"tp={tp} serving streams {streams} != one card's {want}")
+    del srv
+
+    ids2 = torch.tensor([PARALLEL_PROMPTS[0], PARALLEL_PROMPTS[2][:12]],
+                        device=dev)
+    with pctx.use_mesh(mesh, rules={"seq": "model"}):
+        got, _ = forward(cfg, local, ids2, None, 0)
+    if rank == 0:
+        out["sp_rel_err"] = rel_to(got, forward_nocache(cfg, params, ids2),
+                                   f"tp={tp} sequence parallel")
+
+    pmesh = make_mesh((2, distributed.process_count() // 2),
+                      axis_names=("pipe", "data"), device=dev)
+    ids3 = torch.stack([ids2, ids2.flip(0)])  # [M=2, mB=2, T=12]
+    got = pipeline_forward_nocache(cfg, stage_params(params, 2, pmesh), ids3,
+                                   pmesh)
+    if rank == 0:
+        want = torch.stack([forward_nocache(cfg, params, i) for i in ids3])
+        if not torch.equal(got, want):
+            fail("2-stage pipeline differs from forward_nocache: max|err| "
+                 f"{float((got - want).abs().max()):.3g}")
+        out["pipeline_bit_equal"] = True
+    return out
+
+
+def parallel_full_width(mesh, plain_streams):
+    """Phase 11 (b), on every rank: GPT-J-6B at full width (seed-0 random
+    Q4 weights, phase 3's), bf16, int8 KV, ``ServingEngine(mesh=...)`` on 8
+    slots under phase 4's traffic: tokens/s, ms a chunk step, TTFT and
+    this rank's launches.  Then the TP step's and one card's serving step
+    teacher-forced along phase 4's int8 streams (rank 0 runs the one-card
+    step on the unrolled params phase 4 served from): the streams must
+    equal phase 4's up to a split whose one-card top-2 margin is at most
+    the measured TP-to-one-card logit gap (``split_check``)."""
+    import torch
+
+    from vsim_tpu_torch.engine.generate import engine_params
+    from vsim_tpu_torch.engine.serving import ServingEngine
+    from vsim_tpu_torch.models.config import PRESETS
+    from vsim_tpu_torch.models.init import random_q4_params
+    from vsim_tpu_torch.ops import _build
+    from vsim_tpu_torch.parallel import distributed
+
+    dev, rank = mesh.device, distributed.process_index()
+    cfg = PRESETS["gpt-j-6b"].replace(compute_dtype="bfloat16",
+                                      kv_dtype="int8")
+    t0 = time.perf_counter()
+    params = random_q4_params(cfg, seed=0, device=dev)
+    srv = ServingEngine(cfg, params, max_batch=8, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    warmup_s = srv.warmup()
+    prompts, n_pred = serve_traffic(cfg.n_vocab)
+    _build.reset_launch_counts()
+    wall, reqs, st = serve_scenario(srv, prompts, n_pred)
+    launches = dict(_build.launch_counts)
+    for k in PARALLEL_KERNELS:
+        if launches.get(k, 0) == 0:
+            fail(f"rank {rank}: TP serving never launched {k}: {launches}")
+    streams = [r.generated for r in reqs]
+    n_tok = sum(len(x) for x in streams)
+    chunk = st["serve/step_chunk"]
+    out = dict(setup_s=setup_s, warmup_s=warmup_s, wall_s=wall,
+               generated_tokens=n_tok, tokens_per_s=n_tok / wall,
+               ms_per_chunk_step=chunk.wall_s * 1e3 / (chunk.calls * 8),
+               ttft_ms=[(r.first_token_s - r.submitted_s) * 1e3
+                        for r in reqs],
+               graphed=srv._make_graph is not None, launches=launches,
+               streams=streams)
+    # teacher-force only as far as the furthest split needs (8 at least)
+    firsts = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                   None) for g, w in zip(streams, plain_streams)]
+    n_forced = max([8] + [k + 1 for k in firsts if k is not None])
+    tp_params, slopes, heads = srv.params, srv.slopes, srv.heads
+    del srv
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plain, stacked = [], []
+    if rank == 0:  # one card: the unrolled params phase 4 served from, and
+        # the stacked ones (the TP path's kernels at whole shapes)
+        for unroll, dst in ((True, plain), (False, stacked)):
+            one = engine_params(cfg, params, dev, unroll_layers=unroll)
+            for lo in (0, 8):
+                dst.append(forced_logits(cfg, one, None, prompts[lo:lo + 8],
+                                         plain_streams[lo:lo + 8], n_forced,
+                                         cfg.n_head))
+            del one
+    tp = [forced_logits(cfg, tp_params, slopes, prompts[lo:lo + 8],
+                        plain_streams[lo:lo + 8], n_forced, heads, mesh)
+          for lo in (0, 8)]
+    out["forced_tokens"] = n_forced
+    out["forced_s"] = time.perf_counter() - t0
+    if rank == 0:
+        margins, gaps, scales, margins0 = [], [], [], []
+        for (pl, m0), (tl, _), lo in zip(plain, tp, (0, 8)):
+            top2 = pl.topk(2, dim=-1).values
+            margin = (top2[..., 0] - top2[..., 1]).tolist()
+            gap = (tl - pl).abs().amax(dim=-1).tolist()
+            n = [min(len(x), n_forced) for x in plain_streams[lo:lo + 8]]
+            margins += [margin[b][1:n[b]] for b in range(len(n))]
+            gaps += [gap[b][1:n[b]] for b in range(len(n))]
+            scales += pl.abs().amax(dim=(1, 2)).tolist()
+            margins0 += m0
+        # the two differences apart: TP against one card's stacked engine
+        # (the all-reduces' sum order), that engine against phase 4's
+        out["gap_scale"] = max(p.abs().max().item() for p, _ in plain)
+        out["gap_tp_vs_stacked"] = max((t - st).abs().max().item() for
+                                       (t, _), (st, _) in zip(tp, stacked))
+        out["gap_stacked_vs_plain"] = max((st - p).abs().max().item() for
+                                          (st, _), (p, _) in zip(stacked,
+                                                                 plain))
+        out["split"] = split_check(f"tp={mesh.size('model')} serving",
+                                   streams, plain_streams, margins, gaps,
+                                   scales, margins0)
+    return out
+
+
+def rank_main(job_path: str) -> None:
+    """One rank of phase 11 (``chip_smoke.py --rank JOB``, started by
+    ``run_ranks`` with the ``VSIM_*`` variables set): joins the group,
+    runs (a) and (b) on this rank's card and writes its results."""
+    import torch
+
+    from vsim_tpu_torch.parallel import distributed
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(backend=job["backend"], timeout_s=600)
+    mesh = distributed.global_mesh((1, -1))
+    rank = distributed.process_index()
+    out = dict(rank=rank, world=distributed.process_count(),
+               backend=distributed.backend(), device=str(mesh.device))
+    t0 = time.perf_counter()
+    out["depth2"] = parallel_depth2(mesh)
+    out["depth2_s"] = time.perf_counter() - t0
+    if job["full"]:
+        t0 = time.perf_counter()
+        out["full"] = parallel_full_width(mesh, job["plain_streams"])
+        out["full_s"] = time.perf_counter() - t0
+    with open(os.path.join(job["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.barrier("phase 11 done", timeout_s=600)
+    distributed.shutdown()
+
+
+def run_ranks(world: int, backend, plain_streams, timeout_s: float = 420):
+    """Start ``world`` ranks of this script (``--rank``), one process
+    each, over ``backend`` (None: the port's rule, NCCL with a card a
+    rank); fail, killing the others, when a rank fails or the timeout
+    passes.  Returns each rank's results."""
+    import socket
+
+    d = os.path.join(HERE, "build", f"phase11_{world}")
+    os.makedirs(d, exist_ok=True)
+    job = os.path.join(d, "job.json")
+    with open(job, "w") as f:
+        json.dump(dict(dir=d, backend=backend, full=True,
+                       plain_streams=plain_streams), f)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, VSIM_COORDINATOR=f"localhost:{port}",
+                   VSIM_NUM_PROCESSES=str(world), VSIM_PROCESS_ID=str(r))
+        logs.append(open(os.path.join(d, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", job],
+            env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout_s
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(d, f"rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            fail(f"phase 11 rank {r} of {world} ({backend or 'nccl'}) exited "
+                 f"{p.returncode}:\n{tail}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    if any(o["full"]["streams"] != out[0]["full"]["streams"] for o in out):
+        fail(f"phase 11 ({world} ranks): the ranks retired different tokens")
+    return out
+
+
+def phase_parallel(peaks, plain_streams):
+    """Phase 11: the shard-shape kernel rows, then two ranks on card 0
+    over gloo (eager steps: gloo's collectives go through the host) and,
+    with four cards or more, four ranks over NCCL (a card each, the
+    serving step captured and replayed).  Returns (numbers, kernel rows,
+    launches of the serving runs summed over ranks)."""
+    import torch
+
+    t0 = time.perf_counter()
+    rows = shard_kernel_rows(peaks)
+    out = dict(kernel_rows_s=time.perf_counter() - t0)
+    launches = collections.Counter()
+    runs = [("gloo tp=2", 2, "gloo")]
+    if torch.cuda.device_count() >= 4:
+        runs.append(("nccl tp=4", 4, None))
+    else:
+        out["nccl tp=4"] = (f"not run: {torch.cuda.device_count()} card(s); "
+                            "NCCL takes a card a rank, four are needed")
+    for label, world, backend in runs:
+        t0 = time.perf_counter()
+        ranks = run_ranks(world, backend, plain_streams)
+        out[label] = dict(seconds=time.perf_counter() - t0, ranks=ranks)
+        for r in ranks:
+            launches.update(r["full"]["launches"])
+    return out, rows, dict(launches)
+
+
+def parallel_lines(par):
+    """What phase 11 prints: per run, the depth-2 checks, serving's
+    numbers, the TP-to-one-card gap and each rank's launches."""
+    lines = [f"  shard-shape kernel rows in {par['kernel_rows_s']:.1f} s"]
+    for label, run in par.items():
+        if isinstance(run, str):
+            lines.append(f"  {label}: {run}")
+            continue
+        if not isinstance(run, dict):
+            continue
+        r0 = run["ranks"][0]
+        d2, full = r0["depth2"], r0["full"]
+        lines.append(
+            f"  {label} ({r0['backend']}, {len(run['ranks'])} ranks, "
+            f"{run['seconds']:.1f} s; step "
+            f"{'replayed from its graph' if full['graphed'] else 'eager'}): "
+            f"depth 2 f32: prefill {d2['tp_prefill_rel_err']:.2g}, SP "
+            f"{d2['sp_rel_err']:.2g} of max|logit| (<= {TOL_TP}), serving "
+            "streams = one card's, 2-stage pipeline = forward_nocache bit "
+            f"for bit ({r0['depth2_s']:.1f} s)")
+        sp = full["split"]
+        lines.append(
+            f"  {label} GPT-J-6B bf16 int8 KV, 8 slots: "
+            f"{full['tokens_per_s']:.1f} tokens/s, "
+            f"{full['ms_per_chunk_step']:.2f} ms a chunk step, TTFT "
+            f"{min(full['ttft_ms']):.0f}-{max(full['ttft_ms']):.0f} ms "
+            f"(setup {full['setup_s']:.1f} s, warmup {full['warmup_s']:.1f} "
+            f"s); vs phase 4's streams: {sp['compared_tokens']} tokens "
+            f"equal, {len(sp['splits'])} splits, TP-to-one-card gap "
+            f"{sp['gap_max']:.4g} ({sp['gap_rel_max']:.3g} of max|logit|) "
+            f"over {full['forced_tokens']} forced tokens; of it TP vs one "
+            f"card's stacked engine {full['gap_tp_vs_stacked']:.4g}, that "
+            f"engine vs phase 4's {full['gap_stacked_vs_plain']:.4g} (max|"
+            f"logit| {full['gap_scale']:.3g})")
+        for r in run["ranks"]:
+            lines.append(f"    rank {r['rank']} ({r['device']}) launches: "
+                         + json.dumps({k: r["full"]["launches"].get(k, 0)
+                                       for k in PARALLEL_KERNELS}))
+    return lines
+
+
 KERNEL_META = {
     "q4_gemv_ps": ("vsim_tpu_torch/csrc/q4_gemv_ps.cu",
                    "vsim_tpu/ops/pallas_q4.py:339", "fc n=1"),
@@ -3573,7 +4145,18 @@ def main() -> None:
     for line in spec_lines(spec, p10, serving):
         print(line, flush=True)
 
+    # phase 11, last: its ranks are processes of their own on the card(s)
+    t0 = time.perf_counter()
+    parallel, par_rows, par_launches = phase_parallel(
+        peaks, serving["int8"]["streams"])
+    print(f"parallel (phase 11) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for line in parallel_lines(parallel):
+        print(line, flush=True)
+    rows += par_rows
+
     total = collections.Counter(launches)
+    total.update(par_launches)
     for counts in serve_launches.values():
         total.update(counts)
     for counts in arch_launches.values():
@@ -3595,6 +4178,7 @@ def main() -> None:
                        launches_loading=load_launches, archs=archs,
                        launches_archs=arch_launches, speculative=spec,
                        launches_speculative=spec_launches,
+                       parallel=parallel, launches_parallel=par_launches,
                        timings_unheld=UNHELD[0], ptxas=reports,
                        sass_k9_k10=sass, sass_k15=sass_batch,
                        sass_k12=sass_lab,
@@ -3609,5 +4193,58 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def main_parallel() -> None:
+    """``chip_smoke.py --parallel``: phase 11 alone (the four-card run),
+    after phase 4's int8 traffic on one card for the streams it is held
+    to.  Prints the same lines as the whole check's phase 11."""
+    t_start = time.perf_counter()
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from vsim_tpu_torch.engine.serving import ServingEngine
+    from vsim_tpu_torch.models.config import PRESETS
+    from vsim_tpu_torch.models.init import random_q4_params
+    from vsim_tpu_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    print("\n".join(smi), flush=True)
+    name = torch.cuda.get_device_name(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    cfg = PRESETS["gpt-j-6b"].replace(compute_dtype="bfloat16")
+    srv = ServingEngine(cfg, random_q4_params(cfg, seed=0), max_batch=8,
+                        kv_dtype="int8")
+    srv.warmup()
+    prompts, n_pred = serve_traffic(cfg.n_vocab)
+    _, reqs, _ = serve_scenario(srv, prompts, n_pred)
+    del srv
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parallel, rows, launches = phase_parallel(
+        card_peaks(name), [r.generated for r in reqs])
+    print(f"parallel (phase 11) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for line in parallel_lines(parallel):
+        print(line, flush=True)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with open(os.path.join(HERE, "build", "chip_smoke_parallel.json"),
+              "w") as f:
+        json.dump(dict(card=smi, parallel=parallel, kernel_rows=rows,
+                       launches=launches), f, indent=1)
+    print(f"chip_smoke --parallel: pass in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2])
+    elif sys.argv[1:] == ["--parallel"]:
+        main_parallel()
+    else:
+        main()

@@ -60,6 +60,22 @@ from vsim_tpu_torch.quant.q4 import Q4Tensor
 LM_HEAD_ALIGN = 1024
 
 
+def pad_and_fuse(cfg: ModelConfig, params):
+    """The load-time transforms that keep the layers stacked: a misaligned
+    Q4 lm head (and its bias) padded to a multiple of 1024, q/k/v fused
+    when the config says so.  Returns a new dict (or ``params``)."""
+    lm = params.get("lm_head")
+    if isinstance(lm, Q4Tensor) and lm.out_features % LM_HEAD_ALIGN:
+        params = dict(params, lm_head=lm.pad_out(LM_HEAD_ALIGN))
+        b = params.get("lm_head_b")
+        if b is not None:
+            pad = params["lm_head"].out_features - b.shape[-1]
+            params["lm_head_b"] = F.pad(b.to(torch.float32), (0, pad))
+    if cfg.fuse_qkv:
+        params = fuse_qkv_params(cfg, params)
+    return params
+
+
 def engine_params(cfg: ModelConfig, params, device: torch.device, *,
                   unroll_layers: bool = True, plane_split: bool = True):
     """The engines' params on ``device``: lm head padded, qkv fused and
@@ -72,15 +88,7 @@ def engine_params(cfg: ModelConfig, params, device: torch.device, *,
     params = params_to(params, device)
     if isinstance(params["layers"], list):
         return params
-    lm = params.get("lm_head")
-    if isinstance(lm, Q4Tensor) and lm.out_features % LM_HEAD_ALIGN:
-        params = dict(params, lm_head=lm.pad_out(LM_HEAD_ALIGN))
-        b = params.get("lm_head_b")
-        if b is not None:
-            pad = params["lm_head"].out_features - b.shape[-1]
-            params["lm_head_b"] = F.pad(b.to(torch.float32), (0, pad))
-    if cfg.fuse_qkv:
-        params = fuse_qkv_params(cfg, params)
+    params = pad_and_fuse(cfg, params)
     if unroll_layers:
         params = prepare_unrolled_params(params, plane_split=plane_split)
     return dict(params, layers=per_layer(params["layers"], cfg.n_layer))

@@ -42,6 +42,22 @@ head-major [L, max_batch, H, n_ctx, D] block, one slot per request.
     step and ``run`` steps one at a time.  The step is captured and
     replayed like ``_serve_step``.
 
+Tensor-parallel serving: with ``mesh=`` (parallel/mesh.py, a model axis
+over the ranks of a process group, each rank running this same host
+program) the params are padded and fused, sharded in the stacked
+interleaved layout (parallel/sharding.py; a plane-split K split would not
+be one) and kept stacked, so the step runs K10 for the layers, K9 for the
+rank's lm head rows, K5 + K6 over the rank's heads and K4 at admission;
+the cache holds the rank's heads [L, max_batch, H/tp, n_ctx, D].  The
+model's collectives (models/transformer.py) give every rank the whole
+logits, so every rank samples, retires and admits the same tokens.  Over
+NCCL the step is captured and replayed as on one card (its first, eager
+call is the collectives' warm-up); over gloo the collectives go through
+the host and cannot be captured, so the step runs eagerly and
+``cuda_graph=True`` raises.  The JAX engine also shards slots over a data
+axis; here the mesh's data axis must be 1, and ``mesh=`` with a
+``drafter`` raises (both wait for a later port).
+
 The JAX engine's recompile guards have no counterpart here: kv-length
 buckets and admission padded to [max_batch, 16 * 2^k] with sentinel rows.
 Monitor spans: ``serve/admit``, ``serve/step``, ``serve/step_chunk``,
@@ -64,15 +80,25 @@ from vsim_tpu_torch.device import DeviceLike, resolve_device
 from vsim_tpu_torch.engine.generate import (
     engine_params,
     graph_maker,
+    pad_and_fuse,
     sampling_kw,
 )
 from vsim_tpu_torch.engine.graph import GraphedStep
 from vsim_tpu_torch.engine.sampling import SamplingParams, sample_torch
 from vsim_tpu_torch.engine.speculative import NgramDrafter, accept
 from vsim_tpu_torch.models.config import ModelConfig
-from vsim_tpu_torch.models.transformer import alibi_slopes, forward, init_cache
+from vsim_tpu_torch.models.init import params_to
+from vsim_tpu_torch.models.transformer import (
+    alibi_slopes,
+    forward,
+    init_cache,
+    per_layer,
+)
 from vsim_tpu_torch.ops import _build
 from vsim_tpu_torch.ops.q4_cuda import get_dequant_math
+from vsim_tpu_torch.parallel import context as pctx
+from vsim_tpu_torch.parallel import sharding
+from vsim_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL
 
 
 def pad_stop_ids(ids: Sequence[int], width: int = 4) -> List[int]:
@@ -113,11 +139,14 @@ class ServingEngine:
                  sampling: Optional[SamplingParams] = None, seed: int = 0,
                  repeat_window: int = 64, kv_dtype=None,
                  device: DeviceLike = None,
-                 cuda_graph: Optional[bool] = None, drafter=None):
-        """``cuda_graph`` (default: on for a CUDA device) replays each
-        serving step from a captured graph; False runs it eagerly.
-        ``drafter``: an ``NgramDrafter`` makes every step speculative
-        (greedy sampling only)."""
+                 cuda_graph: Optional[bool] = None, drafter=None,
+                 mesh=None):
+        """``cuda_graph`` (default: on for a CUDA device, off over a gloo
+        mesh) replays each serving step from a captured graph; False runs
+        it eagerly.  ``drafter``: an ``NgramDrafter`` makes every step
+        speculative (greedy sampling only).  ``mesh``: serve this rank's
+        tensor-parallel shard (stacked params, as the JAX engine's
+        ``mesh=``); the device defaults to the mesh's."""
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if drafter is not None and not isinstance(drafter, NgramDrafter):
@@ -125,10 +154,31 @@ class ServingEngine:
                 "ServingEngine drafts from the slots' token history only "
                 "(NgramDrafter); a ModelDrafter would need a draft cache per "
                 "slot: use SpeculativeEngine for one")
+        self.mesh = mesh
+        if mesh is not None:
+            cuda_graph = self._check_mesh(cfg, mesh, drafter, cuda_graph)
+            device = mesh.device if device is None else device
         self.device = dev = resolve_device(device)
         self.cfg = cfg
-        self.params = engine_params(cfg, params, dev)
         self.slopes = alibi_slopes(cfg.n_head, dev) if cfg.alibi else None
+        self.heads = heads = cfg.n_head  # the heads this rank holds
+        if mesh is None:
+            self.params = engine_params(cfg, params, dev)
+        else:
+            if isinstance(params["layers"], list):
+                raise ValueError("mesh= shards stacked params: pass the "
+                                 "model's params, not an engine's")
+            # pad and fuse the whole model, then shard; a shard is not
+            # padded again (its lm head rows are 1/tp of a padded head)
+            local = params_to(sharding.shard_params(
+                pad_and_fuse(cfg, params), mesh), dev)
+            self.params = dict(local, layers=per_layer(local["layers"],
+                                                       cfg.n_layer))
+            tp = mesh.size(AXIS_MODEL)
+            self.heads = heads = cfg.n_head // tp
+            if self.slopes is not None:
+                self.slopes = self.slopes.narrow(
+                    0, mesh.index(AXIS_MODEL) * heads, heads).contiguous()
         self.max_batch = max_batch
         self.n_ctx = n_ctx or cfg.n_ctx
         self.kv_dtype = kv_dtype or cfg.kv_dtype
@@ -137,7 +187,7 @@ class ServingEngine:
         self.repeat_window = W = max(repeat_window, 1)  # noqa: N806
 
         self.cache = init_cache(cfg, max_batch, n_ctx=self.n_ctx,
-                                dtype=self.kv_dtype, device=dev)
+                                dtype=self.kv_dtype, device=dev, heads=heads)
         # device-resident per-slot state, updated in place
         self.tokens = torch.zeros(max_batch, dtype=torch.long, device=dev)
         self.n_past = torch.zeros(max_batch, dtype=torch.int32, device=dev)
@@ -181,6 +231,35 @@ class ServingEngine:
         self._results: Dict[int, Request] = {}
         self._ids = itertools.count()
 
+    @staticmethod
+    def _check_mesh(cfg: ModelConfig, mesh, drafter,
+                    cuda_graph: Optional[bool]) -> bool:
+        """Refuse what tensor-parallel serving does not run; returns the
+        graph setting (default: captured over NCCL, eager over gloo)."""
+        if drafter is not None:
+            raise ValueError("mesh= with a drafter: speculative serving is "
+                             "not sharded yet")
+        if mesh.size(AXIS_DATA) != 1:
+            raise ValueError(f"mesh= with {mesh.size(AXIS_DATA)} ranks on "
+                             f"{AXIS_DATA!r}: slots are not sharded over a "
+                             "data axis yet (the mesh's data axis must be 1)")
+        sharding.check_split(cfg, mesh)
+        group = mesh.group(AXIS_MODEL)
+        gloo = (mesh.size(AXIS_MODEL) > 1 and group is not None
+                and torch.distributed.get_backend(group) == "gloo")
+        if gloo and cuda_graph:
+            raise ValueError("cuda_graph=True over a gloo group: gloo runs "
+                             "its collectives through the host, which a "
+                             "CUDA graph cannot capture; pass "
+                             "cuda_graph=False (or use NCCL)")
+        return False if gloo else cuda_graph
+
+    def _forward(self, *args, **kw):
+        """``forward`` under this engine's mesh (none on one device)."""
+        with pctx.use_mesh(self.mesh):
+            return forward(self.cfg, self.params, *args, slopes=self.slopes,
+                           **kw)
+
     # ------------------------------------------------------------------
     # device work
 
@@ -192,9 +271,8 @@ class ServingEngine:
         row's first token from its logits at position ``last``."""
         n, T = ids.shape  # noqa: N806
         scratch = init_cache(self.cfg, n, n_ctx=T, dtype=self.kv_dtype,
-                             device=self.device)
-        logits, scratch = forward(self.cfg, self.params, ids, scratch, 0,
-                                  fresh_kv=True, slopes=self.slopes)
+                             device=self.device, heads=self.heads)
+        logits, scratch = self._forward(ids, scratch, 0, fresh_kv=True)
         if slots is not None:
             for side in ("k", "v"):
                 dst, src = self.cache[side], scratch[side]
@@ -214,8 +292,7 @@ class ServingEngine:
         tokens, n_past, last = self.tokens, self.n_past, self.last_tokens
         active, remaining = self._live, self._remaining
         np_eff = torch.where(active, n_past, self.n_ctx)
-        logits, _ = forward(self.cfg, self.params, tokens[:, None],
-                            self.cache, np_eff, slopes=self.slopes)
+        logits, _ = self._forward(tokens[:, None], self.cache, np_eff)
         nxt = sample_torch(logits[:, -1, :], last, self.generator,
                            **self._sample_kw)
         nxt = torch.where(active, nxt, tokens)
@@ -245,8 +322,7 @@ class ServingEngine:
                                       n_past)
         verify_in = torch.cat([tokens[:, None], drafts], dim=1)
         np_eff = torch.where(active, n_past, S)
-        logits, _ = forward(self.cfg, self.params, verify_in, self.cache,
-                            np_eff, slopes=self.slopes)
+        logits, _ = self._forward(verify_in, self.cache, np_eff)
         a, emit = accept(drafts, torch.argmax(logits, dim=-1))
         j = torch.arange(drafts.shape[1] + 1, device=self.device)[None, :]
         ok = (j <= a[:, None]) & active[:, None]

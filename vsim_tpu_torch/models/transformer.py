@@ -40,12 +40,27 @@ On the ragged path
 can be captured in a CUDA graph; BLOOM's ALiBi slopes, the one tensor a
 step would copy from the host, are built once by the engines and passed
 in.
+
+Under a mesh (parallel/context.py:use_mesh) each rank runs its own shard
+(parallel/sharding.py:shard_params): its heads, ffn neurons and vocab
+rows, its cache heads [L, B, H/tp, S, D].  Head counts come from the
+weights' shapes, so a block whose weights are whole runs as without a
+mesh; ALiBi slopes are sliced to the rank's heads.  The collectives run at
+named points: the f32 partial sums after ``wo`` and ``w_proj`` are
+all-reduced before the replicated bias is added, once, and the cast
+(``_linear``); a vocab-split embedding is a masked local lookup plus an
+all-reduce; the lm head's logits are gathered to the whole vocabulary, so
+every rank samples the same token.  Under ``rules={"seq": "model"}``
+(Megatron-SP, for a prefill or ``forward_nocache``) the residual stream
+keeps the rank's tokens through the LN/residual segments and is gathered
+before attention, the MLP and the head.  Without a mesh nothing of this
+runs, and the single-device path is unchanged.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,6 +79,7 @@ from vsim_tpu_torch.ops.layers import get_activation, layer_norm
 from vsim_tpu_torch.ops.matmul import Q4Layer, q4_matmul, q4_matmul_act_quant
 from vsim_tpu_torch.ops.q4_cuda import MLP_MAX_ROWS, get_dequant_math, q4_mlp_ps
 from vsim_tpu_torch.ops.rope import apply_rope
+from vsim_tpu_torch.parallel import context as pctx
 from vsim_tpu_torch.quant.q4 import Q4Tensor, q4_take_rows
 
 Params = Dict[str, Any]
@@ -192,11 +208,67 @@ def _kv_read(store, il: int, n: int, dtype) -> torch.Tensor:
     return store[il, :, :, :n].to(dtype)
 
 
-def _linear(x, w, b, cdt, act_quant: bool = False):
-    if act_quant:
-        y = q4_matmul_act_quant(x, w, compute_dtype=cdt)
-        return (y if b is None else y + b.to(y.dtype)).to(cdt)
-    return q4_matmul(x, w, bias=b, compute_dtype=cdt).to(cdt)
+class Par(NamedTuple):
+    """A forward's mesh axes (parallel/context.py:axis), None where the
+    mesh does not split: ``heads`` / ``ffn`` split attention's and the
+    MLP's weights, ``vocab`` the embedding and lm head, ``seq`` (sequence
+    parallelism) the residual stream's tokens."""
+
+    heads: Optional[pctx.Axis] = None
+    ffn: Optional[pctx.Axis] = None
+    vocab: Optional[pctx.Axis] = None
+    seq: Optional[pctx.Axis] = None
+
+
+NO_PAR = Par()
+
+
+def _out_features(w) -> int:
+    return w.out_features if isinstance(w, (Q4Tensor, Q4Layer)) \
+        else w.shape[-2]
+
+
+def _split_axis(n_local: int, n_full: int, ax: Optional[pctx.Axis],
+                what: str) -> Optional[pctx.Axis]:
+    """The axis a block's weights split over under a mesh axis ``ax``
+    (None without one, or when they are whole here): ``n_local`` of
+    ``n_full`` heads or neurons on this rank."""
+    if ax is None or n_local == n_full:
+        return None
+    if n_local * ax.size != n_full:
+        raise ValueError(
+            f"{what}: {n_local} of {n_full} on this rank, which is not a "
+            f"whole share over {ax.size} ranks: the model axis must split "
+            "them into whole heads and whole 32-row Q4 blocks "
+            "(parallel/sharding.py:check_split)")
+    return ax
+
+
+def _linear(x, w, b, cdt, act_quant: bool = False,
+            reduce: Optional[pctx.Axis] = None,
+            seq: Optional[pctx.Axis] = None):
+    """``x @ w.T + b`` in ``cdt``.  ``reduce``: each rank of that axis holds
+    a K slice of ``w`` (row-parallel): the f32 partial sums are all-reduced,
+    then the replicated bias is added once and the result cast.  ``seq``:
+    then keep this rank's tokens (axis 1)."""
+    if reduce is None and seq is None:
+        if act_quant:
+            y = q4_matmul_act_quant(x, w, compute_dtype=cdt)
+            return (y if b is None else y + b.to(y.dtype)).to(cdt)
+        return q4_matmul(x, w, bias=b, compute_dtype=cdt).to(cdt)
+    y = (q4_matmul_act_quant(x, w, compute_dtype=cdt) if act_quant
+         else q4_matmul(x, w, compute_dtype=cdt))
+    return _row_parallel_out(y, b, cdt, reduce, seq)
+
+
+def _row_parallel_out(y, b, dtype, reduce, seq):
+    """A row-parallel product's f32 partial sums [B, T, O] → the sum (over
+    ``reduce``), this rank's tokens (``seq``), + bias, in ``dtype``."""
+    if reduce is not None:
+        y = pctx.all_reduce(y.contiguous(), reduce)
+    if seq is not None:
+        y = pctx.local(y, 1, seq)
+    return (y if b is None else y + b.to(y.dtype)).to(dtype)
 
 
 def _attend_plain(q, keys, values, n_past, slopes, cdt):
@@ -223,12 +295,18 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
               k_all, v_all, il: int, positions: torch.Tensor, n_past,
               n_past_vec: Optional[torch.Tensor], slopes: Optional[torch.Tensor],
               fresh_kv: bool = False, pending: Optional[list] = None,
-              rows: Optional[tuple] = None) -> torch.Tensor:
+              rows: Optional[tuple] = None, par: Par = NO_PAR
+              ) -> torch.Tensor:
     """``pending`` (a list) selects the deferred ragged decode step: this
     layer's quantized k/v rows are appended to it, for the caller's one
-    all-layer K6 write after the loop.  ``rows``: ``_kv_write``'s."""
-    B, T, E = h.shape  # noqa: N806
-    H, D = cfg.n_head, cfg.head_dim  # noqa: N806
+    all-layer K6 write after the loop.  ``rows``: ``_kv_write``'s.  Under
+    a mesh it runs the heads the weights hold (the rank's share); under
+    ``par.seq`` ``h`` holds every token and the output this rank's."""
+    B, T, _ = h.shape  # noqa: N806
+    D = cfg.head_dim  # noqa: N806
+    H = cfg.n_head if par.heads is None else local_heads(cfg, lp)  # noqa: N806
+    E = H * D  # noqa: N806
+    red = _split_axis(H, cfg.n_head, par.heads, "attention heads")
     cdt, aq = h.dtype, cfg.act_quant
     if "w_qkv" in lp:  # fused head-interleaved [q_h | k_h | v_h]
         qkv = _linear(h, lp["w_qkv"], lp.get("b_qkv"), cdt, aq).view(
@@ -255,7 +333,7 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                                      rows, scale=scale, slopes=slopes,
                                      round_q=round_q)
         ctx = ctx.to(cdt).reshape(B, 1, E)
-        return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq)
+        return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq, red, par.seq)
     if k_all is not None:
         if T == 1 and isinstance(n_past, torch.Tensor) and isinstance(
                 k_all, tuple):  # K6's one-layer instance: one launch
@@ -269,7 +347,7 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                                      scale=scale, slopes=slopes,
                                      round_q=round_q)
             ctx = ctx.to(cdt).reshape(B, 1, E)
-            return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq)
+            return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq, red, par.seq)
     if k_all is None or fresh_kv:  # attend over this chunk's own k/v
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), n_past=n_past, scale=scale,
@@ -283,18 +361,37 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
         keys = _kv_read(k_all, il, n, cdt)
         values = _kv_read(v_all, il, n, cdt)
         ctx = _attend_plain(q, keys, values, n_past, slopes, cdt).reshape(B, T, E)
-    return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq)
+    return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq, red, par.seq)
+
+
+def local_heads(cfg: ModelConfig, lp: Params) -> int:
+    """The attention heads a layer's weights hold (a rank's share under a
+    mesh): q/k/v's output rows, fused or not, over the head dim."""
+    D = cfg.head_dim  # noqa: N806
+    fused = "w_qkv" in lp
+    per = 3 * D if fused else D
+    out = _out_features(lp["w_qkv" if fused else "wq"])
+    if out % per:
+        raise ValueError(f"{out} q/k/v output rows do not hold whole heads "
+                         f"of {per} rows: the model axis must split "
+                         "attention into whole heads")
+    return out // per
 
 
 def _fusable(w) -> bool:
     return isinstance(w, Q4Tensor) and w.layout == "ps"
 
 
-def mlp(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+def mlp(cfg: ModelConfig, lp: Params, h: torch.Tensor,
+        par: Par = NO_PAR) -> torch.Tensor:
     """fc, activation, proj.  Off the gi math, n <= 8 rows with plane-split
     weights take K11, which keeps h in f32 (the unfused route rounds it to
-    the compute dtype twice): the n <= 8 cut decides the numerics."""
+    the compute dtype twice): the n <= 8 cut decides the numerics.  Under
+    a mesh the weights hold a rank's neurons and proj's output is reduced
+    (``_linear``); under ``par.seq`` the output holds this rank's tokens."""
     w_fc, w_proj = lp["w_fc"], lp["w_proj"]
+    red = _split_axis(_out_features(w_fc), cfg.n_ff, par.ffn, "ffn neurons")
+    split = red is not None or par.seq is not None
     n = h.numel() // h.shape[-1]
     if (not cfg.act_quant and _fusable(w_fc) and _fusable(w_proj)
             and cfg.activation in _FUSED_ACTS
@@ -302,39 +399,126 @@ def mlp(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
         b_fc, b_proj = (None if b is None else b.to(torch.float32).contiguous()
                         for b in (lp.get("b_fc"), lp.get("b_proj")))
         y = q4_mlp_ps(h.reshape(n, -1).contiguous(), w_fc.packed,
-                      w_fc.scales, b_fc, w_proj.packed, w_proj.scales, b_proj,
-                      _FUSED_ACTS[cfg.activation])
-        return y.to(h.dtype).reshape(h.shape)
+                      w_fc.scales, b_fc, w_proj.packed, w_proj.scales,
+                      None if split else b_proj, _FUSED_ACTS[cfg.activation])
+        y = y.reshape(*h.shape[:-1], -1)
+        if split:
+            return _row_parallel_out(y, b_proj, h.dtype, red, par.seq)
+        return y.to(h.dtype)
     act = get_activation(cfg.activation)
     y = _linear(h, lp["w_fc"], lp.get("b_fc"), h.dtype, cfg.act_quant)
     y = act(y.to(torch.float32)).to(h.dtype)
-    return _linear(y, lp["w_proj"], lp.get("b_proj"), h.dtype, cfg.act_quant)
+    return _linear(y, lp["w_proj"], lp.get("b_proj"), h.dtype, cfg.act_quant,
+                   red, par.seq)
 
 
 def decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, k_all,
                   v_all, il: int, positions: torch.Tensor, n_past,
                   n_past_vec, slopes, fresh_kv: bool = False,
                   pending: Optional[list] = None,
-                  rows: Optional[tuple] = None) -> torch.Tensor:
+                  rows: Optional[tuple] = None,
+                  par: Par = NO_PAR) -> torch.Tensor:
     """One block; residual topology per arch (NeoX parallel, GPT-J parallel
-    with one shared LN, BLOOM/GPT-2 sequential)."""
-    h1 = layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps)
+    with one shared LN, BLOOM/GPT-2 sequential).  Under ``par.seq`` ``x``
+    holds this rank's tokens; the LN outputs are gathered before
+    attention and the MLP."""
+    def full(a):  # every token, under sequence parallelism
+        return a if par.seq is None else pctx.gather(a.contiguous(), 1,
+                                                     par.seq)
+
+    h1 = full(layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps))
     attn_out = attention(cfg, lp, h1, k_all, v_all, il, positions, n_past,
-                         n_past_vec, slopes, fresh_kv, pending, rows)
+                         n_past_vec, slopes, fresh_kv, pending, rows, par)
     if cfg.parallel_residual:
-        h2 = h1 if cfg.shared_layernorm else layer_norm(
-            x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps)
-        return x + attn_out + mlp(cfg, lp, h2)
+        h2 = h1 if cfg.shared_layernorm else full(layer_norm(
+            x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps))
+        return x + attn_out + mlp(cfg, lp, h2, par)
     x = x + attn_out
-    h2 = layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps)
-    return x + mlp(cfg, lp, h2)
+    h2 = full(layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps))
+    return x + mlp(cfg, lp, h2, par)
 
 
-def embed(cfg: ModelConfig, params: Params, token_ids: torch.Tensor, dtype):
-    wte = params["wte"]
+def _lookup(wte, token_ids: torch.Tensor, dtype):
     if isinstance(wte, Q4Tensor):
         return q4_take_rows(wte, token_ids, dtype=dtype)
     return wte[token_ids].to(dtype)
+
+
+def embed(cfg: ModelConfig, params: Params, token_ids: torch.Tensor, dtype,
+          vocab: Optional[pctx.Axis] = None):
+    """Token embeddings [.., E].  ``vocab``: the axis a vocab-split
+    ``wte`` (fewer rows than the vocabulary) splits over: each rank looks
+    up the ids in its rows, zeros elsewhere, and the ranks' rows are
+    summed in f32 (exact: one rank holds each id)."""
+    wte = params["wte"]
+    rows = _out_features(wte)
+    if vocab is None or rows >= cfg.n_vocab:
+        return _lookup(wte, token_ids, dtype)
+    if rows * vocab.size < cfg.n_vocab:
+        raise ValueError(f"wte: {rows} rows a rank over {vocab.size} ranks "
+                         f"do not cover {cfg.n_vocab} tokens")
+    ids = token_ids - vocab.index * rows
+    hit = (ids >= 0) & (ids < rows)
+    x = _lookup(wte, ids.clamp(0, rows - 1), dtype).to(torch.float32)
+    x = torch.where(hit[..., None], x, 0.0).contiguous()
+    return pctx.all_reduce(x, vocab).to(dtype)
+
+
+def embed_inputs(cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
+                 positions: torch.Tensor, cdt, par: Par = NO_PAR
+                 ) -> torch.Tensor:
+    """The residual stream's input: token embeddings, GPT-2's learned
+    positions (a sentinel row's position is past the table: clamped) and
+    BLOOM's embedding LN."""
+    x = embed(cfg, params, token_ids, cdt, par.vocab)
+    if cfg.learned_pos:
+        wpe = params["wpe"]
+        x = x + wpe[positions.clamp(max=wpe.shape[0] - 1)].to(cdt)
+    if "emb_ln_w" in params:
+        x = layer_norm(x, params["emb_ln_w"], params["emb_ln_b"], cfg.ln_eps)
+    return x
+
+
+def head_logits(cfg: ModelConfig, params: Params, x: torch.Tensor, cdt,
+                par: Par = NO_PAR) -> torch.Tensor:
+    """Final LN and lm head: x [B, T(/seq), E] → logits [B, T, n_vocab]
+    f32.  Under a mesh the rank's vocab rows' logits are gathered (and,
+    under ``par.seq``, every token first)."""
+    x = layer_norm(x, params["ln_f_w"], params["ln_f_b"], cfg.ln_eps)
+    if par.seq is not None:
+        x = pctx.gather(x.contiguous(), 1, par.seq)
+    logits = q4_matmul(x, params["lm_head"], bias=params.get("lm_head_b"),
+                       compute_dtype=cdt)
+    if par.vocab is not None:
+        logits = pctx.gather(logits.contiguous(), -1, par.vocab)
+    if logits.shape[-1] != cfg.n_vocab:  # lm head padded for the kernels
+        logits = logits[..., : cfg.n_vocab]
+    return logits.to(torch.float32)
+
+
+def mesh_axes(token_ids: torch.Tensor, seq_parallel: bool) -> Par:
+    """The current mesh's axes for a forward over ``token_ids`` [B, T];
+    ``seq_parallel``: this call may split its tokens (a prefill or a
+    cache-free forward), which it does under the "seq" rule."""
+    if pctx.current_mesh() is None:
+        return NO_PAR
+    seq = pctx.axis("seq") if seq_parallel else None
+    if seq is not None and token_ids.shape[1] % seq.size:
+        raise ValueError(f"sequence parallelism: {token_ids.shape[1]} "
+                         f"tokens do not split over {seq.size} ranks")
+    return Par(pctx.axis("heads"), pctx.axis("ffn"), pctx.axis("vocab"),
+               seq)
+
+
+def local_slopes(cfg: ModelConfig, slopes: Optional[torch.Tensor],
+                 lp: Params, par: Par) -> Optional[torch.Tensor]:
+    """ALiBi slopes for the heads layer ``lp`` holds: the rank's slice of
+    a whole-model vector when a mesh splits the heads."""
+    if slopes is None or par.heads is None or slopes.shape[0] != cfg.n_head:
+        return slopes
+    heads = local_heads(cfg, lp)
+    ax = _split_axis(heads, cfg.n_head, par.heads, "attention heads")
+    return slopes if ax is None else pctx.local(slopes, 0, ax)
 
 
 def _stacked_q4(v) -> bool:
@@ -382,16 +566,17 @@ def forward(cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
     else:
         positions = (n_past + torch.arange(T, device=dev))[None, :].expand(
             B, T)
-    x = embed(cfg, params, token_ids, cdt)
-    if cfg.learned_pos:  # a sentinel row's position is past the table
-        wpe = params["wpe"]
-        x = x + wpe[positions.clamp(max=wpe.shape[0] - 1)].to(cdt)
-    if "emb_ln_w" in params:
-        x = layer_norm(x, params["emb_ln_w"], params["emb_ln_b"], cfg.ln_eps)
+    par = mesh_axes(token_ids, cache is None or fresh_kv)
+    x = embed_inputs(cfg, params, token_ids, positions, cdt, par)
+    if par.seq is not None:  # this rank's tokens through the residual
+        x = pctx.local(x, 1, par.seq)
+    layers = per_layer(params["layers"], cfg.n_layer)
     if not cfg.alibi:
         slopes = None
-    elif slopes is None:
-        slopes = alibi_slopes(cfg.n_head, dev)
+    else:
+        if slopes is None:
+            slopes = alibi_slopes(cfg.n_head, dev)
+        slopes = local_slopes(cfg, slopes, layers[0], par)
     k_all = cache["k"] if cache is not None else None
     v_all = cache["v"] if cache is not None else None
     if ragged:
@@ -405,18 +590,13 @@ def forward(cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
     rows = None  # a one-token ragged write's targets, made once a step
     if ragged and T == 1 and isinstance(k_all, torch.Tensor):
         rows = _row_slots(n_past, k_all.shape[3])
-    for il, lp in enumerate(per_layer(params["layers"], cfg.n_layer)):
+    for il, lp in enumerate(layers):
         x = decoder_layer(cfg, lp, x, k_all, v_all, il, positions, n_past,
-                          n_past_vec, slopes, fresh_kv, pending, rows)
+                          n_past_vec, slopes, fresh_kv, pending, rows, par)
     if deferred:  # every layer's rows at once, after the last K5 read
         rows = tuple(torch.stack(r) for r in zip(*pending))
         scatter_rows(k_all, v_all, rows, n_past)
-    x = layer_norm(x, params["ln_f_w"], params["ln_f_b"], cfg.ln_eps)
-    logits = q4_matmul(x, params["lm_head"], bias=params.get("lm_head_b"),
-                       compute_dtype=cdt)
-    if logits.shape[-1] != cfg.n_vocab:  # lm head padded for the kernels
-        logits = logits[..., : cfg.n_vocab]
-    return logits.to(torch.float32), cache
+    return head_logits(cfg, params, x, cdt, par), cache
 
 
 def forward_nocache(cfg: ModelConfig, params: Params,
@@ -427,14 +607,16 @@ def forward_nocache(cfg: ModelConfig, params: Params,
 
 
 def init_cache(cfg: ModelConfig, batch: int, n_ctx: Optional[int] = None,
-               dtype=None, device: DeviceLike = None) -> Dict[str, Any]:
+               dtype=None, device: DeviceLike = None,
+               heads: Optional[int] = None) -> Dict[str, Any]:
     """Preallocated head-major KV cache [L, B, H, S, D].  ``dtype`` (or
     cfg.kv_dtype) "int8" stores (int8 values, bf16 scales [L, B, H, S]) per
-    side; "int4" plane-packs two dims per byte (uint8 [.., D/2])."""
+    side; "int4" plane-packs two dims per byte (uint8 [.., D/2]).
+    ``heads``: H when a rank holds a share of the model's heads."""
     dev = resolve_device(device)
     S = n_ctx or cfg.n_ctx  # noqa: N806
     name = str(dtype or cfg.kv_dtype).replace("torch.", "")
-    shape = (cfg.n_layer, batch, cfg.n_head, S, cfg.head_dim)
+    shape = (cfg.n_layer, batch, heads or cfg.n_head, S, cfg.head_dim)
 
     def pair(vdtype, d):
         return (torch.zeros((*shape[:-1], d), dtype=vdtype, device=dev),
