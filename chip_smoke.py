@@ -1771,7 +1771,7 @@ def phase_card_vs_cpu(clock: PartTimer):
         fail(f"f32 greedy streams differ: card {streams['cuda']} "
              f"cpu {streams['cpu']}")
     out["f32_greedy_tokens"] = streams["cuda"]
-    # serving: 3 prompts on 2 slots (one waits for a slot), 3 tokens each.
+    # serving: 3 prompts on 2 slots (one waits for a slot), 2 tokens each.
     # Random weights give the odd near-tie, where card and CPU f32 sums may
     # pick different tokens (range(300, 320) has a top-2 logit margin of
     # 3e-4 of max|logit| at its third step): every greedy step of these
@@ -1782,10 +1782,10 @@ def phase_card_vs_cpu(clock: PartTimer):
     for dev in ("cuda", "cpu"):
         res = clock("gpt-j serving", dev, lambda: ServingEngine(
             cfg, params, max_batch=2, kv_dtype="int8", device=dev).run(
-                prompts, 3, stop_tokens=(), chunk_steps=3))
+                prompts, 2, stop_tokens=(), chunk_steps=2))
         served[dev] = [res[i].generated for i in sorted(res)]
     eng = InferenceEngine(cfg, params, kv_dtype="int8", device="cuda")
-    single = [eng.generate(p, 3, SamplingParams(greedy=True)).token_ids
+    single = [eng.generate(p, 2, SamplingParams(greedy=True)).token_ids
               for p in prompts]
     if not served["cuda"] == served["cpu"] == single:
         fail(f"f32 serving streams differ: card {served['cuda']} cpu "
@@ -1948,7 +1948,7 @@ def phase_pythia_card_vs_cpu(clock: PartTimer):
                     f"pythia-12b {name} f32 stream", dev,
                     lambda: InferenceEngine(
                         cfg, params, kv_dtype="int8", device=dev,
-                        **kw).generate(PYTHIA_PROMPT, 3, SamplingParams(
+                        **kw).generate(PYTHIA_PROMPT, 2, SamplingParams(
                             greedy=True)).token_ids)
                 cfg = base.replace(compute_dtype="bfloat16")
                 logits[dev] = torch.from_numpy(clock(
@@ -3102,7 +3102,7 @@ def spec_serving(cfg, params, plain_streams):
                 eager_tokens_per_s=eager_tps,
                 spec_cycles=cycles, spec_emitted=emitted,
                 ms_per_spec_step=spec.wall_s * 1e3 / spec.calls,
-                eager_equal=True, split=split), launches
+                eager_equal=True, split=split, streams=streams), launches
 
 
 def pythia_drafter_cfg(target):
@@ -3275,6 +3275,11 @@ PARALLEL_KERNELS = ("q4_matmul_stacked", "q4_matmul_i",
 PARALLEL_PROMPTS = [list(range(100, 112)), list(range(7, 10)),
                     list(range(1000, 1020))]
 TOL_TP = 1e-4  # TP / SP logits vs one card's, of max|logit|: sum order
+# sharded speculative serving: K10 / K9 in the verify (40 rows), K4 at
+# admission; the verify attends through PyTorch's einsum
+SPEC_PARALLEL_KERNELS = ("q4_matmul_stacked", "q4_matmul_i",
+                         "flash_attention")
+SPEC_TP_TOKENS = 8  # a request's tokens in phase 11's speculative run
 
 
 def shard_kernel_rows(peaks):
@@ -3284,17 +3289,21 @@ def shard_kernel_rows(peaks):
     planes (the gi math), fc with its bias slice; K9 on the lm head's
     51200/tp rows; K5 and K6 over H/tp heads at B=8 (ragged n_past, the
     sentinel included); K4 at admission (8 rows x 300 tokens).  Timed as
-    phase 2's rows; no library time (phase 2 holds each kernel's)."""
+    phase 2's rows, each beside phase 2's library call at the shard's
+    shape: ``dequantize_km`` + ``torch.matmul`` (K10, K9), SDPA (K5 over
+    the dequantized cache and the fresh row, K4 causal), ``index_put_`` of
+    the rows that land (K6)."""
     import torch
 
     from vsim_tpu_torch.ops.attention import (flash_attention_fwd,
                                               flash_attention_plain)
     from vsim_tpu_torch.ops.decode_attention import (
-        decode_attention_fresh, decode_attention_fresh_plain, scatter_rows,
-        scatter_rows_plain)
+        decode_attention_fresh, decode_attention_fresh_plain, kv_int,
+        scatter_rows, scatter_rows_plain)
     from vsim_tpu_torch.ops.q4_cuda import (q4_matmul_i, q4_matmul_i_plain,
                                             q4_matmul_stacked,
                                             q4_matmul_stacked_plain)
+    from vsim_tpu_torch.quant.q4 import Q4Tensor, dequantize_km
 
     bw, bf16_peak, f32_peak = peaks
     dev = torch.device("cuda")
@@ -3323,12 +3332,17 @@ def shard_kernel_rows(peaks):
                  f"{tol})")
         return err, rel
 
-    def row(kname, shape, err, rel, fn, plain, nbytes, ops, peak):
+    def row(kname, shape, err, rel, fn, plain, lib, nbytes, ops, peak):
         b_ms, b_by = bound(nbytes, ops, peak)
         rows.append(dict(kernel=kname, shape=shape, max_abs_err=err,
                          rel_err=rel, ms=timed(fn, reps=50),
                          plain_ms=timed(plain, reps=3, warmup=1),
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                         bound_ms=b_ms, bound_by=b_by,
+                         library_ms=timed(lib, reps=5, warmup=1)))
+
+    def lib_matmul(x, packed, scales):  # f32 planes, as the kernels' rows
+        return torch.matmul(x.to(torch.float32), dequantize_km(
+            Q4Tensor(packed, scales, "i"), torch.float32))
 
     n, L, S, D, B = 8, 2, 2048, 256, 8  # noqa: N806
     n_list = [0, 1, 127, 128, 300, 1500, 2047, 2048]
@@ -3357,6 +3371,7 @@ def shard_kernel_rows(peaks):
             row("q4_matmul_stacked", shape, err, rel,
                 lambda: q4_matmul_stacked(x, *next(cyc), ilt, bias, False),
                 lambda: q4_matmul_stacked_plain(x, *w0, ilt, bias, False),
+                lambda: lib_matmul(x, *(t[1] for t in next(cyc))),
                 nb + n * K * 2 + n * O * 4 + (O * 4 if has_bias else 0),
                 2 * n * K * O, bf16_peak)
         K, O = 4096, 51200 // tp  # noqa: N806
@@ -3373,6 +3388,7 @@ def shard_kernel_rows(peaks):
         row("q4_matmul_i", shape, err, rel,
             lambda: q4_matmul_i(x, *next(cyc), bias),
             lambda: q4_matmul_i_plain(x, *w0, bias),
+            lambda: lib_matmul(x, *next(cyc)),
             nb + n * K * 2 + n * O * 4 + O * 4, 2 * n * K * O, bf16_peak)
         del ws, w0
 
@@ -3397,14 +3413,30 @@ def shard_kernel_rows(peaks):
                                                       npv, fresh, **kw),
                          TOL_DECODE)
         read = sum(min(x, S) for x in n_list) + B
+
+        # phase 2's yardstick: SDPA over the dequantized layer and the
+        # fresh row as one more key, masked to rows < n_past[b] and it
+        def deq(vals, sc):
+            return kv_int(vals) * sc.float()[..., None]
+
+        kd = torch.cat([deq(k_store[0][1], k_store[1][1]),
+                        deq(*fresh[:2])[:, :, None]], dim=2).to(torch.bfloat16)
+        vd = torch.cat([deq(v_store[0][1], v_store[1][1]),
+                        deq(*fresh[2:])[:, :, None]], dim=2).to(torch.bfloat16)
+        s_idx = torch.arange(S + 1, device=dev)
+        mask = ((s_idx[None, :] < npv[:, None])
+                | (s_idx[None, :] == S))[:, None, None, :]
+        qb = q.to(torch.bfloat16)[:, :, None, :]
         row("decode_attention_fresh", shape, err, rel,
             lambda: decode_attention_fresh(q, k_store, v_store, 1, npv,
                                            fresh, **kw),
             lambda: decode_attention_fresh_plain(q, k_store, v_store, 1, npv,
                                                  fresh, **kw),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qb, kd, vd, attn_mask=mask, scale=kw["scale"]),
             2 * H * read * (D + 2) + B * H * D * (2 + 4), 4 * H * read * D,
             bf16_peak)
-        del k_store, v_store
+        del k_store, v_store, kd, vd
         Lc = 28  # noqa: N806
         k_store, v_store = side((Lc, B, H, S, D)), side((Lc, B, H, S, D))
         new = (*side((Lc, B, H, D)), *side((Lc, B, H, D)))
@@ -3418,13 +3450,27 @@ def shard_kernel_rows(peaks):
             fail(f"scatter_rows gpt-j tp={tp}: differs from its plain "
                  "version")
         del k_ref, v_ref
-        live = sum(x < S for x in n_list)
+        lv = torch.tensor([b for b, x in enumerate(n_list) if x < S],
+                          device=dev)
+        live = lv.numel()
+        sel = [t[:, lv] for t in new]
+        ix = (torch.arange(Lc, device=dev)[:, None, None], lv[None, :, None],
+              torch.arange(H, device=dev)[None, None, :],
+              npv.long()[lv][None, :, None])
+
+        def index_put():  # phase 2's yardstick: the rows that land
+            for (vals, sc), (rq, rs) in ((k_store, sel[:2]),
+                                         (v_store, sel[2:])):
+                vals.index_put_(ix, rq)
+                sc.index_put_(ix, rs)
+
         row("scatter_rows", f"gpt-j tp={tp} int8 L={Lc} B={B} H={H} Dp={D} "
             f"S={S} ({live} rows land)", 0.0, 0.0,
             lambda: scatter_rows(k_store, v_store, new, npv),
             lambda: scatter_rows_plain(k_store, v_store, new, npv),
+            index_put,
             2 * 2 * Lc * live * H * (D + 2), 0, bf16_peak)
-        del k_store, v_store, new
+        del k_store, v_store, new, sel
         torch.cuda.empty_cache()
         T = 300  # noqa: N806
         qt, k, v = (torch.randn((B, H, T, D), generator=g, device=dev).to(
@@ -3437,17 +3483,20 @@ def shard_kernel_rows(peaks):
         row("flash_attention_fwd", shape, err, rel,
             lambda: flash_attention_fwd(qt, k, v, scale=D ** -0.5),
             lambda: flash_attention_plain(qt, k, v, scale=D ** -0.5),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, k, v, is_causal=True, scale=D ** -0.5),
             4 * B * H * T * D * 2 + B * H * T * 4,
             4 * B * H * T * (T + 1) // 2 * D, bf16_peak)
     return rows
 
 
 def forced_logits(cfg, params, slopes, prompts, streams, n_tok: int,
-                  heads: int, mesh=None):
+                  heads: int, mesh=None, chunk: int = 1):
     """The serving step's logits teacher-forced along ``streams`` (their
     first ``n_tok`` tokens; every row prefilled alone at its prompt's
     length, then stepped together at ragged n_past through the deferred
-    K5/K6 route; a finished row at the sentinel), under ``mesh`` when given
+    K5/K6 route, or ``chunk`` tokens a forward as the speculative verify
+    runs them; a finished row at the sentinel), under ``mesh`` when given
     (a rank's shard, ``heads`` of them): logits [B, n_tok, V], index k the
     logits that give token k >= 1, and each row's prefill margin (token
     0's)."""
@@ -3473,18 +3522,44 @@ def forced_logits(cfg, params, slopes, prompts, streams, n_tok: int,
                                   for t in (cache[side], one[side]))):
                     d[:, b, :, :len(prompt)] = s[:, 0]
         lens = torch.tensor([min(len(s), n_tok) for s in streams])
-        toks = torch.zeros((B, n_tok), dtype=torch.long)
+        toks = torch.zeros((B, n_tok + chunk), dtype=torch.long)
         for b, s in enumerate(streams):
             toks[b, :lens[b]] = torch.tensor(s[:n_tok])
         toks = toks.to(dev)
         n0 = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
         out = torch.zeros((B, n_tok, cfg.n_vocab), device=dev)
-        for s in range(n_tok - 1):
+        for s in range(0, n_tok - 1, chunk):
             npv = torch.where(s < lens - 1, n0 + s, S).to(dev, torch.int32)
-            lg, _ = forward(cfg, params, toks[:, s:s + 1], cache, npv,
+            lg, _ = forward(cfg, params, toks[:, s:s + chunk], cache, npv,
                             slopes=slopes)
-            out[:, s + 1] = lg[:, 0]
+            k = min(chunk, n_tok - 1 - s)
+            out[:, s + 1:s + 1 + k] = lg[:, :k]
     return out, margins0
+
+
+def forced_split(label, streams, want, batches, ref, got, n_forced):
+    """``split_check`` of ``streams`` against ``want`` with the gaps
+    between teacher-forced logits ``got`` and the reference ``ref`` (per
+    batch of rows from ``batches``: ``forced_logits``' (logits, prefill
+    margins)), the margins ``ref``'s."""
+    margins, gaps, scales, margins0 = [], [], [], []
+    for (pl, m0), (tl, _), lo in zip(ref, got, batches):
+        top2 = pl.topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]).tolist()
+        gap = (tl - pl).abs().amax(dim=-1).tolist()
+        n = [min(len(x), n_forced) for x in want[lo:lo + len(m0)]]
+        margins += [margin[b][1:n[b]] for b in range(len(n))]
+        gaps += [gap[b][1:n[b]] for b in range(len(n))]
+        scales += pl.abs().amax(dim=(1, 2)).tolist()
+        margins0 += m0
+    return split_check(label, streams, want, margins, gaps, scales, margins0)
+
+
+def first_splits(streams, want):
+    """Teacher-force as far as the furthest split needs (8 at least)."""
+    firsts = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                   None) for g, w in zip(streams, want)]
+    return max([8] + [k + 1 for k in firsts if k is not None])
 
 
 def parallel_depth2(mesh):
@@ -3492,7 +3567,10 @@ def parallel_depth2(mesh):
     weights, f32 compute, int8 KV.  The TP prefill's logits (K4, K10, K9
     at shard shapes) against one card's, the TP ServingEngine's greedy
     streams against one card's ServingEngine, sequence parallelism against
-    ``forward_nocache``, and a 2-stage ``pipeline_forward_nocache`` bit for
+    ``forward_nocache`` and, at a T the model axis does not divide, an SP
+    prefill against one card's, a prefill whose ``wo`` is held whole (a K
+    split would cut a Q4 block: CodeGen's D = 80, tp heads, E = 80 * tp)
+    against one card's, and a 2-stage ``pipeline_forward_nocache`` bit for
     bit against ``forward_nocache`` on each microbatch; rank 0 computes
     the one-card references and fails the phase on a miss."""
     import torch
@@ -3553,6 +3631,39 @@ def parallel_depth2(mesh):
     if rank == 0:
         out["sp_rel_err"] = rel_to(got, forward_nocache(cfg, params, ids2),
                                    f"tp={tp} sequence parallel")
+    # an SP prefill at T = 13 (tp = 2, 4 do not divide it): the residual
+    # stream's tokens padded to a multiple of the axis, the pad rows
+    # dropped before attention
+    odd = torch.tensor([PARALLEL_PROMPTS[2][:13], PARALLEL_PROMPTS[2][7:]],
+                       device=dev)
+    with pctx.use_mesh(mesh, rules={"seq": "model"}):
+        got, _ = forward(cfg, local, odd, init_cache(
+            cfg, 2, device=dev, heads=cfg.n_head // tp), 0, fresh_kv=True)
+    if rank == 0:
+        ref, _ = forward(cfg, params, odd, init_cache(cfg, 2, device=dev), 0,
+                         fresh_kv=True)
+        out["sp_odd_t"] = odd.shape[1]
+        out["sp_odd_rel_err"] = rel_to(
+            got, ref, f"tp={tp} SP prefill at T = {odd.shape[1]}")
+    # wo held whole: K = 80 * tp splits its packed bytes over the ranks,
+    # not its 32-row scale blocks (GSPMD gathers; the port gathers wo's
+    # input over the heads and runs the whole product)
+    wcfg = PRESETS["codegen-2b"].replace(
+        n_layer=2, n_ctx=64, n_embd=80 * tp, n_head=tp, n_ff=320 * tp,
+        compute_dtype="float32", kv_dtype="int8")
+    wparams = random_q4_params(wcfg, seed=2, device=dev)
+    wlocal = shard_params(wparams, mesh)
+    if wlocal["layers"]["wo"] is not wparams["layers"]["wo"]:
+        fail(f"tp={tp}: wo at K = {wcfg.n_embd} was split, not held whole")
+    with pctx.use_mesh(mesh):
+        got, _ = forward(wcfg, wlocal, ids, init_cache(
+            wcfg, 1, device=dev, heads=1), 0, fresh_kv=True)
+    if rank == 0:
+        ref, _ = forward(wcfg, wparams, ids, init_cache(wcfg, 1, device=dev),
+                         0, fresh_kv=True)
+        out["whole_wo_rel_err"] = rel_to(got, ref,
+                                         f"tp={tp} prefill, wo held whole")
+    del wparams, wlocal
 
     pmesh = make_mesh((2, distributed.process_count() // 2),
                       axis_names=("pipe", "data"), device=dev)
@@ -3568,7 +3679,30 @@ def parallel_depth2(mesh):
     return out
 
 
-def parallel_full_width(mesh, plain_streams):
+def serve_run(srv, prompts, n_pred, label, kernels):
+    """``serve_scenario`` on a sharded engine: its numbers, this rank's
+    launches (each of ``kernels`` at least once, or the phase fails) and
+    the streams."""
+    from vsim_tpu_torch.ops import _build
+    from vsim_tpu_torch.parallel import distributed
+
+    _build.reset_launch_counts()
+    wall, reqs, st = serve_scenario(srv, prompts, n_pred)
+    launches = dict(_build.launch_counts)
+    for k in kernels:
+        if launches.get(k, 0) == 0:
+            fail(f"rank {distributed.process_index()}: {label} never "
+                 f"launched {k}: {launches}")
+    streams = [r.generated for r in reqs]
+    n_tok = sum(len(x) for x in streams)
+    return dict(wall_s=wall, generated_tokens=n_tok,
+                tokens_per_s=n_tok / wall,
+                ttft_ms=[(r.first_token_s - r.submitted_s) * 1e3
+                         for r in reqs], launches=launches,
+                streams=streams), st
+
+
+def parallel_full_width(mesh, cfg, params, plain_streams):
     """Phase 11 (b), on every rank: GPT-J-6B at full width (seed-0 random
     Q4 weights, phase 3's), bf16, int8 KV, ``ServingEngine(mesh=...)`` on 8
     slots under phase 4's traffic: tokens/s, ms a chunk step, TTFT and
@@ -3581,41 +3715,22 @@ def parallel_full_width(mesh, plain_streams):
 
     from vsim_tpu_torch.engine.generate import engine_params
     from vsim_tpu_torch.engine.serving import ServingEngine
-    from vsim_tpu_torch.models.config import PRESETS
-    from vsim_tpu_torch.models.init import random_q4_params
-    from vsim_tpu_torch.ops import _build
     from vsim_tpu_torch.parallel import distributed
 
     dev, rank = mesh.device, distributed.process_index()
-    cfg = PRESETS["gpt-j-6b"].replace(compute_dtype="bfloat16",
-                                      kv_dtype="int8")
     t0 = time.perf_counter()
-    params = random_q4_params(cfg, seed=0, device=dev)
     srv = ServingEngine(cfg, params, max_batch=8, mesh=mesh)
     torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
     warmup_s = srv.warmup()
     prompts, n_pred = serve_traffic(cfg.n_vocab)
-    _build.reset_launch_counts()
-    wall, reqs, st = serve_scenario(srv, prompts, n_pred)
-    launches = dict(_build.launch_counts)
-    for k in PARALLEL_KERNELS:
-        if launches.get(k, 0) == 0:
-            fail(f"rank {rank}: TP serving never launched {k}: {launches}")
-    streams = [r.generated for r in reqs]
-    n_tok = sum(len(x) for x in streams)
+    out, st = serve_run(srv, prompts, n_pred, "TP serving", PARALLEL_KERNELS)
     chunk = st["serve/step_chunk"]
-    out = dict(setup_s=setup_s, warmup_s=warmup_s, wall_s=wall,
-               generated_tokens=n_tok, tokens_per_s=n_tok / wall,
+    streams = out["streams"]
+    out.update(setup_s=setup_s, warmup_s=warmup_s,
                ms_per_chunk_step=chunk.wall_s * 1e3 / (chunk.calls * 8),
-               ttft_ms=[(r.first_token_s - r.submitted_s) * 1e3
-                        for r in reqs],
-               graphed=srv._make_graph is not None, launches=launches,
-               streams=streams)
-    # teacher-force only as far as the furthest split needs (8 at least)
-    firsts = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
-                   None) for g, w in zip(streams, plain_streams)]
-    n_forced = max([8] + [k + 1 for k in firsts if k is not None])
+               graphed=srv._make_graph is not None)
+    n_forced = first_splits(streams, plain_streams)
     tp_params, slopes, heads = srv.params, srv.slopes, srv.heads
     del srv
     torch.cuda.empty_cache()
@@ -3636,16 +3751,6 @@ def parallel_full_width(mesh, plain_streams):
     out["forced_tokens"] = n_forced
     out["forced_s"] = time.perf_counter() - t0
     if rank == 0:
-        margins, gaps, scales, margins0 = [], [], [], []
-        for (pl, m0), (tl, _), lo in zip(plain, tp, (0, 8)):
-            top2 = pl.topk(2, dim=-1).values
-            margin = (top2[..., 0] - top2[..., 1]).tolist()
-            gap = (tl - pl).abs().amax(dim=-1).tolist()
-            n = [min(len(x), n_forced) for x in plain_streams[lo:lo + 8]]
-            margins += [margin[b][1:n[b]] for b in range(len(n))]
-            gaps += [gap[b][1:n[b]] for b in range(len(n))]
-            scales += pl.abs().amax(dim=(1, 2)).tolist()
-            margins0 += m0
         # the two differences apart: TP against one card's stacked engine
         # (the all-reduces' sum order), that engine against phase 4's
         out["gap_scale"] = max(p.abs().max().item() for p, _ in plain)
@@ -3654,18 +3759,136 @@ def parallel_full_width(mesh, plain_streams):
         out["gap_stacked_vs_plain"] = max((st - p).abs().max().item() for
                                           (st, _), (p, _) in zip(stacked,
                                                                  plain))
-        out["split"] = split_check(f"tp={mesh.size('model')} serving",
-                                   streams, plain_streams, margins, gaps,
-                                   scales, margins0)
+        out["split"] = forced_split(f"tp={mesh.size('model')} serving",
+                                    streams, plain_streams, (0, 8), plain,
+                                    tp, n_forced)
+    return out
+
+
+def parallel_data_serving(mesh, cfg, params, plain_streams):
+    """Phase 11 (c), on every rank: GPT-J-6B at full width (phase 3's
+    weights), bf16, int8 KV, ``ServingEngine(mesh=)`` with 2 ranks on the
+    data axis: each data rank holds 4 of the 8 slots and replays its step
+    from its graph (over gloo too where the model axis is 1: the exchange
+    of a chunk's ring runs outside the graph), under phase 4's traffic:
+    tokens/s, ms a chunk step, TTFT, this rank's launches and the
+    exchange's ms a chunk.  Then the step teacher-forced along phase 4's
+    streams in blocks of a data rank's rows against one card's (rank 0,
+    phase 4's unrolled params): the streams must equal phase 4's up to a
+    split whose one-card top-2 margin is at most the measured gap."""
+    import torch
+
+    from vsim_tpu_torch.engine.generate import engine_params
+    from vsim_tpu_torch.engine.serving import ServingEngine
+    from vsim_tpu_torch.parallel import distributed
+
+    dev, rank = mesh.device, distributed.process_index()
+    label = f"data={mesh.size('data')} x model={mesh.size('model')} serving"
+    t0 = time.perf_counter()
+    srv = ServingEngine(cfg, params, max_batch=8, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    warmup_s = srv.warmup()
+    prompts, n_pred = serve_traffic(cfg.n_vocab)
+    out, st = serve_run(srv, prompts, n_pred, label, PARALLEL_KERNELS)
+    replayed = bool(srv._steps) and all(
+        step.graph is not None for step in srv._steps.values())
+    if not replayed:
+        fail(f"rank {rank}: {label}: the step was not replayed from a graph")
+    chunk = st["serve/step_chunk"]
+    exch = st["serve/step_chunk/serve/exchange"]
+    out.update(setup_s=setup_s, warmup_s=warmup_s, replayed=replayed,
+               slots=[srv.first, srv.rows],
+               ms_per_chunk_step=chunk.wall_s * 1e3 / (chunk.calls * 8),
+               exchange_ms_per_chunk=exch.wall_s * 1e3 / exch.calls,
+               exchanges=exch.calls)
+    n_forced = first_splits(out["streams"], plain_streams)
+    rows = srv.rows
+    batches = range(0, len(prompts), rows)
+    dp_params, slopes, heads = srv.params, srv.slopes, srv.heads
+    del srv
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = [forced_logits(cfg, dp_params, slopes, prompts[lo:lo + rows],
+                         plain_streams[lo:lo + rows], n_forced, heads, mesh)
+           for lo in batches]
+    if rank == 0:
+        one = engine_params(cfg, params, dev)
+        ref = [forced_logits(cfg, one, None, prompts[lo:lo + rows],
+                             plain_streams[lo:lo + rows], n_forced,
+                             cfg.n_head) for lo in batches]
+        del one
+        out["split"] = forced_split(label, out["streams"], plain_streams,
+                                    batches, ref, got, n_forced)
+    out["forced_tokens"] = n_forced
+    out["forced_s"] = time.perf_counter() - t0
+    return out
+
+
+def parallel_spec_serving(mesh, cfg, params, spec_streams):
+    """Phase 11 (d), on every rank: GPT-J-6B ``ServingEngine(mesh=,
+    drafter=NgramDrafter(3, 4))`` over the model axis (eager over gloo,
+    replayed over NCCL) on phase 10's serving prompts at
+    ``SPEC_TP_TOKENS`` tokens each: tokens a step, ``serve/spec_step`` ms,
+    this rank's launches.  Then its verify (gamma + 1 tokens a forward)
+    teacher-forced along phase 10's one-card speculative streams (their
+    first ``SPEC_TP_TOKENS``) against one card's verify (rank 0): the
+    streams must equal those up to a split that ``split_check`` accepts."""
+    import torch
+
+    from vsim_tpu_torch.engine.generate import engine_params
+    from vsim_tpu_torch.engine.serving import ServingEngine
+    from vsim_tpu_torch.engine.speculative import NgramDrafter
+    from vsim_tpu_torch.parallel import distributed
+
+    dev, rank = mesh.device, distributed.process_index()
+    n = SPEC_TP_TOKENS
+    label = f"tp={mesh.size('model')} speculative serving"
+    srv = ServingEngine(cfg, params, max_batch=8, mesh=mesh,
+                        drafter=NgramDrafter(3, 4))
+    warmup_s = srv.warmup()
+    prompts, _ = serve_traffic(cfg.n_vocab)
+    out, st = serve_run(srv, prompts, [n] * len(prompts), label,
+                        SPEC_PARALLEL_KERNELS)
+    spec = st["serve/spec_step"]
+    out.update(warmup_s=warmup_s, spec_cycles=srv.spec_cycles,
+               spec_emitted=srv.spec_emitted,
+               tokens_per_step=srv.spec_emitted / srv.spec_cycles,
+               ms_per_spec_step=spec.wall_s * 1e3 / spec.calls,
+               replayed=srv._make_graph is not None and all(
+                   step.graph is not None
+                   for step in srv._spec_steps.values()))
+    want = [x[:n] for x in spec_streams]
+    G = srv.drafter.gamma + 1  # noqa: N806
+    sp_params, slopes, heads = srv.params, srv.slopes, srv.heads
+    del srv
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = [forced_logits(cfg, sp_params, slopes, prompts[lo:lo + 8],
+                         want[lo:lo + 8], n, heads, mesh, chunk=G)
+           for lo in (0, 8)]
+    if rank == 0:
+        one = engine_params(cfg, params, dev)
+        ref = [forced_logits(cfg, one, None, prompts[lo:lo + 8],
+                             want[lo:lo + 8], n, cfg.n_head, chunk=G)
+               for lo in (0, 8)]
+        del one
+        out["split"] = forced_split(label, out["streams"], want, (0, 8), ref,
+                                    got, n)
+    out["forced_s"] = time.perf_counter() - t0
     return out
 
 
 def rank_main(job_path: str) -> None:
     """One rank of phase 11 (``chip_smoke.py --rank JOB``, started by
     ``run_ranks`` with the ``VSIM_*`` variables set): joins the group,
-    runs (a) and (b) on this rank's card and writes its results."""
+    runs (a)-(d) on this rank's card and writes its results: (a) and (b)
+    (TP serving) and (d) (speculative serving) with every rank on the
+    model axis, (c) with 2 ranks on the data axis."""
     import torch
 
+    from vsim_tpu_torch.models.config import PRESETS
+    from vsim_tpu_torch.models.init import random_q4_params
     from vsim_tpu_torch.parallel import distributed
 
     with open(job_path) as f:
@@ -3679,17 +3902,28 @@ def rank_main(job_path: str) -> None:
     t0 = time.perf_counter()
     out["depth2"] = parallel_depth2(mesh)
     out["depth2_s"] = time.perf_counter() - t0
-    if job["full"]:
-        t0 = time.perf_counter()
-        out["full"] = parallel_full_width(mesh, job["plain_streams"])
-        out["full_s"] = time.perf_counter() - t0
+    cfg = PRESETS["gpt-j-6b"].replace(compute_dtype="bfloat16",
+                                      kv_dtype="int8")
+    params = random_q4_params(cfg, seed=0, device=mesh.device)
+    t0 = time.perf_counter()
+    out["full"] = parallel_full_width(mesh, cfg, params, job["plain_streams"])
+    out["full_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["data"] = parallel_data_serving(distributed.global_mesh((2, -1)),
+                                        cfg, params, job["plain_streams"])
+    out["data_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["spec"] = parallel_spec_serving(mesh, cfg, params,
+                                        job["spec_streams"])
+    out["spec_s"] = time.perf_counter() - t0
     with open(os.path.join(job["dir"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     distributed.barrier("phase 11 done", timeout_s=600)
     distributed.shutdown()
 
 
-def run_ranks(world: int, backend, plain_streams, timeout_s: float = 420):
+def run_ranks(world: int, backend, plain_streams, spec_streams,
+              timeout_s: float = 600):
     """Start ``world`` ranks of this script (``--rank``), one process
     each, over ``backend`` (None: the port's rule, NCCL with a card a
     rank); fail, killing the others, when a rank fails or the timeout
@@ -3700,8 +3934,8 @@ def run_ranks(world: int, backend, plain_streams, timeout_s: float = 420):
     os.makedirs(d, exist_ok=True)
     job = os.path.join(d, "job.json")
     with open(job, "w") as f:
-        json.dump(dict(dir=d, backend=backend, full=True,
-                       plain_streams=plain_streams), f)
+        json.dump(dict(dir=d, backend=backend, plain_streams=plain_streams,
+                       spec_streams=spec_streams), f)
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
         port = sk.getsockname()[1]
@@ -3738,24 +3972,29 @@ def run_ranks(world: int, backend, plain_streams, timeout_s: float = 420):
     for r in range(world):
         with open(os.path.join(d, f"rank{r}.json")) as f:
             out.append(json.load(f))
-    if any(o["full"]["streams"] != out[0]["full"]["streams"] for o in out):
-        fail(f"phase 11 ({world} ranks): the ranks retired different tokens")
+    for run in ("full", "data", "spec"):
+        if any(o[run]["streams"] != out[0][run]["streams"] for o in out):
+            fail(f"phase 11 ({world} ranks, {run}): the ranks retired "
+                 "different tokens")
     return out
 
 
-def phase_parallel(peaks, plain_streams):
+def phase_parallel(peaks, plain_streams, spec_streams, nccl_only=False):
     """Phase 11: the shard-shape kernel rows, then two ranks on card 0
-    over gloo (eager steps: gloo's collectives go through the host) and,
-    with four cards or more, four ranks over NCCL (a card each, the
-    serving step captured and replayed).  Returns (numbers, kernel rows,
-    launches of the serving runs summed over ranks)."""
+    over gloo (TP and speculative serving at (1, 2), eager: gloo's
+    collectives go through the host; serving at (2, 1), each rank's step
+    replayed) and, with four cards or more, four ranks over NCCL (a card
+    each; (1, 4) TP and speculative serving and (2, 2) serving, every
+    step captured and replayed); ``nccl_only``: the NCCL run alone.
+    Returns (numbers, kernel rows, launches of the serving runs summed
+    over ranks)."""
     import torch
 
     t0 = time.perf_counter()
-    rows = shard_kernel_rows(peaks)
+    rows = [] if nccl_only else shard_kernel_rows(peaks)
     out = dict(kernel_rows_s=time.perf_counter() - t0)
     launches = collections.Counter()
-    runs = [("gloo tp=2", 2, "gloo")]
+    runs = [] if nccl_only else [("gloo tp=2", 2, "gloo")]
     if torch.cuda.device_count() >= 4:
         runs.append(("nccl tp=4", 4, None))
     else:
@@ -3763,10 +4002,11 @@ def phase_parallel(peaks, plain_streams):
                             "NCCL takes a card a rank, four are needed")
     for label, world, backend in runs:
         t0 = time.perf_counter()
-        ranks = run_ranks(world, backend, plain_streams)
+        ranks = run_ranks(world, backend, plain_streams, spec_streams)
         out[label] = dict(seconds=time.perf_counter() - t0, ranks=ranks)
         for r in ranks:
-            launches.update(r["full"]["launches"])
+            for run in ("full", "data", "spec"):
+                launches.update(r[run]["launches"])
     return out, rows, dict(launches)
 
 
@@ -3787,9 +4027,11 @@ def parallel_lines(par):
             f"{run['seconds']:.1f} s; step "
             f"{'replayed from its graph' if full['graphed'] else 'eager'}): "
             f"depth 2 f32: prefill {d2['tp_prefill_rel_err']:.2g}, SP "
-            f"{d2['sp_rel_err']:.2g} of max|logit| (<= {TOL_TP}), serving "
-            "streams = one card's, 2-stage pipeline = forward_nocache bit "
-            f"for bit ({r0['depth2_s']:.1f} s)")
+            f"{d2['sp_rel_err']:.2g}, SP prefill at T = {d2['sp_odd_t']} "
+            f"{d2['sp_odd_rel_err']:.2g}, wo held whole (CodeGen D = 80) "
+            f"{d2['whole_wo_rel_err']:.2g} of max|logit| (<= {TOL_TP}), "
+            "serving streams = one card's, 2-stage pipeline = "
+            f"forward_nocache bit for bit ({r0['depth2_s']:.1f} s)")
         sp = full["split"]
         lines.append(
             f"  {label} GPT-J-6B bf16 int8 KV, 8 slots: "
@@ -3804,10 +4046,39 @@ def parallel_lines(par):
             f"card's stacked engine {full['gap_tp_vs_stacked']:.4g}, that "
             f"engine vs phase 4's {full['gap_stacked_vs_plain']:.4g} (max|"
             f"logit| {full['gap_scale']:.3g})")
+        dp, sp = r0["data"], r0["spec"]
+        lines.append(
+            f"  {label} {dp['split']['rows']} requests, data = 2 ranks "
+            f"({r0['data_s']:.1f} s; each rank's step "
+            f"{'replayed from its graph' if dp['replayed'] else 'eager'}): "
+            f"{dp['tokens_per_s']:.1f} tokens/s, "
+            f"{dp['ms_per_chunk_step']:.2f} ms a chunk step, TTFT "
+            f"{min(dp['ttft_ms']):.0f}-{max(dp['ttft_ms']):.0f} ms, the "
+            f"exchange {dp['exchange_ms_per_chunk']:.3f} ms a chunk "
+            f"({dp['exchanges']} chunks); vs phase 4's streams: "
+            f"{dp['split']['compared_tokens']} tokens equal, "
+            f"{len(dp['split']['splits'])} splits, gap "
+            f"{dp['split']['gap_max']:.4g} over {dp['forced_tokens']} "
+            "forced tokens")
+        lines.append(
+            f"  {label} speculative serving, NgramDrafter(3, 4), "
+            f"{SPEC_TP_TOKENS} tokens a request ({r0['spec_s']:.1f} s; step "
+            f"{'replayed' if sp['replayed'] else 'eager'}): "
+            f"{sp['tokens_per_step']:.3f} tokens a step over the active "
+            f"slots ({sp['spec_emitted']} in {sp['spec_cycles']} steps), "
+            f"{sp['ms_per_spec_step']:.1f} ms a serve/spec_step, "
+            f"{sp['tokens_per_s']:.1f} tokens/s; vs phase 10's one-card "
+            f"streams: {sp['split']['compared_tokens']} tokens equal, "
+            f"{len(sp['split']['splits'])} splits, verify gap "
+            f"{sp['split']['gap_max']:.4g} ({sp['split']['gap_rel_max']:.3g}"
+            " of max|logit|)")
         for r in run["ranks"]:
-            lines.append(f"    rank {r['rank']} ({r['device']}) launches: "
-                         + json.dumps({k: r["full"]["launches"].get(k, 0)
-                                       for k in PARALLEL_KERNELS}))
+            for run_name in ("full", "data", "spec"):
+                lines.append(
+                    f"    rank {r['rank']} ({r['device']}) {run_name} "
+                    "launches: " + json.dumps(
+                        {k: r[run_name]["launches"].get(k, 0)
+                         for k in PARALLEL_KERNELS}))
     return lines
 
 
@@ -4148,7 +4419,8 @@ def main() -> None:
     # phase 11, last: its ranks are processes of their own on the card(s)
     t0 = time.perf_counter()
     parallel, par_rows, par_launches = phase_parallel(
-        peaks, serving["int8"]["streams"])
+        peaks, serving["int8"]["streams"],
+        spec["gpt-j-6b serving"]["streams"])
     print(f"parallel (phase 11) in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for line in parallel_lines(parallel):
@@ -4193,16 +4465,18 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def main_parallel() -> None:
-    """``chip_smoke.py --parallel``: phase 11 alone (the four-card run),
-    after phase 4's int8 traffic on one card for the streams it is held
-    to.  Prints the same lines as the whole check's phase 11."""
+def main_parallel(nccl_only: bool = False) -> None:
+    """``chip_smoke.py --parallel [nccl]``: phase 11 alone (the four-card
+    run; ``nccl``: its NCCL run alone), after phase 4's int8 traffic on one
+    card, plain and with phase 10's ``NgramDrafter(3, 4)``, for the streams
+    it is held to.  Prints the same lines as the whole check's phase 11."""
     t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
     from vsim_tpu_torch.engine.serving import ServingEngine
+    from vsim_tpu_torch.engine.speculative import NgramDrafter
     from vsim_tpu_torch.models.config import PRESETS
     from vsim_tpu_torch.models.init import random_q4_params
     from vsim_tpu_torch.ops import _build
@@ -4215,16 +4489,21 @@ def main_parallel() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
     cfg = PRESETS["gpt-j-6b"].replace(compute_dtype="bfloat16")
-    srv = ServingEngine(cfg, random_q4_params(cfg, seed=0), max_batch=8,
-                        kv_dtype="int8")
-    srv.warmup()
-    prompts, n_pred = serve_traffic(cfg.n_vocab)
-    _, reqs, _ = serve_scenario(srv, prompts, n_pred)
-    del srv
+    params = random_q4_params(cfg, seed=0)
+    streams = []
+    for drafter in (None, NgramDrafter(3, 4)):
+        srv = ServingEngine(cfg, params, max_batch=8, kv_dtype="int8",
+                            drafter=drafter)
+        srv.warmup()
+        prompts, n_pred = serve_traffic(cfg.n_vocab)
+        _, reqs, _ = serve_scenario(srv, prompts, n_pred)
+        streams.append([r.generated for r in reqs])
+        del srv
+    del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    parallel, rows, launches = phase_parallel(
-        card_peaks(name), [r.generated for r in reqs])
+    parallel, rows, launches = phase_parallel(card_peaks(name), *streams,
+                                              nccl_only=nccl_only)
     print(f"parallel (phase 11) in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for line in parallel_lines(parallel):
@@ -4244,7 +4523,7 @@ def main_parallel() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         rank_main(sys.argv[2])
-    elif sys.argv[1:] == ["--parallel"]:
-        main_parallel()
+    elif sys.argv[1:2] == ["--parallel"] and sys.argv[2:] in ([], ["nccl"]):
+        main_parallel(nccl_only=sys.argv[2:] == ["nccl"])
     else:
         main()

@@ -16,8 +16,11 @@ virtual devices, with the JAX tests' own setups and tolerances:
   * ``pipeline_forward_nocache`` at (2 stages, 2 micro) and (4, 3) within
     2e-5 of the JAX pipeline and bit-equal to the port's
     ``forward_nocache`` on each microbatch; ``stage_params`` shapes;
-  * the ``ValueError`` where GSPMD would gather: heads that do not split,
-    a plane-split K split, an lm head whose vocabulary does not divide.
+  * the ``ValueError`` where the JAX package cannot place the cache
+    either (heads that do not split, ``max_batch`` over ``data``), and the
+    leaves held whole where GSPMD gathers: a K split that would cut a Q4
+    block, a plane-split K split, a vocabulary that does not divide
+    (tests/test_torch_parallel_data.py runs them against the JAX package).
 """
 
 import jax
@@ -306,38 +309,56 @@ def test_shard_shapes():
 
 
 def test_unsplittable_raises():
-    """Where GSPMD would gather, the port raises: heads that do not split
-    into whole heads, a K split that is not one (plane-split), a K split
-    that cuts a 32-row block, a vocabulary that does not divide."""
+    """What the JAX package cannot place raises: heads that do not split
+    into whole heads, cache rows (``max_batch``) that do not split over
+    ``data``.  Where GSPMD would gather, the leaf is held whole on every
+    rank, both its arrays: a K split that would cut a 32-row block, a K
+    split of a plane-split weight, a vocabulary that does not divide; the
+    leaves that do split are this rank's shares."""
     cfg = ModelConfig(**CFG)
     mesh = Mesh(AXES, (1, 4))
     with pytest.raises(ValueError, match="whole heads"):
-        sharding.check_split(cfg.replace(n_head=6), mesh)
+        sharding.check_heads(6, mesh)
     with pytest.raises(ValueError, match="whole heads"):
         ServingEngine(cfg.replace(n_head=6), random_q4_params(
             cfg.replace(n_head=6), device="cpu"), device="cpu", mesh=mesh)
-    with pytest.raises(ValueError, match="Q4 blocks"):  # wo: K 64 over 4
-        sharding.check_split(cfg.replace(n_embd=64, n_head=4), mesh)
+    from vsim_tpu_torch.models.transformer import init_cache
+
+    with pytest.raises(ValueError, match="do not split over 2 ranks on "
+                       "'data'"):
+        sharding.shard_cache(init_cache(cfg, 3, device="cpu"),
+                             Mesh(AXES, (2, 1)))
+    with pytest.raises(ValueError, match="max_batch"):
+        ServingEngine(cfg, random_q4_params(cfg, device="cpu"), max_batch=3,
+                      device="cpu", mesh=Mesh(AXES, (2, 1)))
+    # wo: K 64 over 4 ranks, 16 rows a rank: held whole, now no raise
+    assert sharding.check_heads(4, mesh) is None
     params = random_q4_params(cfg, seed=0, device="cpu")
     ps = dict(params, layers=dict(params["layers"]))
     wo = ps["layers"]["wo"]
     ps["layers"]["wo"] = to_plane_split(wo.layer(0))
     ps["layers"]["wo"].packed = ps["layers"]["wo"].packed[None]
     ps["layers"]["wo"].scales = ps["layers"]["wo"].scales[None]
-    with pytest.raises(ValueError, match="not a K split"):
-        sharding.shard_params(ps, Mesh(AXES, (1, 2)))
+    local = sharding.shard_params(ps, Mesh(AXES, (1, 2), coord=(0, 1)))
+    assert local["layers"]["wo"] is ps["layers"]["wo"]
+    assert torch.equal(local["layers"]["w_proj"].packed,
+                       params["layers"]["w_proj"].packed[:, 64:])
     # K = 128: 4 blocks of 32 rows; packed splits 8 ways, scales do not
-    with pytest.raises(ValueError, match="Q4 blocks"):
-        sharding.shard_params(params, Mesh(AXES, (1, 8)))
+    local = sharding.shard_params(params, Mesh(AXES, (1, 8), coord=(0, 3)))
+    assert local["layers"]["wo"] is params["layers"]["wo"]
+    assert torch.equal(local["layers"]["wq"].packed,
+                       params["layers"]["wq"].packed[..., 48:64])
     odd = random_q4_params(cfg.replace(n_vocab=250), seed=0, device="cpu")
-    with pytest.raises(ValueError, match="vocabulary"):
-        sharding.shard_params(odd, Mesh(AXES, (1, 4)))
+    local = sharding.shard_params(odd, mesh)
+    assert local["lm_head"] is odd["lm_head"] and local["wte"] is odd["wte"]
+    assert local["layers"]["wo"].packed.shape == (2, 16, 128)
 
 
 def test_graphed_tp_engine_on_gloo_raises(tmp_path):
     """``cuda_graph=True`` over a gloo group raises before anything runs
     (gloo's collectives go through the host; a graph cannot capture
-    them); mesh= with a drafter and a data axis > 1 raise too."""
+    them); mesh= with a drafter, and with a data axis > 1 (this rank's
+    block of the slots), builds."""
     import datetime
 
     import torch.distributed as dist
@@ -354,10 +375,11 @@ def test_graphed_tp_engine_on_gloo_raises(tmp_path):
         mesh = Mesh(AXES, (1, 2), groups=(world, world))
         with pytest.raises(ValueError, match="gloo"):
             ServingEngine(cfg, params, mesh=mesh, cuda_graph=True)
-        with pytest.raises(ValueError, match="drafter"):
-            ServingEngine(cfg, params, mesh=mesh, drafter=NgramDrafter(2, 3))
-        with pytest.raises(ValueError, match="data axis"):
-            ServingEngine(cfg, params, mesh=Mesh(AXES, (2, 1),
-                                                 groups=(world, world)))
+        srv = ServingEngine(cfg, params, mesh=mesh, drafter=NgramDrafter(2, 3))
+        assert srv.drafter is not None and srv._make_graph is None
+        srv = ServingEngine(cfg, params, max_batch=8, mesh=Mesh(
+            AXES, (2, 1), coord=(1, 0), groups=(world, world)))
+        assert (srv.first, srv.rows) == (4, 4)
+        assert srv.cache["k"].shape[1] == 4 and srv.tokens.shape == (4,)
     finally:
         dist.destroy_process_group()

@@ -5,10 +5,10 @@ runtime, ranks as processes over gloo on the CPU
   * ``ServingEngine(mesh=...)`` at (1, 2) and (1, 4), int8 and float32 KV,
     on the prompts of tests/test_serving.py's sharded test (:91) and its
     model at twice the width and a vocabulary of 1500 (E = 128, F = 256:
-    at E = 64, tp = 4 would
-    leave ``wo`` 16 rows of K a rank, half a Q4 block, where GSPMD gathers
-    and the port raises): every rank's greedy streams equal the JAX
-    ``ServingEngine(mesh=...)``'s and the port's single-device engine's;
+    every weight splits; tests/test_torch_parallel_data.py runs the E = 64
+    model, whose ``wo`` is held whole at tp = 4): every rank's greedy
+    streams equal the JAX ``ServingEngine(mesh=...)``'s and the port's
+    single-device engine's;
   * ``distributed.initialize`` from the ``VSIM_*`` variables,
     ``global_mesh((1, -1))``, a cross-process sum, a tensor-parallel Q4
     matmul equal to the whole weight's, ``barrier`` (the counterpart of
@@ -85,7 +85,7 @@ def runs(tmp_path_factory):
 def test_tp_serving_streams_match_jax_and_single(runs, world, kv):
     d, want = runs
     for rank in range(world):
-        got = result(d, f"serve{world}_{kv}", rank)
+        got = result(d, f"serve{world}_{kv}", rank)["streams"]
         assert got == want[world, kv], (rank, got, want[world, kv])
         assert got == want["single", kv]
 

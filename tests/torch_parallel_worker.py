@@ -21,9 +21,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from vsim_tpu_torch.engine.sampling import SamplingParams  # noqa: E402
 from vsim_tpu_torch.engine.serving import ServingEngine  # noqa: E402
+from vsim_tpu_torch.engine.speculative import NgramDrafter  # noqa: E402
 from vsim_tpu_torch.models.config import ModelConfig  # noqa: E402
 from vsim_tpu_torch.models.from_jax import params_from_numpy  # noqa: E402
+from vsim_tpu_torch.models.init import layer_of  # noqa: E402
 from vsim_tpu_torch.models.transformer import (  # noqa: E402
     forward,
     forward_nocache,
@@ -70,20 +73,29 @@ def load_tree(path):
 
 
 def case_forward(case, cfg, params, mesh):
-    """A prefill (``cache``) or a cache-free forward of the case's ids on
-    this rank's shard, under the case's rules; with ``decode``, one more
-    step of the ids' first column at n_past T.  Ids and cache are the
-    rank's batch rows (the data axis)."""
+    """A prefill (``cache``; with ``fresh``, over its own k/v, which
+    sequence parallelism splits, the cache returned) or a cache-free
+    forward of the case's ids on this rank's shard (``unroll``: its layers
+    per layer), under the case's rules; with ``decode``, one more step of the ids' first column at
+    n_past T.  Ids and cache are the rank's batch rows (the data axis)."""
     ids = torch.from_numpy(np.load(case["ids"])).long()
     B, T = ids.shape  # noqa: N806
     n_data, di = mesh.size("data"), mesh.index("data")
     rows = ids[di * (B // n_data):(di + 1) * (B // n_data)]
     local = shard_params(params, mesh)
+    if case.get("unroll"):  # per-layer weights (a stacked one is K10's,
+        # which takes the interleaved layout only)
+        local = dict(local, layers=[
+            {k: layer_of(v, il) for k, v in local["layers"].items()}
+            for il in range(cfg.n_layer)])
     out = {}
     with pctx.use_mesh(mesh, case.get("rules")):
         if case.get("cache"):
             cache = shard_cache(init_cache(cfg, B, device="cpu"), mesh)
-            out["logits"], cache = forward(cfg, local, rows, cache, 0)
+            out["logits"], cache = forward(cfg, local, rows, cache, 0,
+                                           fresh_kv=bool(case.get("fresh")))
+            if case.get("fresh"):
+                out["cache_k"], out["cache_v"] = cache["k"], cache["v"]
             if case.get("decode"):
                 out["logits2"], _ = forward(cfg, local, rows[:, :1], cache, T)
         else:
@@ -100,10 +112,30 @@ def case_pipeline(case, cfg, params, mesh):
 
 
 def case_serving(case, cfg, params, mesh):
+    """``ServingEngine(mesh=)`` over the case's prompts (greedy, or the
+    case's ``sampling`` from ``seed``; with ``drafter`` (m, gamma) an
+    ``NgramDrafter``): the streams, the speculative counts, and how many
+    exchanges over the data axis the run made."""
+    from vsim_tpu_torch import monitor
+
+    drafter = case.get("drafter")
+    sampling = case.get("sampling")
     srv = ServingEngine(cfg, params, max_batch=case["max_batch"],
-                        device="cpu", mesh=mesh)
-    out = srv.run(case["prompts"], case["n"], stop_tokens=())
-    return [out[i].generated for i in range(len(case["prompts"]))]
+                        device="cpu", mesh=mesh, seed=case.get("seed", 0),
+                        sampling=None if sampling is None
+                        else SamplingParams(**sampling),
+                        drafter=None if drafter is None
+                        else NgramDrafter(*drafter))
+    monitor.reset()
+    out = srv.run(case["prompts"], case["n"], stop_tokens=(),
+                  chunk_steps=case.get("chunk_steps", 8))
+    spans = [st for st in monitor.stats().values()
+             if st.name == "serve/exchange"]
+    return dict(streams=[out[i].generated
+                         for i in range(len(case["prompts"]))],
+                spec_cycles=srv.spec_cycles, spec_emitted=srv.spec_emitted,
+                exchanges=sum(st.calls for st in spans),
+                rows=[srv.first, srv.rows])
 
 
 def case_runtime(case, cfg, params, mesh):

@@ -65,10 +65,14 @@ def sample_np(logits: np.ndarray, last_n_tokens: Sequence[int],
 def sample_torch(logits: torch.Tensor, last_tokens: torch.Tensor,
                  generator: Optional[torch.Generator], *, top_k: int = 40,
                  top_p: float = 0.9, temperature: float = 0.9,
-                 repeat_penalty: float = 1.3,
-                 greedy: bool = False) -> torch.Tensor:
+                 repeat_penalty: float = 1.3, greedy: bool = False,
+                 uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logits [B, V] f32, last_tokens [B, W] int64 (-1 padded) → [B] int64,
-    on the logits' device with no host round trip."""
+    on the logits' device with no host round trip.  Row b is drawn at
+    ``uniform[b]`` in [0, 1) of its kept probabilities' CDF; ``uniform``
+    defaults to one draw a row from ``generator`` (the serving engine
+    draws one for every slot and passes its own rows', so a stream does
+    not depend on which rank holds it)."""
     if greedy:
         return torch.argmax(logits, dim=-1)
     B, V = logits.shape  # noqa: N806
@@ -85,5 +89,9 @@ def sample_torch(logits: torch.Tensor, last_tokens: torch.Tensor,
         cum = torch.cumsum(probs, dim=-1)
         probs = torch.where(cum - probs < top_p, probs, 0.0)
         probs = probs / probs.sum(dim=-1, keepdim=True)
-    choice = torch.multinomial(probs, 1, generator=generator)
+    if uniform is None:
+        uniform = torch.rand(B, generator=generator, device=logits.device)
+    # the first kept entry whose CDF passes u (scaled to the sum)
+    cum = torch.cumsum(probs, dim=-1)
+    choice = (cum < uniform[:, None] * cum[:, -1:]).sum(dim=-1, keepdim=True)
     return torch.gather(idx, 1, choice)[:, 0]

@@ -42,26 +42,42 @@ head-major [L, max_batch, H, n_ctx, D] block, one slot per request.
     step and ``run`` steps one at a time.  The step is captured and
     replayed like ``_serve_step``.
 
-Tensor-parallel serving: with ``mesh=`` (parallel/mesh.py, a model axis
-over the ranks of a process group, each rank running this same host
-program) the params are padded and fused, sharded in the stacked
-interleaved layout (parallel/sharding.py; a plane-split K split would not
-be one) and kept stacked, so the step runs K10 for the layers, K9 for the
-rank's lm head rows, K5 + K6 over the rank's heads and K4 at admission;
-the cache holds the rank's heads [L, max_batch, H/tp, n_ctx, D].  The
-model's collectives (models/transformer.py) give every rank the whole
-logits, so every rank samples, retires and admits the same tokens.  Over
-NCCL the step is captured and replayed as on one card (its first, eager
-call is the collectives' warm-up); over gloo the collectives go through
-the host and cannot be captured, so the step runs eagerly and
-``cuda_graph=True`` raises.  The JAX engine also shards slots over a data
-axis; here the mesh's data axis must be 1, and ``mesh=`` with a
-``drafter`` raises (both wait for a later port).
+Sharded serving: with ``mesh=`` (parallel/mesh.py, a ``data`` x ``model``
+grid of ranks, each rank running this same host program over all
+``max_batch`` slots, with the JAX engine's free list, so every rank admits
+and retires the same requests) the params are padded and fused, sharded in
+the stacked interleaved layout (parallel/sharding.py; a plane-split K
+split would not be one) and kept stacked, so the step runs K10 for the
+layers, K9 for the lm head rows, K5 + K6 over the rank's heads and K4 at
+admission.  A weight the JAX specs replicate (a K split that would cut a
+Q4 block, a vocabulary that does not divide) is held whole and run on its
+gathered input (models/transformer.py).  Data rank r holds slots
+[r * B / d, (r + 1) * B / d) and their device state (tokens, n_past,
+repeat window, live mask, budget, ring, drafter history): a cache of
+[L, B / d, H / tp, n_ctx, D].  Admission prefills the admitted requests
+whose slots the rank holds; the model axis's collectives run inside each
+model group, which shares those rows.  Once a chunk, after its device
+work, the ring of this rank's slots is exchanged over the data axis
+(``parallel/context.py:all_gather``; a speculative step's emitted tokens
+once a step, admission's first tokens once an admission), and the host
+reads every slot's tokens from it: the ``serve/exchange`` span.  A sampled
+step draws one uniform for every slot on every rank and keeps its own
+(``sample_torch(uniform=)``), so a seeded stream does not depend on the
+data split.  The model's collectives give every rank of a model group the
+whole logits, so they sample and accept alike.  Over NCCL the step is
+captured and replayed as on one card (its first, eager call is the
+collectives' warm-up), the speculative step too; over gloo a model axis
+above 1 runs its collectives through the host, which a graph cannot
+capture, so the step runs eagerly and ``cuda_graph=True`` raises.  The
+exchange stays outside the captured step, so a mesh whose model axis is 1
+replays its step from a graph over gloo as well.  What the JAX engine
+cannot place raises ``ValueError``: heads that do not split over
+``model``, ``max_batch`` that does not split over ``data``.
 
 The JAX engine's recompile guards have no counterpart here: kv-length
 buckets and admission padded to [max_batch, 16 * 2^k] with sentinel rows.
 Monitor spans: ``serve/admit``, ``serve/step``, ``serve/step_chunk``,
-``serve/spec_step``.
+``serve/spec_step``, ``serve/exchange``.
 """
 
 from __future__ import annotations
@@ -98,7 +114,7 @@ from vsim_tpu_torch.ops import _build
 from vsim_tpu_torch.ops.q4_cuda import get_dequant_math
 from vsim_tpu_torch.parallel import context as pctx
 from vsim_tpu_torch.parallel import sharding
-from vsim_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL
+from vsim_tpu_torch.parallel.mesh import AXIS_MODEL
 
 
 def pad_stop_ids(ids: Sequence[int], width: int = 4) -> List[int]:
@@ -142,11 +158,12 @@ class ServingEngine:
                  cuda_graph: Optional[bool] = None, drafter=None,
                  mesh=None):
         """``cuda_graph`` (default: on for a CUDA device, off over a gloo
-        mesh) replays each serving step from a captured graph; False runs
-        it eagerly.  ``drafter``: an ``NgramDrafter`` makes every step
-        speculative (greedy sampling only).  ``mesh``: serve this rank's
-        tensor-parallel shard (stacked params, as the JAX engine's
-        ``mesh=``); the device defaults to the mesh's."""
+        mesh whose model axis is above 1) replays each serving step from a
+        captured graph; False runs it eagerly.  ``drafter``: an
+        ``NgramDrafter`` makes every step speculative (greedy sampling
+        only).  ``mesh``: serve this rank's shard (its model-axis share of
+        the stacked params and heads, its data-axis block of the slots, as
+        the JAX engine's ``mesh=``); the device defaults to the mesh's."""
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if drafter is not None and not isinstance(drafter, NgramDrafter):
@@ -155,9 +172,15 @@ class ServingEngine:
                 "(NgramDrafter); a ModelDrafter would need a draft cache per "
                 "slot: use SpeculativeEngine for one")
         self.mesh = mesh
+        # this rank's slots [first, first + rows): a block of max_batch
+        # over the mesh's data axis (all of them without one)
+        self.rows, self.first = max_batch, 0
         if mesh is not None:
-            cuda_graph = self._check_mesh(cfg, mesh, drafter, cuda_graph)
+            cuda_graph = self._check_mesh(cfg, mesh, cuda_graph)
+            self.rows, self.first = sharding.local_rows(max_batch, mesh)
             device = mesh.device if device is None else device
+        with pctx.use_mesh(mesh):
+            self._data = pctx.axis("batch")  # None: one rank on the axis
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.slopes = alibi_slopes(cfg.n_head, dev) if cfg.alibi else None
@@ -186,21 +209,21 @@ class ServingEngine:
         self._sample_kw = sampling_kw(sp)
         self.repeat_window = W = max(repeat_window, 1)  # noqa: N806
 
-        self.cache = init_cache(cfg, max_batch, n_ctx=self.n_ctx,
+        R = self.rows  # noqa: N806
+        self.cache = init_cache(cfg, R, n_ctx=self.n_ctx,
                                 dtype=self.kv_dtype, device=dev, heads=heads)
-        # device-resident per-slot state, updated in place
-        self.tokens = torch.zeros(max_batch, dtype=torch.long, device=dev)
-        self.n_past = torch.zeros(max_batch, dtype=torch.int32, device=dev)
-        self.last_tokens = torch.full((max_batch, W), -1, dtype=torch.long,
+        # device-resident state of this rank's slots, updated in place
+        self.tokens = torch.zeros(R, dtype=torch.long, device=dev)
+        self.n_past = torch.zeros(R, dtype=torch.int32, device=dev)
+        self.last_tokens = torch.full((R, W), -1, dtype=torch.long,
                                       device=dev)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
         # a chunk's inputs and outputs: the active mask and token budget
         # the chunk starts with, the shared stop ids, and the ring of each
         # step's tokens and active masks (rows grow with the longest chunk)
-        self._live = torch.zeros(max_batch, dtype=torch.bool, device=dev)
-        self._remaining = torch.zeros(max_batch, dtype=torch.int32,
-                                      device=dev)
+        self._live = torch.zeros(R, dtype=torch.bool, device=dev)
+        self._remaining = torch.zeros(R, dtype=torch.int32, device=dev)
         self._stop_ids = torch.tensor(pad_stop_ids(()), dtype=torch.long,
                                       device=dev)
         self._ring_tok = self._ring_act = None
@@ -219,10 +242,10 @@ class ServingEngine:
                                  "greedy argmax: pass SamplingParams("
                                  "greedy=True)")
             G = drafter.gamma + 1  # noqa: N806
-            self.history = torch.full((max_batch, self.n_ctx + 1), -1,
+            self.history = torch.full((R, self.n_ctx + 1), -1,
                                       dtype=torch.long, device=dev)
-            self._spec_out = torch.zeros((max_batch, G + 1),
-                                         dtype=torch.long, device=dev)
+            self._spec_out = torch.zeros((R, G + 1), dtype=torch.long,
+                                         device=dev)
 
         # host-side bookkeeping
         self._free: List[int] = list(range(max_batch))
@@ -232,18 +255,12 @@ class ServingEngine:
         self._ids = itertools.count()
 
     @staticmethod
-    def _check_mesh(cfg: ModelConfig, mesh, drafter,
+    def _check_mesh(cfg: ModelConfig, mesh,
                     cuda_graph: Optional[bool]) -> bool:
-        """Refuse what tensor-parallel serving does not run; returns the
-        graph setting (default: captured over NCCL, eager over gloo)."""
-        if drafter is not None:
-            raise ValueError("mesh= with a drafter: speculative serving is "
-                             "not sharded yet")
-        if mesh.size(AXIS_DATA) != 1:
-            raise ValueError(f"mesh= with {mesh.size(AXIS_DATA)} ranks on "
-                             f"{AXIS_DATA!r}: slots are not sharded over a "
-                             "data axis yet (the mesh's data axis must be 1)")
-        sharding.check_split(cfg, mesh)
+        """Refuse what sharded serving does not run; returns the graph
+        setting (default: captured, but eager over gloo with a model axis
+        above 1)."""
+        sharding.check_heads(cfg.n_head, mesh)
         group = mesh.group(AXIS_MODEL)
         gloo = (mesh.size(AXIS_MODEL) > 1 and group is not None
                 and torch.distributed.get_backend(group) == "gloo")
@@ -263,12 +280,31 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # device work
 
+    def _uniform(self, n: int, generator: torch.Generator
+                 ) -> Optional[torch.Tensor]:
+        """One uniform draw for each of ``n`` rows, on every rank alike
+        (None for greedy sampling, which draws nothing)."""
+        if self.sampling.greedy:
+            return None
+        return torch.rand(n, generator=generator, device=self.device)
+
+    def _exchange(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` of this rank's slots (along ``dim``) → every slot's, over
+        the data axis: the host reads what this returns."""
+        if self._data is None:
+            return x
+        if self.device.type == "cuda":  # time the exchange alone
+            torch.cuda.synchronize(self.device)
+        with monitor.span("serve/exchange"):
+            return pctx.all_gather(x, dim, self._data)
+
     def _prefill(self, ids: torch.Tensor, last: torch.Tensor,
                  windows: torch.Tensor, slots: Optional[torch.Tensor],
-                 generator: torch.Generator) -> torch.Tensor:
+                 uniform: Optional[torch.Tensor]) -> torch.Tensor:
         """Prefill ids [n, T] from empty into a scratch cache, copy its
-        rows into cache slots ``slots`` (none when None) and sample each
-        row's first token from its logits at position ``last``."""
+        rows into this rank's cache slots ``slots`` (none when None) and
+        sample each row's first token from its logits at position
+        ``last`` (at ``uniform``, drawn by the caller)."""
         n, T = ids.shape  # noqa: N806
         scratch = init_cache(self.cfg, n, n_ctx=T, dtype=self.kv_dtype,
                              device=self.device, heads=self.heads)
@@ -281,19 +317,24 @@ class ServingEngine:
                 for d, s in zip(dst, src):
                     d[:, slots, :, :T] = s
         sel = logits[torch.arange(n, device=self.device), last]
-        return sample_torch(sel, windows, generator, **self._sample_kw)
+        return sample_torch(sel, windows, None, uniform=uniform,
+                            **self._sample_kw)
 
     def _serve_step(self) -> None:
-        """One batched decode step on the static buffers: active slots
-        advance (the deferred K5/K6 route at n_past, inactive ones at the
-        sentinel), their token and active mask go into ring row
-        ``_ring_pos``, and a slot that emits a shared stop id or spends its
-        budget turns inactive."""
+        """One batched decode step of this rank's slots on the static
+        buffers: active slots advance (the deferred K5/K6 route at n_past,
+        inactive ones at the sentinel), their token and active mask go into
+        ring row ``_ring_pos``, and a slot that emits a shared stop id or
+        spends its budget turns inactive.  A sampled step draws for every
+        slot and keeps this rank's draws."""
         tokens, n_past, last = self.tokens, self.n_past, self.last_tokens
         active, remaining = self._live, self._remaining
         np_eff = torch.where(active, n_past, self.n_ctx)
         logits, _ = self._forward(tokens[:, None], self.cache, np_eff)
-        nxt = sample_torch(logits[:, -1, :], last, self.generator,
+        u = self._uniform(self.max_batch, self.generator)
+        nxt = sample_torch(logits[:, -1, :], last, None,
+                           uniform=None if u is None
+                           else u.narrow(0, self.first, self.rows),
                            **self._sample_kw)
         nxt = torch.where(active, nxt, tokens)
         self._ring_tok.index_copy_(0, self._ring_pos, nxt[None])
@@ -310,8 +351,9 @@ class ServingEngine:
         active.copy_(active & ~hit_stop & (left > 0))
 
     def _spec_step(self) -> None:
-        """One speculative step on the static buffers: drafts for every
-        slot, one ragged forward over ``[token, d1..dgamma]`` (inactive
+        """One speculative step of this rank's slots on the static buffers:
+        drafts for every slot, one ragged forward over ``[token,
+        d1..dgamma]`` (inactive
         slots at the sentinel n_past, so they write nothing), the accepted
         prefix and bonus token of each active slot into its history and
         ``_spec_out`` (the emitted columns, then their count), its token =
@@ -356,7 +398,7 @@ class ServingEngine:
         dev = self.device
         stops = pad_stop_ids(stop_ids)
         if self._ring_tok is None or self._ring_tok.shape[0] < n_steps:
-            shape = (max(n_steps, 8), self.max_batch)
+            shape = (max(n_steps, 8), self.rows)
             self._ring_tok = torch.zeros(shape, dtype=torch.long, device=dev)
             self._ring_act = torch.zeros(shape, dtype=torch.bool, device=dev)
             self._steps.clear()
@@ -365,8 +407,10 @@ class ServingEngine:
                                          device=dev)
             self._steps.clear()
         stops += [-1] * (self._stop_ids.shape[0] - len(stops))
-        self._live.copy_(torch.tensor(active, dtype=torch.bool))
-        self._remaining.copy_(torch.tensor(remaining, dtype=torch.int32))
+        mine = slice(self.first, self.first + self.rows)
+        self._live.copy_(torch.tensor(active[mine], dtype=torch.bool))
+        self._remaining.copy_(torch.tensor(remaining[mine],
+                                           dtype=torch.int32))
         self._stop_ids.copy_(torch.tensor(stops, dtype=torch.long))
         self._ring_pos.zero_()
         math_name = get_dequant_math()
@@ -381,7 +425,8 @@ class ServingEngine:
     def _run_steps(self, n_steps: int, active: Sequence[bool],
                    remaining: Sequence[int], stop_ids: Sequence[int]):
         """``n_steps`` batched decode steps, all on the device.  Returns the
-        tokens [n_steps, B] and the active mask each step started with."""
+        tokens [n_steps, rows] of this rank's slots and the active mask
+        each step started with."""
         step = self._load_chunk(n_steps, active, remaining, stop_ids)
         for _ in range(n_steps):
             step()
@@ -391,25 +436,26 @@ class ServingEngine:
 
     def warmup(self) -> float:
         """Build the kernels and run the serving loop's device work once:
-        one all-sentinel admission (a prefill of max_batch rows whose cache
-        rows go nowhere) and one all-inactive step (every slot at the
+        one all-sentinel admission (a prefill of this rank's slots' rows
+        whose cache rows go nowhere) and one all-inactive step (every slot at the
         sentinel n_past, so nothing is written), which on the card also
         captures the step's graph; with a drafter, one all-inactive
         speculative step too.  Slots, cache and the seeded generator are
         left as they were.  Returns its seconds."""
         t0 = time.perf_counter()
-        dev, B = self.device, self.max_batch  # noqa: N806
+        dev, R = self.device, self.rows  # noqa: N806
         if dev.type == "cuda":
             _build.build_all()
         throwaway = torch.Generator(device=dev)
         throwaway.manual_seed(0)
         T = min(16, self.n_ctx)  # noqa: N806
-        self._prefill(torch.zeros((B, T), dtype=torch.long, device=dev),
-                      torch.full((B,), T - 1, device=dev),
-                      torch.full((B, self.repeat_window), -1,
+        self._prefill(torch.zeros((R, T), dtype=torch.long, device=dev),
+                      torch.full((R,), T - 1, device=dev),
+                      torch.full((R, self.repeat_window), -1,
                                  dtype=torch.long, device=dev),
-                      None, throwaway)
+                      None, self._uniform(R, throwaway))
         state = self.generator.get_state()
+        B = self.max_batch  # noqa: N806
         self._run_steps(1, [False] * B, [0] * B, ())
         self.generator.set_state(state)
         if self.drafter is not None:  # every slot inactive: no change
@@ -453,6 +499,27 @@ class ServingEngine:
             req = self._queue.pop(0)
             req.slot = self._free.pop(0)
             admitted.append(req)
+        # the draws of every admitted request, on every rank; this rank
+        # prefills the ones whose slots it holds (and its model group with
+        # it: they share the data index), and the host reads every first
+        # token from the exchange
+        u = self._uniform(len(admitted), self.generator)
+        own = [i for i, r in enumerate(admitted)
+               if 0 <= r.slot - self.first < self.rows]
+        if own:
+            self._admit_rows([admitted[i] for i in own],
+                             None if u is None else u[own])
+        toks_host = self._exchange(self.tokens, 0).tolist()
+        now = time.perf_counter()
+        for r in admitted:
+            self._active[r.slot] = r
+            r.first_token_s = now
+            self._emit(r, toks_host[r.slot])
+
+    def _admit_rows(self, admitted: List[Request],
+                    uniform: Optional[torch.Tensor]) -> None:
+        """Prefill this rank's admitted requests together and set their
+        slots' state (first token, n_past, window, drafter history)."""
         W, dev = self.repeat_window, self.device  # noqa: N806
         n = len(admitted)
         T = max(len(r.prompt_ids) for r in admitted)  # noqa: N806
@@ -463,10 +530,11 @@ class ServingEngine:
             tail = r.prompt_ids[-W:]
             windows[i, W - len(tail):] = torch.tensor(tail)
         last = torch.tensor([len(r.prompt_ids) - 1 for r in admitted])
-        slots = torch.tensor([r.slot for r in admitted], device=dev)
+        slots = torch.tensor([r.slot - self.first for r in admitted],
+                             device=dev)
         windows = windows.to(dev)
         toks = self._prefill(ids.to(dev), last.to(dev), windows, slots,
-                             self.generator)
+                             uniform)
         self.tokens[slots] = toks
         self.n_past[slots] = (last + 1).to(device=dev, dtype=torch.int32)
         self.last_tokens[slots] = torch.cat([windows[:, 1:], toks[:, None]],
@@ -480,12 +548,6 @@ class ServingEngine:
             hist = hist.to(dev)
             hist.scatter_(1, (last + 1).to(dev)[:, None], toks[:, None])
             self.history[slots] = hist
-        toks_host = toks.tolist()
-        now = time.perf_counter()
-        for r, tok in zip(admitted, toks_host):
-            self._active[r.slot] = r
-            r.first_token_s = now
-            self._emit(r, tok)
 
     def _emit(self, req: Request, tok: int) -> None:
         req.generated.append(tok)
@@ -505,7 +567,8 @@ class ServingEngine:
 
     def _advance(self, n_steps: int) -> List[int]:
         """Up to ``n_steps`` tokens for every active slot, one host
-        transfer; returns the request ids that finished."""
+        transfer (after one exchange over the data axis); returns the
+        request ids that finished."""
         B = self.max_batch  # noqa: N806
         active, remaining = [False] * B, [0] * B
         stop_common = None
@@ -516,7 +579,8 @@ class ServingEngine:
                            else stop_common & req.stop_tokens)
         toks, actives = self._run_steps(n_steps, active, remaining,
                                         sorted(stop_common or ()))
-        toks_h, act_h = torch.stack([toks, actives.long()]).tolist()
+        toks_h, act_h = self._exchange(torch.stack([toks, actives.long()]),
+                                       2).tolist()
         finished = []
         for slot, req in list(self._active.items()):
             for j in range(n_steps):
@@ -536,12 +600,13 @@ class ServingEngine:
         if any(len(r.prompt_ids) + len(r.generated) + G > self.n_ctx
                for r in self._active.values()):
             return self._advance(1)
-        active = [False] * self.max_batch
+        active = [False] * self.rows
         for slot in self._active:
-            active[slot] = True
+            if 0 <= slot - self.first < self.rows:
+                active[slot - self.first] = True
         self._live.copy_(torch.tensor(active, dtype=torch.bool))
         self._spec_graphed()()
-        emit = self._spec_out.tolist()  # one host read
+        emit = self._exchange(self._spec_out, 0).tolist()  # one host read
         self.spec_cycles += 1
         finished = []
         for slot, req in list(self._active.items()):

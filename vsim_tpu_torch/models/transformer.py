@@ -50,11 +50,17 @@ named points: the f32 partial sums after ``wo`` and ``w_proj`` are
 all-reduced before the replicated bias is added, once, and the cast
 (``_linear``); a vocab-split embedding is a masked local lookup plus an
 all-reduce; the lm head's logits are gathered to the whole vocabulary, so
-every rank samples the same token.  Under ``rules={"seq": "model"}``
-(Megatron-SP, for a prefill or ``forward_nocache``) the residual stream
-keeps the rank's tokens through the LN/residual segments and is gathered
-before attention, the MLP and the head.  Without a mesh nothing of this
-runs, and the single-device path is unchanged.
+every rank samples the same token.  A weight the sharding holds whole
+(where GSPMD would gather it) takes its whole input: a whole ``wo`` or
+``w_proj`` under split heads or neurons runs on its input gathered over
+the model axis, with no all-reduce (``_out_linear``); a whole lm head
+gives whole logits, a whole ``wte`` is a plain lookup.  Under
+``rules={"seq": "model"}`` (Megatron-SP, for a prefill or
+``forward_nocache``) the residual stream keeps the rank's tokens through
+the LN/residual segments, its token axis padded to a multiple of the axis,
+and is gathered, pad rows dropped, before attention, the MLP and the
+head: no pad row reaches attention, the cache or the logits.  Without a
+mesh nothing of this runs, and the single-device path is unchanged.
 """
 
 from __future__ import annotations
@@ -212,12 +218,13 @@ class Par(NamedTuple):
     """A forward's mesh axes (parallel/context.py:axis), None where the
     mesh does not split: ``heads`` / ``ffn`` split attention's and the
     MLP's weights, ``vocab`` the embedding and lm head, ``seq`` (sequence
-    parallelism) the residual stream's tokens."""
+    parallelism) the residual stream's ``n_tok`` tokens."""
 
     heads: Optional[pctx.Axis] = None
     ffn: Optional[pctx.Axis] = None
     vocab: Optional[pctx.Axis] = None
     seq: Optional[pctx.Axis] = None
+    n_tok: int = 0
 
 
 NO_PAR = Par()
@@ -226,6 +233,12 @@ NO_PAR = Par()
 def _out_features(w) -> int:
     return w.out_features if isinstance(w, (Q4Tensor, Q4Layer)) \
         else w.shape[-2]
+
+
+def _in_features(w) -> int:
+    if isinstance(w, Q4Layer):
+        return w.stacked.in_features
+    return w.in_features if isinstance(w, Q4Tensor) else w.shape[-1]
 
 
 def _split_axis(n_local: int, n_full: int, ax: Optional[pctx.Axis],
@@ -239,35 +252,67 @@ def _split_axis(n_local: int, n_full: int, ax: Optional[pctx.Axis],
         raise ValueError(
             f"{what}: {n_local} of {n_full} on this rank, which is not a "
             f"whole share over {ax.size} ranks: the model axis must split "
-            "them into whole heads and whole 32-row Q4 blocks "
-            "(parallel/sharding.py:check_split)")
+            "them into whole heads (parallel/sharding.py:check_heads)")
     return ax
 
 
+def _whole_weight(w, n_local: int, ax: Optional[pctx.Axis]) -> bool:
+    """Whether the output weight ``w`` of a block split over ``ax`` (its
+    input ``n_local`` wide on this rank) is whole here: held whole where
+    the JAX specs replicate it (parallel/sharding.py:shard_params)."""
+    return ax is not None and _in_features(w) == n_local * ax.size
+
+
+def _seq_local(a: torch.Tensor, par: Par) -> torch.Tensor:
+    """This rank's tokens (axis 1) of every token's ``a``, the token axis
+    padded with zero rows to a multiple of ``par.seq`` (GSPMD's padding;
+    ``_seq_full`` drops the pad rows again)."""
+    pad = -par.n_tok % par.seq.size
+    if pad:
+        a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+    return pctx.local(a, 1, par.seq)
+
+
+def _seq_full(a: torch.Tensor, par: Par) -> torch.Tensor:
+    """Every token's ``a`` from each rank's share: gathered over
+    ``par.seq``, the pad rows dropped."""
+    return pctx.gather(a.contiguous(), 1, par.seq).narrow(1, 0, par.n_tok)
+
+
 def _linear(x, w, b, cdt, act_quant: bool = False,
-            reduce: Optional[pctx.Axis] = None,
-            seq: Optional[pctx.Axis] = None):
+            reduce: Optional[pctx.Axis] = None, par: Par = NO_PAR):
     """``x @ w.T + b`` in ``cdt``.  ``reduce``: each rank of that axis holds
     a K slice of ``w`` (row-parallel): the f32 partial sums are all-reduced,
-    then the replicated bias is added once and the result cast.  ``seq``:
-    then keep this rank's tokens (axis 1)."""
-    if reduce is None and seq is None:
+    then the replicated bias is added once and the result cast.  Under
+    ``par.seq``: then keep this rank's tokens (axis 1)."""
+    if reduce is None and par.seq is None:
         if act_quant:
             y = q4_matmul_act_quant(x, w, compute_dtype=cdt)
             return (y if b is None else y + b.to(y.dtype)).to(cdt)
         return q4_matmul(x, w, bias=b, compute_dtype=cdt).to(cdt)
     y = (q4_matmul_act_quant(x, w, compute_dtype=cdt) if act_quant
          else q4_matmul(x, w, compute_dtype=cdt))
-    return _row_parallel_out(y, b, cdt, reduce, seq)
+    return _row_parallel_out(y, b, cdt, reduce, par)
 
 
-def _row_parallel_out(y, b, dtype, reduce, seq):
+def _out_linear(x, w, b, cdt, act_quant: bool, ax: Optional[pctx.Axis],
+                par: Par):
+    """A block's output product (``wo``, ``w_proj``) on ``x``, the block
+    split over ``ax``: row-parallel where ``w`` holds this rank's K slice;
+    where ``w`` is whole here, ``x`` gathered over ``ax`` (head / neuron
+    order) and the whole product, no all-reduce, the bias added once."""
+    if _whole_weight(w, x.shape[-1], ax):
+        x, ax = pctx.gather(x.contiguous(), -1, ax), None
+    return _linear(x, w, b, cdt, act_quant, ax, par)
+
+
+def _row_parallel_out(y, b, dtype, reduce, par: Par):
     """A row-parallel product's f32 partial sums [B, T, O] → the sum (over
-    ``reduce``), this rank's tokens (``seq``), + bias, in ``dtype``."""
+    ``reduce``), this rank's tokens (``par.seq``), + bias, in ``dtype``."""
     if reduce is not None:
         y = pctx.all_reduce(y.contiguous(), reduce)
-    if seq is not None:
-        y = pctx.local(y, 1, seq)
+    if par.seq is not None:
+        y = _seq_local(y, par)
     return (y if b is None else y + b.to(y.dtype)).to(dtype)
 
 
@@ -333,7 +378,7 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                                      rows, scale=scale, slopes=slopes,
                                      round_q=round_q)
         ctx = ctx.to(cdt).reshape(B, 1, E)
-        return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq, red, par.seq)
+        return _out_linear(ctx, lp["wo"], lp.get("bo"), cdt, aq, red, par)
     if k_all is not None:
         if T == 1 and isinstance(n_past, torch.Tensor) and isinstance(
                 k_all, tuple):  # K6's one-layer instance: one launch
@@ -347,7 +392,7 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                                      scale=scale, slopes=slopes,
                                      round_q=round_q)
             ctx = ctx.to(cdt).reshape(B, 1, E)
-            return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq, red, par.seq)
+            return _out_linear(ctx, lp["wo"], lp.get("bo"), cdt, aq, red, par)
     if k_all is None or fresh_kv:  # attend over this chunk's own k/v
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), n_past=n_past, scale=scale,
@@ -361,7 +406,7 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
         keys = _kv_read(k_all, il, n, cdt)
         values = _kv_read(v_all, il, n, cdt)
         ctx = _attend_plain(q, keys, values, n_past, slopes, cdt).reshape(B, T, E)
-    return _linear(ctx, lp["wo"], lp.get("bo"), cdt, aq, red, par.seq)
+    return _out_linear(ctx, lp["wo"], lp.get("bo"), cdt, aq, red, par)
 
 
 def local_heads(cfg: ModelConfig, lp: Params) -> int:
@@ -387,13 +432,16 @@ def mlp(cfg: ModelConfig, lp: Params, h: torch.Tensor,
     """fc, activation, proj.  Off the gi math, n <= 8 rows with plane-split
     weights take K11, which keeps h in f32 (the unfused route rounds it to
     the compute dtype twice): the n <= 8 cut decides the numerics.  Under
-    a mesh the weights hold a rank's neurons and proj's output is reduced
-    (``_linear``); under ``par.seq`` the output holds this rank's tokens."""
+    a mesh the weights hold a rank's neurons and proj's output is reduced,
+    or proj is whole and takes every neuron (``_out_linear``); under
+    ``par.seq`` the output holds this rank's tokens."""
     w_fc, w_proj = lp["w_fc"], lp["w_proj"]
-    red = _split_axis(_out_features(w_fc), cfg.n_ff, par.ffn, "ffn neurons")
+    n_fc = _out_features(w_fc)
+    red = _split_axis(n_fc, cfg.n_ff, par.ffn, "ffn neurons")
     split = red is not None or par.seq is not None
     n = h.numel() // h.shape[-1]
     if (not cfg.act_quant and _fusable(w_fc) and _fusable(w_proj)
+            and not _whole_weight(w_proj, n_fc, red)
             and cfg.activation in _FUSED_ACTS
             and get_dequant_math() != "gi" and n <= MLP_MAX_ROWS):
         b_fc, b_proj = (None if b is None else b.to(torch.float32).contiguous()
@@ -403,13 +451,13 @@ def mlp(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                       None if split else b_proj, _FUSED_ACTS[cfg.activation])
         y = y.reshape(*h.shape[:-1], -1)
         if split:
-            return _row_parallel_out(y, b_proj, h.dtype, red, par.seq)
+            return _row_parallel_out(y, b_proj, h.dtype, red, par)
         return y.to(h.dtype)
     act = get_activation(cfg.activation)
     y = _linear(h, lp["w_fc"], lp.get("b_fc"), h.dtype, cfg.act_quant)
     y = act(y.to(torch.float32)).to(h.dtype)
-    return _linear(y, lp["w_proj"], lp.get("b_proj"), h.dtype, cfg.act_quant,
-                   red, par.seq)
+    return _out_linear(y, w_proj, lp.get("b_proj"), h.dtype, cfg.act_quant,
+                       red, par)
 
 
 def decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, k_all,
@@ -423,8 +471,7 @@ def decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, k_all,
     holds this rank's tokens; the LN outputs are gathered before
     attention and the MLP."""
     def full(a):  # every token, under sequence parallelism
-        return a if par.seq is None else pctx.gather(a.contiguous(), 1,
-                                                     par.seq)
+        return a if par.seq is None else _seq_full(a, par)
 
     h1 = full(layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps))
     attn_out = attention(cfg, lp, h1, k_all, v_all, il, positions, n_past,
@@ -479,17 +526,27 @@ def embed_inputs(cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
     return x
 
 
+def _whole_head(rows: int, cfg: ModelConfig, vocab: pctx.Axis) -> bool:
+    """Whether an lm head of ``rows`` rows on this rank is whole: a head
+    is held whole only where its rows do not divide the axis, and a split
+    one holds fewer rows than the vocabulary (or, padded, a share of a
+    multiple of 1024 rows, which the axis divides)."""
+    return rows >= cfg.n_vocab and rows % vocab.size != 0
+
+
 def head_logits(cfg: ModelConfig, params: Params, x: torch.Tensor, cdt,
                 par: Par = NO_PAR) -> torch.Tensor:
     """Final LN and lm head: x [B, T(/seq), E] → logits [B, T, n_vocab]
     f32.  Under a mesh the rank's vocab rows' logits are gathered (and,
-    under ``par.seq``, every token first)."""
+    under ``par.seq``, every token first); a whole head's are whole."""
     x = layer_norm(x, params["ln_f_w"], params["ln_f_b"], cfg.ln_eps)
     if par.seq is not None:
-        x = pctx.gather(x.contiguous(), 1, par.seq)
-    logits = q4_matmul(x, params["lm_head"], bias=params.get("lm_head_b"),
+        x = _seq_full(x, par)
+    lm = params["lm_head"]
+    logits = q4_matmul(x, lm, bias=params.get("lm_head_b"),
                        compute_dtype=cdt)
-    if par.vocab is not None:
+    if par.vocab is not None and not _whole_head(_out_features(lm), cfg,
+                                                 par.vocab):
         logits = pctx.gather(logits.contiguous(), -1, par.vocab)
     if logits.shape[-1] != cfg.n_vocab:  # lm head padded for the kernels
         logits = logits[..., : cfg.n_vocab]
@@ -499,15 +556,13 @@ def head_logits(cfg: ModelConfig, params: Params, x: torch.Tensor, cdt,
 def mesh_axes(token_ids: torch.Tensor, seq_parallel: bool) -> Par:
     """The current mesh's axes for a forward over ``token_ids`` [B, T];
     ``seq_parallel``: this call may split its tokens (a prefill or a
-    cache-free forward), which it does under the "seq" rule."""
+    cache-free forward), which it does under the "seq" rule, at any T
+    (``_seq_local`` pads)."""
     if pctx.current_mesh() is None:
         return NO_PAR
     seq = pctx.axis("seq") if seq_parallel else None
-    if seq is not None and token_ids.shape[1] % seq.size:
-        raise ValueError(f"sequence parallelism: {token_ids.shape[1]} "
-                         f"tokens do not split over {seq.size} ranks")
     return Par(pctx.axis("heads"), pctx.axis("ffn"), pctx.axis("vocab"),
-               seq)
+               seq, token_ids.shape[1])
 
 
 def local_slopes(cfg: ModelConfig, slopes: Optional[torch.Tensor],
@@ -569,7 +624,7 @@ def forward(cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
     par = mesh_axes(token_ids, cache is None or fresh_kv)
     x = embed_inputs(cfg, params, token_ids, positions, cdt, par)
     if par.seq is not None:  # this rank's tokens through the residual
-        x = pctx.local(x, 1, par.seq)
+        x = _seq_local(x, par)
     layers = per_layer(params["layers"], cfg.n_layer)
     if not cfg.alibi:
         slopes = None

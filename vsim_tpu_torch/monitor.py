@@ -14,7 +14,8 @@ events time the device (timing.py).
 
 Spans the port opens: ``prefill`` and ``decode`` (engine/generate.py);
 ``serve/admit``, ``serve/step`` and ``serve/step_chunk``
-(engine/serving.py, as in the JAX engine).
+(engine/serving.py, as in the JAX engine), and ``serve/spec_step`` and
+``serve/exchange`` (the exchange over a mesh's data axis).
 """
 
 from __future__ import annotations

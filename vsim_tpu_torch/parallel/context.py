@@ -18,6 +18,11 @@ Both use only ``all_reduce``, which gloo and NCCL both take on CUDA
 tensors, so one code path runs over either: a gather is an all-reduce of
 each rank's slice placed in a zero buffer, which is exact.  With no mesh,
 or a model axis of one rank, nothing runs.
+
+  * ``all_gather``: the serving engine's exchange over the data axis
+    (engine/serving.py), each data rank's slots' tokens for the host to
+    read: an all-gather of the device tensors over NCCL; over gloo, of the
+    tensors brought to the host first, where the engine reads them anyway.
 """
 
 from __future__ import annotations
@@ -118,6 +123,18 @@ def gather(x: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
     out = torch.zeros(shape, dtype=x.dtype, device=x.device)
     out.narrow(dim, ax.index * n, n).copy_(x)
     return all_reduce(out, ax)
+
+
+def all_gather(x: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order, for the
+    host to read: gathered on the device over NCCL; over gloo, whose
+    collectives go through the host, on the host (the result lies on the
+    CPU)."""
+    if dist.get_backend(ax.group) == "gloo":
+        x = x.cpu()
+    parts = [torch.empty_like(x) for _ in range(ax.size)]
+    dist.all_gather(parts, x.contiguous(), group=ax.group)
+    return torch.cat(parts, dim)
 
 
 def local(x: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:

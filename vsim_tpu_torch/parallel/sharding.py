@@ -16,13 +16,16 @@ Layout, as the JAX package's:
 functions' ``PartitionSpec`` holds (a ``Q4Spec`` for a Q4 weight), the JAX
 degrade included: a leaf whose dims do not divide the mesh is replicated,
 its packed bytes and scales each on their own.  ``shard_params`` /
-``shard_cache`` return this rank's local tree.  Where GSPMD would gather
-(a Q4 weight whose packed bytes split and whose 32-row scale blocks do
-not, so a K split would cut a block; a K split of a plane-split weight,
-whose byte c holds elements c and c + K/2), they raise ``ValueError``;
-so does an lm head whose vocabulary does not divide the model axis (the
-engines pad it to a multiple of 1024).  Shard the interleaved ("i")
-layout and repack per rank afterwards.
+``shard_cache`` return this rank's local tree.  A leaf the specs replicate
+is held whole on every rank, where GSPMD would gather it: for a Q4 weight
+both arrays whenever either is replicated (a K split that would cut a
+32-row block: ``wo`` at E = 64 over 4 ranks), and a K split of a
+plane-split weight (byte c holds elements c and c + K/2, so its rows are
+not a K slice), as are an lm head or ``wte`` whose vocabulary does not
+divide.  models/transformer.py runs a whole weight under a split block on
+its gathered input.  What the JAX package cannot place either raises
+``ValueError``: cache heads that do not split over ``model`` and cache
+rows (``max_batch``) that do not split over ``data``.
 """
 
 from __future__ import annotations
@@ -31,9 +34,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from vsim_tpu_torch.models.config import ModelConfig
 from vsim_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL, Mesh
-from vsim_tpu_torch.quant.q4 import QK, Q4Tensor
+from vsim_tpu_torch.quant.q4 import Q4Tensor
 
 Spec = Tuple[Any, ...]
 
@@ -137,48 +139,40 @@ def _model_split(spec: Spec, mesh: Mesh) -> bool:
 
 def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     """This rank's shard of a params tree (stacked layers, as
-    ``param_pspecs`` takes it)."""
+    ``param_pspecs`` takes it).  A leaf the specs replicate stays whole;
+    so does a Q4 weight whose packed bytes and scales split differently,
+    or whose K split is of a plane-split layout."""
     specs = param_pspecs(params, mesh)
 
-    def shard(name: str, leaf, spec):
+    def shard(leaf, spec):
         if not isinstance(leaf, Q4Tensor):
             return local_shard(leaf, spec, mesh)
         split_p, split_s = (_model_split(s, mesh) for s in spec)
-        if split_p != split_s:
-            raise ValueError(
-                f"{name}: packed {tuple(leaf.packed.shape)} and scales "
-                f"{tuple(leaf.scales.shape)} split differently over "
-                f"{mesh.size(AXIS_MODEL)} ranks: a rank's K extent would "
-                f"not be whole {QK}-row Q4 blocks (GSPMD gathers here; the "
-                "port does not)")
         k_split = split_p and spec.packed[-2] == AXIS_MODEL
-        if k_split and leaf.layout != "i":
-            raise ValueError(
-                f"{name}: a K split of a {leaf.layout!r}-layout weight is "
-                "not a K split (a plane-split byte holds elements c and "
-                "c + K/2): shard the interleaved layout, repack per rank")
+        if not (split_p and split_s) or (k_split and leaf.layout != "i"):
+            return leaf
         return Q4Tensor(local_shard(leaf.packed, spec.packed, mesh),
                         local_shard(leaf.scales, spec.scales, mesh),
                         leaf.layout)
 
-    lm = params.get("lm_head")
-    if mesh.size(AXIS_MODEL) > 1 and lm is not None:
-        lm_spec = specs["lm_head"]
-        if not _model_split(lm_spec.packed if isinstance(lm_spec, Q4Spec)
-                            else lm_spec, mesh):
-            raise ValueError(
-                f"lm head: {lm.out_features if isinstance(lm, Q4Tensor) else lm.shape[0]} "
-                f"vocabulary rows do not split over {mesh.size(AXIS_MODEL)} "
-                "ranks (GSPMD replicates it; the port needs it vocab-"
-                "parallel): pad it, as the engines do, to a multiple of "
-                "1024")
     out: Dict[str, Any] = {}
     for k, v in params.items():
         if k == "layers":
-            out[k] = {lk: shard(lk, lv, specs[k][lk]) for lk, lv in v.items()}
+            out[k] = {lk: shard(lv, specs[k][lk]) for lk, lv in v.items()}
         else:
-            out[k] = shard(k, v, specs[k])
+            out[k] = shard(v, specs[k])
     return out
+
+
+def local_rows(batch: int, mesh: Mesh) -> Tuple[int, int]:
+    """(rows, first): this rank's block of ``batch`` cache rows (serving
+    slots) over the ``data`` axis; ``ValueError`` where they do not split,
+    as the JAX ``device_put`` of ``cache_pspec`` raises."""
+    n = mesh.size(AXIS_DATA)
+    if batch % n:
+        raise ValueError(f"{batch} cache rows (max_batch) do not split over "
+                         f"{n} ranks on {AXIS_DATA!r}")
+    return batch // n, mesh.index(AXIS_DATA) * (batch // n)
 
 
 def shard_cache(cache: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
@@ -187,10 +181,9 @@ def shard_cache(cache: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     specs = cache_pspec(mesh, cache)
     out = {}
     for side, store in cache.items():
-        heads = (store[0] if isinstance(store, tuple) else store).shape[2]
-        if heads % mesh.size(AXIS_MODEL):
-            raise ValueError(f"{heads} cache heads do not split over "
-                             f"{mesh.size(AXIS_MODEL)} ranks")
+        values = store[0] if isinstance(store, tuple) else store
+        local_rows(values.shape[1], mesh)
+        check_heads(values.shape[2], mesh)
         if isinstance(store, tuple):
             out[side] = tuple(local_shard(t, s, mesh)
                               for t, s in zip(store, specs[side]))
@@ -199,15 +192,11 @@ def shard_cache(cache: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     return out
 
 
-def check_split(cfg: ModelConfig, mesh: Mesh) -> None:
-    """Raise ``ValueError`` where the model axis does not split ``cfg``
-    into whole heads, or ``wo`` / ``w_proj``'s K into whole 32-row Q4
-    blocks (GSPMD would gather there)."""
+def check_heads(heads: int, mesh: Mesh) -> None:
+    """Raise ``ValueError`` where the model axis does not split ``heads``
+    into whole heads: the JAX cache cannot be placed there either.  (A Q4
+    block a split would cut is held whole: ``shard_params``.)"""
     tp = mesh.size(AXIS_MODEL)
-    if cfg.n_head % tp:
-        raise ValueError(f"{cfg.n_head} heads do not split into whole heads "
+    if heads % tp:
+        raise ValueError(f"{heads} heads do not split into whole heads "
                          f"over {tp} ranks")
-    for name, k in (("wo", cfg.n_embd), ("w_proj", cfg.n_ff)):
-        if k % (tp * QK):
-            raise ValueError(f"{name}: K = {k} does not split into whole "
-                             f"{QK}-row Q4 blocks over {tp} ranks")
