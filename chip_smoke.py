@@ -8,16 +8,20 @@ Phases, each fatal on failure:
      kernels from csrc/ (one nvcc per source, all at once, into build/);
      every instance of K9/K10's kernel must run HMMA and convert nothing
      between its first and last HMMA, and every instance of K15's must run
-     HMMA, and so must every instance of K12's (tools/sass_ops.py on the
-     build; K15's opcode counts printed by math);
+     HMMA, and so must every instance of K12's and of K2's TF32 kernel
+     (tools/sass_ops.py on the build; K15's opcode counts printed by math);
   2. kernels: each of K1-K6 at GPT-J-6B shapes (K2 at 1 and 8 rows under
-     both plane contracts and at 9-128 rows, K5 on the B=8 ragged step, on
+     both plane contracts and at 9-128 rows with bf16 planes; its TF32
+     instance, f32 planes past 8 rows, with f32 x at 16 and 128 rows there
+     and at Pythia-12B's shapes with bf16 x at 100 rows and f32 x at 20 and
+     100, each beside its TF32 and f32 FMA bounds: k2_tf32_rows, also
+     ``chip_smoke.py --k2-tf32`` alone; K5 on the B=8 ragged step, on
      phase 4's timed step and at B=1), K4 and K7/K8 (the flash
      backward) also at the Pythia-410M shapes of phase 6 (B=4 training,
      B=1 perplexity) and K7/K8 at GPT-J's; K1-K4 and K9-K11 at the
-     Pythia-12B shapes phase 7 gives them (K1 at 1 and 8 rows, K2 at 1, 8
-     and 100 rows under both plane contracts, K3 on layer 35 of a 36-layer
-     int8 and int4 cache, K4 at the prompt lengths; K9 and K11 at GPT-J's
+     Pythia-12B shapes phase 7 gives them (K1 at 1 and 8 rows, K2 at 1 and
+     8 rows with f32 planes and at 100 with bf16 planes, K3 on layer 35 of
+     a 36-layer int8 and int4 cache, K4 at the prompt lengths; K9 and K11 at GPT-J's
      too; K10 at every stacked shape of both models at n = 1 and fc at 8,
      100 and 128 rows under both plane contracts; K1, K11, K9 and K10 with
      their ratio to the flat read of their bytes); K4 also at codegen-2b's
@@ -108,7 +112,10 @@ Phases, each fatal on failure:
      a 300-token prompt, replayed and eager, as phase 3's (K3's two passes
      and K2's launches summed, K10's and K9's ms apart; K6 once a layer),
      against the weight bytes' bound.  Before its run, K10 on layer 35 of the stacked
-     engine's own weights is held against its plain version;
+     engine's own weights is held against its plain version; after it, the
+     chat CLI's engine (f32 compute, the config's f32 KV, gi) on the same
+     params: the prefill of 20 and 100 tokens (every matmul K2's TF32
+     instance), host ms, device busy ms and K2's device ms;
   8. the loading path: Pythia-12B's width at depth 4 (random Q4 params from
      seed 0) written as a reference ggml Q4_0 file (gptneox, ~1.11 GB, a
      byte-level vocab of 50688 entries) under build/, ggml_to_kmajor's host
@@ -255,6 +262,22 @@ def card_peaks(name: str):
 # ---------------------------------------------------------------------------
 
 
+def random_q4_weight(K, O, seed):  # noqa: N803
+    """A plane-split Q4 weight [K/2, O] on the card: random bytes and bf16
+    scales in [0, 0.01) from ``seed``."""
+    import torch
+
+    from vsim_tpu_torch.quant.q4 import Q4Tensor
+
+    gg = torch.Generator(device="cuda")
+    gg.manual_seed(seed)
+    packed = torch.randint(0, 256, (K // 2, O), generator=gg, device="cuda",
+                           dtype=torch.uint8)
+    scales = (torch.rand((K // 32, O), generator=gg, device="cuda")
+              * 0.01).to(torch.bfloat16)
+    return Q4Tensor(packed, scales, "ps")
+
+
 def phase_kernels(peaks):
     import torch
 
@@ -271,7 +294,7 @@ def phase_kernels(peaks):
         scatter_rows_plain)
     from vsim_tpu_torch.ops.q4_cuda import (q4_gemv_ps, q4_gemv_ps_plain,
                                             q4_matmul_ps, q4_matmul_ps_plain)
-    from vsim_tpu_torch.quant.q4 import Q4Tensor, dequantize_km
+    from vsim_tpu_torch.quant.q4 import dequantize_km
 
     bw, bf16_peak, f32_peak = peaks
     dev = torch.device("cuda")
@@ -283,30 +306,18 @@ def phase_kernels(peaks):
         t_b, t_o = nbytes / bw * 1e3, ops / peak * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
-    def q4_weight(K, O, seed):
-        gg = torch.Generator(device=dev)
-        gg.manual_seed(seed)
-        packed = torch.randint(0, 256, (K // 2, O), generator=gg, device=dev,
-                               dtype=torch.uint8)
-        scales = (torch.rand((K // 32, O), generator=gg, device=dev)
-                  * 0.01).to(torch.bfloat16)
-        return Q4Tensor(packed, scales, "ps")
-
-    # GPT-J-6B decode/prefill matmuls: (name, K, O, bias)
-    shapes = [("qkv", 4096, 12288, False), ("wo", 4096, 4096, False),
-              ("fc", 4096, 16384, True), ("proj", 16384, 4096, True),
-              ("lm_head", 4096, 51200, True)]
+    q4_weight = random_q4_weight
+    shapes = [(name, *shape) for name, shape in GPTJ_MATMULS.items()]
     # (kernel, n, x dtype, K2's plane contract): K1 at decode and serving
     # batches; K2's GEMV at n = 1 and 8 under both contracts (f32xf, i32 /
-    # f32x), its tensor cores at 9-128 rows (gi's contract for bf16 x), its
-    # f32 FMA tiles for f32 x past 8 rows
-    bf16, f32 = torch.bfloat16, torch.float32
+    # f32x), its bf16-product tensor cores at 9-128 rows (gi's contract for
+    # bf16 x); its TF32 instance (f32 planes past 8 rows): k2_tf32_rows
+    bf16 = torch.bfloat16
     q4_cases = ([("q4_gemv_ps", n, bf16, None) for n in (1, 8)]
                 + [("q4_matmul_ps", n, bf16, r) for n in (1, 8)
                    for r in (False, True)]
                 + [("q4_matmul_ps", n, bf16, True) for n in (9, 16, 32, 64,
-                                                             128)]
-                + [("q4_matmul_ps", n, f32, False) for n in (16, 128)])
+                                                             128)])
     kern = {"q4_gemv_ps": (q4_gemv_ps, q4_gemv_ps_plain),
             "q4_matmul_ps": (q4_matmul_ps, q4_matmul_ps_plain)}
     for kname, n, xdt, round_planes in q4_cases:
@@ -343,7 +354,7 @@ def phase_kernels(peaks):
             ms = timed(run_kernel)
             plain_ms = timed(lambda: plain(x, w0.packed, w0.scales, bias),
                              reps=5, warmup=1)
-            wdt = bf16 if round_planes in (None, True) else f32
+            wdt = bf16 if round_planes in (None, True) else torch.float32
             lib_ms = timed(lambda: torch.matmul(
                 x.to(wdt), dequantize_km(next(cyc), wdt)), reps=5, warmup=1)
             nbytes = (wbytes + x.numel() * x.element_size() + n * O * 4
@@ -731,6 +742,7 @@ def phase_kernels(peaks):
         del q, k, v, do, out, lse, dsum, dq, dk, dv
         torch.cuda.empty_cache()
     rows += q4_layout_rows(peaks, bound, q4_weight)
+    rows += k2_tf32_rows(peaks)
     rows += pythia_attention_rows(peaks, bound)
     flat_ratios(rows)
     _build.reset_launch_counts()  # comparison launches do not count
@@ -764,6 +776,88 @@ PYTHIA_SHAPES = {"qkv": (5120, 15360, True), "wo": (5120, 5120, True),
 # GPT-J-6B's stacked matmuls (E=4096, F=16384; no bias on qkv and wo)
 GPTJ_STACKED = {"qkv": (4096, 12288, False), "wo": (4096, 4096, False),
                 "fc": (4096, 16384, True), "proj": (16384, 4096, True)}
+# GPT-J-6B's decode/prefill matmuls, the lm head (with its bias) too
+GPTJ_MATMULS = {**GPTJ_STACKED, "lm_head": (4096, 51200, True)}
+# K2's TF32 instance (f32 planes at 9-128 rows): (model, matmul, n, x dtype)
+# -- GPT-J-6B's five matmuls with f32 x at 16 and 128 rows, Pythia-12B's at
+# 100 rows of bf16 x (the f32xf engine's prefill) and at 20 and 100 rows of
+# f32 x (the chat CLI's default f32 compute: its prefill)
+K2_TF32_CASES = ([("gpt-j-6b", s, n, "float32") for n in (16, 128)
+                  for s in GPTJ_MATMULS]
+                 + [("pythia-12b", s, 100, "bfloat16") for s in PYTHIA_SHAPES]
+                 + [("pythia-12b", s, n, "float32") for n in (20, 100)
+                    for s in PYTHIA_SHAPES])
+
+
+def k2_tf32_rows(peaks):
+    """K2's f32-plane instance at 9-128 rows at the shapes of
+    K2_TF32_CASES: against its plain version and a second run of itself
+    (bit for bit), timed beside ``dequantize_km`` + ``torch.matmul`` in f32;
+    its bound the larger of the bytes and the TF32 products (one a product
+    for bf16 x, two for f32 x) at the card's TF32 peak, the f32 FMA bound
+    (2 n K O at the f32 peak) beside it.  Uses only what K2 has had since
+    its first port, so it runs on an earlier tree as well
+    (``chip_smoke.py --k2-tf32``)."""
+    import torch
+
+    from vsim_tpu_torch.ops.q4_cuda import q4_matmul_ps, q4_matmul_ps_plain
+    from vsim_tpu_torch.quant.q4 import dequantize_km
+
+    bw, _, f32_peak = peaks
+    name = torch.cuda.get_device_name(0)
+    tf32_peak = next(v for key, v in TF32_PEAKS.items() if key in name)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(20)
+    rows = []
+    for model, sname, n, xname in K2_TF32_CASES:
+        K, O, has_bias = (GPTJ_MATMULS if model == "gpt-j-6b"  # noqa: N806
+                          else PYTHIA_SHAPES)[sname]
+        w0 = random_q4_weight(K, O, 23 * K + O)
+        ws = rotation(lambda i, K=K, O=O: random_q4_weight(K, O, 23 * K + O + i),
+                      w0.nbytes)
+        ws[0] = w0
+        x = torch.randn((n, K), generator=g, device="cuda").to(
+            getattr(torch, xname))
+        bias = (torch.randn((O,), generator=g, device="cuda")
+                if has_bias else None)
+        shape = f"{model} {sname} n={n} {K}->{O} x={xname} planes=f32"
+        got = q4_matmul_ps(x, w0.packed, w0.scales, bias, False)
+        ref = q4_matmul_ps_plain(x, w0.packed, w0.scales, bias, False)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        if not torch.isfinite(got).all() or rel > TOL_Q4:
+            fail(f"q4_matmul_ps {shape}: max|err| {err:.3g} (rel {rel:.3g} "
+                 f"> {TOL_Q4})")
+        if not torch.equal(got, q4_matmul_ps(x, w0.packed, w0.scales, bias,
+                                             False)):
+            fail(f"q4_matmul_ps {shape}: differs from run to run")
+        cyc = itertools.cycle(ws)
+
+        def run_kernel():
+            w = next(cyc)
+            return q4_matmul_ps(x, w.packed, w.scales, bias, False)
+
+        ms = timed(run_kernel)
+        plain_ms = timed(lambda: q4_matmul_ps_plain(
+            x, w0.packed, w0.scales, bias, False), reps=5, warmup=1)
+        lib_ms = timed(lambda: torch.matmul(
+            x.to(torch.float32), dequantize_km(next(cyc), torch.float32)),
+            reps=5, warmup=1)
+        nbytes = (w0.nbytes + x.numel() * x.element_size() + n * O * 4
+                  + (O * 4 if has_bias else 0))
+        ops = 2 * n * K * O
+        products = 1 if xname == "bfloat16" else 2
+        t_b = nbytes / bw * 1e3
+        t_tf32, t_fma = products * ops / tf32_peak * 1e3, ops / f32_peak * 1e3
+        rows.append(dict(
+            kernel="q4_matmul_ps", shape=shape, max_abs_err=err, rel_err=rel,
+            ms=ms, plain_ms=plain_ms, bound_ms=max(t_b, t_tf32),
+            bound_by="bytes" if t_b >= t_tf32 else "operations",
+            library_ms=lib_ms, fma_bound_ms=max(t_b, t_fma),
+            weights=[(K, O)]))
+        del ws, w0
+        torch.cuda.empty_cache()
+    return rows
 
 
 # the kernels on the Q4 core (csrc/q4_core.cuh): K1, K11, K9 and K10
@@ -862,17 +956,16 @@ def q4_layout_rows(peaks, bound, q4_weight):
                 "q4_matmul_i", "q4_matmul_stacked") else f32_peak, [(K, O)])
 
     # K1 (the gi engine's decode and 8-token prefill; fc at 2 and 4 rows
-    # too), and K2: f32 planes for bf16 x (the f32xf engine's decode,
-    # 8-token prefill and, at 100 rows, its prefill MLP too) and at 100 rows
-    # under both contracts (the prefill of 100 tokens; gi rounds the planes
-    # past 8 rows)
+    # too), and K2: f32 planes for bf16 x (the f32xf engine's decode and
+    # 8-token prefill) and bf16 planes at 100 rows (the gi engine's prefill
+    # of 100 tokens: gi rounds the planes past 8 rows); f32 planes past 8
+    # rows: k2_tf32_rows
     cases = ([("q4_gemv_ps", s, n, True) for n in (1, 8)
               for s in PYTHIA_SHAPES]
              + [("q4_gemv_ps", "fc", n, True) for n in (2, 4)]
              + [("q4_matmul_ps", s, n, False) for n in (1, 8)
                 for s in ("qkv", "wo", "lm_head")]
-             + [("q4_matmul_ps", s, 100, r) for r in (True, False)
-                for s in PYTHIA_SHAPES])
+             + [("q4_matmul_ps", s, 100, True) for s in PYTHIA_SHAPES])
     for kname, sname, n, round_planes in cases:
         K, O, has_bias = PYTHIA_SHAPES[sname]  # noqa: N806
         if kname == "q4_gemv_ps":
@@ -2213,7 +2306,7 @@ def stacked_last_layer_check(params):
 STEP_KERNELS = {"decode_attention": ("decode_split_kernel",
                                      "decode_combine_kernel"),
                 "q4_matmul_ps": ("ps_gemv_kernel", "ps_mma_kernel",
-                                 "matmul_ps_kernel",
+                                 "ps_tf32_kernel",
                                  "ps_split_reduce_kernel"),
                 # K1 and K11 (both launches): csrc/q4_core.cuh
                 "q4_core": ("q4_core_kernel",),
@@ -2275,11 +2368,73 @@ def k9_k10_step_ms(ordered, per_step, steps: int = 3):
     return sum(ordered) / steps - k9, k9
 
 
+def f32_prefill(cfg, params):
+    """The chat CLI's engine (``api/chat.py``: the config's f32 compute and
+    KV, the gi math) on Pythia-12B's params: the prefill of 20 and 100
+    tokens, each timed (host clock, synced; median of 3 after a warm-up),
+    its device busy ms and K2's device ms (torch.profiler over one prefill)
+    and its launches; every matmul of it takes K2's f32-plane instance.
+    ({prompt: numbers}, the launches of the counted prefills)."""
+    import statistics
+
+    import torch
+
+    from vsim_tpu_torch.engine.generate import InferenceEngine
+    from vsim_tpu_torch.ops import _build
+
+    eng = InferenceEngine(cfg.replace(compute_dtype="float32"), params)
+    rng = torch.Generator().manual_seed(20)
+    out = {}
+    _build.reset_launch_counts()
+    for T in (20, 100):  # noqa: N806
+        prompt = torch.randint(0, cfg.n_vocab, (T,), generator=rng).tolist()
+        before = dict(_build.launch_counts)
+        logits = eng.prefill(prompt)
+        torch.cuda.synchronize()
+        counts = {k: v - before.get(k, 0)
+                  for k, v in _build.launch_counts.items()
+                  if v - before.get(k, 0)}
+        if (tuple(logits.shape) != (1, T, cfg.n_vocab)
+                or not torch.isfinite(logits).all()):
+            fail(f"pythia-12b f32 prefill of {T}: logits {logits.shape}, "
+                 "not all finite")
+        if not counts.get("q4_matmul_ps"):
+            fail(f"pythia-12b f32 prefill of {T} launched no K2: {counts}")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.prefill(prompt)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        busy, by_name, by_group, _ = step_device_profile(
+            lambda p=prompt: eng.prefill(p), steps=1)
+        out[f"prompt={T}"] = dict(
+            prefill_ms=statistics.median(times), prefill_ms_runs=times,
+            device_busy_ms=busy,
+            k2_device_ms=None if by_group is None else by_group["q4_matmul_ps"],
+            device_ms_by_kernel=by_name, launches=counts)
+    launches = dict(_build.launch_counts)
+    del eng
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def f32_prefill_lines(prefill):
+    """One line a prompt of ``f32_prefill``'s numbers."""
+    return [f"  f32 compute (the chat CLI's engine) prefill {k}: "
+            f"{v['prefill_ms']:.2f} ms (runs "
+            + ", ".join(f"{t:.2f}" for t in v["prefill_ms_runs"])
+            + f"), device busy {v['device_busy_ms']} ms, K2 "
+            f"{v['k2_device_ms']} ms; launches {json.dumps(v['launches'])}"
+            for k, v in prefill.items()]
+
+
 def phase_pythia(peaks):
     """Pythia-12B (GPT-NeoX, 36 layers, E=5120, F=20480, exact GELU) at full
     width, random Q4 weights from seed 0, bf16 compute, int8 KV, n_ctx 2048,
     through the stacked-layer engine (K10, K9), the default engine under
-    the f32xf math (K11, K2) and under gi (K1, K2)."""
+    the f32xf math (K11, K2) and under gi (K1, K2); then the chat CLI's
+    f32-compute engine's prefill on the same params (``f32_prefill``)."""
     import torch
 
     from vsim_tpu_torch.engine.generate import InferenceEngine
@@ -2372,6 +2527,8 @@ def phase_pythia(peaks):
             weight_bytes_per_step=step_bytes, bound_ms_per_token=bound_ms,
             step=report)
         torch.cuda.empty_cache()
+    out["f32_prefill"], launches["f32 prefill"] = f32_prefill(
+        cfg, engines["gi"].params)
     # the gi and f32xf engines' params serve phases 9 and 10 after this
     kept = cfg, engines["gi"].params
     del engines
@@ -4145,8 +4302,8 @@ def sass_check():
     """Every instance of K9/K10's kernel in the built library runs the
     tensor cores (HMMA) and converts no integer to a float (or back)
     between its first and last HMMA, where its loop runs; every instance of
-    K15's and of K12's runs HMMA (``tools/sass_ops.py`` on
-    ``build/kernels``): {function: opcode counts}, one dict a kernel."""
+    K15's, of K12's and of K2's TF32 kernel runs HMMA (``tools/sass_ops.py``
+    on ``build/kernels``): {function: opcode counts}, one dict a kernel."""
     from vsim_tpu_torch.ops import _build
     from vsim_tpu_torch.tools import sass_ops
 
@@ -4174,11 +4331,23 @@ def sass_check():
     for fn, got in lab.items():
         if not got["ops"]["HMMA"]:
             fail(f"sass {fn}: K12 runs no HMMA")
+    k2 = {fn: got for fn, got in sass_ops.count_lib(
+        _build._lib_path("q4_matmul_ps")).items() if "ps_tf32_kernel" in fn}
+    if len(k2) != K2_TF32_INSTANCES:
+        fail(f"sass: {len(k2)} instances of K2's TF32 kernel, not "
+             f"{K2_TF32_INSTANCES}")
+    for fn, got in k2.items():
+        if not got["ops"]["HMMA"]:
+            fail(f"sass {fn}: K2's TF32 instance runs no HMMA")
     return ({fn: got["ops"] for fn, got in found.items()},
             {fn: got["ops"] for fn, got in batch.items()},
-            {fn: got["ops"] for fn, got in lab.items()})
+            {fn: got["ops"] for fn, got in lab.items()},
+            {fn: got["ops"] for fn, got in k2.items()})
 
 
+# K2's TF32 instances (csrc/q4_matmul_ps.cu:ps_tf32_kernel): row tiles 16,
+# 32, 64 and 128, bf16 and f32 x
+K2_TF32_INSTANCES = 4 * 2
 # K12's instances (csrc/q4_lab.cu): ten maths on the "i" layout and f32x on
 # "w32", "ps" and "res", each at 1, 2 and 4 n-tiles
 K12_INSTANCES = (10 + 3) * 3
@@ -4250,12 +4419,14 @@ def main() -> None:
     t0 = time.perf_counter()
     reports = _build.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
-    sass, sass_batch, sass_lab = sass_check()
+    sass, sass_batch, sass_lab, sass_k2 = sass_check()
     hmma = sorted(ops["HMMA"] for ops in sass.values())
     print(f"sass: {len(sass)} instances of K9/K10's kernel, HMMA "
           f"{hmma[0]}-{hmma[-1]} each, no I2F/I2FP/F2I between the first "
-          f"and last HMMA; {len(sass_batch)} of K15's and {len(sass_lab)} of "
-          "K12's, HMMA in each", flush=True)
+          f"and last HMMA; {len(sass_batch)} of K15's, {len(sass_lab)} of "
+          f"K12's and {len(sass_k2)} of K2's TF32 kernel, HMMA in each "
+          f"(K2: {sorted(ops['HMMA'] for ops in sass_k2.values())})",
+          flush=True)
     for line in batch_sass_lines(sass_batch):
         print(line, flush=True)
     t0 = time.perf_counter()
@@ -4280,6 +4451,8 @@ def main() -> None:
                 + ("" if r["rel_err_vs_f64"] is None else ", vs f64 "
                    + json.dumps({k: [float(f"{x:.2e}") for x in v] for k, v
                                  in r["rel_err_vs_f64"].items()})) + "]")
+            if r.get("fma_bound_ms") is not None:
+                extra += f" [TF32; f32 FMA bound {r['fma_bound_ms']:.3g}]"
             print(f"  {r['kernel']} {r['shape']}: {r['ms']:.4g} ms, bound "
                   f"{r['bound_ms']:.2g}, plain {r['plain_ms']:.4g}, library "
                   f"{r['library_ms']:.4g} ({r['ms'] / r['library_ms']:.2f}x)"
@@ -4363,6 +4536,8 @@ def main() -> None:
         print(f"  {k}: K10 {g['k10_device_ms']} ms, K9 {g['k9_device_ms']} "
               f"ms of the replayed step's {g['device_busy_ms']} device ms; "
               f"bound {v['bound_ms_per_token']:.3f} ms", flush=True)
+    for line in f32_prefill_lines(pythia["f32_prefill"]):
+        print(line, flush=True)
 
     # phase 9's Pythia-12B serving and phase 10's Pythia-12B run, on phase
     # 7's params
@@ -4453,7 +4628,7 @@ def main() -> None:
                        parallel=parallel, launches_parallel=par_launches,
                        timings_unheld=UNHELD[0], ptxas=reports,
                        sass_k9_k10=sass, sass_k15=sass_batch,
-                       sass_k12=sass_lab,
+                       sass_k12=sass_lab, sass_k2_tf32=sass_k2,
                        launch_floor_ms=floor_ms,
                        graph_launch_floor_ms=graph_floor_ms), f,
                   indent=1)
@@ -4520,9 +4695,48 @@ def main_parallel(nccl_only: bool = False) -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def main_k2_tf32() -> None:
+    """``chip_smoke.py --k2-tf32``: K2's f32-plane rows (k2_tf32_rows) and
+    the chat CLI engine's f32 prefill on Pythia-12B's seed-0 params alone,
+    for a comparison with an earlier tree (this script copied into it)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from vsim_tpu_torch.models.config import PRESETS
+    from vsim_tpu_torch.models.init import random_q4_params
+    from vsim_tpu_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    name = torch.cuda.get_device_name(0)
+    peaks = card_peaks(name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all()
+    rows = k2_tf32_rows(peaks)
+    for r in rows:
+        print(f"  {r['shape']}: {r['ms']:.4g} ms, bound {r['bound_ms']:.3g} "
+              f"(f32 FMA {r['fma_bound_ms']:.3g}), plain {r['plain_ms']:.4g}, "
+              f"library {r['library_ms']:.4g} "
+              f"({r['ms'] / r['library_ms']:.2f}x), rel err "
+              f"{r['rel_err']:.2g}", flush=True)
+    cfg = PRESETS["pythia-12b"]
+    prefill, _ = f32_prefill(cfg, random_q4_params(cfg, seed=0))
+    for line in f32_prefill_lines(prefill):
+        print(line, flush=True)
+    print(json.dumps({"k2_tf32_rows": rows, "f32_prefill": prefill}))
+    print(f"chip_smoke --k2-tf32: pass in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         rank_main(sys.argv[2])
+    elif sys.argv[1:] == ["--k2-tf32"]:
+        main_k2_tf32()
     elif sys.argv[1:2] == ["--parallel"] and sys.argv[2:] in ([], ["nccl"]):
         main_parallel(nccl_only=sys.argv[2:] == ["nccl"])
     else:

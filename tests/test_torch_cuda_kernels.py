@@ -67,6 +67,14 @@ def _rel(got, ref):
             / ref.float().abs().max().clamp_min(1e-30)).item()
 
 
+def _nearer_own_contract(got, x, packed, scales, bias, round_planes):
+    """K2's output is nearer the plain version of its own plane contract
+    than the other's (bf16 against f32 planes)."""
+    own = q4_matmul_ps_plain(x, packed, scales, bias, round_planes)
+    other = q4_matmul_ps_plain(x, packed, scales, bias, not round_planes)
+    return _rel(got, own) < _rel(got, other)
+
+
 def _weight(K, O, dev, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     packed = torch.randint(0, 256, (K // 2, O), generator=g, device=dev,
@@ -128,16 +136,18 @@ def test_q4_gemv_ps_unaligned_x(dev):
                 q4_gemv_ps_plain(x, packed, scales)) < 1e-4
 
 
-@pytest.mark.parametrize("n", [1, 3, 8, 9, 16, 32, 33, 100, 128])
+@pytest.mark.parametrize("n", [1, 3, 8, 9, 16, 17, 31, 32, 33, 64, 100, 128])
 @pytest.mark.parametrize("round_planes", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("O", [1024, 4100])
 def test_q4_matmul_ps(dev, n, round_planes, dtype, O):  # noqa: N803
     """K2's three instances (the GEMV at n <= 8, the tensor cores at 9-128
-    rows with bf16 planes, the f32 FMA tiles otherwise) under both plane
-    contracts, bf16 and f32 x, with and without a bias; O = 4100 is a ragged
+    rows: bf16 products with bf16 planes, TF32 ones with f32 planes) under
+    both plane contracts, bf16 and f32 x, with and without a bias; every
+    row tile (16, 32, 64, 128) full and part-filled; O = 4100 is a ragged
     tile that cp.async cannot copy (O % 16 != 0).  One launch count a call,
-    the same bits from run to run (split partials reduced in order)."""
+    the same bits from run to run (split partials reduced in order), nearer
+    its own plane contract than the other."""
     K = 2048  # noqa: N806
     packed, scales = _weight(K, O, dev, n + O)
     x = torch.randn((n, K), device=dev).to(dtype)
@@ -149,22 +159,114 @@ def test_q4_matmul_ps(dev, n, round_planes, dtype, O):  # noqa: N803
         assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
         assert torch.equal(got, q4_matmul_ps(x, packed, scales, bias,
                                              round_planes))
+        assert _nearer_own_contract(got, x, packed, scales, bias,
+                                    round_planes)
 
 
-@pytest.mark.parametrize("n", [1, 8, 33])
+@pytest.mark.parametrize("n", [1, 8, 9, 16, 17, 31, 33, 64, 100, 128])
 @pytest.mark.parametrize("dtype,round_planes", [(torch.float32, True),
-                                                (torch.bfloat16, False)])
+                                                (torch.bfloat16, False),
+                                                (torch.float32, False)])
 def test_q4_matmul_ps_plane_contract(dev, n, dtype, round_planes):
     """K2's contracts beyond "bf16 planes for bf16 x": f32 x rounded with
-    its planes (i32/f32x), bf16 x against f32 planes (f32xf)."""
+    its planes (i32/f32x), bf16 or f32 x against f32 planes (f32xf, and f32
+    compute under gi): within the tolerance of its own contract, nearer it
+    than the other, which differs beyond the tolerance."""
     packed, scales = _weight(1024, 320, dev, n + 1)
     x = torch.randn((n, 1024), device=dev).to(dtype)
     bias = torch.randn((320,), device=dev)
     got = q4_matmul_ps(x, packed, scales, bias, round_planes)
     ref = q4_matmul_ps_plain(x, packed, scales, bias, round_planes)
     assert _rel(got, ref) < 1e-4
+    assert torch.equal(got, q4_matmul_ps(x, packed, scales, bias,
+                                         round_planes))
     other = q4_matmul_ps_plain(x, packed, scales, bias, not round_planes)
     assert _rel(other, ref) > 1e-4  # the contracts differ beyond the tolerance
+    assert _rel(got, ref) < _rel(got, other)
+
+
+@pytest.mark.parametrize("n", [9, 33, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("round_planes", [False, True])
+def test_q4_matmul_ps_splits_on_card(dev, n, dtype, round_planes):
+    """Every split the plan can pick at 9-128 rows: 1 to all 21 groups of K
+    = 1344 (splits that divide the groups and ones that do not), each within
+    the tolerance and the same bits run to run; a split past K/64 raises."""
+    from vsim_tpu_torch.ops.q4_cuda import q4_matmul_ps_planned
+
+    K, O = 1344, 1028  # noqa: N806
+    packed, scales = _weight(K, O, dev, 3 * n)
+    x = torch.randn((n, K), device=dev).to(dtype)
+    bias = torch.randn((O,), device=dev)
+    ref = q4_matmul_ps_plain(x, packed, scales, bias, round_planes)
+    for splits in range(1, K // 64 + 1):
+        got = q4_matmul_ps_planned(x, packed, scales, bias, round_planes,
+                                   splits)
+        assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4, splits
+        assert torch.equal(got, q4_matmul_ps_planned(
+            x, packed, scales, bias, round_planes, splits))
+        assert _nearer_own_contract(got, x, packed, scales, bias,
+                                    round_planes)
+    with pytest.raises(RuntimeError):
+        q4_matmul_ps_planned(x, packed, scales, bias, round_planes,
+                             K // 64 + 1)
+
+
+@pytest.mark.parametrize("n", [20, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("round_planes", [False, True])
+def test_q4_matmul_ps_long_k_unsplit(dev, n, dtype, round_planes):
+    """Pythia-12B proj's K = 20480 (320 groups) in one split: every group's
+    tensor-core sum meets the accumulator in f32, so the error stays within
+    the tolerance however many groups a block walks."""
+    from vsim_tpu_torch.ops.q4_cuda import q4_matmul_ps_planned
+
+    packed, scales = _weight(20480, 512, dev, n)
+    x = torch.randn((n, 20480), device=dev).to(dtype)
+    got = q4_matmul_ps_planned(x, packed, scales, None, round_planes, 1)
+    ref = q4_matmul_ps_plain(x, packed, scales, None, round_planes)
+    assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
+    assert torch.equal(got, q4_matmul_ps_planned(x, packed, scales, None,
+                                                 round_planes, 1))
+    assert _nearer_own_contract(got, x, packed, scales, None, round_planes)
+
+
+@pytest.mark.parametrize("n", [9, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("round_planes", [False, True])
+def test_q4_matmul_ps_unaligned_x(dev, n, dtype, round_planes):
+    """x that starts off a 16-byte boundary (a view one value into a larger
+    tensor) takes the tensor cores' plain loads of x."""
+    packed, scales = _weight(1024, 512, dev, n)
+    big = torch.randn((n * 1024 + 1,), device=dev).to(dtype)
+    x = big[1:].reshape(n, 1024)
+    assert x.data_ptr() % 16
+    got = q4_matmul_ps(x, packed, scales, None, round_planes)
+    ref = q4_matmul_ps_plain(x, packed, scales, None, round_planes)
+    assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
+    assert torch.equal(got, q4_matmul_ps(x.clone(), packed, scales, None,
+                                         round_planes))
+    assert _nearer_own_contract(got, x, packed, scales, None, round_planes)
+
+
+@pytest.mark.parametrize("n", [16, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_q4_matmul_ps_scales_near_smallest_normal(dev, n, dtype):
+    """f32 planes whose bf16 scales lie in bf16's smallest normal binade
+    (2^-126 to 2^-125): each weight stays exact in TF32 there, and the
+    TF32 instance holds the tolerance."""
+    packed, _ = _weight(1024, 512, dev, n)
+    g = torch.Generator(device=dev).manual_seed(n)
+    scales = (2.0 ** -126 * (1 + torch.rand((32, 512), generator=g,
+                                            device=dev))).to(torch.bfloat16)
+    assert (scales.float() >= 2.0 ** -126).all()
+    x = torch.randn((n, 1024), generator=g, device=dev).to(dtype)
+    got = q4_matmul_ps(x, packed, scales, None, False)
+    ref = q4_matmul_ps_plain(x, packed, scales, None, False)
+    assert ref.abs().max() > 0
+    assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
+    assert torch.equal(got, q4_matmul_ps(x, packed, scales, None, False))
+    assert _nearer_own_contract(got, x, packed, scales, None, False)
 
 
 I_ROWS = [1, 2, 3, 4, 5, 7, 8, 9, 16, 33, 64, 100, 128]

@@ -118,30 +118,28 @@ def test_route_above_128_rows_matches_xla(layout, dtype):
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
 
-@pytest.mark.parametrize("n,round_planes", [(1, False), (8, True), (9, True),
-                                            (100, True), (100, False)])
+@pytest.mark.parametrize("n", [1, 8, 9, 32, 100])
 @pytest.mark.parametrize("K,O", [(4096, 4096), (5120, 15360), (5120, 51200),
                                  (16384, 4096), (128, 4100)])
-def test_q4_matmul_ps_splits(n, round_planes, K, O):  # noqa: N803
-    """K2's split of K depends on the shapes and the contract alone (no
-    data, so no host sync), and its splits, as the kernel cuts them
+def test_q4_matmul_ps_splits(n, K, O):  # noqa: N803
+    """K2's split of K depends on the shapes alone (no data, so no host
+    sync; both plane contracts: the bf16 and the TF32 tensor-core instances
+    hold as many blocks an SM), and its splits, as the kernel cuts them
     (csrc/q4_matmul_ps.cu: groups G·s/splits .. G·(s+1)/splits), cover the
     K/64 groups exactly once, each split a whole, non-empty run of groups."""
     G = K // 64  # noqa: N806
-    splits = q4_matmul_ps_splits(n, K, O, round_planes, 132)
-    assert splits == q4_matmul_ps_splits(n, K, O, round_planes, 132)
+    splits = q4_matmul_ps_splits(n, K, O, 132)
+    assert splits == q4_matmul_ps_splits(n, K, O, 132)
     assert 1 <= splits <= G
     bounds = [(G * s // splits, G * (s + 1) // splits) for s in range(splits)]
     covered = [g for b, e in bounds for g in range(b, e)]
     assert covered == list(range(G)) and all(b < e for b, e in bounds)
-    if n > 8 and not round_planes:
-        assert splits == 1  # the f32 FMA tiles do not split K
-    else:  # one wave of blocks that fills the 132 SMs where K allows
-        per_sm = 2 if n <= 32 else 1
-        blocks = -(-O // (1024 if n <= 8 else 128)) * splits
-        assert blocks <= per_sm * 132 or splits == 1
-        assert blocks > per_sm * 132 - -(-O // (1024 if n <= 8 else 128)) \
-            or splits == G
+    # one wave of blocks that fills the 132 SMs where K allows
+    per_sm = 2 if n <= 32 else 1
+    blocks = -(-O // (1024 if n <= 8 else 128)) * splits
+    assert blocks <= per_sm * 132 or splits == 1
+    assert blocks > per_sm * 132 - -(-O // (1024 if n <= 8 else 128)) \
+        or splits == G
 
 
 def test_dense_weight_route():

@@ -44,10 +44,22 @@
 // at GPT-J's proj) splits K as the GEMV does.  Bound: the weight bytes up to
 // n = 128 at 989 TFLOP/s.
 //
-// 9-128 rows, f32 planes: the FMA tiling of the first port (TF32 would break
-// the f32 contract): a block owns a 32 x 64 output tile, stages one group of
-// x and of the dequantized weight in shared memory a step, and each thread
-// runs a 2 x 4 register tile of f32 FMAs.
+// 9-128 rows, f32 planes: on the tensor cores as TF32 products.  Every
+// dequantized weight (v - 8) * s is exact in TF32: v - 8 has at most 3
+// significant bits and a bf16 scale 8, so the product has at most 11, TF32's
+// significand (a bf16 subnormal scale gives a multiple of 2^-133, whose low
+// 16 f32 mantissa bits are zero).  bf16 x is exact in TF32 too, so one
+// mma.sync m16n8k8 TF32 -> f32 gives the f32 FMA product exactly and only
+// the order of the f32 sums differs from the contract; f32 x is split into
+// big + small TF32 halves (common.cuh:split_tf32) and takes two products,
+// small first, leaving ~2^-22 of |x w|.  The bf16 instance's geometry: a
+// block owns all n rows and 128 columns, a cp.async ring carries each
+// group's packed bytes, both scale rows and x (bf16, or f32 split in the
+// fragments), and each group is dequantized once, one step ahead, into the
+// other of two f32 weight buffers; K is split as there.  Bound: the weight
+// bytes, or the products at 494.7 TFLOP/s (two a product for f32 x).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -267,14 +279,12 @@ struct MmaRing {
       kStages * kRawBytes + 2 * (2 * kKS * kWS + kStages * BM * kXS);
 };
 
-// The packed bytes and both scale rows of group g and the x tile of its 64
-// K-values into ring stage ``raw`` / ``xt``: cp.async where ``vec_w`` /
-// ``vec_x`` (16-byte rows and addresses), else plain loads.
-template <int BM, bool XBF16>
-__device__ __forceinline__ void mma_load_step(
-    uint8_t* raw, uint16_t* xt, const void* xv, const uint8_t* packed,
-    const uint16_t* scales, int g, int G, int o0, int n, int K, int O,
-    bool vec_w, bool vec_x) {
+// The packed bytes and both scale rows of group g into ring stage ``raw``:
+// 16-byte cp.async where ``vec_w`` (16-byte rows and addresses), else plain
+// loads; columns past O read as zeros.
+__device__ __forceinline__ void load_weight_step(
+    uint8_t* raw, const uint8_t* packed, const uint16_t* scales, int g, int G,
+    int o0, int O, bool vec_w) {
   const int tid = threadIdx.x;
   uint16_t* rsc = reinterpret_cast<uint16_t*>(raw + 32 * kBN);  // [2][kBN]
   {  // packed: 32 rows x 8 chunks of 16 bytes, one a thread
@@ -302,6 +312,18 @@ __device__ __forceinline__ void mma_load_step(
       for (int j = 0; j < 8; ++j) d[j] = o0 + c + j < O ? src[j] : 0;
     }
   }
+}
+
+// Group g's weight (load_weight_step) and the x tile of its 64 K-values into
+// ring stage ``raw`` / ``xt``, x rounded to bf16: cp.async where ``vec_x``
+// (bf16 x, 16-byte address), else plain loads.
+template <int BM, bool XBF16>
+__device__ __forceinline__ void mma_load_step(
+    uint8_t* raw, uint16_t* xt, const void* xv, const uint8_t* packed,
+    const uint16_t* scales, int g, int G, int o0, int n, int K, int O,
+    bool vec_w, bool vec_x) {
+  const int tid = threadIdx.x;
+  load_weight_step(raw, packed, scales, g, G, o0, O, vec_w);
   const int half_k = K / 2;
   if (XBF16 && vec_x) {  // BM rows x 8 chunks (4 of each plane)
     const uint16_t* x = static_cast<const uint16_t*>(xv);
@@ -463,83 +485,256 @@ ps_mma_kernel(const void* __restrict__ xv,            // [n, K] bf16 or f32
 }
 
 // ---------------------------------------------------------------------------
-// 9-128 rows, f32 planes: FMA tiles
+// 9-128 rows, f32 planes: mma.sync TF32
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 32;       // rows of x per block
-constexpr int kFBN = 64;      // output columns per block
-constexpr int kThreads = 256; // 16 x 16 threads, 2 x 4 outputs each
+constexpr int kWF = kBN + 4;  // f32 row stride of the weight tile (4 mod 32)
+constexpr int kXF = kKS + 8;  // f32 row stride of an f32 x tile (8 mod 32)
 
-template <bool XBF16>
-__global__ void __launch_bounds__(kThreads)
-matmul_ps_kernel(const void* __restrict__ xv,            // [n, K] bf16 or f32
-                 const uint8_t* __restrict__ packed,     // [K/2, O]
-                 const uint16_t* __restrict__ scales,    // [K/32, O] bf16
-                 const float* __restrict__ bias,         // [O] or null
-                 float* __restrict__ out,                // [n, O]
-                 int n, int K, int O) {
-  __shared__ float xs[kBM][kKS + 1];
-  __shared__ __align__(16) float ws[kKS][kFBN];
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int m0 = blockIdx.y * kBM, o0 = blockIdx.x * kFBN;
-  const int half_k = K / 2;
-  const int G = half_k / 32;
+// Ring depth by row tile and x dtype: as deep as shared memory allows two
+// blocks an SM up to 32 rows (the split plan's occupancy) and one past.
+template <int BM, bool XBF16>
+struct Tf32Ring {
+  static constexpr int kStages = BM == 16 ? (XBF16 ? 6 : 5)
+                                 : BM == 32 ? (XBF16 ? 5 : 3)
+                                 : BM == 64 ? 4 : (XBF16 ? 4 : 3);
+  static constexpr int kXBytes = XBF16 ? BM * kXS * 2 : BM * kXF * 4;
+  static constexpr size_t kSmem =
+      kStages * (kRawBytes + kXBytes) + 2 * kKS * kWF * sizeof(float);
+};
 
-  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-  for (int g = 0; g < G; ++g) {
-    for (int idx = tid; idx < kBM * kKS; idx += kThreads) {
+// x's 64 K-values of group g (32 of each plane) into ``xt``, as they are
+// (bf16, or f32 split later in the fragments), rows past n zero: cp.async
+// where ``vec_x`` (16-byte address), else plain loads.
+template <int BM, bool XBF16>
+__device__ __forceinline__ void tf32_load_x(uint8_t* xt, const void* xv,
+                                            int g, int n, int K, bool vec_x) {
+  using T = std::conditional_t<XBF16, uint16_t, float>;
+  constexpr int kEl = 16 / sizeof(T);          // values a 16-byte chunk
+  constexpr int kHalfChunks = 32 / kEl;        // chunks of a plane's 32
+  constexpr int kRow = XBF16 ? kXS : kXF;      // values a row of xt
+  const int tid = threadIdx.x, half_k = K / 2;
+  T* d = reinterpret_cast<T*>(xt);
+  const T* x = static_cast<const T*>(xv);
+  if (vec_x) {
+    for (int idx = tid; idx < BM * 2 * kHalfChunks; idx += kMmaThreads) {
+      const int m = idx / (2 * kHalfChunks), cc = idx % (2 * kHalfChunks);
+      const int k = (cc < kHalfChunks ? 0 : half_k) + g * 32
+                    + (cc % kHalfChunks) * kEl;
+      const bool ok = m < n;
+      cp_async16(d + m * kRow + cc * kEl,
+                 ok ? x + static_cast<size_t>(m) * K + k : x, ok);
+    }
+  } else {
+    for (int idx = tid; idx < BM * kKS; idx += kMmaThreads) {
       const int m = idx / kKS, kk = idx % kKS;
-      const int k = (kk < 32 ? 0 : half_k) + g * 32 + (kk & 31);
-      float v = 0.f;
-      if (m0 + m < n) {
-        const size_t off = static_cast<size_t>(m0 + m) * K + k;
-        v = XBF16 ? bf16_to_float(static_cast<const uint16_t*>(xv)[off])
-                  : static_cast<const float*>(xv)[off];
-      }
-      xs[m][kk] = v;
+      const size_t off = static_cast<size_t>(m) * K + (kk < 32 ? 0 : half_k)
+                         + g * 32 + (kk % 32);
+      d[m * kRow + kk] = m < n ? x[off] : T(0);
     }
-    for (int idx = tid; idx < 32 * kFBN; idx += kThreads) {
-      const int r = idx / kFBN, c = idx % kFBN;
-      const int o = o0 + c;
-      float wl = 0.f, wh = 0.f;
-      if (o < O) {
-        const uint32_t b = packed[static_cast<size_t>(g * 32 + r) * O + o];
-        const float sl = bf16_to_float(scales[static_cast<size_t>(g) * O + o]);
-        const float sh =
-            bf16_to_float(scales[static_cast<size_t>(G + g) * O + o]);
-        wl = static_cast<float>(static_cast<int>(b & 0xFu) - 8) * sl;
-        wh = static_cast<float>(static_cast<int>(b >> 4) - 8) * sh;
-      }
-      ws[r][c] = wl;
-      ws[32 + r][c] = wh;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kKS; ++kk) {
-      const float a0 = xs[ty * 2][kk];
-      const float a1 = xs[ty * 2 + 1][kk];
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-      acc[0][0] = fmaf(a0, b.x, acc[0][0]);
-      acc[0][1] = fmaf(a0, b.y, acc[0][1]);
-      acc[0][2] = fmaf(a0, b.z, acc[0][2]);
-      acc[0][3] = fmaf(a0, b.w, acc[0][3]);
-      acc[1][0] = fmaf(a1, b.x, acc[1][0]);
-      acc[1][1] = fmaf(a1, b.y, acc[1][1]);
-      acc[1][2] = fmaf(a1, b.z, acc[1][2]);
-      acc[1][3] = fmaf(a1, b.w, acc[1][3]);
-    }
-    __syncthreads();
   }
+}
+
+// Fragments: an m16n8k8 step takes K-values kk*8 .. kk*8 + 7 with slot t of
+// the fragment holding K-value kk*8 + 2t and slot t + 4 kk*8 + 2t + 1, so a
+// thread reads its x pair in one load; the NI n-tiles of a warp interleave
+// their columns (fragment column j of n-tile q*NR + r is the warp's column
+// q*8*NR + j*NR + r), so a thread reads its weights of NR n-tiles in one
+// load and stores NR neighbouring outputs at once.
+template <int BM, bool XBF16>
+__global__ void __launch_bounds__(kMmaThreads, BM <= 32 ? 2 : 1)
+ps_tf32_kernel(const void* __restrict__ xv,            // [n, K] bf16 or f32
+               const uint8_t* __restrict__ packed,     // [K/2, O]
+               const uint16_t* __restrict__ scales,    // [K/32, O] bf16
+               const float* __restrict__ bias,         // [O] or null
+               float* __restrict__ dst,  // [n, O] (splits == 1) or [splits, n, O]
+               int n, int K, int O, int splits, int vec_w, int vec_x) {
+  constexpr int WARPS_M = BM == 16 ? 1 : (BM == 128 ? 4 : 2);
+  constexpr int WARPS_N = 8 / WARPS_M;
+  constexpr int MI = BM / WARPS_M / 16;  // 16-row m-tiles of a warp
+  constexpr int WCOLS = kBN / WARPS_N;   // columns of a warp
+  constexpr int NI = WCOLS / 8;          // 8-column n-tiles of a warp
+  constexpr int NR = NI < 4 ? NI : 4;    // n-tiles whose columns interleave
+  using Ring = Tf32Ring<BM, XBF16>;
+  constexpr int S = Ring::kStages;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* raw = smem;  // [S][kRawBytes]
+  float* ws = reinterpret_cast<float*>(smem + S * kRawBytes);  // [2][kKS][kWF]
+  uint8_t* xs = reinterpret_cast<uint8_t*>(ws + 2 * kKS * kWF);  // [S][kXBytes]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int gid = lane / 4, qid = lane % 4;
+  const int o0 = blockIdx.x * kBN;
+  const int G = K / 64;
+  const int split = blockIdx.y;
+  const int g_begin = static_cast<int>(static_cast<long long>(G) * split / splits);
+  const int g_end = static_cast<int>(static_cast<long long>(G) * (split + 1) / splits);
+  const int steps = g_end - g_begin;
+  const int m_base = wm * (BM / WARPS_M), c_base = wn * WCOLS;
+
+  float acc[MI][NI][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + ty * 2 + i;
-    if (m >= n) continue;
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + tx * 4 + j;
-      if (o < O)
-        out[static_cast<size_t>(m) * O + o] = acc[i][j] + (bias ? bias[o] : 0.f);
+    for (int ni = 0; ni < NI; ++ni)
+      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+
+  // packed rows r0 .. r0 + 3, columns cq .. cq + 3 of step ``it`` -> their 16
+  // lo and 16 hi weights (v - 8) * s, exact in f32 and in TF32, in weight
+  // buffer it % 2; a warp writes 512 contiguous bytes a row
+  auto dequant = [&](int it) {
+    const uint8_t* rs = raw + (it % S) * kRawBytes;
+    const uint16_t* rsc = reinterpret_cast<const uint16_t*>(rs + 32 * kBN);
+    const int cq = (tid % 32) * 4, r0 = (tid / 32) * 4;
+    const uint2 s2l = *reinterpret_cast<const uint2*>(rsc + cq);
+    const uint2 s2h = *reinterpret_cast<const uint2*>(rsc + kBN + cq);
+    float sl[4], sh[4];
+    unpack_bf16x2(s2l.x, sl[0], sl[1]);
+    unpack_bf16x2(s2l.y, sl[2], sl[3]);
+    unpack_bf16x2(s2h.x, sh[0], sh[1]);
+    unpack_bf16x2(s2h.y, sh[2], sh[3]);
+    float* wt = ws + (it % 2) * kKS * kWF;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t w =
+          *reinterpret_cast<const uint32_t*>(rs + (r0 + i) * kBN + cq);
+      const uint32_t lo = w & 0x0F0F0F0Fu, hi = (w >> 4) & 0x0F0F0F0Fu;
+      *reinterpret_cast<float4*>(wt + (r0 + i) * kWF + cq) = make_float4(
+          nib_f<0>(lo) * sl[0], nib_f<1>(lo) * sl[1], nib_f<2>(lo) * sl[2],
+          nib_f<3>(lo) * sl[3]);
+      *reinterpret_cast<float4*>(wt + (32 + r0 + i) * kWF + cq) = make_float4(
+          nib_f<0>(hi) * sh[0], nib_f<1>(hi) * sh[1], nib_f<2>(hi) * sh[2],
+          nib_f<3>(hi) * sh[3]);
+    }
+  };
+  auto load = [&](int stage, int g) {
+    load_weight_step(raw + stage * kRawBytes, packed, scales, g, G, o0, O,
+                     vec_w);
+    tf32_load_x<BM, XBF16>(xs + stage * Ring::kXBytes, xv, g, n, K, vec_x);
+  };
+
+  // the bf16 instance's pipeline: one commit group a step, one barrier a
+  // step, the weights of step it + 1 dequantized while step it runs
+#pragma unroll
+  for (int p = 0; p < S - 1; ++p) {
+    if (p < steps) load(p, g_begin + p);
+    cp_async_commit();
+  }
+  cp_async_wait<S - 2>();  // step 0 landed
+  __syncthreads();
+  dequant(0);
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<S - 3>();  // step it + 1 landed
+    // ws[it % 2] is complete, and every warp is done with step it - 1
+    __syncthreads();
+    if (it + S - 1 < steps) load((it + S - 1) % S, g_begin + it + S - 1);
+    cp_async_commit();
+    if (it + 1 < steps) dequant(it + 1);
+    const uint8_t* xt = xs + (it % S) * Ring::kXBytes;
+    const float* wt = ws + (it % 2) * kKS * kWF;
+    // a fresh fragment a step, added to the accumulator in f32 afterwards:
+    // the tensor cores' own additions keep no guard bits, so their error
+    // stays relative to one group's sum, not to the whole split's
+    float part[MI][NI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+        part[mi][ni][0] = part[mi][ni][1] = part[mi][ni][2] = part[mi][ni][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKS / 8; ++kk) {
+      const int kr = kk * 8 + 2 * qid;  // K-value of slot qid (+1: qid + 4)
+      uint32_t b[NI][2];
+#pragma unroll
+      for (int q = 0; q < NI / NR; ++q) {
+        const float* p0 = wt + kr * kWF + c_base + q * 8 * NR + gid * NR;
+        if constexpr (NR == 4) {
+          const uint4 u = *reinterpret_cast<const uint4*>(p0);
+          const uint4 v = *reinterpret_cast<const uint4*>(p0 + kWF);
+          b[4 * q][0] = u.x, b[4 * q + 1][0] = u.y;
+          b[4 * q + 2][0] = u.z, b[4 * q + 3][0] = u.w;
+          b[4 * q][1] = v.x, b[4 * q + 1][1] = v.y;
+          b[4 * q + 2][1] = v.z, b[4 * q + 3][1] = v.w;
+        } else {
+          const uint2 u = *reinterpret_cast<const uint2*>(p0);
+          const uint2 v = *reinterpret_cast<const uint2*>(p0 + kWF);
+          b[2 * q][0] = u.x, b[2 * q + 1][0] = u.y;
+          b[2 * q][1] = v.x, b[2 * q + 1][1] = v.y;
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int row = m_base + mi * 16 + gid;
+        if constexpr (XBF16) {  // a bf16 pair is two exact TF32 values
+          const uint32_t* xw = reinterpret_cast<const uint32_t*>(xt);
+          const uint32_t p0 = xw[row * (kXS / 2) + kr / 2];
+          const uint32_t p1 = xw[(row + 8) * (kXS / 2) + kr / 2];
+          const uint32_t a[4] = {p0 << 16, p1 << 16, p0 & 0xFFFF0000u,
+                                 p1 & 0xFFFF0000u};
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni)
+            mma_tf32(part[mi][ni], a, b[ni][0], b[ni][1]);
+        } else {
+          const float* xf = reinterpret_cast<const float*>(xt);
+          const float2 p0 = *reinterpret_cast<const float2*>(xf + row * kXF + kr);
+          const float2 p1 =
+              *reinterpret_cast<const float2*>(xf + (row + 8) * kXF + kr);
+          FragA3 a;
+          a.set(p0.x, p1.x, p0.y, p1.y);
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni)
+            mma_tf32(part[mi][ni], a.small, b[ni][0], b[ni][1]);
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni)
+            mma_tf32(part[mi][ni], a.big, b[ni][0], b[ni][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+  }
+  cp_async_wait<0>();
+
+  // this thread holds rows (gid, gid + 8) of each m-tile and, of each group
+  // of NR n-tiles, fragment columns 2 qid and 2 qid + 1: NR neighbouring
+  // columns each
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m_base + mi * 16 + gid + 8 * h;
+      if (m >= n) continue;
+      float* out = dst + (splits == 1 ? static_cast<size_t>(m)
+                                      : static_cast<size_t>(split) * n + m) * O;
+#pragma unroll
+      for (int q = 0; q < NI / NR; ++q) {
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int col = o0 + c_base + q * 8 * NR + (2 * qid + e1) * NR;
+          float v[NR];
+#pragma unroll
+          for (int r = 0; r < NR; ++r) {
+            v[r] = acc[mi][q * NR + r][2 * h + e1];
+            if (splits == 1 && bias && col + r < O) v[r] += bias[col + r];
+          }
+          if (O % NR == 0 && col + NR <= O) {
+            if constexpr (NR == 4)
+              *reinterpret_cast<float4*>(out + col) =
+                  make_float4(v[0], v[1], v[2], v[3]);
+            else
+              *reinterpret_cast<float2*>(out + col) = make_float2(v[0], v[1]);
+          } else {
+#pragma unroll
+            for (int r = 0; r < NR; ++r)
+              if (col + r < O) out[col + r] = v[r];
+          }
+        }
+      }
     }
   }
 }
@@ -571,12 +766,14 @@ void gemv_rows(const void* x, int x_is_bf16, const uint8_t* packed,
     launch_gemv<8, ROUND>(x, x_is_bf16, packed, scales, bias, dst, n, K, O, splits, s);
 }
 
-template <int BM, bool XBF16>
-cudaError_t launch_mma(const void* x, const uint8_t* packed,
-                       const uint16_t* scales, const float* bias, float* dst,
-                       int n, int K, int O, int splits, cudaStream_t s) {
-  auto kern = ps_mma_kernel<BM, XBF16>;
-  constexpr size_t smem = MmaRing<BM>::kSmem;
+// One block a 128-column tile and split of K, ``smem`` bytes of dynamic
+// shared memory; cp.async for the weight where O % 16 == 0 and it is 16-byte
+// aligned, for x where ``x_vec`` and x is.
+template <typename Kern>
+cudaError_t launch_tiles(Kern kern, size_t smem, bool x_vec, const void* x,
+                         const uint8_t* packed, const uint16_t* scales,
+                         const float* bias, float* dst, int n, int K, int O,
+                         int splits, cudaStream_t s) {
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -584,30 +781,45 @@ cudaError_t launch_mma(const void* x, const uint8_t* packed,
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   const int vec_w = O % 16 == 0 && aligned(packed) && aligned(scales);
-  const int vec_x = XBF16 && aligned(x);
+  const int vec_x = x_vec && aligned(x);
   const dim3 grid((O + kBN - 1) / kBN, splits);
   kern<<<grid, kMmaThreads, smem, s>>>(x, packed, scales, bias, dst, n, K, O,
                                        splits, vec_w, vec_x);
   return cudaGetLastError();
 }
 
-template <bool XBF16>
-cudaError_t mma_rows(const void* x, const uint8_t* packed,
-                     const uint16_t* scales, const float* bias, float* dst,
-                     int n, int K, int O, int splits, cudaStream_t s) {
-  if (n <= 16) return launch_mma<16, XBF16>(x, packed, scales, bias, dst, n, K, O, splits, s);
-  if (n <= 32) return launch_mma<32, XBF16>(x, packed, scales, bias, dst, n, K, O, splits, s);
-  if (n <= 64) return launch_mma<64, XBF16>(x, packed, scales, bias, dst, n, K, O, splits, s);
-  return launch_mma<128, XBF16>(x, packed, scales, bias, dst, n, K, O, splits, s);
+// 9-128 rows: the bf16-plane (ROUND) or the TF32 instance at the row tile
+// that holds n
+template <bool ROUND, bool XBF16, int BM>
+cudaError_t launch_rows_at(const void* x, const uint8_t* packed,
+                           const uint16_t* scales, const float* bias,
+                           float* dst, int n, int K, int O, int splits,
+                           cudaStream_t s) {
+  if constexpr (ROUND)
+    return launch_tiles(ps_mma_kernel<BM, XBF16>, MmaRing<BM>::kSmem, XBF16,
+                        x, packed, scales, bias, dst, n, K, O, splits, s);
+  else
+    return launch_tiles(ps_tf32_kernel<BM, XBF16>, Tf32Ring<BM, XBF16>::kSmem,
+                        true, x, packed, scales, bias, dst, n, K, O, splits, s);
+}
+
+template <bool ROUND, bool XBF16>
+cudaError_t tile_rows(const void* x, const uint8_t* packed,
+                      const uint16_t* scales, const float* bias, float* dst,
+                      int n, int K, int O, int splits, cudaStream_t s) {
+  if (n <= 16) return launch_rows_at<ROUND, XBF16, 16>(x, packed, scales, bias, dst, n, K, O, splits, s);
+  if (n <= 32) return launch_rows_at<ROUND, XBF16, 32>(x, packed, scales, bias, dst, n, K, O, splits, s);
+  if (n <= 64) return launch_rows_at<ROUND, XBF16, 64>(x, packed, scales, bias, dst, n, K, O, splits, s);
+  return launch_rows_at<ROUND, XBF16, 128>(x, packed, scales, bias, dst, n, K, O, splits, s);
 }
 
 }  // namespace
 
 // y [n, O] f32.  n <= 8: the GEMV, O % 4 == 0 and a 4-byte (packed) /
-// 8-byte (scales) aligned weight; 9 <= n <= 128 with round_planes: the
-// tensor cores; otherwise the f32 FMA tiles.  ``splits`` > 1 (GEMV and
-// tensor cores) splits K in whole groups into ``partial`` [splits, n, O],
-// then a second pass sums it with the bias.
+// 8-byte (scales) aligned weight; 9 <= n <= 128: the tensor cores, bf16
+// products with round_planes, TF32 ones without.  ``splits`` > 1 splits K in
+// whole groups into ``partial`` [splits, n, O], then a second pass sums it
+// with the bias.
 extern "C" int q4_matmul_ps_launch(const void* x, int x_is_bf16,
                                    int round_planes, const void* packed,
                                    const void* scales, const void* bias,
@@ -631,16 +843,11 @@ extern "C" int q4_matmul_ps_launch(const void* x, int x_is_bf16,
       gemv_rows<false>(x, x_is_bf16, pp, sp, bp, dst, n, K, O, splits, s);
     err = cudaGetLastError();
   } else if (round_planes) {
-    err = x_is_bf16 ? mma_rows<true>(x, pp, sp, bp, dst, n, K, O, splits, s)
-                    : mma_rows<false>(x, pp, sp, bp, dst, n, K, O, splits, s);
+    err = x_is_bf16 ? tile_rows<true, true>(x, pp, sp, bp, dst, n, K, O, splits, s)
+                    : tile_rows<true, false>(x, pp, sp, bp, dst, n, K, O, splits, s);
   } else {
-    if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((O + kFBN - 1) / kFBN, (n + kBM - 1) / kBM);
-    if (x_is_bf16)
-      matmul_ps_kernel<true><<<grid, kThreads, 0, s>>>(x, pp, sp, bp, op, n, K, O);
-    else
-      matmul_ps_kernel<false><<<grid, kThreads, 0, s>>>(x, pp, sp, bp, op, n, K, O);
-    err = cudaGetLastError();
+    err = x_is_bf16 ? tile_rows<false, true>(x, pp, sp, bp, dst, n, K, O, splits, s)
+                    : tile_rows<false, false>(x, pp, sp, bp, dst, n, K, O, splits, s);
   }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const int total = n * O, per = kReduceThreads / reduce_lanes(splits);

@@ -7,8 +7,9 @@ split over a thread-block cluster, ``core_plan``).
 K2 ``q4_matmul_ps`` (csrc/q4_matmul_ps.cu): n <= 128 rows, the per-element
 dequant math of ``_kernel_ps[_bias]``: planes (v - 8)·s rounded to bf16 (x
 too) or kept in f32, as ``round_planes`` says (ops/matmul.py decides it
-from the math).  A GEMV at n <= 8, tensor cores at 9-128 rows with bf16
-planes, f32 FMA tiles at 9-128 rows with f32 planes.
+from the math).  A GEMV at n <= 8; at 9-128 rows tensor cores, bf16
+products with bf16 planes and TF32 products (exact for bf16 scales) with
+f32 planes.
 K9 ``q4_matmul_i`` and K10 ``q4_matmul_stacked`` (csrc/q4_matmul_i.cu): the
 interleaved ("i") layout of ``_kernel`` and ``_kernel_stacked``, n <= 128,
 one kernel: K1's core in that layout (mma.sync at every n, K split over a
@@ -413,15 +414,14 @@ def q4_gemv_ps_planned(x: torch.Tensor, packed: torch.Tensor,
 
 
 def q4_matmul_ps_splits(n: int, K: int, O: int,  # noqa: N803
-                        round_planes: bool, sm_count: int) -> int:
+                        sm_count: int) -> int:
     """K2's split of K in whole 64-value groups (32 packed rows of each
-    plane), from the shapes and the contract alone: as many splits of the
-    column tiles (1024 columns for the GEMV at n <= 8, 128 for the
-    tensor-core instance) as fill two blocks an SM without starting a
-    second wave, one block an SM for the tensor cores past 32 rows (where
-    the partials would outweigh the weight); none for the f32 FMA tiles."""
-    if n > GEMV_MAX_ROWS and not round_planes:
-        return 1
+    plane), from the shapes alone: as many splits of the column tiles (1024
+    columns for the GEMV at n <= 8, 128 for the tensor-core instances) as
+    fill two blocks an SM without starting a second wave, one block an SM
+    for the tensor cores past 32 rows (where the partials would outweigh the
+    weight).  Both plane contracts take the same plan: the bf16- and the
+    TF32-product instances hold as many blocks an SM."""
     tile = _GEMV_TILE_O if n <= GEMV_MAX_ROWS else _MMA_TILE_O
     blocks = sm_count * (2 if n <= 32 else 1)
     return max(1, min(K // (2 * QK), blocks // -(-O // tile)))
@@ -434,13 +434,22 @@ def q4_matmul_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     rounded to bf16 when ``round_planes``."""
     if x.device.type == "cpu":
         return q4_matmul_ps_plain(x, packed, scales, bias, round_planes)
+    return q4_matmul_ps_planned(x, packed, scales, bias, round_planes, None)
+
+
+def q4_matmul_ps_planned(x: torch.Tensor, packed: torch.Tensor,
+                         scales: torch.Tensor, bias: Optional[torch.Tensor],
+                         round_planes: bool,
+                         splits: Optional[int]) -> torch.Tensor:
+    """K2 on the card with K split ``splits`` ways (1 to K/64), or
+    ``q4_matmul_ps_splits``'s when None: the card tests run every split."""
     what = "q4_matmul_ps"
     n, K, O = _check(x, packed, scales, bias, MATMUL_MAX_ROWS,  # noqa: N806
                      (torch.bfloat16, torch.float32), what)
     if n <= GEMV_MAX_ROWS:
         _check_quads(what, O, packed, scales)
-    splits = q4_matmul_ps_splits(n, K, O, round_planes,
-                                 _sm_count(x.device.index))
+    if splits is None:
+        splits = q4_matmul_ps_splits(n, K, O, _sm_count(x.device.index))
     out = torch.empty((n, O), dtype=torch.float32, device=x.device)
     partial = (torch.empty((splits, n, O), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)

@@ -1,7 +1,7 @@
-"""K1, K9/K10, K12 and K15, under every plan of their split, beside the
-plan the wrapper picks.
+"""K1, K9/K10, K12, K15 and K2's tensor cores, under every plan of their
+split, beside the plan the wrapper picks.
 
-    python -m vsim_tpu_torch.tools.core_plans [--n 1] [--kernel k1 i lab batch]
+    python -m vsim_tpu_torch.tools.core_plans [--n 1] [--kernel k1 i lab batch ps]
 
 At every Q4 weight shape of GPT-J-6B and Pythia-12B (``read_designs.SHAPES``),
 on random weights rotated past the 50 MB L2, times K1
@@ -18,7 +18,11 @@ n <= 8 (K1's rows; the "i" kernels' one n-tile).  ``--kernel batch`` times
 K15's 2d geometry (``q4_batch_lab_planned``, f32x) at GPT-J-6B's four Q4
 shapes at n = 64 and 128 under every cluster (1-8) whose clusters all fit at once,
 on the n-tiles the wrapper takes, marking its pick (``batch_2d_plan``).
-Runs on the CUDA card only.
+``--kernel ps`` times K2's tensor-core instances (``q4_matmul_ps_planned``)
+at every Q4 weight shape at n = 20 and 100, f32 planes with f32 and bf16 x
+and bf16 planes with bf16 x, under every split of K into 1-16 runs of
+groups, marking the pick (``q4_matmul_ps_splits``).  Runs on the CUDA card
+only.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ from vsim_tpu_torch.timing import rel_err, rotation, timed
 from vsim_tpu_torch.tools.lab import lab_weight
 from vsim_tpu_torch.tools.read_designs import SHAPES, flat_ms
 
-KERNELS = ("k1", "i", "lab", "batch")
+KERNELS = ("k1", "i", "lab", "batch", "ps")
+PS_MAX_SPLITS = 16
 BATCH_SHAPES = (("qkv", 4096, 12288), ("wo", 4096, 4096), ("fc", 4096, 16384),
                 ("proj", 16384, 4096))  # GPT-J-6B's (name, K, O)
 
@@ -131,9 +136,65 @@ def run_batch(ns: Sequence[int] = (64, 128), math_: str = "f32x") -> List[Dict]:
     return rows
 
 
+def run_ps(ns: Sequence[int] = (20, 100)) -> List[Dict]:
+    """K2 at 9-128 rows under every split of K into 1-16 runs of its 64-value
+    groups, at every Q4 weight shape: one printed line a (shape, n, x dtype,
+    plane contract), the splits fastest first."""
+    dev = torch.device("cuda")
+    card = torch.cuda.get_device_name(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    rows = []
+    print(f"core_plans ps: device={card}, {sm} SMs", flush=True)
+    for model, name, K, O in SHAPES:  # noqa: N806
+        w0 = _k1_weight(K, O, 0, dev)
+        ws = rotation(lambda i: w0 if i == 0 else _k1_weight(  # noqa: B023
+            K, O, i, dev), w0.nbytes)  # noqa: B023
+        for n, (xdt, round_planes) in itertools.product(ns, (
+                (torch.float32, False), (torch.bfloat16, False),
+                (torch.bfloat16, True))):
+            x = torch.randn((n, K), generator=g, device=dev).to(xdt)
+            ref = q4_cuda.q4_matmul_ps_plain(x, w0.packed, w0.scales, None,
+                                             round_planes)
+            times = {}
+            for splits in range(1, min(PS_MAX_SPLITS, K // 64) + 1):
+                err, rel = rel_err(q4_cuda.q4_matmul_ps_planned(
+                    x, w0.packed, w0.scales, None, round_planes, splits), ref)
+                if rel > TOL_LAB:
+                    raise RuntimeError(f"core_plans ps {splits} {K}->{O}: "
+                                       f"max|err| {err:.3g} (rel {rel:.3g})")
+                cyc = itertools.cycle(ws)
+
+                def call(splits=splits):
+                    w = next(cyc)  # noqa: B023
+                    return q4_cuda.q4_matmul_ps_planned(
+                        x, w.packed, w.scales, None, round_planes, splits)  # noqa: B023
+
+                times[splits] = min(timed(call) for _ in range(2))
+            pick = q4_cuda.q4_matmul_ps_splits(n, K, O, sm)
+            best = min(times.values())
+            what = (f"x={str(xdt)[6:]} planes="
+                    f"{'bf16' if round_planes else 'f32'}")
+            print(f"  ps {model} {name} n={n} {K}->{O} {what}: " + ", ".join(
+                f"{s}{' (pick)' if s == pick else ''} {times[s] * 1e3:.1f}"
+                for s in sorted(times, key=times.get)[:6]) + f" us; pick "
+                f"{pick} {times.get(pick, float('nan')) * 1e3:.1f} us, "
+                f"{times.get(pick, float('nan')) / best:.2f}x the fastest",
+                flush=True)
+            rows.append(dict(kernel="ps", model=model, weight=name, K=K, O=O,
+                             n=n, x=str(xdt)[6:], round_planes=round_planes,
+                             pick=pick, device=card,
+                             times={str(s): t for s, t in times.items()}))
+        del ws, w0
+        torch.cuda.empty_cache()
+    return rows
+
+
 def run(n: int = 1, kernels: Sequence[str] = KERNELS) -> List[Dict]:
     rows = run_batch() if "batch" in kernels else []
-    kernels = [k for k in kernels if k != "batch"]
+    rows += run_ps() if "ps" in kernels else []
+    kernels = [k for k in kernels if k not in ("batch", "ps")]
     if kernels and not 1 <= n <= q4_cuda.GEMV_MAX_ROWS:
         raise ValueError(f"core_plans times n <= {q4_cuda.GEMV_MAX_ROWS}")
     dev = torch.device("cuda")
