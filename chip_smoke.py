@@ -18,7 +18,10 @@ Phases, each fatal on failure:
      ``chip_smoke.py --k2-tf32`` alone; K5 on the B=8 ragged step, on
      phase 4's timed step and at B=1), K4 and K7/K8 (the flash
      backward) also at the Pythia-410M shapes of phase 6 (B=4 training,
-     B=1 perplexity) and K7/K8 at GPT-J's; K1-K4 and K9-K11 at the
+     B=1 perplexity; f32 and bf16) and K7/K8 at GPT-J's, in bf16 also at
+     T=2048 for D = 80, 128 and 256 (each bf16 row on "mma_bf16", every
+     element within 2^-8 of max|plain| and at most 2% of them differing
+     from the plain version); K1-K4 and K9-K11 at the
      Pythia-12B shapes phase 7 gives them (K1 at 1 and 8 rows, K2 at 1 and
      8 rows with f32 planes and at 100 with bf16 planes, K3 on layer 35 of
      a 36-layer int8 and int4 cache, K4 at the prompt lengths; K9 and K11 at GPT-J's
@@ -80,7 +83,7 @@ Phases, each fatal on failure:
      K1's device ms in the replayed step beside an empty kernel's launch
      inside a graph (``tools/read_designs.py:graph_launch_floor_ms``);
   5. card against CPU, each part's seconds printed: GPT-J width at depth
-     2, f32 greedy streams must be identical (InferenceEngine, 5 tokens,
+     2, f32 greedy streams must be identical (InferenceEngine, 3 tokens,
      and ServingEngine, 3 prompts on 2 slots, card vs CPU vs the card's
      InferenceEngine, 3 tokens), bf16 return_logits must agree within the
      stated tolerance; SpeculativeEngine at the same widths, f32, int8 KV,
@@ -98,7 +101,9 @@ Phases, each fatal on failure:
   6. training: Pythia-410M at full width and depth, dense f32 weights from
      seed 0, make_train_step with the default AdamW, 5 steps on one seeded
      batch of 4 x 2049 tokens: finite losses, the last below the first, and
-     K4, K7 and K8 launched once per layer in every step; then
+     K4, K7 and K8 launched once per layer in every step; the same at
+     bf16 compute (K7/K8 on "mma_bf16"), and GPT-J-6B's widths at depth 2
+     at bf16 compute, 3 steps on 1 x 2049 tokens; then
      evaluate.perplexity on random Q4 params over a seeded 4096-token
      stream at window 2048;
   7. Pythia-12B at full width (36 layers, random Q4 weights from seed 0,
@@ -180,6 +185,10 @@ Phases, each fatal on failure:
      of one card's stacked engine, the TP path's kernels at whole shapes).
      A rank that fails fails the phase.  ``chip_smoke.py --parallel`` runs
      phase 11 alone (after phase 4's int8 traffic, for its streams).
+``chip_smoke.py --bwd-bf16`` runs phase 2's bf16 K7/K8 rows and phase 6's
+bf16 training runs alone, their instance checks off, to take the same
+numbers on an earlier tree; ``--k2-tf32`` K2's TF32 rows, the f32xf
+engine's stream margin (``f32xf_margin``) and phase 7's f32 prefill.
 Each path's launch counts are set to 0 just before it runs and read just
 after (the lab's too: K12-K16 launch only there).  Prints each phase's
 seconds (phases 9 and 10 by part), the run's total seconds, a JSON line {"kernels": [...]} (K1-K16) and, last, the device line.
@@ -282,11 +291,7 @@ def phase_kernels(peaks):
     import torch
 
     from vsim_tpu_torch.ops import _build
-    from vsim_tpu_torch.ops.attention import (flash_attention_bwd_dkv,
-                                              flash_attention_bwd_dq,
-                                              flash_attention_bwd_plain,
-                                              flash_attention_bwd_route,
-                                              flash_attention_fwd,
+    from vsim_tpu_torch.ops.attention import (flash_attention_fwd,
                                               flash_attention_plain)
     from vsim_tpu_torch.ops.decode_attention import (
         decode_attention_fresh, decode_attention_fresh_plain,
@@ -634,21 +639,70 @@ def phase_kernels(peaks):
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=lib_ms))
 
-    # K7/K8, the flash backward, against the plain backward at the shapes
-    # of the training and perplexity paths (Pythia-410M: H=16, T=S=2048,
-    # D=64, f32; training B=4, perplexity B=1), in bf16 at B=1, and at
-    # GPT-J's (T=S=512, D=256); K4 at the Pythia-410M shapes as well.  The
-    # yardsticks are scaled_dot_product_attention and its backward (dq, dk
-    # and dv in one call, so both rows carry it; the plain time is likewise
-    # that of the whole plain backward).  Each row names its instance; the
-    # "mma_3xtf32" rows carry a second bound, three TF32 products per f32
-    # product at the card's dense TF32 peak
+    rows += flash_bwd_rows(peaks, bound, g, FLASH_BWD_SHAPES)
+    rows += q4_layout_rows(peaks, bound, q4_weight)
+    rows += k2_tf32_rows(peaks)
+    rows += pythia_attention_rows(peaks, bound)
+    flat_ratios(rows)
+    _build.reset_launch_counts()  # comparison launches do not count
+    return rows
+
+
+# K7/K8 (and K4 at D = 64) against their plain versions at the shapes of
+# the training and perplexity paths (Pythia-410M: H=16, T=S=2048, D=64, f32
+# and bf16; training B=4, perplexity B=1), at GPT-J's (T=S=512, D=256, f32
+# and bf16) and, bf16 at T=S=2048, at GPT-J's training width (H=16, D=256),
+# CodeGen-2B's (H=32, D=80) and Pythia-12B's (H=40, D=128): (B, H, T, D,
+# dtype name)
+FLASH_BWD_SHAPES = ((1, 16, 2048, 64, "float32"), (4, 16, 2048, 64, "float32"),
+                    (1, 16, 2048, 64, "bfloat16"),
+                    (4, 16, 2048, 64, "bfloat16"),
+                    (1, 16, 512, 256, "float32"),
+                    (1, 16, 512, 256, "bfloat16"),
+                    (1, 32, 2048, 80, "bfloat16"),
+                    (1, 40, 2048, 128, "bfloat16"),
+                    (1, 16, 2048, 256, "bfloat16"))
+# the "mma_bf16" rows' checks beside TOL_BWD_BF16: every element of dq, dk
+# and dv within 2^-8 of its max|plain| of the plain version, at most 2% of
+# their bf16 elements differing from the plain version's (the instance's
+# hi + lo split moves 0.2-0.6% in tests/test_torch_flash_bwd.py's exact
+# emulation, hi alone ~40%)
+TOL_BWD_BF16_ELEM = 2.0 ** -8
+MAX_BWD_BF16_DIFF_SHARE = 0.02
+
+
+def flash_bwd_rows(peaks, bound, g, shapes, strict: bool = True):
+    """K7/K8 against the plain backward at ``shapes`` (FLASH_BWD_SHAPES),
+    and K4 at D = 64 against its plain version.  The yardsticks are
+    scaled_dot_product_attention and its backward (dq, dk and dv in one
+    call, so both rows carry it; the plain time is likewise that of the
+    whole plain backward).  Each row names its instance; the "mma_3xtf32"
+    rows carry a second bound, three TF32 products per f32 product at the
+    card's dense TF32 peak; f32 rows at B=1 their distance and the plain
+    version's from an f64 backward; bf16 rows the share of their elements
+    that differ from the plain version's, each of dq, dk, dv and all
+    together.  Every row must hold its tolerance and give the same bits
+    from run to run; with ``strict`` every row must also take its instance
+    (bf16 "mma_bf16", f32 "mma_3xtf32" at D = 64 and 128, else "fma") and
+    a bf16 row hold its element and share checks (``--bwd-bf16`` runs this
+    on an earlier tree with ``strict`` off)."""
+    import torch
+
+    from vsim_tpu_torch.ops.attention import (flash_attention_bwd_dkv,
+                                              flash_attention_bwd_dq,
+                                              flash_attention_bwd_plain,
+                                              flash_attention_bwd_route,
+                                              flash_attention_fwd,
+                                              flash_attention_plain)
+
+    dev = torch.device("cuda")
+    _, bf16_peak, f32_peak = peaks
     f32, bf16 = torch.float32, torch.bfloat16
     tf32_peak = next(v for key, v in TF32_PEAKS.items()
                      if key in torch.cuda.get_device_name(0))
-    for B, T, D, dt in ((1, 2048, 64, f32), (4, 2048, 64, f32),  # noqa: N806
-                        (1, 2048, 64, bf16), (1, 512, 256, f32),
-                        (1, 512, 256, bf16)):
+    rows = []
+    for B, H, T, D, dname in shapes:  # noqa: N806
+        dt = getattr(torch, dname)
         sc = 1.0 / math.sqrt(D)
         q, k, v, do = (torch.randn((B, H, T, D), generator=g, device=dev)
                        .to(dt) for _ in range(4))
@@ -657,7 +711,7 @@ def phase_kernels(peaks):
         pairs = B * H * T * (T + 1) // 2
         peak = bf16_peak if dt == bf16 else f32_peak
         io = B * H * T * D * esz  # one [B, H, T, D] tensor
-        shape = f"B={B} T={T} H={H} D={D} {str(dt)[6:]}"
+        shape = f"B={B} T={T} H={H} D={D} {dname}"
         if D == 64:
             ref, lse_ref = flash_attention_plain(q, k, v, scale=sc)
             torch.cuda.synchronize()
@@ -685,15 +739,31 @@ def phase_kernels(peaks):
         torch.cuda.synchronize()
         tol = TOL_BWD_BF16 if dt == bf16 else TOL_BWD_F32
         route = flash_attention_bwd_route(dt, D)
-        if dt == f32 and D == 64 and route != "mma_3xtf32":
-            fail(f"flash_attention_bwd {shape}: takes {route}, not "
-                 "mma_3xtf32")
+        want = {f32: "mma_3xtf32" if D in (64, 128) else "fma",
+                bf16: "mma_bf16"}[dt]
+        if strict and route != want:
+            fail(f"flash_attention_bwd {shape}: takes {route}, not {want}")
         errs = [rel_err(a, b) for a, b in zip((dq, dk, dv), ref)]
         for name, (err, rel), got in zip(("dq", "dk", "dv"), errs,
                                          (dq, dk, dv)):
             if not torch.isfinite(got).all() or rel > tol:
                 fail(f"flash_attention_bwd {name} {shape}: max|err| "
                      f"{err:.3g} (rel {rel:.3g} > {tol})")
+        differ = None
+        if dt == bf16:
+            counts = [(a != b).sum().item() for a, b in zip((dq, dk, dv),
+                                                            ref)]
+            differ = dict(dq=counts[0] / dq.numel(),
+                          dk=counts[1] / dk.numel(),
+                          dv=counts[2] / dv.numel(),
+                          all=sum(counts) / (dq.numel() + 2 * dk.numel()))
+            worst = max(r for _, r in errs)
+            if strict and (worst > TOL_BWD_BF16_ELEM
+                           or differ["all"] > MAX_BWD_BF16_DIFF_SHARE):
+                fail(f"flash_attention_bwd {shape} ({route}): an element "
+                     f"{worst:.3g} of max|plain| from the plain version "
+                     f"(limit {TOL_BWD_BF16_ELEM:.3g}), {differ} of the bf16 "
+                     f"elements differ (limit {MAX_BWD_BF16_DIFF_SHARE})")
         # f32 at B=1: the kernel's and the plain version's distance from an
         # f64 backward of the same inputs (dq, dk, dv; relative to max|f64|)
         vs_f64 = None
@@ -738,14 +808,9 @@ def phase_kernels(peaks):
                              bound_3xtf32_ms=(3 * ops / tf32_peak * 1e3
                                               if route == "mma_3xtf32"
                                               else None),
-                             rel_err_vs_f64=vs_f64))
+                             rel_err_vs_f64=vs_f64, bf16_differ=differ))
         del q, k, v, do, out, lse, dsum, dq, dk, dv
         torch.cuda.empty_cache()
-    rows += q4_layout_rows(peaks, bound, q4_weight)
-    rows += k2_tf32_rows(peaks)
-    rows += pythia_attention_rows(peaks, bound)
-    flat_ratios(rows)
-    _build.reset_launch_counts()  # comparison launches do not count
     return rows
 
 
@@ -1859,7 +1924,7 @@ def phase_card_vs_cpu(clock: PartTimer):
     for dev in ("cuda", "cpu"):
         streams[dev] = clock("gpt-j f32 stream", dev, lambda: InferenceEngine(
             cfg, params, kv_dtype="int8", device=dev).generate(
-                prompt, 5, SamplingParams(greedy=True)).token_ids)
+                prompt, 3, SamplingParams(greedy=True)).token_ids)
     if streams["cuda"] != streams["cpu"]:
         fail(f"f32 greedy streams differ: card {streams['cuda']} "
              f"cpu {streams['cpu']}")
@@ -2140,17 +2205,23 @@ def _kernel_class(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def phase_training(peaks):
+def train_run(label, cfg, B, steps, peak, strict: bool = True):  # noqa: N803
+    """``steps`` AdamW steps of make_train_step on dense weights from seed 0
+    and one seeded batch of B x (n_ctx + 1) tokens: finite losses, the last
+    below the first, K4, K7 and K8 launched once a layer in every step
+    (with ``strict``, K7/K8 on "mma_bf16" at bf16 compute); step ms the
+    median of steps 2 on (synced), tokens/s, peak memory, the model-FLOP
+    share of ``peak``, and one more step's device ms by kernel class
+    (torch.profiler; None if it records no device activity).  Returns (the
+    run's numbers, each step's launch counts)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from vsim_tpu_torch.engine.evaluate import perplexity
     from vsim_tpu_torch.engine.train import float_leaves, make_train_step
-    from vsim_tpu_torch.models.config import PRESETS
-    from vsim_tpu_torch.models.init import init_params, random_q4_params
+    from vsim_tpu_torch.models.init import init_params
     from vsim_tpu_torch.ops import _build
+    from vsim_tpu_torch.ops.attention import flash_attention_bwd_route
 
-    cfg = PRESETS["pythia-410m"]
     L, E, T = cfg.n_layer, cfg.n_embd, cfg.n_ctx  # noqa: N806
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0)
@@ -2159,12 +2230,15 @@ def phase_training(peaks):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in float_leaves(params).values())
-    B = 4  # noqa: N806
+    route = flash_attention_bwd_route(getattr(torch, cfg.compute_dtype),
+                                      cfg.head_dim)
+    if strict and cfg.compute_dtype == "bfloat16" and route != "mma_bf16":
+        fail(f"{label}: K7/K8 take {route}, not mma_bf16")
     ids = torch.randint(0, cfg.n_vocab, (B, T + 1),
                         generator=torch.Generator().manual_seed(0)).cuda()
     torch.cuda.reset_peak_memory_stats()
     losses, step_s, launches = [], [], []
-    for _ in range(5):
+    for _ in range(steps):
         _build.reset_launch_counts()
         torch.cuda.synchronize()
         a = time.perf_counter()
@@ -2174,11 +2248,11 @@ def phase_training(peaks):
         launches.append(dict(_build.launch_counts))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
-        fail(f"training losses {losses}: not finite or not falling")
+        fail(f"{label}: losses {losses}: not finite or not falling")
     for i, counts in enumerate(launches):
         for name in TRAIN_KERNELS:
             if counts.get(name, 0) != L:
-                fail(f"training step {i}: {name} launched "
+                fail(f"{label} step {i}: {name} launched "
                      f"{counts.get(name, 0)} times, not {L}: {counts}")
     step_med = sorted(step_s[1:])[len(step_s[1:]) // 2]
     tokens = B * T
@@ -2188,8 +2262,6 @@ def phase_training(peaks):
     mm_params = L * (4 * E * E + 2 * E * cfg.n_ff) + cfg.n_vocab * E
     pairs = B * cfg.n_head * T * (T + 1) // 2
     flops = 6 * mm_params * tokens + 12 * cfg.head_dim * pairs * L
-    # where one step's device time goes (torch.profiler; None if it records
-    # no device activity)
     by_class, by_name = collections.Counter(), collections.Counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2200,17 +2272,77 @@ def phase_training(peaks):
             ms = (ev.time_range.end - ev.time_range.start) / 1e3
             by_class[_kernel_class(ev.name)] += ms
             by_name[ev.name[:60]] += ms
-    train = dict(
-        batch=B, seq=T, tokens_per_step=tokens, params=n_params,
-        setup_s=setup_s, losses=losses, step_s=step_s,
+    run = dict(
+        compute_dtype=cfg.compute_dtype, n_layer=L, head_dim=cfg.head_dim,
+        bwd_instance=route, batch=B, seq=T, tokens_per_step=tokens,
+        params=n_params, setup_s=setup_s, losses=losses, step_s=step_s,
         step_ms_median=step_med * 1e3, tokens_per_s=tokens / step_med,
         peak_memory_gb=peak_gb, model_flops_per_step=flops,
-        model_flop_share_f32_peak=flops / step_med / peaks[2],
+        model_flop_share_of_peak=flops / step_med / peak,
         launches_per_step=launches[0],
         device_ms_by_class=dict(by_class) or None,
         device_ms_top_kernels=dict(by_name.most_common(10)) or None)
     del params, state, ids, prof
     torch.cuda.empty_cache()
+    return run, launches
+
+
+# phase 6's bf16 runs: (label, preset, replace(), B, steps).  GPT-J-6B's
+# widths at depth 2: dense AdamW training of all 28 layers needs ~96 GB
+# (f32 weights, gradients and two moments, 16 bytes a parameter), depth 2
+# ~13 GB
+BF16_TRAIN_RUNS = (("pythia-410m bf16", "pythia-410m", {}, 4, 5),
+                   ("gpt-j-6b widths depth 2 bf16", "gpt-j-6b",
+                    {"n_layer": 2}, 1, 3))
+
+
+def bf16_training(peaks, strict: bool = True):
+    """Phase 6's bf16 runs (BF16_TRAIN_RUNS), each through train_run at
+    bf16 compute, its model-FLOP share of the bf16 peak.  Returns ({label:
+    numbers}, summed launches); ``chip_smoke.py --bwd-bf16`` runs them on
+    an earlier tree with ``strict`` off."""
+    from vsim_tpu_torch.models.config import PRESETS
+
+    out, total = {}, collections.Counter()
+    for label, name, replace, B, steps in BF16_TRAIN_RUNS:  # noqa: N806
+        cfg = PRESETS[name].replace(compute_dtype="bfloat16", **replace)
+        out[label], launches = train_run(label, cfg, B, steps, peaks[1],
+                                         strict)
+        for counts in launches:
+            total.update(counts)
+    return out, total
+
+
+def bf16_training_lines(runs):
+    """One line a bf16 training run of ``bf16_training``."""
+    out = []
+    for label, r in runs.items():
+        by = r["device_ms_by_class"]
+        out.append(
+            f"  {label} ({r['n_layer']} layers, D={r['head_dim']}, "
+            f"B={r['batch']} x {r['seq'] + 1}, K7/K8 {r['bwd_instance']}): "
+            f"step {r['step_ms_median']:.1f} ms (median of steps 2-"
+            f"{len(r['step_s'])}), {r['tokens_per_s']:.0f} tokens/s, peak "
+            f"{r['peak_memory_gb']:.1f} GB, losses "
+            f"{[round(x, 4) for x in r['losses']]}; device ms by class "
+            + ("null" if by is None else json.dumps(
+                {k: round(v, 2) for k, v in sorted(by.items())})))
+    return out
+
+
+def phase_training(peaks):
+    import torch
+
+    from vsim_tpu_torch.engine.evaluate import perplexity
+    from vsim_tpu_torch.models.config import PRESETS
+    from vsim_tpu_torch.models.init import random_q4_params
+    from vsim_tpu_torch.ops import _build
+
+    cfg = PRESETS["pythia-410m"]
+    T = cfg.n_ctx  # noqa: N806
+    train, launches = train_run("training", cfg, 4, 5, peaks[2])
+    train["model_flop_share_f32_peak"] = train.pop("model_flop_share_of_peak")
+    bf16, bf16_launches = bf16_training(peaks)
 
     q4 = random_q4_params(cfg, seed=0)
     stream = torch.randint(0, cfg.n_vocab, (4096,),
@@ -2226,13 +2358,13 @@ def phase_training(peaks):
         fail(f"perplexity never launched flash_attention: {ppl_launches}")
     del q4
     torch.cuda.empty_cache()
-    total = collections.Counter()
+    total = collections.Counter(bf16_launches)
     for counts in launches:
         total.update(counts)
     total.update(ppl_launches)
     ppl.update(seconds=ppl_s, windows=len(range(0, len(stream) - 1, T - 1)),
                launches=ppl_launches)
-    return dict(train=train, perplexity=ppl), total
+    return dict(train=train, train_bf16=bf16, perplexity=ppl), total
 
 
 # ---------------------------------------------------------------------------
@@ -2417,6 +2549,69 @@ def f32_prefill(cfg, params):
     del eng
     torch.cuda.empty_cache()
     return out, launches
+
+
+def f32xf_margin(cfg, params):
+    """Phase 7's f32xf engine (bf16 compute, int8 KV, the f32xf math) on
+    phase 7's 100-token prompt: its greedy stream's first four tokens, and,
+    at each of the first three (teacher-forced along that stream), the
+    top-2 margin of the logits with K2's plain version in the prefill's
+    9-128-row matmuls (K2's TF32 instance on the card) and max|TF32 -
+    plain| over those logits (the decode steps take the same kernels on
+    both sides).  The plain margin above the gap where the TF32 and plain
+    argmax differ would be a fault of K2's TF32 instance."""
+    import torch
+
+    from vsim_tpu_torch.engine.generate import InferenceEngine
+    from vsim_tpu_torch.engine.sampling import SamplingParams
+    from vsim_tpu_torch.models.transformer import forward
+    from vsim_tpu_torch.ops import matmul
+    from vsim_tpu_torch.ops.q4_cuda import (q4_matmul_ps_plain,
+                                            set_dequant_math)
+
+    eng = InferenceEngine(cfg, params, kv_dtype="int8")
+    rng = torch.Generator().manual_seed(7)  # phase 7's prompts, in order
+    prompt = [torch.randint(0, cfg.n_vocab, (n,), generator=rng).tolist()
+              for n in (8, 100, 300)][1]
+    kernel = matmul.q4_matmul_ps
+
+    def plain_past_8(x, packed, scales, bias, round_planes):
+        fn = q4_matmul_ps_plain if x.shape[0] > 8 else kernel
+        return fn(x, packed, scales, bias, round_planes)
+
+    logits = {}
+    set_dequant_math("f32xf")
+    try:
+        stream = eng.generate(prompt, 4,
+                              SamplingParams(greedy=True)).token_ids
+        for route, fn in (("tf32", kernel), ("plain", plain_past_8)):
+            matmul.q4_matmul_ps = fn
+            try:
+                eng.cache = eng.new_cache()
+                lg = [eng.prefill(prompt)[0, -1]]
+                for i in range(2):
+                    npv = torch.tensor([len(prompt) + i], dtype=torch.int32,
+                                       device=eng.device)
+                    tok = torch.tensor([[stream[i]]], device=eng.device)
+                    out, _ = forward(eng.cfg, eng.params, tok, eng.cache,
+                                     npv, write_first=True,
+                                     slopes=eng.slopes)
+                    lg.append(out[0, -1])
+            finally:
+                matmul.q4_matmul_ps = kernel
+            logits[route] = torch.stack(lg).float()
+    finally:
+        set_dequant_math("gi")
+    del eng
+    torch.cuda.empty_cache()
+    top2 = logits["plain"].topk(2, dim=-1).values
+    return dict(stream=stream,
+                plain_top2_margin=(top2[:, 0] - top2[:, 1]).tolist(),
+                tf32_plain_gap=(logits["tf32"] - logits["plain"]).abs()
+                .amax(dim=-1).tolist(),
+                max_abs_logit=logits["plain"].abs().amax().item(),
+                argmax_tf32=logits["tf32"].argmax(dim=-1).tolist(),
+                argmax_plain=logits["plain"].argmax(dim=-1).tolist())
 
 
 def f32_prefill_lines(prefill):
@@ -4450,7 +4645,10 @@ def main() -> None:
                    else f", 3xTF32 bound {r['bound_3xtf32_ms']:.3g}")
                 + ("" if r["rel_err_vs_f64"] is None else ", vs f64 "
                    + json.dumps({k: [float(f"{x:.2e}") for x in v] for k, v
-                                 in r["rel_err_vs_f64"].items()})) + "]")
+                                 in r["rel_err_vs_f64"].items()}))
+                + ("" if r.get("bf16_differ") is None else ", differing "
+                   + json.dumps({k: float(f"{x:.3e}") for k, x
+                                 in r["bf16_differ"].items()})) + "]")
             if r.get("fma_bound_ms") is not None:
                 extra += f" [TF32; f32 FMA bound {r['fma_bound_ms']:.3g}]"
             print(f"  {r['kernel']} {r['shape']}: {r['ms']:.4g} ms, bound "
@@ -4522,6 +4720,8 @@ def main() -> None:
     training, train_launches = phase_training(peaks)
     print(f"training and perplexity in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps(training)}", flush=True)
+    for line in bf16_training_lines(training["train_bf16"]):
+        print(line, flush=True)
     t0 = time.perf_counter()
     pythia, pythia_launches, pythia_total, (p_cfg, p_params) = \
         phase_pythia(peaks)
@@ -4696,9 +4896,10 @@ def main_parallel(nccl_only: bool = False) -> None:
 
 
 def main_k2_tf32() -> None:
-    """``chip_smoke.py --k2-tf32``: K2's f32-plane rows (k2_tf32_rows) and
-    the chat CLI engine's f32 prefill on Pythia-12B's seed-0 params alone,
-    for a comparison with an earlier tree (this script copied into it)."""
+    """``chip_smoke.py --k2-tf32``: K2's f32-plane rows (k2_tf32_rows),
+    the f32xf engine's stream margin (f32xf_margin) and the chat CLI
+    engine's f32 prefill on Pythia-12B's seed-0 params alone, for a
+    comparison with an earlier tree (this script copied into it)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4723,12 +4924,63 @@ def main_k2_tf32() -> None:
               f"library {r['library_ms']:.4g} "
               f"({r['ms'] / r['library_ms']:.2f}x), rel err "
               f"{r['rel_err']:.2g}", flush=True)
-    cfg = PRESETS["pythia-12b"]
-    prefill, _ = f32_prefill(cfg, random_q4_params(cfg, seed=0))
+    cfg = PRESETS["pythia-12b"].replace(compute_dtype="bfloat16")
+    params = random_q4_params(cfg, seed=0)
+    margin = f32xf_margin(cfg, params)
+    print(f"f32xf 100-token stream {margin['stream']}: per token, plain "
+          f"top-2 margin {margin['plain_top2_margin']}, TF32-plain logit gap "
+          f"{margin['tf32_plain_gap']} (max|logit| "
+          f"{margin['max_abs_logit']:.4g}), argmax TF32 "
+          f"{margin['argmax_tf32']}, plain {margin['argmax_plain']}",
+          flush=True)
+    prefill, _ = f32_prefill(cfg, params)
     for line in f32_prefill_lines(prefill):
         print(line, flush=True)
-    print(json.dumps({"k2_tf32_rows": rows, "f32_prefill": prefill}))
+    print(json.dumps({"k2_tf32_rows": rows, "f32_prefill": prefill,
+                      "f32xf_margin": margin}))
     print(f"chip_smoke --k2-tf32: pass in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def main_bwd_bf16() -> None:
+    """``chip_smoke.py --bwd-bf16``: phase 2's bf16 K7/K8 rows and phase 6's
+    bf16 training runs alone, their instance checks off, so that the same
+    numbers can be taken on an earlier tree (this script copied into it)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from vsim_tpu_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all(["flash_attention", "flash_attention_bwd"])
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+
+    def bound(nbytes, ops, peak):
+        t_b, t_o = nbytes / peaks[0] * 1e3, ops / peak * 1e3
+        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+    rows = flash_bwd_rows(peaks, bound, g, [s for s in FLASH_BWD_SHAPES
+                                            if s[4] == "bfloat16"],
+                          strict=False)
+    for r in rows:
+        print(f"  {r['kernel']} {r['shape']}: {r['ms']:.4g} ms, bound "
+              f"{r['bound_ms']:.2g}, plain {r['plain_ms']:.4g}, library "
+              f"{r['library_ms']:.4g} ({r['ms'] / r['library_ms']:.2f}x) "
+              f"[{r.get('instance')}]", flush=True)
+    train, _ = bf16_training(peaks, strict=False)
+    for line in bf16_training_lines(train):
+        print(line, flush=True)
+    print(json.dumps({"bwd_bf16_rows": rows, "train_bf16": train}))
+    print(f"chip_smoke --bwd-bf16: pass in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
 
@@ -4737,6 +4989,8 @@ if __name__ == "__main__":
         rank_main(sys.argv[2])
     elif sys.argv[1:] == ["--k2-tf32"]:
         main_k2_tf32()
+    elif sys.argv[1:] == ["--bwd-bf16"]:
+        main_bwd_bf16()
     elif sys.argv[1:2] == ["--parallel"] and sys.argv[2:] in ([], ["nccl"]):
         main_parallel(nccl_only=sys.argv[2:] == ["nccl"])
     else:

@@ -13,7 +13,11 @@ included (only the f32 sum and exp order differ), 1e-2 for bf16 flash
 output and gradients (rounded to bf16), 1e-4 for f32 flash gradients (sum
 order; K7/K8's f32 products at D = 64 and 128 are three TF32 products each,
 ~1e-6 of max|plain| in the CPU emulation of tests/test_torch_flash_bwd.py,
-where one TF32 product misses 1e-4); the row writer K6 is exact.
+where one TF32 product misses 1e-4); K7/K8's bf16 gradients at D % 16 == 0
+(bf16 products, p and ds as hi + lo bf16 halves) also within 2^-8 of
+max|plain| element by element, with at most 2% of the bf16 elements
+differing from the plain version's (hi alone moves ~40%, in the same
+emulation); the row writer K6 is exact.
 """
 
 import math
@@ -27,6 +31,7 @@ from vsim_tpu_torch.ops.attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
+    flash_attention_bwd_route,
     flash_attention_fwd,
     flash_attention_plain,
 )
@@ -699,20 +704,34 @@ def test_flash_attention_fwd(dev, dtype, tol, D, T):
         assert torch.equal(out, again) and torch.equal(lse, lse2)
 
 
+def _bf16_checks(got, ref):
+    """"mma_bf16"'s element and share checks (chip_smoke.py phase 2): no
+    element of dq, dk, dv more than 2^-8 of its max|plain| from the plain
+    version, and at most 2% of all their bf16 elements differing from it."""
+    for a, b in zip(got, ref):
+        assert _rel(a, b) <= 2.0 ** -8
+    differ = sum((a != b).sum().item() for a, b in zip(got, ref))
+    assert differ <= 0.02 * sum(b.numel() for b in ref)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
                                        (torch.float32, 1e-4)])
-@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 96, 128, 256, 112, 72])
 @pytest.mark.parametrize("T,n_past,S,alibi", [(100, 0, 100, False),
                                               (70, 37, 107, True),
                                               (40, 0, 130, True),
                                               (300, 0, 300, False),
+                                              (300, 0, 300, True),
                                               (200, 100, 300, True)])
 def test_flash_attention_bwd(dev, dtype, tol, D, T, n_past, S, alibi):
-    """K7/K8 against the plain backward, on both instances
-    (``flash_attention_bwd_route``: f32 at D = 64 and 128 on the tensor
-    cores, bf16 and f32 at D = 80 and 256 on the FMA tiles); (40, 0, 130)
-    has key rows no query sees (S > n_past + T), which must come back as
-    zeros; the last two span several blocks and streamed tiles a side."""
+    """K7/K8 against the plain backward, on all three instances
+    (``flash_attention_bwd_route``): "mma_3xtf32" for f32 at D = 64 and 128,
+    "mma_bf16" for bf16 at D % 16 == 0 (112 padded to 128 in shared
+    memory), "fma" for the rest (f32 at 80, 96, 112, 256 and 72, bf16 at
+    72).  (40, 0, 130) has key rows no query sees (S > n_past + T), which
+    must come back as zeros; the last three span several blocks and
+    streamed tiles a side.  "mma_bf16" also holds the element and share
+    checks of chip_smoke.py's phase 2."""
     B, H = 2, 3  # noqa: N806
     g = torch.Generator(device=dev).manual_seed(D + T)
     q = torch.randn((B, H, T, D), generator=g, device=dev).to(dtype)
@@ -721,6 +740,10 @@ def test_flash_attention_bwd(dev, dtype, tol, D, T, n_past, S, alibi):
     do = torch.randn((B, H, T, D), generator=g, device=dev).to(dtype)
     slopes = torch.linspace(0.01, 0.1, H, device=dev) if alibi else None
     kw = dict(n_past=n_past, scale=1 / math.sqrt(D), slopes=slopes)
+    route = flash_attention_bwd_route(dtype, D)
+    assert route == ("mma_3xtf32" if dtype == torch.float32
+                     and D in (64, 128) else "mma_bf16"
+                     if dtype == torch.bfloat16 and D % 16 == 0 else "fma")
     out, lse = flash_attention_fwd(q, k, v, **kw)
     before = dict(_build.launch_counts)
     got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
@@ -730,6 +753,8 @@ def test_flash_attention_bwd(dev, dtype, tol, D, T, n_past, S, alibi):
     for a, b in zip(got, ref):
         assert a.dtype == dtype and torch.isfinite(a).all()
         assert _rel(a, b) < tol
+    if route == "mma_bf16":
+        _bf16_checks(got, ref)
     for a in got[1:]:
         assert not a[:, :, n_past + T:].any()
     # bit-identical from run to run: two passes, no atomics
@@ -742,6 +767,30 @@ def test_flash_attention_bwd(dev, dtype, tol, D, T, n_past, S, alibi):
     assert not got[0][:, :, [0, T // 2]].any()
     for a, b in zip(got, ref):
         assert torch.isfinite(a).all() and _rel(a, b) < tol
+    if route == "mma_bf16":
+        _bf16_checks(got, ref)
+
+
+def test_flash_attention_bwd_refuses_a_missing_instance(dev):
+    """The launcher refuses an instance that does not exist for (dtype,
+    D): "mma_bf16" for f32 or for a head dim not a multiple of 16,
+    "mma_3xtf32" for bf16; it never substitutes another."""
+    from vsim_tpu_torch.ops.attention import _INSTANCES, _BWD_DQ_ARGS
+
+    for dtype, D, inst in ((torch.float32, 64, "mma_bf16"),  # noqa: N806
+                           (torch.bfloat16, 72, "mma_bf16"),
+                           (torch.bfloat16, 64, "mma_3xtf32")):
+        q, k, v, do = (torch.randn((1, 1, 32, D), device=dev).to(dtype)
+                       for _ in range(4))
+        lse, dsum = (torch.zeros((1, 1, 32), device=dev) for _ in range(2))
+        dq = torch.empty_like(q)
+        p = _build.ptr
+        err = _build.function("flash_attention_bwd",
+                              "flash_attention_bwd_dq_launch", _BWD_DQ_ARGS)(
+            p(q), p(k), p(v), p(do), p(lse), p(dsum), p(dq), p(None),
+            int(dtype == torch.bfloat16), _INSTANCES[inst], 1, 1, 32, 32, D,
+            0, 0.125, _build.stream_ptr(dev))
+        assert err != 0, (dtype, D, inst)
 
 
 def test_flash_attention_function_on_card(dev):

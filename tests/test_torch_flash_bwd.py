@@ -37,6 +37,7 @@ from vsim_tpu_torch.ops.attention import (
     NEG_INF,
     _bwd_inputs,
     _bwd_plain,
+    bf16_split,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
@@ -285,7 +286,109 @@ def test_bwd_1xtf32_emulation_misses_tolerance(D_):
 @pytest.mark.parametrize("dtype,D_,route", [
     (torch.float32, 64, "mma_3xtf32"), (torch.float32, 128, "mma_3xtf32"),
     (torch.float32, 80, "fma"), (torch.float32, 256, "fma"),
-    (torch.float32, 32, "fma"), (torch.bfloat16, 64, "fma"),
-    (torch.bfloat16, 128, "fma"), (torch.bfloat16, 256, "fma")])
+    (torch.float32, 32, "fma"), (torch.bfloat16, 64, "mma_bf16"),
+    (torch.bfloat16, 128, "mma_bf16"), (torch.bfloat16, 256, "mma_bf16"),
+    (torch.bfloat16, 80, "mma_bf16"), (torch.bfloat16, 96, "mma_bf16"),
+    (torch.bfloat16, 72, "fma")])
 def test_flash_attention_bwd_route(dtype, D_, route):
     assert flash_attention_bwd_route(dtype, D_) == route
+
+
+# K7/K8's bf16 checks on the card (chip_smoke.py phase 2,
+# tests/test_torch_cuda_kernels.py): no element of dq, dk, dv further than
+# 2^-8 of max|plain| from the plain version, and at most 2% of the bf16
+# elements differing from the plain version's
+TOL_BWD_BF16_ELEM = 2.0 ** -8
+MAX_BF16_DIFF_SHARE = 0.02
+
+
+def test_bf16_split_reproduces_x():
+    """hi = bf16(x) and lo = bf16(x - hi) (round to nearest even): hi + lo
+    is x to 2^-16 relative, and hi is torch's own rounding of x."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(np.concatenate([
+        rng.standard_normal(100_000), rng.standard_normal(1000) * 1e-20,
+        rng.standard_normal(1000) * 1e20]).astype(np.float32))
+    hi, lo = bf16_split(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, x.to(torch.bfloat16))
+    err = ((hi.double() + lo.double()) - x.double()).abs()
+    assert (err <= 2.0 ** -16 * x.double().abs()).all()
+
+
+def _bwd_bf16_emulated(q, k, v, do, lse, dsum, *, scale, lo):
+    """``_bwd_plain`` (n_past 0, no ALiBi) on bf16 q, k, v, do with the
+    "mma_bf16" instance's products summed exactly (f64): s and dp of the
+    bf16 operands, p and ds f32 as the plain version's, then split by
+    ``bf16_split`` into hi + lo (``lo``) or rounded to bf16 (hi alone), each
+    part's product added in f64.  Returns f32 (dq, dk, dv)."""
+    T, S = q.shape[2], k.shape[2]  # noqa: N806
+    f64 = torch.float64
+    qd, kd, vd, dod = (x.to(f64) for x in (q, k, v, do))
+    s = torch.einsum("bhtd,bhsd->bhts", qd, kd).float() * scale
+    live = (torch.arange(S)[None, :] <= torch.arange(T)[:, None]) \
+        & (lse[..., None] != NEG_INF)
+    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhtd,bhsd->bhts", dod, vd).float()
+    ds = p * (dp - dsum[..., None]) * scale
+
+    def parts(x):
+        hi, low = bf16_split(x)
+        return (hi, low) if lo else (hi,)
+
+    def prod(eq, x, y):
+        return sum(torch.einsum(eq, part.to(f64), y) for part in parts(x))
+
+    return (prod("bhts,bhsd->bhtd", ds, kd).float(),
+            prod("bhts,bhtd->bhsd", ds, qd).float(),
+            prod("bhts,bhtd->bhsd", p, dod).float())
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_split_case(B, H, T, D_):  # noqa: N803
+    """Per (hi + lo, hi alone): the f32 emulation's largest distance from
+    the plain version's f32 gradients over dq, dk, dv relative to each
+    max|plain|, and the share of the bf16 outputs that differ from the plain
+    version's bf16 outputs (all three together)."""
+    rng = np.random.default_rng(D_ + T)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (B, H, T, D_)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(4))
+    scale = D_ ** -0.5
+    out, lse = flash_attention_plain(q, k, v, scale=scale)
+    do, dsum = _bwd_inputs(out, do, q.dtype)
+    # the plain version's f32 gradients: _bwd_plain widens to f32 first, so
+    # its bf16 outputs are these rounded once
+    ref = _bwd_plain(*(x.float() for x in (q, k, v, do)), lse, dsum,
+                     n_past=0, scale=scale, slopes=None)
+    res = []
+    for lo in (True, False):
+        got = _bwd_bf16_emulated(q, k, v, do, lse, dsum, scale=scale, lo=lo)
+        rel = max(((a - r).abs().max() / r.abs().max()).item()
+                  for a, r in zip(got, ref))
+        diff = sum((a.to(torch.bfloat16) != r.to(torch.bfloat16)).sum().item()
+                   for a, r in zip(got, ref))
+        res.append((rel, diff / sum(r.numel() for r in ref)))
+    return res
+
+
+@pytest.mark.parametrize("B,H,T,D_", [(1, 2, 128, 64), (1, 2, 96, 80),
+                                      (1, 2, 96, 128), (1, 1, 80, 256)])
+def test_bwd_bf16_split_emulation_within_1e5(B, H, T, D_):  # noqa: N803
+    """The "mma_bf16" instance's products: s and dp exact, p and ds as hi +
+    lo bf16 halves, summed exactly, keep dq, dk and dv within 1e-5 of
+    max|plain| in f32, and at most 2% of the bf16 outputs differ from the
+    plain version's (within the card's 2^-8 element check)."""
+    (rel, share), _ = _bf16_split_case(B, H, T, D_)
+    assert rel <= 1e-5, rel
+    assert share <= MAX_BF16_DIFF_SHARE, share
+
+
+@pytest.mark.parametrize("B,H,T,D_", [(1, 2, 128, 64), (1, 2, 96, 128)])
+def test_bwd_bf16_hi_only_misses_share(B, H, T, D_):  # noqa: N803
+    """p and ds rounded to bf16 (hi alone, as FlashAttention-2 does) move
+    more than 2% of the bf16 outputs from the plain version's, so the card
+    check refuses a kernel that drops the lo halves."""
+    _, (rel, share) = _bf16_split_case(B, H, T, D_)
+    assert share > MAX_BF16_DIFF_SHARE, share
+    assert rel <= TOL_BWD_BF16_ELEM, rel

@@ -83,6 +83,40 @@ def test_loss_and_grads_match_jax(n_tok):
         assert np.abs(got - ref).max() <= tol, name
 
 
+def test_loss_and_grads_match_jax_bf16():
+    """bf16 compute (``tools/train_small.py``'s setting) at 257 tokens,
+    where both packages take flash (the JAX side's Pallas kernels in
+    interpret mode; the port's K4/K7/K8 plain versions, whose arithmetic
+    K7/K8's "mma_bf16" instance keeps on the card).  Every activation rounds
+    to bf16 on both sides, at places where the two frameworks' sums differ,
+    so the gradients lie two to three bf16 roundings apart (≤ 4.5e-3 of a
+    leaf's max|grad| measured): each leaf within 1e-2 of its max|grad| plus
+    1e-7 of the largest gradient of any leaf; the loss rtol 1e-5.  No
+    17-token case: below T = 256 the JAX package takes its einsum route,
+    which rounds differently by design."""
+    cfg = dict(NEOX_TINY, compute_dtype="bfloat16")
+    jc, pc = JConfig(**cfg), ModelConfig(**cfg)
+    jp = j_init_params(jc, seed=0)
+    pp = init_params(pc, seed=0, device="cpu")
+    ids = np.random.default_rng(257).integers(0, 128, (2, 257))
+    jloss, jgrads = jax.value_and_grad(lambda p: jtrain.cross_entropy_loss(
+        jc, p, jnp.asarray(ids, jnp.int32)))(jp)
+    leaves = ptrain.float_leaves(pp)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    loss = ptrain.cross_entropy_loss(pc, pp, torch.from_numpy(ids))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    jflat, pflat = _flat(jgrads), _flat(pp)
+    assert set(jflat) == set(pflat) == set(leaves)
+    top = max(np.abs(np.asarray(g, np.float32)).max() for g in jflat.values())
+    for name, g in jflat.items():
+        ref = np.asarray(g, np.float32)
+        got = pflat[name].grad.float().numpy()
+        tol = 1e-2 * np.abs(ref).max() + 1e-7 * top
+        assert np.abs(got - ref).max() <= tol, name
+
+
 @pytest.mark.parametrize("n_tok", [257, 17])
 def test_train_steps_match_jax(n_tok):
     jc, jp, pc, pp, ids = _setup(n_tok, seed=1)

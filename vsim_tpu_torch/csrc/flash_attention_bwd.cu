@@ -13,7 +13,7 @@
 // the gradients are bit-identical from run to run.
 //
 // Bound on the H100: operations at training lengths (K7 6 D, K8 8 D flops
-// per visible (query, key) pair).  Two instances, picked by the caller
+// per visible (query, key) pair).  Three instances, picked by the caller
 // (ops/attention.py:flash_attention_bwd_route):
 //
 // "mma_3xtf32", f32 at D = 64 and 128, on the tensor cores: each f32
@@ -47,18 +47,65 @@
 // the longest walk already.  A warp skips a tile none of its rows sees, and
 // tests the causal mask only on tiles that cross the diagonal.
 //
-// "fma", bf16 at any D and f32 at other D, on the FMA units from shared
-// memory: 256 threads, 32-row query tiles and 32-key tiles, rows padded to
-// D + 4 floats so each lane reads its own key row as float4 without bank
-// conflicts.  In the score pass a warp takes 4 query rows and a lane one
-// key, and both dot products (q.k, do.v) share each float4 of k and v.  In
-// the accumulation pass a thread owns one row (K7: a query row of dq; K8: a
-// key row of dk and dv) and D/8 of its columns in registers.  At D = 256 K8
-// takes 142 KB of dynamic shared memory and 64 accumulator registers.
+// "mma_bf16", bf16 at D % 16 == 0 up to 256 (every preset's head dim: 64,
+// 80, 96, 128, 256), on the tensor cores as mma.sync m16n8k16 bf16 -> f32,
+// in the geometry of K4's bf16 instance and of "mma_3xtf32": resident rows
+// loaded once (K7: q and do; K8: k and v), 16 a warp, and the other side
+// streamed through a two-stage ring of 16-byte cp.async copies; fragments
+// come from shared memory by ldmatrix (.trans for the gradient products'
+// B), rows padded by 16 bytes so that ldmatrix is free of bank conflicts,
+// head dims zero-padded in shared memory to 64, 80, 96, 128 or 256 (the
+// padding changes no product and is never stored).  s = q.k and dp = do.v
+// are one product each (bf16 operands, exact).  p and ds are f32, unrounded
+// in the function, so each is split into bf16 hi = bf16(x) and lo = bf16(x -
+// hi), and dv = p^T.do, dq = ds.k, dk = ds^T.q are two products each (lo,
+// then hi) into a fresh f32 fragment a streamed tile, added to the
+// accumulator in f32: the tensor cores' sums (no guard bits) span one tile,
+// the walk's sum is rounded to nearest as the plain version's.  Emulated on
+// the CPU with exact sums (tests/test_torch_flash_bwd.py) the split keeps
+// dq, dk and dv within 5e-6 of max|plain| before the store and leaves
+// 0.2-0.6% of the bf16 outputs one rounding from the plain version's, where
+// hi alone (p and ds rounded to bf16, as FlashAttention-2 does) moves ~40%
+// of them.  The m16n8 accumulators of two adjacent n-tiles are the A
+// fragment of the next m16n8k16 product, so p and ds go from the score
+// products to the gradient products in registers as hi/lo bf16x2 pairs.
+// A warp's 16 rows of dk and dv in f32 take D/2 registers a thread, 128 at
+// D = 128 and 256 at D = 256, where dq takes D/4: K8 at every D but 80
+// (bf_plan's cs = 2 or 4) gives each row tile two or four warps that split
+// the streamed queries for s and dp, stage their hi/lo p and ds in shared
+// memory (rows keys, columns queries, padded by 16 bytes) and, after a
+// barrier, each accumulate a half or a quarter of dk's and dv's columns
+// over every query of the tile: no product is computed twice.  Recomputing
+// s and dp in each warp of a row tile instead ran K8 at D = 128 and 256
+// 1.6x and 1.5x slower than one warp a row tile spilling registers; the
+// staged layout matches that at D = 128 with no spills and beats it by
+// 1.3x at D = 256 (tools/bwd_plans.py on an NVIDIA H100 80GB HBM3 at a
+// 700 W power limit; PERF.md).  bf_plan's geometries, picked by those
+// measurements (ptxas: registers a thread, no spills; blocks an SM by
+// registers and shared memory):
+//   K7 D=64: 4 warps, 64 queries, 64-key tiles, 168 registers, 3 blocks;
+//      D=80 and 96: 32-key tiles, 153 and 159 registers, 3 blocks;
+//      D=128: 64-key tiles, 240 registers, 2 blocks;
+//      D=256: 16-key tiles, 255 registers, 2 blocks.
+//   K8 D=64: 8 warps (cs 2), 64 keys, 64-query tiles, 126 registers, 2
+//      blocks; D=80: 4 warps, 32-query tiles, 244 registers, 2 blocks;
+//      D=96 and 128: 8 warps (cs 2), 64-query tiles, 183 and 225
+//      registers, 1 block; D=256: 8 warps, 32 keys (cs 4), 64-query tiles,
+//      221 registers, 1 block.
 //
-// Both K7s walk the key tiles up to the query tile's causal horizon; both
-// K8s walk the query tiles from the first one that sees their key tile, and
-// write zeros for key rows no query sees.
+// "fma", bf16 at D % 16 != 0 and f32 at D other than 64 and 128, on the FMA
+// units from shared memory: 256 threads, 32-row query tiles and 32-key
+// tiles, rows padded to D + 4 floats so each lane reads its own key row as
+// float4 without bank conflicts.  In the score pass a warp takes 4 query
+// rows and a lane one key, and both dot products (q.k, do.v) share each
+// float4 of k and v.  In the accumulation pass a thread owns one row (K7: a
+// query row of dq; K8: a key row of dk and dv) and D/8 of its columns in
+// registers.  At D = 256 K8 takes 142 KB of dynamic shared memory and 64
+// accumulator registers.
+//
+// Every K7 walks the key tiles up to the query tile's causal horizon; every
+// K8 walks the query tiles from the first one that sees its key tile, and
+// writes zeros for key rows no query sees.
 
 #include "common.cuh"
 
@@ -745,6 +792,460 @@ flash_bwd_dkv_3xtf32_kernel(const float* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// "mma_bf16": bf16 at D % 16 == 0 (D <= 256) on the tensor cores
+// ---------------------------------------------------------------------------
+
+// Each instance's geometry by the padded head dim: rt row tiles of 16
+// resident rows (K7 queries, K8 keys); cs warps a row tile (K8 only: they
+// split the streamed queries for s and dp and the columns of dk and dv);
+// streamed tiles of ``tile`` rows (K7 keys, K8 queries); and the blocks an
+// SM the register budget is set for (__launch_bounds__).  Picked by
+// measurement (tools/bwd_plans.py; see the header).
+struct BfPlan {
+  int rt, cs, tile, min_blocks;
+};
+__host__ __device__ constexpr BfPlan bf_plan(int dpad, bool dkv) {
+  return dkv ? (dpad <= 64   ? BfPlan{4, 2, 64, 2}
+                : dpad <= 80 ? BfPlan{4, 1, 32, 2}
+                : dpad <= 128 ? BfPlan{4, 2, 64, 1}
+                              : BfPlan{2, 4, 64, 1})
+             : (dpad <= 64   ? BfPlan{4, 1, 64, 3}
+                : dpad <= 96 ? BfPlan{4, 1, 32, 3}
+                : dpad <= 128 ? BfPlan{4, 1, 64, 2}
+                              : BfPlan{4, 1, 16, 1});
+}
+__host__ __device__ constexpr int bf_threads(int dpad, bool dkv) {
+  return 32 * bf_plan(dpad, dkv).rt * bf_plan(dpad, dkv).cs;
+}
+
+// x0, x1 as two bf16 pairs: hi = bf16(x), lo = bf16(x - hi), each rounded to
+// nearest even (x - hi is exact in f32)
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi,
+                                             uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  lo = pack_bf16(x0 - __uint_as_float(hi << 16),
+                 x1 - __uint_as_float(hi & 0xFFFF0000u));
+}
+
+// The m16n8 accumulators of two adjacent n-tiles (16 rows, 16 columns) as
+// the hi and lo A fragments of an m16n8k16 product over those 16 columns
+__device__ __forceinline__ void acc_to_a(const float (&c0)[4],
+                                         const float (&c1)[4],
+                                         uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_bf16x2(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16x2(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16x2(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16x2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// Rows [row0, row0 + n) of one head's [rows, D] bf16 matrix into sm[n][DS]
+// by 16-byte cp.async (D % 8 == 0); rows past ``rows`` read as zeros.
+template <int DS, int NTHR>
+__device__ __forceinline__ void bf_load_rows(uint16_t* sm, const uint16_t* g,
+                                             int row0, int n, int rows,
+                                             int D) {
+  const int cpr = D / 8;
+  for (int idx = threadIdx.x; idx < n * cpr; idx += NTHR) {
+    const int r = idx / cpr, c = (idx % cpr) * 8;
+    const int row = row0 + r;
+    const bool ok = row < rows;
+    cp_async16(sm + r * DS + c, g + static_cast<size_t>(ok ? row : 0) * D + c,
+               ok);
+  }
+}
+
+// One warp's score products over the padded head dim: sa = A B^T and pa =
+// A2 B2^T, A and A2 its 16 resident rows (ldmatrix offset a_off), B and B2
+// the NT * 8 rows of the streamed tile; every operand exact in bf16
+template <int KS, int NT, int DS>
+__device__ __forceinline__ void bf_scores(float (&sa)[NT][4], float (&pa)[NT][4],
+                                          const uint16_t* as,
+                                          const uint16_t* a2s,
+                                          const uint16_t* bs,
+                                          const uint16_t* b2s, int a_off,
+                                          int kb_row, int kb_col) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+    sa[i][0] = sa[i][1] = sa[i][2] = sa[i][3] = pa[i][0] = pa[i][1] =
+        pa[i][2] = pa[i][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[4], a2[4];
+    ldmatrix_x4(a, as + a_off + kk * 16);
+    ldmatrix_x4(a2, a2s + a_off + kk * 16);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      const int off = (np * 16 + kb_row) * DS + kk * 16 + kb_col;
+      uint32_t b[4];
+      ldmatrix_x4(b, bs + off);
+      mma_bf16(sa[2 * np], a, b[0], b[1]);
+      mma_bf16(sa[2 * np + 1], a, b[2], b[3]);
+      ldmatrix_x4(b, b2s + off);
+      mma_bf16(pa[2 * np], a2, b[0], b[1]);
+      mma_bf16(pa[2 * np + 1], a2, b[2], b[3]);
+    }
+  }
+}
+
+// acc += X . Bt over the KT 16-row k-steps of the streamed tile bt (rows the
+// k index; this warp's columns from col0), X given as its hi and lo A
+// fragments: lo then hi into a fresh f32 fragment a tile, which is then added
+// to acc in f32, so that the tensor cores' own sums span one tile only
+template <int KT, int NT, int DS>
+__device__ __forceinline__ void bf_grad(float (&acc)[NT][4],
+                                        const uint32_t (&hi)[KT][4],
+                                        const uint32_t (&lo)[KT][4],
+                                        const uint16_t* bt, int col0,
+                                        int vb_row, int vb_col) {
+#pragma unroll
+  for (int dp = 0; dp < NT / 2; ++dp) {
+    float f0[4] = {0.f, 0.f, 0.f, 0.f}, f1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, bt + (kk * 16 + vb_row) * DS + col0 + dp * 16 + vb_col);
+      mma_bf16(f0, lo[kk], b[0], b[1]);
+      mma_bf16(f0, hi[kk], b[0], b[1]);
+      mma_bf16(f1, lo[kk], b[2], b[3]);
+      mma_bf16(f1, hi[kk], b[2], b[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * dp][e] += f0[e];
+      acc[2 * dp + 1][e] += f1[e];
+    }
+  }
+}
+
+// Rows row_lo (accumulator elements 0, 1) and row_lo + 8 (2, 3) of one
+// head's [rows, D] output, this warp's columns from col0, as bf16
+template <int NT>
+__device__ __forceinline__ void bf_store(uint16_t* out, const float (&acc)[NT][4],
+                                         int row_lo, int rows, int D, int col0,
+                                         int t4) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row_lo + 8 * half;
+    if (r >= rows) continue;
+    uint16_t* row = out + static_cast<size_t>(r) * D;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = col0 + nt * 8 + 2 * t4;
+      if (col < D)  // the head dim's padding is never stored
+        *reinterpret_cast<uint32_t*>(row + col) =
+            pack_bf16(acc[nt][2 * half], acc[nt][2 * half + 1]);
+    }
+  }
+}
+
+// Zero columns [D, DPAD) of n shared rows: no load touches them, and they
+// change no product
+template <int DPAD, int NTHR>
+__device__ __forceinline__ void bf_zero_pad(uint16_t* sm, int n, int D) {
+  constexpr int DS = DPAD + 8;
+  if (DPAD == D) return;
+  const int np = DPAD - D;
+  for (int idx = threadIdx.x; idx < n * np; idx += NTHR)
+    sm[(idx / np) * DS + D + idx % np] = 0;
+}
+
+// K7: one block per (b, h, 64-query tile), warps by bf_plan.
+template <int DPAD>
+__global__ void __launch_bounds__(bf_threads(DPAD, false),
+                                  bf_plan(DPAD, false).min_blocks)
+flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,   // [B, H, T, D]
+                         const uint16_t* __restrict__ k,   // [B, H, S, D]
+                         const uint16_t* __restrict__ v,   // [B, H, S, D]
+                         const uint16_t* __restrict__ do_, // [B, H, T, D]
+                         const float* __restrict__ lse,    // [B, H, T]
+                         const float* __restrict__ dsum,   // [B, H, T]
+                         uint16_t* __restrict__ dq,        // [B, H, T, D]
+                         const float* __restrict__ slopes,  // [H] or null
+                         int H, int T, int S, int D, int n_past, float scale) {
+  constexpr BfPlan P = bf_plan(DPAD, false);
+  constexpr int NTHR = bf_threads(DPAD, false);
+  constexpr int BS = P.tile;
+  constexpr int DS = DPAD + 8;   // shared row: 16 bytes of padding
+  constexpr int KS = DPAD / 16;  // k-steps of the score products
+  constexpr int NS = BS / 8;     // 8-key n-tiles of a score tile
+  constexpr int ND = DPAD / 8;   // 8-column n-tiles of dq
+  extern __shared__ __align__(16) uint16_t smb[];
+  uint16_t* qs = smb;                  // [64][DS]
+  uint16_t* dos = qs + kTcRows * DS;   // [64][DS]
+  uint16_t* ks = dos + kTcRows * DS;   // [2][BS][DS]
+  uint16_t* vs = ks + 2 * BS * DS;     // [2][BS][DS]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;  // mma row group, lane in quad
+  static_assert(P.rt * 16 == kTcRows && P.cs == 1,
+                "K7: 64 queries a block, a warp's 16 rows whole");
+  const int r0 = warp * 16;
+  const int bh = blockIdx.y, h = bh % H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;  // longest first
+  const uint16_t* qg = q + static_cast<size_t>(bh) * T * D;
+  const uint16_t* dog = do_ + static_cast<size_t>(bh) * T * D;
+  const uint16_t* kg = k + static_cast<size_t>(bh) * S * D;
+  const uint16_t* vg = v + static_cast<size_t>(bh) * S * D;
+  const size_t rbase = static_cast<size_t>(bh) * T;
+  const float slope = slopes ? slopes[h] : 0.f;
+
+  bf_zero_pad<DPAD, NTHR>(smb, 2 * kTcRows + 4 * BS, D);
+  // keys any query of this tile can see
+  const int last_t = min(q0 + kTcRows, T) - 1;
+  const int n_keys = min(S, n_past + last_t + 1);
+  const int n_tiles = n_keys > 0 ? (n_keys + BS - 1) / BS : 0;
+  bf_load_rows<DS, NTHR>(qs, qg, q0, kTcRows, T, D);
+  bf_load_rows<DS, NTHR>(dos, dog, q0, kTcRows, T, D);
+  if (n_tiles > 0) {
+    bf_load_rows<DS, NTHR>(ks, kg, 0, BS, S, D);
+    bf_load_rows<DS, NTHR>(vs, vg, 0, BS, S, D);
+  }
+  cp_async_commit();
+
+  // this thread's rows: t_lo (accumulator elements 0, 1) and t_hi (2, 3)
+  const int t_lo = q0 + r0 + g, t_hi = t_lo + 8;
+  const float lse_lo = tc_row_lse(lse, rbase, t_lo, T);
+  const float lse_hi = tc_row_lse(lse, rbase, t_hi, T);
+  const float dsum_lo = t_lo < T ? dsum[rbase + t_lo] : 0.f;
+  const float dsum_hi = t_hi < T ? dsum[rbase + t_hi] : 0.f;
+  const bool warp_live = q0 + r0 < T;
+  const int warp_horizon = n_past + min(q0 + r0 + 15, T - 1);  // last key seen
+  // ldmatrix addresses of this lane: an A tile, a B tile pair, a .trans pair
+  const int a_off = (r0 + lane % 16) * DS + (lane / 16) * 8;
+  const int kb_row = (lane % 8) + (lane / 16) * 8, kb_col = ((lane / 8) % 2) * 8;
+  const int vb_row = (lane % 8) + ((lane / 8) % 2) * 8, vb_col = (lane / 16) * 8;
+
+  float acc[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
+      bf_load_rows<DS, NTHR>(ks + (st ^ 1) * BS * DS, kg, (it + 1) * BS, BS, S, D);
+      bf_load_rows<DS, NTHR>(vs + (st ^ 1) * BS * DS, vg, (it + 1) * BS, BS, S, D);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int s0 = it * BS;
+    if (warp_live && s0 <= warp_horizon) {
+      const uint16_t* kt = ks + st * BS * DS;
+      const uint16_t* vt = vs + st * BS * DS;
+      float sa[NS][4], pa[NS][4];  // S and dP
+      bf_scores<KS, NS, DS>(sa, pa, qs, dos, kt, vt, a_off, kb_row, kb_col);
+      // ds in place of S; keys s0 + 8 nt + 2 t4 + (e & 1).  The mask is
+      // tested only where a row of the warp misses a key of the tile
+      const bool full = s0 + BS - 1 <= n_past + q0 + r0 && s0 + BS <= S;
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int s = s0 + nt * 8 + 2 * t4 + (e & 1);
+          const int t = e < 2 ? t_lo : t_hi;
+          const float p = full || (s < S && s <= n_past + t)
+              ? tc_prob(sa[nt][e], scale, slope, s, e < 2 ? lse_lo : lse_hi)
+              : 0.f;
+          sa[nt][e] = p * (pa[nt][e] - (e < 2 ? dsum_lo : dsum_hi)) * scale;
+        }
+      }
+      // dQ += dS K: two score n-tiles are one 16-key A fragment
+      uint32_t dh[BS / 16][4], dl[BS / 16][4];
+#pragma unroll
+      for (int j = 0; j < BS / 16; ++j) acc_to_a(sa[2 * j], sa[2 * j + 1], dh[j], dl[j]);
+      bf_grad<BS / 16, ND, DS>(acc, dh, dl, kt, 0, vb_row, vb_col);
+    }
+    __syncthreads();  // this stage is refilled by the next prefetch
+  }
+  cp_async_wait<0>();
+  bf_store<ND>(dq + rbase * D, acc, t_lo, T, D, 0, t4);
+}
+
+// K8: one block per (b, h, 16 * rt-key tile), warps by bf_plan.  With cs
+// > 1 the cs warps of a row tile split the streamed tile's queries for s and
+// dp, stage their hi/lo p and ds in shared memory, and after a barrier each
+// takes its share of dk's and dv's columns over all the tile's queries.
+template <int DPAD>
+__global__ void __launch_bounds__(bf_threads(DPAD, true),
+                                  bf_plan(DPAD, true).min_blocks)
+flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
+                          const uint16_t* __restrict__ k,
+                          const uint16_t* __restrict__ v,
+                          const uint16_t* __restrict__ do_,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dsum,
+                          uint16_t* __restrict__ dk,  // [B, H, S, D]
+                          uint16_t* __restrict__ dv,  // [B, H, S, D]
+                          const float* __restrict__ slopes, int H, int T,
+                          int S, int D, int n_past, float scale) {
+  constexpr BfPlan P = bf_plan(DPAD, true);
+  constexpr int NTHR = bf_threads(DPAD, true);
+  constexpr int RT = P.rt;
+  constexpr int ROWS = 16 * RT;  // resident keys
+  constexpr int BQ = P.tile;
+  constexpr int QW = BQ / P.cs;  // queries of a warp's s and dp
+  constexpr int DS = DPAD + 8;
+  constexpr int PS = BQ + 8;     // a staged row: 16 bytes of padding
+  constexpr int KS = DPAD / 16;
+  constexpr int NQ = QW / 8;     // 8-query n-tiles of a warp's score tile
+  constexpr int DH = DPAD / P.cs;
+  constexpr int ND = DH / 8;
+  static_assert(QW % 16 == 0 && DH % 16 == 0, "whole 16-wide fragments");
+  extern __shared__ __align__(16) uint16_t smb[];
+  uint16_t* ks = smb;                   // [ROWS][DS]
+  uint16_t* vs = ks + ROWS * DS;        // [ROWS][DS]
+  uint16_t* qs = vs + ROWS * DS;        // [2][BQ][DS]
+  uint16_t* dos = qs + 2 * BQ * DS;     // [2][BQ][DS]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * DS);  // [2][BQ]
+  float* dsum_s = lse_s + 2 * BQ;                               // [2][BQ]
+  // cs > 1: p hi, p lo, ds hi, ds lo, each [ROWS][PS]
+  uint16_t* stg = reinterpret_cast<uint16_t*>(dsum_s + 2 * BQ);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = (warp % RT) * 16, col0 = (warp / RT) * DH;
+  const int qc = (warp / RT) * QW;  // this warp's queries in the tile
+  const int bh = blockIdx.y, h = bh % H;
+  const int s0 = blockIdx.x * ROWS;
+  const uint16_t* qg = q + static_cast<size_t>(bh) * T * D;
+  const uint16_t* dog = do_ + static_cast<size_t>(bh) * T * D;
+  const float* lseg = lse + static_cast<size_t>(bh) * T;
+  const float* dsumg = dsum + static_cast<size_t>(bh) * T;
+  const size_t kvbase = static_cast<size_t>(bh) * S * D;
+  const float slope = slopes ? slopes[h] : 0.f;
+
+  // q, do, lse and dsum rows [q0, q0 + BQ) into stage st of the ring
+  auto load_queries = [&](int st, int q0) {
+    bf_load_rows<DS, NTHR>(qs + st * BQ * DS, qg, q0, BQ, T, D);
+    bf_load_rows<DS, NTHR>(dos + st * BQ * DS, dog, q0, BQ, T, D);
+    for (int i = threadIdx.x; i < BQ; i += NTHR) {
+      const int t = q0 + i;
+      const bool ok = t < T;  // past T: zeros, masked by t < T
+      cp_async4(lse_s + st * BQ + i, lseg + (ok ? t : 0), ok);
+      cp_async4(dsum_s + st * BQ + i, dsumg + (ok ? t : 0), ok);
+    }
+  };
+
+  bf_zero_pad<DPAD, NTHR>(smb, 2 * ROWS + 4 * BQ, D);
+  // query t sees key s0 iff n_past + t >= s0: start at the tile of
+  // t = s0 - n_past; tiles no query reaches leave the zeros
+  const int first = s0 > n_past ? (s0 - n_past) / BQ : 0;
+  const int n_qt = (T + BQ - 1) / BQ;
+  bf_load_rows<DS, NTHR>(ks, k + kvbase, s0, ROWS, S, D);
+  bf_load_rows<DS, NTHR>(vs, v + kvbase, s0, ROWS, S, D);
+  if (first < n_qt) load_queries(0, first * BQ);
+  cp_async_commit();
+
+  // this thread's keys: s_lo (accumulator elements 0, 1) and s_hi (2, 3)
+  const int s_lo = s0 + r0 + g, s_hi = s_lo + 8;
+  const bool warp_live = s0 + r0 < S;
+  const int a_off = (r0 + lane % 16) * DS + (lane / 16) * 8;
+  const int p_off = (r0 + lane % 16) * PS + (lane / 16) * 8;
+  const int kb_row = (lane % 8) + (lane / 16) * 8, kb_col = ((lane / 8) % 2) * 8;
+  const int vb_row = (lane % 8) + ((lane / 8) % 2) * 8, vb_col = (lane / 16) * 8;
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = dva[i][0] = dva[i][1] =
+        dva[i][2] = dva[i][3] = 0.f;
+
+  for (int it = first; it < n_qt; ++it) {
+    const int st = (it - first) & 1;
+    if (it + 1 < n_qt) load_queries(st ^ 1, (it + 1) * BQ);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = it * BQ;
+    const uint16_t* qt = qs + st * BQ * DS;
+    const uint16_t* ot = dos + st * BQ * DS;
+    // the tile's last query sees keys up to n_past + that query (the same
+    // for every warp of a row tile)
+    const bool live = warp_live && s0 + r0 <= n_past + min(q0 + BQ, T) - 1;
+    uint32_t hi[BQ / 16][4], lo[BQ / 16][4];
+    if (live) {
+      const float* lt = lse_s + st * BQ + qc;
+      const float* dt = dsum_s + st * BQ + qc;
+      float sa[NQ][4], pa[NQ][4];  // S^T and dP^T: rows keys, columns queries
+      bf_scores<KS, NQ, DS>(sa, pa, ks, vs, qt + qc * DS, ot + qc * DS, a_off,
+                            kb_row, kb_col);
+      // p in place of S^T, ds in place of dP^T; queries q0 + qc + 8 nt +
+      // 2 t4 + (e & 1).  The mask is tested only where a query of the warp's
+      // share misses a key of the warp
+      const int qw0 = q0 + qc;
+      const bool full = s0 + r0 + 15 <= n_past + qw0 && qw0 + QW <= T &&
+                        s0 + r0 + 16 <= S;
+#pragma unroll
+      for (int nt = 0; nt < NQ; ++nt) {
+        const float2 l = *reinterpret_cast<const float2*>(lt + nt * 8 + 2 * t4);
+        const float2 d2 = *reinterpret_cast<const float2*>(dt + nt * 8 + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int s = e < 2 ? s_lo : s_hi;
+          const int t = qw0 + nt * 8 + 2 * t4 + (e & 1);
+          const float p = full || (t < T && s < S && s <= n_past + t)
+              ? tc_prob(sa[nt][e], scale, slope, s,
+                        tc_live_lse((e & 1) ? l.y : l.x))
+              : 0.f;
+          sa[nt][e] = p;
+          pa[nt][e] = p * (pa[nt][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+        }
+      }
+      if constexpr (P.cs == 1) {
+        // dV += P^T dO, then dK += dS^T Q: two score n-tiles are one
+        // 16-query A fragment
+#pragma unroll
+        for (int j = 0; j < BQ / 16; ++j)
+          acc_to_a(sa[2 * j], sa[2 * j + 1], hi[j], lo[j]);
+        bf_grad<BQ / 16, ND, DS>(dva, hi, lo, ot, 0, vb_row, vb_col);
+#pragma unroll
+        for (int j = 0; j < BQ / 16; ++j)
+          acc_to_a(pa[2 * j], pa[2 * j + 1], hi[j], lo[j]);
+        bf_grad<BQ / 16, ND, DS>(dka, hi, lo, qt, 0, vb_row, vb_col);
+      } else {
+        // stage p and ds as hi/lo bf16 pairs: rows keys, columns queries
+#pragma unroll
+        for (int nt = 0; nt < NQ; ++nt) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int at = (r0 + g + 8 * half) * PS + qc + nt * 8 + 2 * t4;
+            uint32_t h2, l2;
+            split_bf16x2(sa[nt][2 * half], sa[nt][2 * half + 1], h2, l2);
+            *reinterpret_cast<uint32_t*>(stg + at) = h2;
+            *reinterpret_cast<uint32_t*>(stg + ROWS * PS + at) = l2;
+            split_bf16x2(pa[nt][2 * half], pa[nt][2 * half + 1], h2, l2);
+            *reinterpret_cast<uint32_t*>(stg + 2 * ROWS * PS + at) = h2;
+            *reinterpret_cast<uint32_t*>(stg + 3 * ROWS * PS + at) = l2;
+          }
+        }
+      }
+    }
+    if constexpr (P.cs > 1) {
+      __syncthreads();  // a row tile's p and ds are staged
+      if (live) {
+        // dV += P^T dO, then dK += dS^T Q over every query of the tile,
+        // this warp's columns
+#pragma unroll
+        for (int j = 0; j < BQ / 16; ++j) {
+          ldmatrix_x4(hi[j], stg + p_off + j * 16);
+          ldmatrix_x4(lo[j], stg + ROWS * PS + p_off + j * 16);
+        }
+        bf_grad<BQ / 16, ND, DS>(dva, hi, lo, ot, col0, vb_row, vb_col);
+#pragma unroll
+        for (int j = 0; j < BQ / 16; ++j) {
+          ldmatrix_x4(hi[j], stg + 2 * ROWS * PS + p_off + j * 16);
+          ldmatrix_x4(lo[j], stg + 3 * ROWS * PS + p_off + j * 16);
+        }
+        bf_grad<BQ / 16, ND, DS>(dka, hi, lo, qt, col0, vb_row, vb_col);
+      }
+    }
+    __syncthreads();  // this stage and the staged tiles are refilled next
+  }
+  cp_async_wait<0>();
+  bf_store<ND>(dk + kvbase, dka, s_lo, S, D, col0, t4);
+  bf_store<ND>(dv + kvbase, dva, s_lo, S, D, col0, t4);
+}
+
 size_t dq_smem_bytes(int D) {
   const size_t dp = D + 4;
   return sizeof(float) * (2 * kBQ * dp + 2 * kBS * dp + kBQ * kPS + 2 * kBQ);
@@ -827,19 +1328,72 @@ int launch_dkv_3xtf32(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance the caller picked: ``mma`` (f32 at D = 64 or 128 only) the
-// tensor cores, else the FMA tiles, NG column groups of 32 covering D.  An
-// instance that does not exist for (dtype, D) is an error, never a
-// substitute.
+template <int DPAD>
+int launch_dq_bf16(const Args& a) {
+  auto kern = flash_bwd_dq_bf16_kernel<DPAD>;
+  const size_t smem =
+      sizeof(uint16_t) * (2 * kTcRows + 4 * bf_plan(DPAD, false).tile) *
+      (DPAD + 8);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.T + kTcRows - 1) / kTcRows, a.B * a.H);
+  kern<<<grid, bf_threads(DPAD, false), smem, a.stream>>>(
+      static_cast<const uint16_t*>(a.q), static_cast<const uint16_t*>(a.k),
+      static_cast<const uint16_t*>(a.v), static_cast<const uint16_t*>(a.do_),
+      a.lse, a.dsum, static_cast<uint16_t*>(a.out0), a.slopes, a.H, a.T, a.S,
+      a.D, a.n_past, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DPAD>
+int launch_dkv_bf16(const Args& a) {
+  auto kern = flash_bwd_dkv_bf16_kernel<DPAD>;
+  constexpr BfPlan P = bf_plan(DPAD, true);
+  constexpr int BQ = P.tile, ROWS = 16 * P.rt;
+  const size_t smem = sizeof(uint16_t) * (2 * ROWS + 4 * BQ) * (DPAD + 8) +
+                      sizeof(float) * 4 * BQ +
+                      (P.cs > 1 ? sizeof(uint16_t) * 4 * ROWS * (BQ + 8) : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.S + ROWS - 1) / ROWS, a.B * a.H);
+  kern<<<grid, bf_threads(DPAD, true), smem, a.stream>>>(
+      static_cast<const uint16_t*>(a.q), static_cast<const uint16_t*>(a.k),
+      static_cast<const uint16_t*>(a.v), static_cast<const uint16_t*>(a.do_),
+      a.lse, a.dsum, static_cast<uint16_t*>(a.out0),
+      static_cast<uint16_t*>(a.out1), a.slopes, a.H, a.T, a.S, a.D, a.n_past,
+      a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// "mma_bf16" at head dim D, padded to the next of 64, 80, 96, 128, 256
 template <bool DKV>
-int dispatch(const Args& a, int is_bf16, int mma) {
-  if (a.D % 4 != 0 || a.D > kMaxD || a.D <= 0)
+int launch_bf16(const Args& a) {
+  if (a.D <= 64) return DKV ? launch_dkv_bf16<64>(a) : launch_dq_bf16<64>(a);
+  if (a.D <= 80) return DKV ? launch_dkv_bf16<80>(a) : launch_dq_bf16<80>(a);
+  if (a.D <= 96) return DKV ? launch_dkv_bf16<96>(a) : launch_dq_bf16<96>(a);
+  if (a.D <= 128) return DKV ? launch_dkv_bf16<128>(a) : launch_dq_bf16<128>(a);
+  return DKV ? launch_dkv_bf16<256>(a) : launch_dq_bf16<256>(a);
+}
+
+// The instance the caller picked (ops/attention.py:_INSTANCES): 1
+// "mma_3xtf32" (f32 at D = 64 or 128), 2 "mma_bf16" (bf16 at D % 16 == 0),
+// 0 the FMA tiles, NG column groups of 32 covering D.  An instance that does
+// not exist for (dtype, D) is an error, never a substitute.
+template <bool DKV>
+int dispatch(const Args& a, int is_bf16, int inst) {
+  if (a.D % 4 != 0 || a.D > kMaxD || a.D <= 0 || inst < 0 || inst > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (mma) {
+  if (inst == 1) {
     if (is_bf16 || (a.D != 64 && a.D != 128))
       return static_cast<int>(cudaErrorInvalidValue);
     if (DKV) return a.D == 64 ? launch_dkv_3xtf32<64>(a) : launch_dkv_3xtf32<128>(a);
     return a.D == 64 ? launch_dq_3xtf32<64>(a) : launch_dq_3xtf32<128>(a);
+  }
+  if (inst == 2) {
+    if (!is_bf16 || a.D % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bf16<DKV>(a);
   }
   const int ng = a.D <= 64 ? 2 : a.D <= 128 ? 4 : 8;
   if (DKV) {
@@ -857,23 +1411,23 @@ int dispatch(const Args& a, int is_bf16, int mma) {
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* do_,
     const void* lse, const void* dsum, void* dq, const void* slopes,
-    int is_bf16, int mma, int B, int H, int T, int S, int D, int n_past,
+    int is_bf16, int inst, int B, int H, int T, int S, int D, int n_past,
     float scale, void* stream) {
   const Args a{q, k, v, do_, static_cast<const float*>(lse),
                static_cast<const float*>(dsum), dq, nullptr,
                static_cast<const float*>(slopes), B, H, T, S, D, n_past, scale,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(a, is_bf16, mma);
+  return dispatch<false>(a, is_bf16, inst);
 }
 
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* do_,
     const void* lse, const void* dsum, void* dk, void* dv, const void* slopes,
-    int is_bf16, int mma, int B, int H, int T, int S, int D, int n_past,
+    int is_bf16, int inst, int B, int H, int T, int S, int D, int n_past,
     float scale, void* stream) {
   const Args a{q, k, v, do_, static_cast<const float*>(lse),
                static_cast<const float*>(dsum), dk, dv,
                static_cast<const float*>(slopes), B, H, T, S, D, n_past, scale,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(a, is_bf16, mma);
+  return dispatch<true>(a, is_bf16, inst);
 }

@@ -14,7 +14,9 @@ csrc/flash_attention_bwd.cu, two passes with no atomics, so the gradients
 are the same from run to run.  ``flash_attention_bwd_route`` names the
 instance a call takes: f32 at D = 64 and 128 runs on the tensor cores, each
 f32 product as three TF32 products of operands split by ``tf32_round``
-("mma_3xtf32"); everything else on the FMA units ("fma").
+("mma_3xtf32"); bf16 at D % 16 == 0 on the tensor cores as bf16 products,
+the f32 p and ds split by ``bf16_split`` into two products each
+("mma_bf16"); everything else on the FMA units ("fma").
 ``FlashAttention`` wires K4 and K7/K8 into autograd; ``flash_attention`` is
 the differentiable entry.
 
@@ -38,10 +40,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
          _P)
 # K7: q, k, v, do, lse, dsum, dq, slopes; K8: ... dk, dv, slopes; then
-# is_bf16, mma, B, H, T, S, D, n_past, scale, stream
+# is_bf16, instance, B, H, T, S, D, n_past, scale, stream
 _BWD_DQ_ARGS = (_P,) * 8 + (_I,) * 8 + (ctypes.c_float, _P)
 _BWD_DKV_ARGS = (_P,) * 9 + (_I,) * 8 + (ctypes.c_float, _P)
 _MMA_HEAD_DIMS = (64, 128)  # csrc/flash_attention_bwd.cu's 3xTF32 instances
+# csrc/flash_attention_bwd.cu's dispatch codes of the K7/K8 instances
+_INSTANCES = {"fma": 0, "mma_3xtf32": 1, "mma_bf16": 2}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -161,9 +165,13 @@ def _bwd_plain(q, k, v, do, lse, dsum, *, n_past, scale, slopes):
 def flash_attention_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The K7/K8 instance a call with q of ``dtype`` and head dim
     ``head_dim`` takes on the card: "mma_3xtf32" (tensor cores, f32 at D =
-    64 and 128) or "fma" (FMA tiles: bf16 at any D, f32 at other D)."""
+    64 and 128), "mma_bf16" (tensor cores, bf16 at D % 16 == 0 up to 256)
+    or "fma" (FMA tiles: bf16 at other D, f32 at other D)."""
     if dtype == torch.float32 and head_dim in _MMA_HEAD_DIMS:
         return "mma_3xtf32"
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 \
+            and 0 < head_dim <= _MAX_D:
+        return "mma_bf16"
     return "fma"
 
 
@@ -175,6 +183,14 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     bits = x.contiguous().view(torch.int32)
     r = ((bits + 0x1000) & -0x2000).view(torch.float32)
     return torch.where(torch.isfinite(x), r, x)
+
+
+def bf16_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``x`` as bf16 (hi, lo): hi = bf16(x), lo = bf16(x − hi), each
+    rounded to nearest even, as the "mma_bf16" instance splits p and ds
+    before their two bf16 products (x − hi is exact in f32)."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
 
 
 def _check_bwd(q, k, v, do, lse, dsum, slopes, what):
@@ -195,8 +211,8 @@ def _check_bwd(q, k, v, do, lse, dsum, slopes, what):
     return B, H, T, S, D
 
 
-def _mma(dtype, D):  # noqa: N803
-    return int(flash_attention_bwd_route(dtype, D) == "mma_3xtf32")
+def _instance(dtype, D):  # noqa: N803
+    return _INSTANCES[flash_attention_bwd_route(dtype, D)]
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, dsum, *, n_past: int = 0,
@@ -216,8 +232,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dsum, *, n_past: int = 0,
     _build.launch("flash_attention_bwd_dq", "flash_attention_bwd_dq_launch",
                   _BWD_DQ_ARGS, p(q), p(k), p(v), p(do), p(lse), p(dsum),
                   p(dq), p(slopes), int(q.dtype == torch.bfloat16),
-                  _mma(q.dtype, D), B, H, T, S, D, int(n_past), float(scale),
-                  _build.stream_ptr(q.device))
+                  _instance(q.dtype, D), B, H, T, S, D, int(n_past),
+                  float(scale), _build.stream_ptr(q.device))
     return dq
 
 
@@ -237,8 +253,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dsum, *, n_past: int = 0,
     _build.launch("flash_attention_bwd_dkv",
                   "flash_attention_bwd_dkv_launch", _BWD_DKV_ARGS, p(q), p(k),
                   p(v), p(do), p(lse), p(dsum), p(dk), p(dv), p(slopes),
-                  int(q.dtype == torch.bfloat16), _mma(q.dtype, D), B, H, T,
-                  S, D, int(n_past), float(scale), _build.stream_ptr(q.device))
+                  int(q.dtype == torch.bfloat16), _instance(q.dtype, D), B, H,
+                  T, S, D, int(n_past), float(scale),
+                  _build.stream_ptr(q.device))
     return dk, dv
 
 
