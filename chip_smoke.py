@@ -21,7 +21,9 @@ Phases, each fatal on failure:
      B=1 perplexity; f32 and bf16) and K7/K8 at GPT-J's, in bf16 also at
      T=2048 for D = 80, 128 and 256 (each bf16 row on "mma_bf16", every
      element within 2^-8 of max|plain| and at most 2% of them differing
-     from the plain version); K1-K4 and K9-K11 at the
+     from the plain version), in f32 at T=2048 for D = 256, 80 and 96
+     (every f32 row on "mma_3xtf32", beside an f64 backward); K1-K4 and
+     K9-K11 at the
      Pythia-12B shapes phase 7 gives them (K1 at 1 and 8 rows, K2 at 1 and
      8 rows with f32 planes and at 100 with bf16 planes, K3 on layer 35 of
      a 36-layer int8 and int4 cache, K4 at the prompt lengths; K9 and K11 at GPT-J's
@@ -103,7 +105,10 @@ Phases, each fatal on failure:
      batch of 4 x 2049 tokens: finite losses, the last below the first, and
      K4, K7 and K8 launched once per layer in every step; the same at
      bf16 compute (K7/K8 on "mma_bf16"), and GPT-J-6B's widths at depth 2
-     at bf16 compute, 3 steps on 1 x 2049 tokens; then
+     at bf16 compute, 3 steps on 1 x 2049 tokens; GPT-J-6B's and
+     CodeGen-2B's widths at depth 2 at f32 compute, 3 steps on 1 x 2049
+     tokens (K7/K8 on the padded "mma_3xtf32" instances, D = 256 and 80);
+     then
      evaluate.perplexity on random Q4 params over a seeded 4096-token
      stream at window 2048;
   7. Pythia-12B at full width (36 layers, random Q4 weights from seed 0,
@@ -187,7 +192,9 @@ Phases, each fatal on failure:
      phase 11 alone (after phase 4's int8 traffic, for its streams).
 ``chip_smoke.py --bwd-bf16`` runs phase 2's bf16 K7/K8 rows and phase 6's
 bf16 training runs alone, their instance checks off, to take the same
-numbers on an earlier tree; ``--k2-tf32`` K2's TF32 rows, the f32xf
+numbers on an earlier tree; ``--bwd-f32`` likewise phase 2's f32 K7/K8 rows
+at head dims other than 64 and 128 and phase 6's f32 runs at GPT-J-6B's and
+CodeGen-2B's widths; ``--k2-tf32`` K2's TF32 rows, the f32xf
 engine's stream margin (``f32xf_margin``) and phase 7's f32 prefill.
 Each path's launch counts are set to 0 just before it runs and read just
 after (the lab's too: K12-K16 launch only there).  Prints each phase's
@@ -225,11 +232,10 @@ TOL_Q4 = 1e-4     # K1/K2: only the order of the f32 sums differs
 TOL_DECODE = 1e-3  # K3, K5: only the exp and sum order differ
 TOL_FLASH_BF16 = 1e-2  # K4 bf16: the output is rounded to bf16
 TOL_FLASH_F32 = 1e-4   # K4 f32: sum order only
-# K7/K8: bf16 gradients are rounded to bf16 at the store; f32 ones at D = 64
-# and 128 take each product as three TF32 products of split operands
-# ("mma_3xtf32": ~1e-6 of max|plain| in tests/test_torch_flash_bwd.py's
-# emulation, where one TF32 product misses 1e-4), at other D the FMA tiles
-# differ from the plain version's cuBLAS products in sum order only
+# K7/K8: bf16 gradients are rounded to bf16 at the store; f32 ones take each
+# product as three TF32 products of split operands ("mma_3xtf32" at every
+# head dim: ~1e-6 of max|plain| in tests/test_torch_flash_bwd.py's
+# emulation, where one TF32 product misses 1e-4)
 TOL_BWD_BF16 = 1e-2
 TOL_BWD_F32 = 1e-4
 # training card vs CPU, f32: the step-0 loss, each leaf's step-0 gradient
@@ -651,9 +657,9 @@ def phase_kernels(peaks):
 # K7/K8 (and K4 at D = 64) against their plain versions at the shapes of
 # the training and perplexity paths (Pythia-410M: H=16, T=S=2048, D=64, f32
 # and bf16; training B=4, perplexity B=1), at GPT-J's (T=S=512, D=256, f32
-# and bf16) and, bf16 at T=S=2048, at GPT-J's training width (H=16, D=256),
-# CodeGen-2B's (H=32, D=80) and Pythia-12B's (H=40, D=128): (B, H, T, D,
-# dtype name)
+# and bf16) and, at T=S=2048, at GPT-J's training width (H=16, D=256) and
+# CodeGen-2B's (H=32, D=80) in both dtypes, Pythia-12B's (H=40, D=128) in
+# bf16 and GPT-NeoX-20B's (H=64, D=96) in f32: (B, H, T, D, dtype name)
 FLASH_BWD_SHAPES = ((1, 16, 2048, 64, "float32"), (4, 16, 2048, 64, "float32"),
                     (1, 16, 2048, 64, "bfloat16"),
                     (4, 16, 2048, 64, "bfloat16"),
@@ -661,7 +667,10 @@ FLASH_BWD_SHAPES = ((1, 16, 2048, 64, "float32"), (4, 16, 2048, 64, "float32"),
                     (1, 16, 512, 256, "bfloat16"),
                     (1, 32, 2048, 80, "bfloat16"),
                     (1, 40, 2048, 128, "bfloat16"),
-                    (1, 16, 2048, 256, "bfloat16"))
+                    (1, 16, 2048, 256, "bfloat16"),
+                    (1, 16, 2048, 256, "float32"),
+                    (1, 32, 2048, 80, "float32"),
+                    (1, 64, 2048, 96, "float32"))
 # the "mma_bf16" rows' checks beside TOL_BWD_BF16: every element of dq, dk
 # and dv within 2^-8 of its max|plain| of the plain version, at most 2% of
 # their bf16 elements differing from the plain version's (the instance's
@@ -683,9 +692,9 @@ def flash_bwd_rows(peaks, bound, g, shapes, strict: bool = True):
     that differ from the plain version's, each of dq, dk, dv and all
     together.  Every row must hold its tolerance and give the same bits
     from run to run; with ``strict`` every row must also take its instance
-    (bf16 "mma_bf16", f32 "mma_3xtf32" at D = 64 and 128, else "fma") and
-    a bf16 row hold its element and share checks (``--bwd-bf16`` runs this
-    on an earlier tree with ``strict`` off)."""
+    (bf16 "mma_bf16", f32 "mma_3xtf32") and a bf16 row hold its element and
+    share checks (``--bwd-bf16`` and ``--bwd-f32`` run this on an earlier
+    tree with ``strict`` off)."""
     import torch
 
     from vsim_tpu_torch.ops.attention import (flash_attention_bwd_dkv,
@@ -739,8 +748,7 @@ def flash_bwd_rows(peaks, bound, g, shapes, strict: bool = True):
         torch.cuda.synchronize()
         tol = TOL_BWD_BF16 if dt == bf16 else TOL_BWD_F32
         route = flash_attention_bwd_route(dt, D)
-        want = {f32: "mma_3xtf32" if D in (64, 128) else "fma",
-                bf16: "mma_bf16"}[dt]
+        want = {f32: "mma_3xtf32", bf16: "mma_bf16"}[dt]
         if strict and route != want:
             fail(f"flash_attention_bwd {shape}: takes {route}, not {want}")
         errs = [rel_err(a, b) for a, b in zip((dq, dk, dv), ref)]
@@ -2209,7 +2217,8 @@ def train_run(label, cfg, B, steps, peak, strict: bool = True):  # noqa: N803
     """``steps`` AdamW steps of make_train_step on dense weights from seed 0
     and one seeded batch of B x (n_ctx + 1) tokens: finite losses, the last
     below the first, K4, K7 and K8 launched once a layer in every step
-    (with ``strict``, K7/K8 on "mma_bf16" at bf16 compute); step ms the
+    (with ``strict``, K7/K8 on "mma_bf16" at bf16 compute and on
+    "mma_3xtf32" at f32); step ms the
     median of steps 2 on (synced), tokens/s, peak memory, the model-FLOP
     share of ``peak``, and one more step's device ms by kernel class
     (torch.profiler; None if it records no device activity).  Returns (the
@@ -2232,8 +2241,9 @@ def train_run(label, cfg, B, steps, peak, strict: bool = True):  # noqa: N803
     n_params = sum(t.numel() for t in float_leaves(params).values())
     route = flash_attention_bwd_route(getattr(torch, cfg.compute_dtype),
                                       cfg.head_dim)
-    if strict and cfg.compute_dtype == "bfloat16" and route != "mma_bf16":
-        fail(f"{label}: K7/K8 take {route}, not mma_bf16")
+    want = {"bfloat16": "mma_bf16", "float32": "mma_3xtf32"}[cfg.compute_dtype]
+    if strict and route != want:
+        fail(f"{label}: K7/K8 take {route}, not {want}")
     ids = torch.randint(0, cfg.n_vocab, (B, T + 1),
                         generator=torch.Generator().manual_seed(0)).cuda()
     torch.cuda.reset_peak_memory_stats()
@@ -2296,25 +2306,36 @@ BF16_TRAIN_RUNS = (("pythia-410m bf16", "pythia-410m", {}, 4, 5),
                     {"n_layer": 2}, 1, 3))
 
 
-def bf16_training(peaks, strict: bool = True):
-    """Phase 6's bf16 runs (BF16_TRAIN_RUNS), each through train_run at
-    bf16 compute, its model-FLOP share of the bf16 peak.  Returns ({label:
-    numbers}, summed launches); ``chip_smoke.py --bwd-bf16`` runs them on
-    an earlier tree with ``strict`` off."""
+# phase 6's f32 runs at head dims other than 64 and 128 (K7/K8's padded
+# "mma_3xtf32" instances: D = 256 and 80), as BF16_TRAIN_RUNS: dense AdamW
+# at depth 2 needs ~13 GB at GPT-J-6B's widths, ~7 GB at CodeGen-2B's
+F32_TRAIN_RUNS = (("gpt-j-6b widths depth 2 f32", "gpt-j-6b",
+                   {"n_layer": 2}, 1, 3),
+                  ("codegen-2b widths depth 2 f32", "codegen-2b",
+                   {"n_layer": 2}, 1, 3))
+
+
+def dtype_training(peaks, dtype: str, strict: bool = True):
+    """Phase 6's runs at ``dtype`` compute (BF16_TRAIN_RUNS or
+    F32_TRAIN_RUNS), each through train_run, its model-FLOP share of that
+    dtype's peak.  Returns ({label: numbers}, summed launches);
+    ``chip_smoke.py --bwd-bf16`` / ``--bwd-f32`` run them on an earlier
+    tree with ``strict`` off."""
     from vsim_tpu_torch.models.config import PRESETS
 
+    runs, peak = ((BF16_TRAIN_RUNS, peaks[1]) if dtype == "bfloat16"
+                  else (F32_TRAIN_RUNS, peaks[2]))
     out, total = {}, collections.Counter()
-    for label, name, replace, B, steps in BF16_TRAIN_RUNS:  # noqa: N806
-        cfg = PRESETS[name].replace(compute_dtype="bfloat16", **replace)
-        out[label], launches = train_run(label, cfg, B, steps, peaks[1],
-                                         strict)
+    for label, name, replace, B, steps in runs:  # noqa: N806
+        cfg = PRESETS[name].replace(compute_dtype=dtype, **replace)
+        out[label], launches = train_run(label, cfg, B, steps, peak, strict)
         for counts in launches:
             total.update(counts)
     return out, total
 
 
-def bf16_training_lines(runs):
-    """One line a bf16 training run of ``bf16_training``."""
+def training_lines(runs):
+    """One line a training run of ``dtype_training``."""
     out = []
     for label, r in runs.items():
         by = r["device_ms_by_class"]
@@ -2342,7 +2363,8 @@ def phase_training(peaks):
     T = cfg.n_ctx  # noqa: N806
     train, launches = train_run("training", cfg, 4, 5, peaks[2])
     train["model_flop_share_f32_peak"] = train.pop("model_flop_share_of_peak")
-    bf16, bf16_launches = bf16_training(peaks)
+    bf16, bf16_launches = dtype_training(peaks, "bfloat16")
+    f32, f32_launches = dtype_training(peaks, "float32")
 
     q4 = random_q4_params(cfg, seed=0)
     stream = torch.randint(0, cfg.n_vocab, (4096,),
@@ -2359,12 +2381,14 @@ def phase_training(peaks):
     del q4
     torch.cuda.empty_cache()
     total = collections.Counter(bf16_launches)
+    total.update(f32_launches)
     for counts in launches:
         total.update(counts)
     total.update(ppl_launches)
     ppl.update(seconds=ppl_s, windows=len(range(0, len(stream) - 1, T - 1)),
                launches=ppl_launches)
-    return dict(train=train, train_bf16=bf16, perplexity=ppl), total
+    return dict(train=train, train_bf16=bf16, train_f32=f32,
+                perplexity=ppl), total
 
 
 # ---------------------------------------------------------------------------
@@ -4720,7 +4744,8 @@ def main() -> None:
     training, train_launches = phase_training(peaks)
     print(f"training and perplexity in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps(training)}", flush=True)
-    for line in bf16_training_lines(training["train_bf16"]):
+    for line in training_lines({**training["train_bf16"],
+                                **training["train_f32"]}):
         print(line, flush=True)
     t0 = time.perf_counter()
     pythia, pythia_launches, pythia_total, (p_cfg, p_params) = \
@@ -4942,10 +4967,12 @@ def main_k2_tf32() -> None:
           flush=True)
 
 
-def main_bwd_bf16() -> None:
-    """``chip_smoke.py --bwd-bf16``: phase 2's bf16 K7/K8 rows and phase 6's
-    bf16 training runs alone, their instance checks off, so that the same
-    numbers can be taken on an earlier tree (this script copied into it)."""
+def main_bwd(dtype: str) -> None:
+    """``chip_smoke.py --bwd-bf16`` / ``--bwd-f32``: phase 2's K7/K8 rows of
+    that dtype (f32: at head dims other than 64 and 128) and phase 6's
+    training runs at that compute alone, their instance checks off, so
+    that the same numbers can be taken on an earlier tree (this script
+    copied into it)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4968,19 +4995,26 @@ def main_bwd_bf16() -> None:
         t_b, t_o = nbytes / peaks[0] * 1e3, ops / peak * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
-    rows = flash_bwd_rows(peaks, bound, g, [s for s in FLASH_BWD_SHAPES
-                                            if s[4] == "bfloat16"],
-                          strict=False)
+    shapes = [s for s in FLASH_BWD_SHAPES if s[4] == dtype
+              and (dtype == "bfloat16" or s[3] not in (64, 128))]
+    rows = flash_bwd_rows(peaks, bound, g, shapes, strict=False)
     for r in rows:
         print(f"  {r['kernel']} {r['shape']}: {r['ms']:.4g} ms, bound "
-              f"{r['bound_ms']:.2g}, plain {r['plain_ms']:.4g}, library "
+              f"{r['bound_ms']:.2g}"
+              + ("" if r["bound_3xtf32_ms"] is None
+                 else f", 3xTF32 bound {r['bound_3xtf32_ms']:.3g}")
+              + f", plain {r['plain_ms']:.4g}, library "
               f"{r['library_ms']:.4g} ({r['ms'] / r['library_ms']:.2f}x) "
-              f"[{r.get('instance')}]", flush=True)
-    train, _ = bf16_training(peaks, strict=False)
-    for line in bf16_training_lines(train):
+              f"[{r.get('instance')}], max|err| {r['max_abs_err']:.3g} (rel "
+              f"{r['rel_err']:.3g})"
+              + ("" if r["rel_err_vs_f64"] is None else ", vs f64 "
+                 + json.dumps(r["rel_err_vs_f64"])), flush=True)
+    train, _ = dtype_training(peaks, dtype, strict=False)
+    for line in training_lines(train):
         print(line, flush=True)
-    print(json.dumps({"bwd_bf16_rows": rows, "train_bf16": train}))
-    print(f"chip_smoke --bwd-bf16: pass in {time.perf_counter() - t0:.1f} s",
+    tag = {"bfloat16": "bf16", "float32": "f32"}[dtype]
+    print(json.dumps({f"bwd_{tag}_rows": rows, f"train_{tag}": train}))
+    print(f"chip_smoke --bwd-{tag}: pass in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
 
@@ -4990,7 +5024,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--k2-tf32"]:
         main_k2_tf32()
     elif sys.argv[1:] == ["--bwd-bf16"]:
-        main_bwd_bf16()
+        main_bwd("bfloat16")
+    elif sys.argv[1:] == ["--bwd-f32"]:
+        main_bwd("float32")
     elif sys.argv[1:2] == ["--parallel"] and sys.argv[2:] in ([], ["nccl"]):
         main_parallel(nccl_only=sys.argv[2:] == ["nccl"])
     else:

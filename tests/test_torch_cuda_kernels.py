@@ -725,13 +725,14 @@ def _bf16_checks(got, ref):
                                               (200, 100, 300, True)])
 def test_flash_attention_bwd(dev, dtype, tol, D, T, n_past, S, alibi):
     """K7/K8 against the plain backward, on all three instances
-    (``flash_attention_bwd_route``): "mma_3xtf32" for f32 at D = 64 and 128,
-    "mma_bf16" for bf16 at D % 16 == 0 (112 padded to 128 in shared
-    memory), "fma" for the rest (f32 at 80, 96, 112, 256 and 72, bf16 at
-    72).  (40, 0, 130) has key rows no query sees (S > n_past + T), which
-    must come back as zeros; the last three span several blocks and
-    streamed tiles a side.  "mma_bf16" also holds the element and share
-    checks of chip_smoke.py's phase 2."""
+    (``flash_attention_bwd_route``): "mma_3xtf32" for f32 at every D (64
+    and 128 in their own kernels; 80, 96, 256, and 112 and 72 zero-padded
+    to 128 and 80, in the padded ones), "mma_bf16" for bf16 at D % 16 == 0
+    (112 padded to 128 in shared memory), "fma" for bf16 at 72.  (40, 0,
+    130) has key rows no query sees (S > n_past + T), which must come back
+    as zeros; the last three span several blocks and streamed tiles a
+    side.  "mma_bf16" also holds the element and share checks of
+    chip_smoke.py's phase 2."""
     B, H = 2, 3  # noqa: N806
     g = torch.Generator(device=dev).manual_seed(D + T)
     q = torch.randn((B, H, T, D), generator=g, device=dev).to(dtype)
@@ -741,9 +742,8 @@ def test_flash_attention_bwd(dev, dtype, tol, D, T, n_past, S, alibi):
     slopes = torch.linspace(0.01, 0.1, H, device=dev) if alibi else None
     kw = dict(n_past=n_past, scale=1 / math.sqrt(D), slopes=slopes)
     route = flash_attention_bwd_route(dtype, D)
-    assert route == ("mma_3xtf32" if dtype == torch.float32
-                     and D in (64, 128) else "mma_bf16"
-                     if dtype == torch.bfloat16 and D % 16 == 0 else "fma")
+    assert route == ("mma_3xtf32" if dtype == torch.float32 else "mma_bf16"
+                     if D % 16 == 0 else "fma")
     out, lse = flash_attention_fwd(q, k, v, **kw)
     before = dict(_build.launch_counts)
     got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
@@ -774,12 +774,14 @@ def test_flash_attention_bwd(dev, dtype, tol, D, T, n_past, S, alibi):
 def test_flash_attention_bwd_refuses_a_missing_instance(dev):
     """The launcher refuses an instance that does not exist for (dtype,
     D): "mma_bf16" for f32 or for a head dim not a multiple of 16,
-    "mma_3xtf32" for bf16; it never substitutes another."""
+    "mma_3xtf32" for bf16, "fma" for f32 (its f32 tiles are gone); it never
+    substitutes another."""
     from vsim_tpu_torch.ops.attention import _INSTANCES, _BWD_DQ_ARGS
 
     for dtype, D, inst in ((torch.float32, 64, "mma_bf16"),  # noqa: N806
                            (torch.bfloat16, 72, "mma_bf16"),
-                           (torch.bfloat16, 64, "mma_3xtf32")):
+                           (torch.bfloat16, 64, "mma_3xtf32"),
+                           (torch.float32, 256, "fma")):
         q, k, v, do = (torch.randn((1, 1, 32, D), device=dev).to(dtype)
                        for _ in range(4))
         lse, dsum = (torch.zeros((1, 1, 32), device=dev) for _ in range(2))

@@ -10,12 +10,14 @@ Pallas gradients to their oracle; bf16 one bf16 step at max|grad| (both
 sides compute in f32 from the same bf16 inputs and round once at the store,
 so a rounding may flip by one step).
 
-The split numerics of K7/K8's tensor-core instance ("mma_3xtf32", f32 at D =
-64 and 128) are held here too, on the CPU: ``tf32_round`` splits each
-operand into big + small TF32 halves, and the backward with its five
-products emulated as the kernel's three TF32 products (summed in f64) stays
-within 1e-5 of max|``_bwd_plain``|, while one TF32 product per f32 product
-misses the card's 1e-4 tolerance.
+The split numerics of K7/K8's tensor-core instance ("mma_3xtf32", f32 at
+every head dim: 64 and 128, and 80, 96 and 256 as zero-padded instances) are
+held here too, on the CPU: ``tf32_round`` splits each operand into big +
+small TF32 halves, and the backward with its five products emulated as the
+kernel's three TF32 products (summed in f64) stays within 1e-5 of
+max|``_bwd_plain``|, while one TF32 product per f32 product misses the
+card's 1e-4 tolerance; a head dim zero-padded to the next instance's (72 to
+80) changes no product.
 """
 
 import functools
@@ -266,7 +268,7 @@ def _split_case(B, H, T, D_):  # noqa: N803
     return rels
 
 
-@pytest.mark.parametrize("D_", [64, 128])
+@pytest.mark.parametrize("D_", [64, 128, 80, 96, 256])
 def test_bwd_3xtf32_emulation_within_1e5(D_):
     """The kernel's split: three TF32 products per f32 product keep dq, dk
     and dv within 1e-5 of max|plain| at (B, H, T) = (2, 3, 100)."""
@@ -274,7 +276,7 @@ def test_bwd_3xtf32_emulation_within_1e5(D_):
     assert max(three) <= 1e-5, three
 
 
-@pytest.mark.parametrize("D_", [64, 128])
+@pytest.mark.parametrize("D_", [64, 128, 80, 96, 256])
 def test_bwd_1xtf32_emulation_misses_tolerance(D_):
     """One TF32 product per f32 product misses the card's f32 tolerance on
     at least one of dq, dk, dv at the same shapes, so the card check
@@ -283,10 +285,41 @@ def test_bwd_1xtf32_emulation_misses_tolerance(D_):
     assert max(one) > TOL_BWD_F32, one
 
 
+def test_bwd_3xtf32_padded_head_dim_changes_no_product():
+    """The padded instances zero the head dim's columns [D, DPAD) in shared
+    memory: at D = 72 padded to 80, the 3-term emulation on zero-padded
+    q, k, v, do gives zero gradient columns past 72 and, in the first 72,
+    the unpadded emulation's gradients (both summed in f64), within 1e-5 of
+    max|plain|."""
+    B, H, T, D_, DPAD = 2, 3, 100, 72, 80  # noqa: N806
+    rng = np.random.default_rng(D_ + T)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (B, H, T, D_)).astype(np.float32)) for _ in range(4))
+    scale = D_ ** -0.5
+    out, lse = flash_attention_plain(q, k, v, scale=scale)
+    do, dsum = _bwd_inputs(out, do, q.dtype)
+    ref = _bwd_plain(q, k, v, do, lse, dsum, n_past=0, scale=scale,
+                     slopes=None)
+    unpadded = _bwd_tf32(q, k, v, do, lse, dsum, scale=scale, terms=3)
+
+    def pad(x):
+        return torch.nn.functional.pad(x, (0, DPAD - D_))
+
+    padded = _bwd_tf32(pad(q), pad(k), pad(v), pad(do), lse, dsum,
+                       scale=scale, terms=3)
+    for a, b, r in zip(padded, unpadded, ref):
+        assert a.shape[-1] == DPAD and not a[..., D_:].any()
+        np.testing.assert_allclose(a[..., :D_].numpy(), b.numpy(),
+                                   rtol=1e-6, atol=1e-12)
+        assert ((a[..., :D_] - r).abs().max() / r.abs().max()).item() <= 1e-5
+
+
 @pytest.mark.parametrize("dtype,D_,route", [
     (torch.float32, 64, "mma_3xtf32"), (torch.float32, 128, "mma_3xtf32"),
-    (torch.float32, 80, "fma"), (torch.float32, 256, "fma"),
-    (torch.float32, 32, "fma"), (torch.bfloat16, 64, "mma_bf16"),
+    (torch.float32, 80, "mma_3xtf32"), (torch.float32, 256, "mma_3xtf32"),
+    (torch.float32, 32, "mma_3xtf32"), (torch.float32, 96, "mma_3xtf32"),
+    (torch.float32, 72, "mma_3xtf32"), (torch.float32, 112, "mma_3xtf32"),
+    (torch.bfloat16, 64, "mma_bf16"),
     (torch.bfloat16, 128, "mma_bf16"), (torch.bfloat16, 256, "mma_bf16"),
     (torch.bfloat16, 80, "mma_bf16"), (torch.bfloat16, 96, "mma_bf16"),
     (torch.bfloat16, 72, "fma")])

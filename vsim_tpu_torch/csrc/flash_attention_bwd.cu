@@ -16,28 +16,29 @@
 // per visible (query, key) pair).  Three instances, picked by the caller
 // (ops/attention.py:flash_attention_bwd_route):
 //
-// "mma_3xtf32", f32 at D = 64 and 128, on the tensor cores: each f32
-// product is three mma.sync m16n8k8 TF32 products of the operands split
-// into big + small TF32 halves (common.cuh).  Emulated on the CPU with
-// exact sums (tests/test_torch_flash_bwd.py) that keeps the gradients
-// within ~1e-6 of max|plain|, where one TF32 product per f32 product misses
-// by ~1e-3; on the card, whose MMAs sum in their own f32 order, dk and dv
-// come within ~3e-5 at T = 2048 (chip_smoke.py phase 2).  A block of 4
-// warps holds 64 rows resident (K7: queries, q and do; K8: keys, k and v),
-// 16 rows a warp, and streams the other side's tiles through a two-stage
-// ring of 16-byte cp.async copies (K7: 32 keys of k and v at D = 64, 64 at
-// D = 128; K8: 32 queries of q, do, lse and dsum).  Each warp computes its
-// 16 rows' scores and dp against the tile (K7: S = Q K^T and dP = dO V^T;
-// K8: S^T = K Q^T and dP^T = V dO^T, so K8's rows are keys and no
-// transpose is needed), p and ds in the accumulator registers, and then
-// its gradient rows (K7: dQ += dS K; K8: dV += P^T dO, dK += dS^T Q) with
-// the accumulators in registers for the whole walk.  The m16n8k8
-// accumulator holds columns 2t, 2t+1 of a row where the A operand wants
-// columns t, t+4; the second product relabels its k index (k slot t is
-// column 2t, slot t+4 column 2t+1) and reads the B rows 2t, 2t+1 to match,
-// so p and ds go from accumulator to A operand in registers, with no
-// shared-memory staging or shuffles.  Shared rows are f32 padded to D + 4
-// floats: both fragment patterns (row g col t; row 2t col g) hit 32
+// "mma_3xtf32", f32 at every head dim (D % 4 == 0 up to 256), on the
+// tensor cores: each f32 product is three mma.sync m16n8k8 TF32 products of
+// the operands split into big + small TF32 halves (common.cuh).  Emulated
+// on the CPU with exact sums (tests/test_torch_flash_bwd.py) that keeps the
+// gradients within ~1e-6 of max|plain|, where one TF32 product per f32
+// product misses by ~1e-3; on the card, whose MMAs sum in their own f32
+// order, dk and dv come within ~3e-5 at T = 2048 and D = 64, ~4e-6 at D =
+// 80, 96 and 256 (chip_smoke.py phase 2).  D = 64 and 128
+// have kernels of their own: a block of 4 warps holds 64 rows resident (K7:
+// queries, q and do; K8: keys, k and v), 16 rows a warp, and streams the
+// other side's tiles through a two-stage ring of 16-byte cp.async copies
+// (K7: 32 keys of k and v at D = 64, 64 at D = 128; K8: 32 queries of q,
+// do, lse and dsum).  Each warp computes its 16 rows' scores and dp against
+// the tile (K7: S = Q K^T and dP = dO V^T; K8: S^T = K Q^T and dP^T = V
+// dO^T, so K8's rows are keys and no transpose is needed), p and ds in the
+// accumulator registers, and then its gradient rows (K7: dQ += dS K; K8: dV
+// += P^T dO, dK += dS^T Q) with the accumulators in registers for the whole
+// walk.  The m16n8k8 accumulator holds columns 2t, 2t+1 of a row where the
+// A operand wants columns t, t+4; the second product relabels its k index
+// (k slot t is column 2t, slot t+4 column 2t+1) and reads the B rows 2t,
+// 2t+1 to match, so p and ds go from accumulator to A operand in registers,
+// with no shared-memory staging or shuffles.  Shared rows are f32 padded to
+// D + 4 floats: both fragment patterns (row g col t; row 2t col g) hit 32
 // distinct banks.  Operands are split as each fragment is loaded (an
 // integer add and mask, and an f32 subtract).  What holds it back on the
 // H100 is latency, not a pipe: the MMAs and the split arithmetic do not
@@ -46,6 +47,47 @@
 // occupancy.  K7 schedules its longest causal walks first; K8's block 0 has
 // the longest walk already.  A warp skips a tile none of its rows sees, and
 // tests the causal mask only on tiles that cross the diagonal.
+//
+// Every other D runs the padded instances (flash_bwd_{dq,dkv}_3xtf32_pad_
+// kernel, one body), the head dim zero-padded in shared memory to the next
+// of 64, 80, 96, 128 or 256 (the padding changes no product and is never
+// stored), in the same fragments, relabelling and row padding (D + 4 floats:
+// 32 distinct banks for every padded D).  tf_plan gives each (D, pass) its
+// geometry: rt row tiles of 16 resident rows, cs warps a row tile, streamed
+// tiles of ``tile`` rows, and __launch_bounds__'s block count.  With cs > 1
+// the warps of a row tile split the streamed rows for s and dp, stage ds
+// (K8: p and ds) in shared memory as f32 (rows padded by 8 floats, so the
+// 8-byte stores and loads are free of bank conflicts), and after a barrier
+// each accumulates its share of the gradient columns over every row of the
+// tile.  With ks (D = 256) they split the head dim instead: each warp's
+// slice of s and dp over every streamed row (its A fragment split once, not
+// once a warp), the slices added in slice order through a buffer that the
+// staged tiles reuse.  The sums: s and dp a fresh fragment a 128 dims (a
+// slice), the gradients a fresh fragment a group of 32 streamed rows, each
+// added in f32, so the tensor cores' sums (no guard bits) stay short.  A
+// warp's 16 rows of dq, dk or dv are D/2 f32 registers a thread (128 at D
+// = 256, and K8 holds two): at D = 256 K8 takes 32 keys and four warps a
+// row tile, K7 32 queries likewise.  Shared memory decides the blocks an SM:
+// at D = 256 the resident rows and two stages of the streamed ones leave
+// room for one block.  tf_plan's geometries (tools/bwd_plans.py --f32 on an
+// NVIDIA H100 80GB HBM3 at a 700 W power limit: the fastest candidate with
+// no spills; ptxas registers a thread, blocks an SM by registers and shared
+// memory):
+//   K7 D=80: 4 warps, 64 queries, 32-key tiles, 161 registers, 2 blocks;
+//      D=96: 8 warps (cs 2), 32-key tiles, 127 registers, 2 blocks;
+//      D=256: 8 warps, 32 queries (cs 4, ks), 32-key tiles, 192
+//      registers, 1 block; padded 64 / 128: 4 warps, 32 / 64-key tiles,
+//      156 / 255 registers, 3 / 1 blocks.
+//   K8 D=80: 8 warps (cs 2), 64 keys, 32-query tiles, 128 registers, 2
+//      blocks; D=96: 4 warps, 16-query tiles, 237 registers, 2 blocks;
+//      D=256: 8 warps, 32 keys (cs 4, ks), 32-query tiles, 243 registers,
+//      1 block; padded 64 / 128: 4 warps, 32-query tiles, 204 / 255
+//      registers, 2 / 1 blocks.
+// Splitting the head dim (ks) ran K7 and K8 at D = 256 1.14x and 1.09x
+// faster than splitting the streamed rows; at D = 80 and 96 (cs 2) it
+// spilled and ran slower.  Score sums in independent chains of k-steps
+// moved nothing, and more warps an SM (D = 256: 8 warps against 4) helped
+// most, as at D = 64.
 //
 // "mma_bf16", bf16 at D % 16 == 0 up to 256 (every preset's head dim: 64,
 // 80, 96, 128, 256), on the tensor cores as mma.sync m16n8k16 bf16 -> f32,
@@ -93,15 +135,15 @@
 //      registers, 1 block; D=256: 8 warps, 32 keys (cs 4), 64-query tiles,
 //      221 registers, 1 block.
 //
-// "fma", bf16 at D % 16 != 0 and f32 at D other than 64 and 128, on the FMA
-// units from shared memory: 256 threads, 32-row query tiles and 32-key
+// "fma", bf16 at D % 16 != 0, on the FMA units from shared memory (its f32
+// instantiations are gone: f32 takes "mma_3xtf32" at every D, and the
+// launcher refuses f32 here): 256 threads, 32-row query tiles and 32-key
 // tiles, rows padded to D + 4 floats so each lane reads its own key row as
 // float4 without bank conflicts.  In the score pass a warp takes 4 query
 // rows and a lane one key, and both dot products (q.k, do.v) share each
 // float4 of k and v.  In the accumulation pass a thread owns one row (K7: a
 // query row of dq; K8: a key row of dk and dv) and D/8 of its columns in
-// registers.  At D = 256 K8 takes 142 KB of dynamic shared memory and 64
-// accumulator registers.
+// registers.
 //
 // Every K7 walks the key tiles up to the query tile's causal horizon; every
 // K8 walks the query tiles from the first one that sees its key tile, and
@@ -118,36 +160,28 @@ constexpr int kRowsPerWarp = kBQ / (kThreads / 32);  // 4
 constexpr int kPS = kBS + 1;   // padded row of the p / ds tiles
 constexpr int kMaxD = 256;
 
-template <bool BF16>
+// four bf16 elements [i, i + 4) of p, widened to f32
 __device__ __forceinline__ float4 load4(const void* p, size_t i) {
-  if (BF16) {
-    const uint2 u =
-        *reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(p) + i);
-    return make_float4(__uint_as_float(u.x << 16),
-                       __uint_as_float(u.x & 0xFFFF0000u),
-                       __uint_as_float(u.y << 16),
-                       __uint_as_float(u.y & 0xFFFF0000u));
-  }
-  return *reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
+  const uint2 u =
+      *reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(p) + i);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xFFFF0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xFFFF0000u));
 }
 
-template <bool BF16>
+// v rounded to bf16 into elements [i, i + 4) of p
 __device__ __forceinline__ void store4(void* p, size_t i, float4 v) {
-  if (BF16) {
-    uint2 u;
-    u.x = static_cast<uint32_t>(float_to_bf16_bits(v.x)) |
-          (static_cast<uint32_t>(float_to_bf16_bits(v.y)) << 16);
-    u.y = static_cast<uint32_t>(float_to_bf16_bits(v.z)) |
-          (static_cast<uint32_t>(float_to_bf16_bits(v.w)) << 16);
-    *reinterpret_cast<uint2*>(static_cast<uint16_t*>(p) + i) = u;
-  } else {
-    *reinterpret_cast<float4*>(static_cast<float*>(p) + i) = v;
-  }
+  uint2 u;
+  u.x = static_cast<uint32_t>(float_to_bf16_bits(v.x)) |
+        (static_cast<uint32_t>(float_to_bf16_bits(v.y)) << 16);
+  u.y = static_cast<uint32_t>(float_to_bf16_bits(v.z)) |
+        (static_cast<uint32_t>(float_to_bf16_bits(v.w)) << 16);
+  *reinterpret_cast<uint2*>(static_cast<uint16_t*>(p) + i) = u;
 }
 
-// rows [row0, row0 + n) of one head's [rows, D] matrix at element ``base``
-// into sm[n][DP] as f32; rows past ``rows`` read as zeros.
-template <bool BF16>
+// rows [row0, row0 + n) of one head's [rows, D] bf16 matrix at element
+// ``base`` into sm[n][DP] as f32; rows past ``rows`` read as zeros.
 __device__ __forceinline__ void load_tile(float* sm, const void* g,
                                           size_t base, int row0, int n,
                                           int rows, int D, int DP) {
@@ -156,7 +190,7 @@ __device__ __forceinline__ void load_tile(float* sm, const void* g,
     const int r = idx / d4, d = (idx % d4) * 4;
     const int row = row0 + r;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < rows) val = load4<BF16>(g, base + static_cast<size_t>(row) * D + d);
+    if (row < rows) val = load4(g, base + static_cast<size_t>(row) * D + d);
     *reinterpret_cast<float4*>(sm + r * DP + d) = val;
   }
 }
@@ -221,7 +255,7 @@ __device__ __forceinline__ void probs(const float* qs, const float* dos,
 }
 
 // K7: one block per (b, h, 32-query tile); NG = D / 32 rounded up (2, 4, 8).
-template <bool BF16, int NG>
+template <int NG>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const void* __restrict__ q,     // [B, H, T, D]
                     const void* __restrict__ k,     // [B, H, S, D]
@@ -249,8 +283,8 @@ flash_bwd_dq_kernel(const void* __restrict__ q,     // [B, H, T, D]
   const size_t kvbase = static_cast<size_t>(bh) * S * D;
   const float slope = slopes ? slopes[h] : 0.f;
 
-  load_tile<BF16>(qs, q, qbase, q0, kBQ, T, D, DP);
-  load_tile<BF16>(dos, do_, qbase, q0, kBQ, T, D, DP);
+  load_tile(qs, q, qbase, q0, kBQ, T, D, DP);
+  load_tile(dos, do_, qbase, q0, kBQ, T, D, DP);
   load_row_stats(lse_s, dsum_s, lse, dsum, static_cast<size_t>(bh) * T, q0, T);
   // keys any query of this tile can see
   const int last_t = min(q0 + kBQ, T) - 1;
@@ -264,8 +298,8 @@ flash_bwd_dq_kernel(const void* __restrict__ q,     // [B, H, T, D]
 
   for (int s0 = 0; s0 < n_keys; s0 += kBS) {
     __syncthreads();  // q staged / previous tile consumed
-    load_tile<BF16>(ks, k, kvbase, s0, kBS, S, D, DP);
-    load_tile<BF16>(vs, v, kvbase, s0, kBS, S, D, DP);
+    load_tile(ks, k, kvbase, s0, kBS, S, D, DP);
+    load_tile(vs, v, kvbase, s0, kBS, S, D, DP);
     __syncthreads();
     float p[kRowsPerWarp], ds[kRowsPerWarp];
     probs(qs, dos, ks, vs, lse_s, dsum_s, r0, lane, q0, s0, T, S, D, DP,
@@ -297,14 +331,14 @@ flash_bwd_dq_kernel(const void* __restrict__ q,     // [B, H, T, D]
   for (int gi = 0; gi < NG; ++gi) {
     const int col = gi * 32 + c * 4;
     if (col < D)
-      store4<BF16>(dq, obase + col,
+      store4(dq, obase + col,
                    make_float4(acc[4 * gi], acc[4 * gi + 1], acc[4 * gi + 2],
                                acc[4 * gi + 3]));
   }
 }
 
 // K8: one block per (b, h, 32-key tile).
-template <bool BF16, int NG>
+template <int NG>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const void* __restrict__ q, const void* __restrict__ k,
                      const void* __restrict__ v, const void* __restrict__ do_,
@@ -332,8 +366,8 @@ flash_bwd_dkv_kernel(const void* __restrict__ q, const void* __restrict__ k,
   const size_t kvbase = static_cast<size_t>(bh) * S * D;
   const float slope = slopes ? slopes[h] : 0.f;
 
-  load_tile<BF16>(ks, k, kvbase, s0, kBS, S, D, DP);
-  load_tile<BF16>(vs, v, kvbase, s0, kBS, S, D, DP);
+  load_tile(ks, k, kvbase, s0, kBS, S, D, DP);
+  load_tile(vs, v, kvbase, s0, kBS, S, D, DP);
 
   const int key = tid / 8, c = tid % 8;
   const int r0 = warp * kRowsPerWarp;
@@ -348,8 +382,8 @@ flash_bwd_dkv_kernel(const void* __restrict__ q, const void* __restrict__ k,
   for (int it = first; it < n_qt; ++it) {
     const int q0 = it * kBQ;
     __syncthreads();  // previous query tile consumed
-    load_tile<BF16>(qs, q, qbase, q0, kBQ, T, D, DP);
-    load_tile<BF16>(dos, do_, qbase, q0, kBQ, T, D, DP);
+    load_tile(qs, q, qbase, q0, kBQ, T, D, DP);
+    load_tile(dos, do_, qbase, q0, kBQ, T, D, DP);
     load_row_stats(lse_s, dsum_s, lse, dsum, static_cast<size_t>(bh) * T, q0, T);
     __syncthreads();
     float p[kRowsPerWarp], ds[kRowsPerWarp];
@@ -391,10 +425,10 @@ flash_bwd_dkv_kernel(const void* __restrict__ q, const void* __restrict__ k,
   for (int gi = 0; gi < NG; ++gi) {
     const int col = gi * 32 + c * 4;
     if (col < D) {
-      store4<BF16>(dk, obase + col,
+      store4(dk, obase + col,
                    make_float4(dka[4 * gi], dka[4 * gi + 1], dka[4 * gi + 2],
                                dka[4 * gi + 3]));
-      store4<BF16>(dv, obase + col,
+      store4(dv, obase + col,
                    make_float4(dva[4 * gi], dva[4 * gi + 1], dva[4 * gi + 2],
                                dva[4 * gi + 3]));
     }
@@ -791,6 +825,542 @@ flash_bwd_dkv_3xtf32_kernel(const float* __restrict__ q,
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// "mma_3xtf32" at the other head dims: D zero-padded in shared memory
+// ---------------------------------------------------------------------------
+
+// Each padded instance's geometry by the padded head dim, as bf_plan's: rt
+// row tiles of 16 resident rows (K7 queries, K8 keys); cs warps a row tile
+// (with cs > 1 they split the streamed tile's rows for s and dp -- with ks,
+// the head dim instead, and then add their slices through shared memory --
+// stage ds (K8: p and ds) in shared memory as f32, and after a barrier each
+// takes its share of the gradient columns over every row of the tile);
+// streamed tiles of ``tile`` rows (K7 keys, K8 queries); and the blocks an
+// SM the register budget is set for (__launch_bounds__).  Picked by
+// measurement (tools/bwd_plans.py --f32; see the header).
+struct TfPlan {
+  int rt, cs, tile, min_blocks, ks;
+};
+__host__ __device__ constexpr TfPlan tf_plan(int dpad, bool dkv) {
+  return dkv ? (dpad <= 64   ? TfPlan{4, 1, 32, 2, 0}
+                : dpad <= 80 ? TfPlan{4, 2, 32, 2, 0}
+                : dpad <= 96 ? TfPlan{4, 1, 16, 2, 0}
+                : dpad <= 128 ? TfPlan{4, 1, 32, 1, 0}
+                              : TfPlan{2, 4, 32, 1, 1})
+             : (dpad <= 64   ? TfPlan{4, 1, 32, 3, 0}
+                : dpad <= 80 ? TfPlan{4, 1, 32, 2, 0}
+                : dpad <= 96 ? TfPlan{4, 2, 32, 2, 0}
+                : dpad <= 128 ? TfPlan{4, 1, 64, 1, 0}
+                              : TfPlan{2, 4, 32, 1, 1});
+}
+__host__ __device__ constexpr int tf_threads(int dpad, bool dkv) {
+  return 32 * tf_plan(dpad, dkv).rt * tf_plan(dpad, dkv).cs;
+}
+// resident rows a and b, two stages of streamed rows a and b, rows padded
+// to dpad + 4 floats; K8 two stages of lse and dsum; with cs > 1 the staged
+// ds (K8: p and ds), rows padded to tile + 8 floats, and with ks the slice
+// buffer in the same place, whichever is larger
+__host__ __device__ constexpr size_t tf_smem_bytes(int dpad, bool dkv) {
+  const TfPlan P = tf_plan(dpad, dkv);
+  const int staged = P.cs == 1 ? 0 : dkv ? 2 : 1;  // [16 rt][tile + 8] each
+  const int slices = P.ks ? 2 * (P.cs - 1) : 0;
+  return sizeof(float) *
+         ((32 * P.rt + 4 * P.tile) * static_cast<size_t>(dpad + 4) +
+          (dkv ? 4 * P.tile : 0) +
+          (staged > slices ? staged : slices) * 16 * P.rt *
+              static_cast<size_t>(P.tile + 8));
+}
+
+// Rows [row0, row0 + n) of one head's [rows, D] f32 matrix into sm[n][DP]
+// by 16-byte cp.async (D % 4 == 0); rows past ``rows`` read as zeros.
+template <int DP, int NTHR>
+__device__ __forceinline__ void tf_load_rows(float* sm, const float* g,
+                                             int row0, int n, int rows,
+                                             int D) {
+  const int c4 = D / 4;
+  for (int idx = threadIdx.x; idx < n * c4; idx += NTHR) {
+    const int r = idx / c4, c = (idx % c4) * 4;
+    const int row = row0 + r;
+    const bool ok = row < rows;
+    cp_async16(sm + r * DP + c, g + static_cast<size_t>(ok ? row : 0) * D + c,
+               ok);
+  }
+}
+
+// Zero columns [D, DPAD) of n shared rows: no load touches them, and they
+// change no product
+template <int DPAD, int NTHR>
+__device__ __forceinline__ void tf_zero_pad(float* sm, int n, int D) {
+  constexpr int DP = DPAD + 4;
+  if (DPAD == D) return;
+  const int np = DPAD - D;
+  for (int idx = threadIdx.x; idx < n * np; idx += NTHR)
+    sm[(idx / np) * DP + D + idx % np] = 0.f;
+}
+
+// k-step kk of one warp's score products: sa += A B^T, pa += A2 B2^T, a
+// and a2 at row g, column t4 of its 16 resident rows, b and b2 at row g,
+// column t4 of the NT * 8 streamed rows
+template <int NT, int DP>
+__device__ __forceinline__ void tf_score_step(float (&sa)[NT][4],
+                                              float (&pa)[NT][4],
+                                              const float* a, const float* a2,
+                                              const float* b, const float* b2,
+                                              int kk) {
+  const float* ar = a + kk * 8;
+  const float* ar2 = a2 + kk * 8;
+  FragA3 qa, oa;
+  qa.set(ar[0], ar[8 * DP], ar[4], ar[8 * DP + 4]);
+  oa.set(ar2[0], ar2[8 * DP], ar2[4], ar2[8 * DP + 4]);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int off = nt * 8 * DP + kk * 8;
+    FragB3 kb, vb;
+    kb.set(b[off], b[off + 4]);
+    vb.set(b2[off], b2[off + 4]);
+    mma_3xtf32(sa[nt], qa, kb);
+    mma_3xtf32(pa[nt], oa, vb);
+  }
+}
+
+// One warp's s and dp over KS k-steps of the padded head dim (a, a2, b, b2
+// at the first): a fresh fragment a 128 dims, added in f32, so that the
+// tensor cores' own sums span at most 16 k-steps
+template <int KS, int NT, int DP>
+__device__ __forceinline__ void tf_scores(float (&sa)[NT][4],
+                                          float (&pa)[NT][4], const float* a,
+                                          const float* a2, const float* b,
+                                          const float* b2) {
+  constexpr int KC = KS < 16 ? KS : 16;
+  static_assert(KS % KC == 0, "whole 128-dim parts");
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+    sa[i][0] = sa[i][1] = sa[i][2] = sa[i][3] = pa[i][0] = pa[i][1] =
+        pa[i][2] = pa[i][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk)
+    tf_score_step<NT, DP>(sa, pa, a, a2, b, b2, kk);
+#pragma unroll
+  for (int c = KC; c < KS; c += KC) {
+    float ta[NT][4], tp[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+      ta[i][0] = ta[i][1] = ta[i][2] = ta[i][3] = tp[i][0] = tp[i][1] =
+          tp[i][2] = tp[i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk)
+      tf_score_step<NT, DP>(ta, tp, a, a2, b, b2, c + kk);
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sa[i][e] += ta[i][e];
+        pa[i][e] += tp[i][e];
+      }
+  }
+}
+
+// acc += X Bt over NG k-steps of 8 streamed rows: X one warp's 16 rows as
+// A fragments (k slot t4 is streamed row 2 t4 and slot t4 + 4 row 2 t4 + 1,
+// so the m16n8 accumulator is the fragment as it stands), bt at streamed row
+// 2 t4 of the first k-step and the warp's column g.  Each n-tile's products
+// go into a fresh fragment, added to acc in f32: the tensor cores' own sums
+// span NG k-steps.
+template <int NG, int ND, int DP>
+__device__ __forceinline__ void tf_grad(float (&acc)[ND][4],
+                                        const FragA3 (&xa)[NG],
+                                        const float* bt) {
+#pragma unroll
+  for (int dn = 0; dn < ND; ++dn) {
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const float* r = bt + j * 8 * DP + dn * 8;
+      FragB3 b;
+      b.set(r[0], r[DP]);
+      mma_3xtf32(f, xa[j], b);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] += f[e];
+  }
+}
+
+// acc += X Bt over the KT k-steps of a streamed tile, X in registers as
+// m16n8 accumulators x[KT][4] (one per 8 streamed rows), 4 k-steps (32
+// rows) a group
+template <int KT, int ND, int DP>
+__device__ __forceinline__ void tf_grad_regs(float (&acc)[ND][4],
+                                             const float (&x)[KT][4],
+                                             const float* bt) {
+  constexpr int G = KT < 4 ? KT : 4;
+  static_assert(KT % G == 0, "whole groups");
+#pragma unroll
+  for (int j0 = 0; j0 < KT; j0 += G) {
+    FragA3 xa[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      xa[j].set(x[j0 + j][0], x[j0 + j][2], x[j0 + j][1], x[j0 + j][3]);
+    tf_grad<G, ND, DP>(acc, xa, bt + j0 * 8 * DP);
+  }
+}
+
+// The same with X staged in shared memory (row g of the warp's 16 at xs,
+// row pitch PS, streamed rows as columns)
+template <int KT, int ND, int DP, int PS>
+__device__ __forceinline__ void tf_grad_staged(float (&acc)[ND][4],
+                                               const float* xs,
+                                               const float* bt, int t4) {
+  constexpr int G = KT < 4 ? KT : 4;
+  static_assert(KT % G == 0, "whole groups");
+#pragma unroll
+  for (int j0 = 0; j0 < KT; j0 += G) {
+    FragA3 xa[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const float2 x0 =
+          *reinterpret_cast<const float2*>(xs + (j0 + j) * 8 + 2 * t4);
+      const float2 x1 =
+          *reinterpret_cast<const float2*>(xs + 8 * PS + (j0 + j) * 8 + 2 * t4);
+      xa[j].set(x0.x, x1.x, x0.y, x1.y);
+    }
+    tf_grad<G, ND, DP>(acc, xa, bt + j0 * 8 * DP);
+  }
+}
+
+// The block of K7 (DKV false) or K8 (DKV true) at padded head dim DPAD: a
+// block per (b, h, 16 * rt resident rows), warps by tf_plan.  Resident: K7
+// queries (q, do; longest causal walk first), K8 keys (k, v).  Streamed: K7
+// keys (k, v) up to the block's causal horizon, K8 queries (q, do, lse,
+// dsum) from the first that sees the block's keys.
+template <int DPAD, bool DKV>
+__device__ __forceinline__ void tf_pad_block(
+    const float* __restrict__ q,     // [B, H, T, D]
+    const float* __restrict__ k,     // [B, H, S, D]
+    const float* __restrict__ v,     // [B, H, S, D]
+    const float* __restrict__ do_,   // [B, H, T, D]
+    const float* __restrict__ lse,   // [B, H, T]
+    const float* __restrict__ dsum,  // [B, H, T]
+    float* __restrict__ out0,        // K7 dq; K8 dk
+    float* __restrict__ out1,        // K8 dv
+    const float* __restrict__ slopes,  // [H] or null
+    int H, int T, int S, int D, int n_past, float scale) {
+  constexpr TfPlan P = tf_plan(DPAD, DKV);
+  constexpr int NTHR = tf_threads(DPAD, DKV);
+  constexpr int R = 16 * P.rt;      // resident rows
+  constexpr int BS = P.tile;        // streamed rows a tile
+  constexpr int W = BS / P.cs;      // streamed rows of a warp's s and dp
+  constexpr int DP = DPAD + 4;      // shared row: 32 distinct banks
+  constexpr int PS = BS + 8;        // staged row
+  constexpr int KS = DPAD / 8;      // k-steps of the score products
+  constexpr int NS = W / 8;         // 8-row n-tiles of a warp's score tile
+  constexpr int KT = BS / 8;        // k-steps of the gradient products
+  constexpr int DH = DPAD / P.cs;   // a warp's gradient columns
+  constexpr int ND = DH / 8;
+  static_assert(W % 8 == 0 && DH % 8 == 0, "whole 8-wide fragments");
+  static_assert(!P.ks || (P.cs > 1 && KS % P.cs == 0),
+                "ks: the cs warps of a row tile split the head dim");
+  extern __shared__ __align__(16) float sm[];
+  float* ra = sm;                // [R][DP] K7 q, K8 k
+  float* rb = ra + R * DP;       // [R][DP] K7 do, K8 v
+  float* sa_ = rb + R * DP;      // [2][BS][DP] K7 k, K8 q
+  float* sb_ = sa_ + 2 * BS * DP;  // [2][BS][DP] K7 v, K8 do
+  float* lse_s = sb_ + 2 * BS * DP;  // K8: [2][BS]
+  float* dsum_s = lse_s + 2 * BS;    // K8: [2][BS]
+  // cs > 1: the staged ds [R][PS] (K8: p and ds); with ks first the slice
+  // buffer, s then dp, each [cs - 1][R][PS]: slot (c < w ? c : c - 1) of
+  // share w's rows holds warp c's slice
+  float* stg = DKV ? dsum_s + 2 * BS : lse_s;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;  // mma row group, lane in quad
+  const int r0 = (warp % P.rt) * 16;
+  const int cw = warp / P.rt;    // this warp's share of its row tile:
+  const int wc = cw * W;         // its streamed rows (ks: its slice of the
+  const int col0 = cw * DH;      // head dim first) and gradient columns
+  const int bh = blockIdx.y, h = bh % H;
+  const int n_res = DKV ? S : T, n_str = DKV ? T : S;
+  const int row0 = (DKV ? blockIdx.x : gridDim.x - 1 - blockIdx.x) * R;
+  const size_t qbase = static_cast<size_t>(bh) * T * D;
+  const size_t kvbase = static_cast<size_t>(bh) * S * D;
+  const float* res_a = DKV ? k + kvbase : q + qbase;
+  const float* res_b = DKV ? v + kvbase : do_ + qbase;
+  const float* str_a = DKV ? q + qbase : k + kvbase;
+  const float* str_b = DKV ? do_ + qbase : v + kvbase;
+  const size_t rbase = static_cast<size_t>(bh) * T;
+  const float slope = slopes ? slopes[h] : 0.f;
+
+  // K7 walks the keys any query of the block sees; K8 the query tiles from
+  // that of t = row0 - n_past (a key row0 sees no earlier query), and tiles
+  // no query reaches leave the zeros
+  int first = 0, n_it;
+  if constexpr (DKV) {
+    first = row0 > n_past ? (row0 - n_past) / BS : 0;
+    n_it = (T + BS - 1) / BS;
+  } else {
+    const int n_keys = min(S, n_past + min(row0 + R, T));
+    n_it = n_keys > 0 ? (n_keys + BS - 1) / BS : 0;
+  }
+  // stream tile it's rows into stage st
+  auto load_tile = [&](int st, int it) {
+    const int i0 = it * BS;
+    tf_load_rows<DP, NTHR>(sa_ + st * BS * DP, str_a, i0, BS, n_str, D);
+    tf_load_rows<DP, NTHR>(sb_ + st * BS * DP, str_b, i0, BS, n_str, D);
+    if constexpr (DKV) {
+      for (int i = threadIdx.x; i < BS; i += NTHR) {
+        const int t = i0 + i;
+        const bool ok = t < T;  // past T: zeros, masked by t < T
+        cp_async4(lse_s + st * BS + i, lse + rbase + (ok ? t : 0), ok);
+        cp_async4(dsum_s + st * BS + i, dsum + rbase + (ok ? t : 0), ok);
+      }
+    }
+  };
+  tf_zero_pad<DPAD, NTHR>(sm, 2 * R + 4 * BS, D);
+  tf_load_rows<DP, NTHR>(ra, res_a, row0, R, n_res, D);
+  tf_load_rows<DP, NTHR>(rb, res_b, row0, R, n_res, D);
+  if (first < n_it) load_tile(0, first);
+  cp_async_commit();
+
+  // this thread's resident rows: lo (accumulator elements 0, 1), hi (2, 3)
+  const int lo = row0 + r0 + g, hi = lo + 8;
+  const bool warp_live = row0 + r0 < n_res;
+  float lse_lo = 0.f, lse_hi = 0.f, dsum_lo = 0.f, dsum_hi = 0.f;
+  if constexpr (!DKV) {
+    lse_lo = tc_row_lse(lse, rbase, lo, T);
+    lse_hi = tc_row_lse(lse, rbase, hi, T);
+    dsum_lo = lo < T ? dsum[rbase + lo] : 0.f;
+    dsum_hi = hi < T ? dsum[rbase + hi] : 0.f;
+  }
+  const int horizon = n_past + min(row0 + r0 + 15, T - 1);  // K7: last key
+  // K7: dq; K8: dk (acc) and dv (acc2)
+  float acc[ND][4], acc2[DKV ? ND : 1][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (DKV ? ND : 1); ++i)
+    acc2[i][0] = acc2[i][1] = acc2[i][2] = acc2[i][3] = 0.f;
+
+  for (int it = first; it < n_it; ++it) {
+    const int st = (it - first) & 1;
+    if (it + 1 < n_it) load_tile(st ^ 1, it + 1);  // prefetch
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int i0 = it * BS;
+    const float* ta = sa_ + st * BS * DP;
+    const float* tb = sb_ + st * BS * DP;
+    // K7: a key of the tile is within the row tile's horizon; K8: the
+    // tile's last query sees the row tile's first key.  The same for every
+    // warp of a row tile
+    const bool live = warp_live && (DKV ? row0 + r0 <= n_past + min(i0 + BS, T) - 1
+                                        : i0 <= horizon);
+    float sa[NS][4], pa[NS][4];  // S and dP (K8: S^T and dP^T)
+    float fs[P.ks ? KT : 1][4], fp[P.ks ? KT : 1][4];  // ks: a slice's
+    if (live) {
+      if constexpr (P.ks) {
+        // s and dp over this warp's slice of the head dim, every streamed
+        // row; the other warps' shares of the rows into the slice buffer
+        const int k0 = cw * (KS / P.cs) * 8;
+        tf_scores<KS / P.cs, KT, DP>(
+            fs, fp, ra + (r0 + g) * DP + t4 + k0, rb + (r0 + g) * DP + t4 + k0,
+            ta + g * DP + t4 + k0, tb + g * DP + t4 + k0);
+#pragma unroll
+        for (int nt = 0; nt < KT; ++nt) {
+          const int w = nt / NS;  // the share these rows belong to
+          if (w == cw) continue;
+          const int slot = cw < w ? cw : cw - 1;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int at =
+                (slot * R + r0 + g + 8 * half) * PS + nt * 8 + 2 * t4;
+            *reinterpret_cast<float2*>(stg + at) =
+                make_float2(fs[nt][2 * half], fs[nt][2 * half + 1]);
+            *reinterpret_cast<float2*>(stg + (P.cs - 1) * R * PS + at) =
+                make_float2(fp[nt][2 * half], fp[nt][2 * half + 1]);
+          }
+        }
+      } else {
+        tf_scores<KS, NS, DP>(
+            sa, pa, ra + (r0 + g) * DP + t4, rb + (r0 + g) * DP + t4,
+            ta + (wc + g) * DP + t4, tb + (wc + g) * DP + t4);
+      }
+    }
+    if constexpr (P.ks) {
+      __syncthreads();  // the slices are in the buffer
+      if (live) {
+        // this warp's share: the slices added in slice order
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float2 xs, xp;
+#pragma unroll
+            for (int c = 0; c < P.cs; ++c) {
+              float2 ys, yp;
+              if (c == cw) {
+#pragma unroll
+                for (int i = 0; i < P.cs; ++i)  // fs[cw * NS + n], unrolled
+                  if (i == cw) {
+                    ys = make_float2(fs[i * NS + n][2 * half],
+                                     fs[i * NS + n][2 * half + 1]);
+                    yp = make_float2(fp[i * NS + n][2 * half],
+                                     fp[i * NS + n][2 * half + 1]);
+                  }
+              } else {
+                const int at = ((c < cw ? c : c - 1) * R + r0 + g + 8 * half) *
+                                   PS + wc + n * 8 + 2 * t4;
+                ys = *reinterpret_cast<const float2*>(stg + at);
+                yp = *reinterpret_cast<const float2*>(stg + (P.cs - 1) * R * PS +
+                                                      at);
+              }
+              if (c == 0) {
+                xs = ys;
+                xp = yp;
+              } else {
+                xs.x += ys.x;
+                xs.y += ys.y;
+                xp.x += yp.x;
+                xp.y += yp.y;
+              }
+            }
+            sa[n][2 * half] = xs.x;
+            sa[n][2 * half + 1] = xs.y;
+            pa[n][2 * half] = xp.x;
+            pa[n][2 * half + 1] = xp.y;
+          }
+        }
+      }
+      __syncthreads();  // the buffer is read: the staged tiles go there
+    }
+    if (live) {
+      // p (K8) and ds in place; streamed rows w0 + 8 nt + 2 t4 + (e & 1).
+      // The mask is tested only where a resident row misses a streamed one
+      const int w0 = i0 + wc;
+      if constexpr (!DKV) {
+        const bool full = w0 + W - 1 <= n_past + row0 + r0 && w0 + W <= S;
+#pragma unroll
+        for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int s = w0 + nt * 8 + 2 * t4 + (e & 1);
+            const int t = e < 2 ? lo : hi;
+            const float p = full || (s < S && s <= n_past + t)
+                ? tc_prob(sa[nt][e], scale, slope, s, e < 2 ? lse_lo : lse_hi)
+                : 0.f;
+            sa[nt][e] = p * (pa[nt][e] - (e < 2 ? dsum_lo : dsum_hi)) * scale;
+          }
+        }
+      } else {
+        const float* lt = lse_s + st * BS + wc;
+        const float* dt = dsum_s + st * BS + wc;
+        const bool full = row0 + r0 + 15 <= n_past + w0 && w0 + W <= T &&
+                          row0 + r0 + 16 <= S;
+#pragma unroll
+        for (int nt = 0; nt < NS; ++nt) {
+          const float2 l = *reinterpret_cast<const float2*>(lt + nt * 8 + 2 * t4);
+          const float2 d2 = *reinterpret_cast<const float2*>(dt + nt * 8 + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int s = e < 2 ? lo : hi;
+            const int t = w0 + nt * 8 + 2 * t4 + (e & 1);
+            const float p = full || (t < T && s < S && s <= n_past + t)
+                ? tc_prob(sa[nt][e], scale, slope, s,
+                          tc_live_lse((e & 1) ? l.y : l.x))
+                : 0.f;
+            sa[nt][e] = p;
+            pa[nt][e] = p * (pa[nt][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+          }
+        }
+      }
+      if constexpr (P.cs == 1) {
+        // K7: dQ += dS K; K8: dV += P^T dO, then dK += dS^T Q
+        const int b_off = 2 * t4 * DP + g;
+        if constexpr (DKV) {
+          tf_grad_regs<KT, ND, DP>(acc2, sa, tb + b_off);
+          tf_grad_regs<KT, ND, DP>(acc, pa, ta + b_off);
+        } else {
+          tf_grad_regs<KT, ND, DP>(acc, sa, ta + b_off);
+        }
+      } else {
+        // stage ds (K8: p, then ds): rows resident, columns streamed
+#pragma unroll
+        for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int at = (r0 + g + 8 * half) * PS + wc + nt * 8 + 2 * t4;
+            *reinterpret_cast<float2*>(stg + at) =
+                make_float2(sa[nt][2 * half], sa[nt][2 * half + 1]);
+            if constexpr (DKV)
+              *reinterpret_cast<float2*>(stg + R * PS + at) =
+                  make_float2(pa[nt][2 * half], pa[nt][2 * half + 1]);
+          }
+        }
+      }
+    }
+    if constexpr (P.cs > 1) {
+      __syncthreads();  // a row tile's ds (K8: p and ds) are staged
+      if (live) {
+        // every streamed row of the tile, this warp's columns
+        const int b_off = 2 * t4 * DP + col0 + g;
+        const float* xs = stg + (r0 + g) * PS;
+        if constexpr (DKV) {
+          tf_grad_staged<KT, ND, DP, PS>(acc2, xs, tb + b_off, t4);
+          tf_grad_staged<KT, ND, DP, PS>(acc, xs + R * PS, ta + b_off, t4);
+        } else {
+          tf_grad_staged<KT, ND, DP, PS>(acc, xs, ta + b_off, t4);
+        }
+      }
+    }
+    __syncthreads();  // this stage and the staged tiles are refilled next
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? hi : lo;
+    if (r >= n_res) continue;
+    float* row0p = out0 + (DKV ? kvbase : qbase) + static_cast<size_t>(r) * D;
+    float* row1p = DKV ? out1 + kvbase + static_cast<size_t>(r) * D : nullptr;
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn) {
+      const int col = col0 + dn * 8 + 2 * t4;
+      if (col >= D) continue;  // the head dim's padding is never stored
+      *reinterpret_cast<float2*>(row0p + col) =
+          make_float2(acc[dn][2 * half], acc[dn][2 * half + 1]);
+      if constexpr (DKV)
+        *reinterpret_cast<float2*>(row1p + col) =
+            make_float2(acc2[dn][2 * half], acc2[dn][2 * half + 1]);
+    }
+  }
+}
+
+#define VSIM_TF_PAD_PARAMS                                                  \
+  const float *__restrict__ q, const float *__restrict__ k,                 \
+      const float *__restrict__ v, const float *__restrict__ do_,           \
+      const float *__restrict__ lse, const float *__restrict__ dsum,        \
+      float *__restrict__ out0, float *__restrict__ out1,                   \
+      const float *__restrict__ slopes, int H, int T, int S, int D,         \
+      int n_past, float scale
+
+// K7 at padded head dim DPAD: dq into out0 (out1 unused)
+template <int DPAD>
+__global__ void __launch_bounds__(tf_threads(DPAD, false),
+                                  tf_plan(DPAD, false).min_blocks)
+flash_bwd_dq_3xtf32_pad_kernel(VSIM_TF_PAD_PARAMS) {
+  tf_pad_block<DPAD, false>(q, k, v, do_, lse, dsum, out0, out1, slopes, H, T,
+                            S, D, n_past, scale);
+}
+
+// K8 at padded head dim DPAD: dk into out0, dv into out1
+template <int DPAD>
+__global__ void __launch_bounds__(tf_threads(DPAD, true),
+                                  tf_plan(DPAD, true).min_blocks)
+flash_bwd_dkv_3xtf32_pad_kernel(VSIM_TF_PAD_PARAMS) {
+  tf_pad_block<DPAD, true>(q, k, v, do_, lse, dsum, out0, out1, slopes, H, T,
+                           S, D, n_past, scale);
+}
+
+#undef VSIM_TF_PAD_PARAMS
 
 // ---------------------------------------------------------------------------
 // "mma_bf16": bf16 at D % 16 == 0 (D <= 256) on the tensor cores
@@ -1266,9 +1836,9 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <bool BF16, int NG>
+template <int NG>
 int launch_dq(const Args& a) {
-  auto kern = flash_bwd_dq_kernel<BF16, NG>;
+  auto kern = flash_bwd_dq_kernel<NG>;
   const size_t smem = dq_smem_bytes(a.D);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1280,9 +1850,9 @@ int launch_dq(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF16, int NG>
+template <int NG>
 int launch_dkv(const Args& a) {
-  auto kern = flash_bwd_dkv_kernel<BF16, NG>;
+  auto kern = flash_bwd_dkv_kernel<NG>;
   const size_t smem = dkv_smem_bytes(a.D);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1367,6 +1937,38 @@ int launch_dkv_bf16(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DPAD, bool DKV>
+int launch_3xtf32_pad(const Args& a) {
+  auto kern = DKV ? flash_bwd_dkv_3xtf32_pad_kernel<DPAD>
+                 : flash_bwd_dq_3xtf32_pad_kernel<DPAD>;
+  constexpr size_t smem = tf_smem_bytes(DPAD, DKV);
+  static_assert(smem <= 232448, "a block's shared memory on the H100");
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int R = 16 * tf_plan(DPAD, DKV).rt;
+  const dim3 grid(((DKV ? a.S : a.T) + R - 1) / R, a.B * a.H);
+  kern<<<grid, tf_threads(DPAD, DKV), smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.do_), a.lse,
+      a.dsum, static_cast<float*>(a.out0), static_cast<float*>(a.out1),
+      a.slopes, a.H, a.T, a.S, a.D, a.n_past, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// "mma_3xtf32" at head dim D: the D = 64 and 128 kernels, else the instance
+// padded to the next of 64, 80, 96, 128, 256
+template <bool DKV>
+int launch_3xtf32(const Args& a) {
+  if (a.D == 64) return DKV ? launch_dkv_3xtf32<64>(a) : launch_dq_3xtf32<64>(a);
+  if (a.D == 128) return DKV ? launch_dkv_3xtf32<128>(a) : launch_dq_3xtf32<128>(a);
+  if (a.D <= 64) return launch_3xtf32_pad<64, DKV>(a);
+  if (a.D <= 80) return launch_3xtf32_pad<80, DKV>(a);
+  if (a.D <= 96) return launch_3xtf32_pad<96, DKV>(a);
+  if (a.D <= 128) return launch_3xtf32_pad<128, DKV>(a);
+  return launch_3xtf32_pad<256, DKV>(a);
+}
+
 // "mma_bf16" at head dim D, padded to the next of 64, 80, 96, 128, 256
 template <bool DKV>
 int launch_bf16(const Args& a) {
@@ -1378,32 +1980,31 @@ int launch_bf16(const Args& a) {
 }
 
 // The instance the caller picked (ops/attention.py:_INSTANCES): 1
-// "mma_3xtf32" (f32 at D = 64 or 128), 2 "mma_bf16" (bf16 at D % 16 == 0),
-// 0 the FMA tiles, NG column groups of 32 covering D.  An instance that does
-// not exist for (dtype, D) is an error, never a substitute.
+// "mma_3xtf32" (f32), 2 "mma_bf16" (bf16 at D % 16 == 0), 0 the FMA tiles
+// (bf16), NG column groups of 32 covering D.  An instance that does not
+// exist for (dtype, D) is an error, never a substitute.
 template <bool DKV>
 int dispatch(const Args& a, int is_bf16, int inst) {
   if (a.D % 4 != 0 || a.D > kMaxD || a.D <= 0 || inst < 0 || inst > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (inst == 1) {
-    if (is_bf16 || (a.D != 64 && a.D != 128))
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (DKV) return a.D == 64 ? launch_dkv_3xtf32<64>(a) : launch_dkv_3xtf32<128>(a);
-    return a.D == 64 ? launch_dq_3xtf32<64>(a) : launch_dq_3xtf32<128>(a);
+    if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_3xtf32<DKV>(a);
   }
   if (inst == 2) {
     if (!is_bf16 || a.D % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
     return launch_bf16<DKV>(a);
   }
+  if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
   const int ng = a.D <= 64 ? 2 : a.D <= 128 ? 4 : 8;
   if (DKV) {
-    if (ng == 2) return is_bf16 ? launch_dkv<true, 2>(a) : launch_dkv<false, 2>(a);
-    if (ng == 4) return is_bf16 ? launch_dkv<true, 4>(a) : launch_dkv<false, 4>(a);
-    return is_bf16 ? launch_dkv<true, 8>(a) : launch_dkv<false, 8>(a);
+    if (ng == 2) return launch_dkv<2>(a);
+    if (ng == 4) return launch_dkv<4>(a);
+    return launch_dkv<8>(a);
   }
-  if (ng == 2) return is_bf16 ? launch_dq<true, 2>(a) : launch_dq<false, 2>(a);
-  if (ng == 4) return is_bf16 ? launch_dq<true, 4>(a) : launch_dq<false, 4>(a);
-  return is_bf16 ? launch_dq<true, 8>(a) : launch_dq<false, 8>(a);
+  if (ng == 2) return launch_dq<2>(a);
+  if (ng == 4) return launch_dq<4>(a);
+  return launch_dq<8>(a);
 }
 
 }  // namespace

@@ -12,11 +12,12 @@ K7 ``flash_attention_bwd_dq`` (replaces ``_bwd_dq_kernel``) and K8
 ``flash_attention_bwd_dkv`` (replaces ``_bwd_dkv_kernel``), both in
 csrc/flash_attention_bwd.cu, two passes with no atomics, so the gradients
 are the same from run to run.  ``flash_attention_bwd_route`` names the
-instance a call takes: f32 at D = 64 and 128 runs on the tensor cores, each
+instance a call takes: f32 runs on the tensor cores at every head dim, each
 f32 product as three TF32 products of operands split by ``tf32_round``
-("mma_3xtf32"); bf16 at D % 16 == 0 on the tensor cores as bf16 products,
-the f32 p and ds split by ``bf16_split`` into two products each
-("mma_bf16"); everything else on the FMA units ("fma").
+("mma_3xtf32"; D = 64 and 128 in their own kernels, any other D zero-padded
+in shared memory to 64, 80, 96, 128 or 256); bf16 at D % 16 == 0 on the
+tensor cores as bf16 products, the f32 p and ds split by ``bf16_split`` into
+two products each ("mma_bf16"); bf16 at other D on the FMA units ("fma").
 ``FlashAttention`` wires K4 and K7/K8 into autograd; ``flash_attention`` is
 the differentiable entry.
 
@@ -43,7 +44,6 @@ _ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
 # is_bf16, instance, B, H, T, S, D, n_past, scale, stream
 _BWD_DQ_ARGS = (_P,) * 8 + (_I,) * 8 + (ctypes.c_float, _P)
 _BWD_DKV_ARGS = (_P,) * 9 + (_I,) * 8 + (ctypes.c_float, _P)
-_MMA_HEAD_DIMS = (64, 128)  # csrc/flash_attention_bwd.cu's 3xTF32 instances
 # csrc/flash_attention_bwd.cu's dispatch codes of the K7/K8 instances
 _INSTANCES = {"fma": 0, "mma_3xtf32": 1, "mma_bf16": 2}
 
@@ -164,10 +164,12 @@ def _bwd_plain(q, k, v, do, lse, dsum, *, n_past, scale, slopes):
 
 def flash_attention_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The K7/K8 instance a call with q of ``dtype`` and head dim
-    ``head_dim`` takes on the card: "mma_3xtf32" (tensor cores, f32 at D =
-    64 and 128), "mma_bf16" (tensor cores, bf16 at D % 16 == 0 up to 256)
-    or "fma" (FMA tiles: bf16 at other D, f32 at other D)."""
-    if dtype == torch.float32 and head_dim in _MMA_HEAD_DIMS:
+    ``head_dim`` takes on the card: "mma_3xtf32" (tensor cores, f32 at
+    every head dim the kernels take: D % 4 == 0 up to 256, padded in shared
+    memory to 64, 80, 96, 128 or 256 where D is not 64 or 128), "mma_bf16"
+    (tensor cores, bf16 at D % 16 == 0 up to 256) or "fma" (FMA tiles, bf16
+    at other D)."""
+    if dtype == torch.float32:
         return "mma_3xtf32"
     if dtype == torch.bfloat16 and head_dim % 16 == 0 \
             and 0 < head_dim <= _MAX_D:

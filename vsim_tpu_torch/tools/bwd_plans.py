@@ -1,19 +1,24 @@
-"""K7/K8's "mma_bf16" instance under candidate geometries, beside the one
-``csrc/flash_attention_bwd.cu:bf_plan`` takes.
+"""K7/K8's tensor-core instances under candidate geometries, beside the ones
+``csrc/flash_attention_bwd.cu`` takes: "mma_bf16" (``bf_plan``) or, with
+``--f32``, the zero-padded "mma_3xtf32" instances (``tf_plan``, f32 at head
+dims other than 64 and 128).
 
-    python -m vsim_tpu_torch.tools.bwd_plans [--out FILE]
+    python -m vsim_tpu_torch.tools.bwd_plans [--f32] [--out FILE]
 
-A plan is compiled into the kernel (``BfPlan``: resident row tiles, warps
-splitting the gradient columns, streamed rows a tile, the blocks an SM the
-register budget is set for), so each round of candidates is a copy of
-``csrc/`` whose ``bf_plan`` returns the round's candidate for every (head
-dim, pass) that has one and ``bf_plan``'s own plan otherwise, built with
-``nvcc`` into ``build/kernels/bwd_plans/``, all rounds at once.  Each build's
-``ptxas -v`` registers and spills are printed for every bf16 instance; then,
-at the shapes of ``SHAPES``, each round's K7 and K8 are held to the plain
-backward (every element within 2^-8 of max|plain|, at most 2% of the bf16
-elements differing) and timed (``timing.timed``, best of two).  Runs on the
-CUDA card only.
+A plan is compiled into the kernel (``BfPlan`` / ``TfPlan``: resident row
+tiles, warps a row tile splitting the streamed rows -- with ``TfPlan``'s
+``ks``, the head dim -- and the gradient columns, streamed rows a tile, the
+blocks an SM the register budget is set for), so each round of candidates
+is a copy of ``csrc/`` whose plan function returns the round's candidate
+for every (pass, padded head dim) that has one and the source's own plan
+otherwise, built with ``nvcc`` into ``build/kernels/bwd_plans/``, all
+rounds at once.  Each build's ``ptxas -v`` registers and spills are
+printed for every instance of the mode; then, at
+the mode's shapes, each round's K7 and K8 are held to the plain backward
+(bf16: every element within 2^-8 of max|plain|, at most 2% of the bf16
+elements differing; f32: each of dq, dk, dv within 1e-4 of its max|plain|;
+a round that fails is reported and not timed) and timed (``timing.timed``,
+best of two).  Runs on the CUDA card only.
 """
 
 from __future__ import annotations
@@ -54,36 +59,67 @@ CANDIDATES = {
 SHAPES = ((1, 16, 2048, 64), (4, 16, 2048, 64), (1, 32, 2048, 80),
           (1, 16, 2048, 96), (1, 40, 2048, 128), (1, 16, 2048, 256),
           (1, 16, 512, 256))
+# the padded "mma_3xtf32" instances (tf_plan), as CANDIDATES with a fifth
+# field, ks (1: the cs warps of a row tile split the head dim for s and dp
+# instead of the streamed rows) (round 0: tf_plan's own)
+CANDIDATES_F32 = {
+    ("dq", 80): [(4, 1, 32, 2, 0), (4, 1, 16, 3, 0), (4, 2, 32, 2, 0),
+                 (4, 2, 32, 2, 1)],
+    ("dq", 96): [(4, 2, 32, 2, 0), (4, 1, 32, 2, 0), (4, 1, 16, 2, 0),
+                 (4, 2, 32, 2, 1)],
+    ("dq", 256): [(2, 4, 32, 1, 1), (2, 4, 32, 1, 0), (4, 2, 16, 1, 0),
+                  (4, 2, 16, 1, 1)],
+    ("dkv", 80): [(4, 2, 32, 2, 0), (4, 1, 32, 2, 0), (4, 1, 16, 3, 0),
+                  (4, 2, 32, 2, 1)],
+    ("dkv", 96): [(4, 1, 16, 2, 0), (4, 1, 32, 2, 0), (4, 2, 32, 1, 0),
+                  (4, 2, 16, 2, 1)],
+    ("dkv", 256): [(2, 4, 32, 1, 1), (2, 4, 32, 1, 0), (4, 2, 16, 1, 0),
+                   (2, 2, 32, 1, 0)],
+}
+# (B, H, T, D): phase 6's and phase 2's f32 shapes at D other than 64, 128
+SHAPES_F32 = ((1, 16, 2048, 256), (1, 16, 512, 256), (1, 32, 2048, 80),
+              (1, 64, 2048, 96))
 _DPADS = (64, 80, 96, 128, 256)
+# per mode: candidates, shapes, the plan function and its type, the kernel
+# names in ptxas's report, the dtype and the instance launched
+MODES = {
+    "bf16": dict(candidates=CANDIDATES, shapes=SHAPES, fn="bf_plan",
+                 plan="BfPlan", dtype=torch.bfloat16, instance="mma_bf16"),
+    "f32": dict(candidates=CANDIDATES_F32, shapes=SHAPES_F32, fn="tf_plan",
+                plan="TfPlan", dtype=torch.float32, instance="mma_3xtf32"),
+}
+TOL_F32 = 1e-4  # chip_smoke.py TOL_BWD_F32
 
 
 def _dpad(D: int) -> int:  # noqa: N803
     return next(p for p in _DPADS if D <= p)
 
 
-def _round_source(src: str, rnd: int) -> str:
-    """flash_attention_bwd.cu with bf_plan returning round ``rnd``'s
-    candidates."""
-    src = src.replace("constexpr BfPlan bf_plan(int dpad, bool dkv) {",
-                      "constexpr BfPlan bf_plan_default(int dpad, bool dkv) {")
+def _round_source(src: str, rnd: int, mode: str = "bf16") -> str:
+    """flash_attention_bwd.cu with the mode's plan function returning round
+    ``rnd``'s candidates."""
+    m = MODES[mode]
+    fn, plan = m["fn"], m["plan"]
+    head = f"constexpr {plan} {fn}(int dpad, bool dkv) {{"
+    src = src.replace(head, head.replace(f"{fn}(", f"{fn}_default("))
     cases = "".join(
         f"  if (dpad == {d} && dkv == {str(k == 'dkv').lower()}) "
-        f"return BfPlan{{{', '.join(map(str, c[rnd]))}}};\n"
-        for (k, d), c in CANDIDATES.items() if rnd < len(c))
-    fn = ("__host__ __device__ constexpr BfPlan bf_plan(int dpad, bool dkv) "
-          "{\n" + cases + "  return bf_plan_default(dpad, dkv);\n}\n")
-    at = src.index("__host__ __device__ constexpr int bf_threads(")
-    return src[:at] + fn + src[at:]
+        f"return {plan}{{{', '.join(map(str, c[rnd]))}}};\n"
+        for (k, d), c in m["candidates"].items() if rnd < len(c))
+    body = (f"__host__ __device__ {head}\n" + cases
+            + f"  return {fn}_default(dpad, dkv);\n}}\n")
+    at = src.index(f"__host__ __device__ constexpr int {fn[:2]}_threads(")
+    return src[:at] + body + src[at:]
 
 
-def _plan_of(rnd: int, kind: str, dpad: int):
-    c = CANDIDATES[(kind, dpad)]
-    return c[rnd] if rnd < len(c) else "bf_plan"
+def _plan_of(rnd: int, kind: str, dpad: int, mode: str = "bf16"):
+    c = MODES[mode]["candidates"].get((kind, dpad), ())
+    return c[rnd] if rnd < len(c) else MODES[mode]["fn"]
 
 
-def build_rounds():
+def build_rounds(mode: str = "bf16"):
     """One library a round, built in parallel: [(path, ptxas report)]."""
-    rounds = max(len(c) for c in CANDIDATES.values())
+    rounds = max(len(c) for c in MODES[mode]["candidates"].values())
     root = _build.BUILD_DIR / "bwd_plans"
     shutil.rmtree(root, ignore_errors=True)
     procs = []
@@ -91,7 +127,7 @@ def build_rounds():
         d = root / f"r{rnd}"
         shutil.copytree(_build.CSRC, d / "csrc")
         cu = d / "csrc" / "flash_attention_bwd.cu"
-        cu.write_text(_round_source(cu.read_text(), rnd))
+        cu.write_text(_round_source(cu.read_text(), rnd, mode))
         lib = d / "libflash_attention_bwd.so"
         procs.append((lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
@@ -105,13 +141,24 @@ def build_rounds():
     return out
 
 
-def ptxas_lines(log: str):
-    """{(pass, dpad): (registers, spill store bytes)} of the bf16 kernels."""
+def _entry(line: str, mode: str):
+    """(pass, dpad) of a ptxas "Compiling entry" line of the mode's
+    kernels, else None."""
+    if mode == "bf16":
+        m = re.search(r"flash_bwd_(dq|dkv)_bf16_kernelILi(\d+)E", line)
+        return m and (m.group(1), int(m.group(2)))
+    m = re.search(r"flash_bwd_(dq|dkv)_3xtf32_pad_kernelILi(\d+)E", line)
+    return m and (m.group(1), int(m.group(2)))
+
+
+def ptxas_lines(log: str, mode: str = "bf16"):
+    """{(pass, dpad): (registers, spill store bytes)} of the mode's
+    kernels."""
     res, cur = {}, None
     for line in log.splitlines():
-        m = re.search(r"flash_bwd_(dq|dkv)_bf16_kernelILi(\d+)E", line)
-        if m and "Compiling entry" in line:
-            cur = (m.group(1), int(m.group(2)))
+        key = _entry(line, mode) if "Compiling entry" in line else None
+        if key:
+            cur = key
         elif cur and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
             res[cur] = [None, spill]
@@ -130,27 +177,47 @@ def _launch(lib, kind, args):
         raise RuntimeError(f"{kind}: CUDA error {err}")
 
 
-def run(shapes=SHAPES):
-    builds = build_rounds()
+def _check(mode, rnd, shape, got, ref):
+    """Raise unless a round's gradients hold the mode's checks; returns
+    the worst distance relative to max|plain|."""
+    rels = [((a.float() - b.float()).abs().max()
+             / b.float().abs().max()).item() for a, b in zip(got, ref)]
+    if mode == "f32":
+        if not all(math.isfinite(r) and r <= TOL_F32 for r in rels):
+            raise RuntimeError(f"round {rnd} at {shape}: {rels} of "
+                               f"max|plain| (limit {TOL_F32})")
+        return max(rels)
+    share = sum((a != b).sum().item() for a, b in
+                zip(got, ref)) / sum(b.numel() for b in ref)
+    if max(rels) > 2.0 ** -8 or share > 0.02:
+        raise RuntimeError(f"round {rnd} at {shape}: {max(rels):.3g} of "
+                           f"max|plain|, {share:.3g} of the elements differ")
+    return max(rels)
+
+
+def run(mode: str = "bf16", shapes=None):
+    m = MODES[mode]
+    builds = build_rounds(mode)
     libs = [ctypes.CDLL(str(lib)) for lib, _ in builds]
-    regs = [ptxas_lines(log) for _, log in builds]
+    regs = [ptxas_lines(log, mode) for _, log in builds]
     for rnd, r in enumerate(regs):
         print(f"round {rnd}: " + ", ".join(
-            f"{k}<{d}> {_plan_of(rnd, k, d)} {v[0]} regs, {v[1]} B spilled"
-            for (k, d), v in sorted(r.items())), flush=True)
+            f"{k}<{d}> {_plan_of(rnd, k, d, mode)} {v[0]} regs, {v[1]} B "
+            "spilled" for (k, d), v in sorted(r.items())), flush=True)
     rows = []
     g = torch.Generator(device="cuda").manual_seed(0)
     p = _build.ptr
-    for B, H, T, D in shapes:  # noqa: N806
+    dt = m["dtype"]
+    for B, H, T, D in shapes or m["shapes"]:  # noqa: N806
         sc = 1.0 / math.sqrt(D)
         q, k, v, do = (torch.randn((B, H, T, D), generator=g, device="cuda")
-                       .to(torch.bfloat16) for _ in range(4))
+                       .to(dt) for _ in range(4))
         out, lse = flash_attention_fwd(q, k, v, scale=sc)
         dsum = (do.float() * out.float()).sum(-1)
         ref = flash_attention_bwd_plain(q, k, v, out, lse, do, scale=sc)
         head = (p(q), p(k), p(v), p(do), p(lse), p(dsum))
-        tail = (p(None), 1, _INSTANCES["mma_bf16"], B, H, T, T, D, 0, sc,
-                _build.stream_ptr(q.device))
+        tail = (p(None), int(dt == torch.bfloat16), _INSTANCES[m["instance"]],
+                B, H, T, T, D, 0, sc, _build.stream_ptr(q.device))
         for rnd, lib in enumerate(libs):
             dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
             calls = {"dq": lambda: _launch(lib, "dq", head + (p(dq),) + tail),
@@ -159,24 +226,23 @@ def run(shapes=SHAPES):
             for fn in calls.values():
                 fn()
             torch.cuda.synchronize()
-            worst = max(((a.float() - b.float()).abs().max()
-                         / b.float().abs().max()).item()
-                        for a, b in zip((dq, dk, dv), ref))
-            share = sum((a != b).sum().item() for a, b in
-                        zip((dq, dk, dv), ref)) / sum(b.numel() for b in ref)
-            if worst > 2.0 ** -8 or share > 0.02:
-                raise RuntimeError(f"round {rnd} at {(B, H, T, D)}: "
-                                   f"{worst:.3g} of max|plain|, {share:.3g} "
-                                   "of the elements differ")
+            try:
+                worst = _check(mode, rnd, (B, H, T, D), (dq, dk, dv), ref)
+            except RuntimeError as exc:  # a wrong candidate is not timed
+                print(f"B={B} H={H} T={T} D={D} round {rnd}: FAILED {exc}",
+                      flush=True)
+                rows.append(dict(mode=mode, shape=[B, H, T, D], round=rnd,
+                                 failed=str(exc)))
+                continue
             for kind, fn in calls.items():
                 ms = min(timed(fn), timed(fn))
-                plan = _plan_of(rnd, kind, _dpad(D))
-                rows.append(dict(shape=[B, H, T, D], kind=kind, round=rnd,
-                                 plan=plan, ms=ms,
-                                 regs=regs[rnd].get((kind, _dpad(D)))))
+                plan = _plan_of(rnd, kind, _dpad(D), mode)
+                reg = regs[rnd].get((kind, _dpad(D)))
+                rows.append(dict(mode=mode, shape=[B, H, T, D], kind=kind,
+                                 round=rnd, plan=plan, ms=ms, regs=reg,
+                                 rel_err=worst))
                 print(f"B={B} H={H} T={T} D={D} {kind} round {rnd} {plan}: "
-                      f"{ms:.4f} ms {regs[rnd].get((kind, _dpad(D)))}",
-                      flush=True)
+                      f"{ms:.4f} ms {reg}, worst {worst:.3g}", flush=True)
         del q, k, v, do, out, lse, dsum, ref
         torch.cuda.empty_cache()
     return rows
@@ -184,11 +250,14 @@ def run(shapes=SHAPES):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--f32", action="store_true",
+                    help="the padded mma_3xtf32 instances (tf_plan)")
     ap.add_argument("--out", default=None, help="write the rows as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bwd_plans: needs a CUDA device")
-    rows = run()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = run("f32" if args.f32 else "bf16")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)
