@@ -18,7 +18,9 @@ Phases, each fatal on failure:
      ``chip_smoke.py --k2-tf32`` alone; K5 on the B=8 ragged step, on
      phase 4's timed step and at B=1), K4 and K7/K8 (the flash
      backward) also at the Pythia-410M shapes of phase 6 (B=4 training,
-     B=1 perplexity; f32 and bf16) and K7/K8 at GPT-J's, in bf16 also at
+     B=1 perplexity; f32 and bf16), K4 at every f32 shape of K7/K8 (each
+     f32 K4 row on "mma_3xtf32", its 3xTF32 bound beside its f32 FMA one:
+     k4_row) and K7/K8 at GPT-J's, in bf16 also at
      T=2048 for D = 80, 128 and 256 (each bf16 row on "mma_bf16", every
      element within 2^-8 of max|plain| and at most 2% of them differing
      from the plain version), in f32 at T=2048 for D = 256, 80 and 96
@@ -103,7 +105,8 @@ Phases, each fatal on failure:
   6. training: Pythia-410M at full width and depth, dense f32 weights from
      seed 0, make_train_step with the default AdamW, 5 steps on one seeded
      batch of 4 x 2049 tokens: finite losses, the last below the first, and
-     K4, K7 and K8 launched once per layer in every step; the same at
+     K4, K7 and K8 launched once per layer in every step (at f32 the
+     profiled step's K4 kernel "mma_3xtf32"'s); the same at
      bf16 compute (K7/K8 on "mma_bf16"), and GPT-J-6B's widths at depth 2
      at bf16 compute, 3 steps on 1 x 2049 tokens; GPT-J-6B's and
      CodeGen-2B's widths at depth 2 at f32 compute, 3 steps on 1 x 2049
@@ -125,7 +128,8 @@ Phases, each fatal on failure:
      engine's own weights is held against its plain version; after it, the
      chat CLI's engine (f32 compute, the config's f32 KV, gi) on the same
      params: the prefill of 20 and 100 tokens (every matmul K2's TF32
-     instance), host ms, device busy ms and K2's device ms;
+     instance), host ms, device busy ms and K2's device ms, beside K4's
+     row at each prefill's attention shape (H=40, D=128, f32);
   8. the loading path: Pythia-12B's width at depth 4 (random Q4 params from
      seed 0) written as a reference ggml Q4_0 file (gptneox, ~1.11 GB, a
      byte-level vocab of 50688 entries) under build/, ggml_to_kmajor's host
@@ -194,7 +198,9 @@ Phases, each fatal on failure:
 bf16 training runs alone, their instance checks off, to take the same
 numbers on an earlier tree; ``--bwd-f32`` likewise phase 2's f32 K7/K8 rows
 at head dims other than 64 and 128 and phase 6's f32 runs at GPT-J-6B's and
-CodeGen-2B's widths; ``--k2-tf32`` K2's TF32 rows, the f32xf
+CodeGen-2B's widths; ``--fwd-f32`` K4's f32 rows (phase 2's, and
+phase 7's f32 prefill's at H=40, D=128) and phase 6's three f32 training
+runs; ``--k2-tf32`` K2's TF32 rows, the f32xf
 engine's stream margin (``f32xf_margin``) and phase 7's f32 prefill.
 Each path's launch counts are set to 0 just before it runs and read just
 after (the lab's too: K12-K16 launch only there).  Prints each phase's
@@ -297,8 +303,6 @@ def phase_kernels(peaks):
     import torch
 
     from vsim_tpu_torch.ops import _build
-    from vsim_tpu_torch.ops.attention import (flash_attention_fwd,
-                                              flash_attention_plain)
     from vsim_tpu_torch.ops.decode_attention import (
         decode_attention_fresh, decode_attention_fresh_plain,
         decode_attention_plain, decode_attention_q, kv_int, scatter_rows,
@@ -616,34 +620,9 @@ def phase_kernels(peaks):
         for T in (16, 512):  # noqa: N806
             q, k, v = (torch.randn((1, H, T, D), generator=g, device=dev)
                        .to(dt) for _ in range(3))
-            got, lse = flash_attention_fwd(q, k, v, scale=scale)
-            ref, lse_ref = flash_attention_plain(q, k, v, scale=scale)
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, ref)
-            _, rel_lse = rel_err(lse, lse_ref)
-            tol = TOL_FLASH_BF16 if dt == torch.bfloat16 else TOL_FLASH_F32
-            if not torch.isfinite(got).all() or max(rel, rel_lse) > tol:
-                fail(f"flash_attention_fwd T={T} {dt}: max|err| {err:.3g} "
-                     f"(rel {rel:.3g}, lse rel {rel_lse:.3g} > {tol})")
-            if not torch.equal(got, flash_attention_fwd(q, k, v,
-                                                        scale=scale)[0]):
-                fail(f"flash_attention_fwd T={T} {dt}: differs from run to "
-                     "run")
-            ms = timed(lambda: flash_attention_fwd(q, k, v, scale=scale))
-            plain_ms = timed(lambda: flash_attention_plain(q, k, v,
-                                                           scale=scale), reps=5)
-            lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, scale=scale))
-            esz = q.element_size()
-            nbytes = 4 * H * T * D * esz + H * T * 4
-            pairs = H * T * (T + 1) // 2
-            peak = bf16_peak if dt == torch.bfloat16 else f32_peak
-            b_ms, b_by = bound(nbytes, 4 * pairs * D, peak)
-            rows.append(dict(kernel="flash_attention_fwd",
-                             shape=f"T={T} H={H} D={D} {str(dt)[6:]}",
-                             max_abs_err=err, rel_err=rel, ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=lib_ms))
+            rows.append(k4_row(peaks, q, k, v, f"T={T} H={H} D={D} "
+                                                f"{str(dt)[6:]}"))
+            del q, k, v
 
     rows += flash_bwd_rows(peaks, bound, g, FLASH_BWD_SHAPES)
     rows += q4_layout_rows(peaks, bound, q4_weight)
@@ -654,12 +633,81 @@ def phase_kernels(peaks):
     return rows
 
 
-# K7/K8 (and K4 at D = 64) against their plain versions at the shapes of
-# the training and perplexity paths (Pythia-410M: H=16, T=S=2048, D=64, f32
-# and bf16; training B=4, perplexity B=1), at GPT-J's (T=S=512, D=256, f32
-# and bf16) and, at T=S=2048, at GPT-J's training width (H=16, D=256) and
-# CodeGen-2B's (H=32, D=80) in both dtypes, Pythia-12B's (H=40, D=128) in
-# bf16 and GPT-NeoX-20B's (H=64, D=96) in f32: (B, H, T, D, dtype name)
+def k4_instance(dtype, head_dim: int) -> str:
+    """K4's instance on the card (``flash_attention_fwd_route``); a tree
+    without the route function ran f32 on its FMA tiles ("fma")."""
+    import torch
+
+    from vsim_tpu_torch.ops import attention
+
+    route = getattr(attention, "flash_attention_fwd_route", None)
+    if route is not None:
+        return route(dtype, head_dim)
+    return "mma_bf16" if dtype == torch.bfloat16 else "fma"
+
+
+def k4_row(peaks, q, k, v, shape: str, strict: bool = True):
+    """K4 on q, k, v ([B, H, T, D], S = T, n_past 0, no ALiBi) against its
+    plain version (out and lse within TOL_FLASH_BF16 / TOL_FLASH_F32 of
+    max|plain|, the same bits from run to run), timed beside the plain
+    version and scaled_dot_product_attention.  Two bounds: ``bound_ms``
+    (bytes, or 4 D FLOP a visible pair at the dtype's peak: bf16, or f32
+    on the FMA units) and, for f32, ``bound_3xtf32_ms`` (the bytes, or
+    three TF32 products per f32 product at the dense TF32 peak).  With
+    ``strict`` an f32 call must take "mma_3xtf32"."""
+    import torch
+
+    from vsim_tpu_torch.ops.attention import (flash_attention_fwd,
+                                              flash_attention_plain)
+
+    B, H, T, D = q.shape  # noqa: N806
+    dt, sc = q.dtype, 1.0 / math.sqrt(D)
+    f32 = dt == torch.float32
+    instance = k4_instance(dt, D)
+    if strict and f32 and instance != "mma_3xtf32":
+        fail(f"flash_attention_fwd {shape}: takes {instance}, not "
+             "mma_3xtf32")
+    out, lse = flash_attention_fwd(q, k, v, scale=sc)
+    ref, lse_ref = flash_attention_plain(q, k, v, scale=sc)
+    torch.cuda.synchronize()
+    err, rel = rel_err(out, ref)
+    _, rel_lse = rel_err(lse, lse_ref)
+    del ref, lse_ref
+    tol = TOL_FLASH_F32 if f32 else TOL_FLASH_BF16
+    if not torch.isfinite(out).all() or max(rel, rel_lse) > tol:
+        fail(f"flash_attention_fwd {shape}: max|err| {err:.3g} (rel "
+             f"{rel:.3g}, lse rel {rel_lse:.3g} > {tol})")
+    again, lse2 = flash_attention_fwd(q, k, v, scale=sc)
+    if not (torch.equal(out, again) and torch.equal(lse, lse2)):
+        fail(f"flash_attention_fwd {shape}: differs from run to run")
+    del out, lse, again, lse2
+    ms = timed(lambda: flash_attention_fwd(q, k, v, scale=sc))
+    plain_ms = timed(lambda: flash_attention_plain(q, k, v, scale=sc),
+                     reps=5, warmup=1)
+    lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=sc))
+    bw, bf16_peak, f32_peak = peaks
+    ops = 4 * D * B * H * T * (T + 1) // 2
+    b_ms = (4 * B * H * T * D * q.element_size() + B * H * T * 4) / bw * 1e3
+    o_ms = ops / (f32_peak if f32 else bf16_peak) * 1e3
+    tf32_peak = next(p for key, p in TF32_PEAKS.items()
+                     if key in torch.cuda.get_device_name(0))
+    return dict(kernel="flash_attention_fwd", shape=shape, max_abs_err=err,
+                rel_err=rel, rel_err_lse=rel_lse, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(b_ms, o_ms),
+                bound_by="bytes" if b_ms >= o_ms else "operations",
+                library_ms=lib_ms, instance=instance,
+                bound_3xtf32_ms=(max(b_ms, 3 * ops / tf32_peak * 1e3)
+                                 if f32 else None), rel_err_vs_f64=None)
+
+
+# K7/K8 (and K4 at D = 64 and at every f32 shape) against their plain
+# versions at the shapes of the training and perplexity paths (Pythia-410M:
+# H=16, T=S=2048, D=64, f32 and bf16; training B=4, perplexity B=1), at
+# GPT-J's (T=S=512, D=256, f32 and bf16) and, at T=S=2048, at GPT-J's
+# training width (H=16, D=256) and CodeGen-2B's (H=32, D=80) in both dtypes,
+# Pythia-12B's (H=40, D=128) in bf16 and GPT-NeoX-20B's (H=64, D=96) in
+# f32: (B, H, T, D, dtype name)
 FLASH_BWD_SHAPES = ((1, 16, 2048, 64, "float32"), (4, 16, 2048, 64, "float32"),
                     (1, 16, 2048, 64, "bfloat16"),
                     (4, 16, 2048, 64, "bfloat16"),
@@ -682,7 +730,7 @@ MAX_BWD_BF16_DIFF_SHARE = 0.02
 
 def flash_bwd_rows(peaks, bound, g, shapes, strict: bool = True):
     """K7/K8 against the plain backward at ``shapes`` (FLASH_BWD_SHAPES),
-    and K4 at D = 64 against its plain version.  The yardsticks are
+    and K4 (``k4_row``) at D = 64 and at every f32 shape.  The yardsticks are
     scaled_dot_product_attention and its backward (dq, dk and dv in one
     call, so both rows carry it; the plain time is likewise that of the
     whole plain backward).  Each row names its instance; the "mma_3xtf32"
@@ -701,8 +749,7 @@ def flash_bwd_rows(peaks, bound, g, shapes, strict: bool = True):
                                               flash_attention_bwd_dq,
                                               flash_attention_bwd_plain,
                                               flash_attention_bwd_route,
-                                              flash_attention_fwd,
-                                              flash_attention_plain)
+                                              flash_attention_fwd)
 
     dev = torch.device("cuda")
     _, bf16_peak, f32_peak = peaks
@@ -721,26 +768,8 @@ def flash_bwd_rows(peaks, bound, g, shapes, strict: bool = True):
         peak = bf16_peak if dt == bf16 else f32_peak
         io = B * H * T * D * esz  # one [B, H, T, D] tensor
         shape = f"B={B} T={T} H={H} D={D} {dname}"
-        if D == 64:
-            ref, lse_ref = flash_attention_plain(q, k, v, scale=sc)
-            torch.cuda.synchronize()
-            err, rel = rel_err(out, ref)
-            _, rel_lse = rel_err(lse, lse_ref)
-            tol = TOL_FLASH_BF16 if dt == bf16 else TOL_FLASH_F32
-            if not torch.isfinite(out).all() or max(rel, rel_lse) > tol:
-                fail(f"flash_attention_fwd {shape}: max|err| {err:.3g} "
-                     f"(rel {rel:.3g}, lse rel {rel_lse:.3g} > {tol})")
-            del ref, lse_ref
-            ms = timed(lambda: flash_attention_fwd(q, k, v, scale=sc))
-            plain_ms = timed(lambda: flash_attention_plain(q, k, v, scale=sc),
-                             reps=5, warmup=1)
-            lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, scale=sc))
-            b_ms, b_by = bound(4 * io + B * H * T * 4, 4 * pairs * D, peak)
-            rows.append(dict(kernel="flash_attention_fwd", shape=shape,
-                             max_abs_err=err, rel_err=rel, ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=lib_ms))
+        if D == 64 or dt == f32:
+            rows.append(k4_row(peaks, q, k, v, shape, strict))
         dsum = (do.float() * out.float()).sum(-1)
         dq = flash_attention_bwd_dq(q, k, v, do, lse, dsum, scale=sc)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, dsum, scale=sc)
@@ -2218,7 +2247,8 @@ def train_run(label, cfg, B, steps, peak, strict: bool = True):  # noqa: N803
     and one seeded batch of B x (n_ctx + 1) tokens: finite losses, the last
     below the first, K4, K7 and K8 launched once a layer in every step
     (with ``strict``, K7/K8 on "mma_bf16" at bf16 compute and on
-    "mma_3xtf32" at f32); step ms the
+    "mma_3xtf32" at f32, and at f32 the profiled step's K4 kernel K4's
+    "mma_3xtf32" instance); step ms the
     median of steps 2 on (synced), tokens/s, peak memory, the model-FLOP
     share of ``peak``, and one more step's device ms by kernel class
     (torch.profiler; None if it records no device activity).  Returns (the
@@ -2277,11 +2307,19 @@ def train_run(label, cfg, B, steps, peak, strict: bool = True):  # noqa: N803
                              ProfilerActivity.CUDA]) as prof:
         _, state, loss = step_fn(params, state, ids)
         torch.cuda.synchronize()
+    k4_kernels = set()
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             ms = (ev.time_range.end - ev.time_range.start) / 1e3
             by_class[_kernel_class(ev.name)] += ms
             by_name[ev.name[:60]] += ms
+            if "flash_fwd" in ev.name:
+                k4_kernels.add(ev.name)
+    # at f32 the profiled step's K4 is the "mma_3xtf32" instance
+    if (strict and cfg.compute_dtype == "float32" and by_class
+            and not any("flash_fwd_3xtf32" in n for n in k4_kernels)):
+        fail(f"{label}: no K4 launch of flash_fwd_3xtf32 in the profiled "
+             f"step: {sorted(k4_kernels)}")
     run = dict(
         compute_dtype=cfg.compute_dtype, n_layer=L, head_dim=cfg.head_dim,
         bwd_instance=route, batch=B, seq=T, tokens_per_step=tokens,
@@ -2290,6 +2328,7 @@ def train_run(label, cfg, B, steps, peak, strict: bool = True):  # noqa: N803
         peak_memory_gb=peak_gb, model_flops_per_step=flops,
         model_flop_share_of_peak=flops / step_med / peak,
         launches_per_step=launches[0],
+        k4_kernels=sorted(k4_kernels),
         device_ms_by_class=dict(by_class) or None,
         device_ms_top_kernels=dict(by_name.most_common(10)) or None)
     del params, state, ids, prof
@@ -2530,7 +2569,9 @@ def f32_prefill(cfg, params):
     tokens, each timed (host clock, synced; median of 3 after a warm-up),
     its device busy ms and K2's device ms (torch.profiler over one prefill)
     and its launches; every matmul of it takes K2's f32-plane instance.
-    ({prompt: numbers}, the launches of the counted prefills)."""
+    Each prompt's numbers carry K4's row at its attention's shape
+    (``f32_prefill_k4_rows``).  ({prompt: numbers}, the launches of the
+    counted prefills)."""
     import statistics
 
     import torch
@@ -2538,6 +2579,7 @@ def f32_prefill(cfg, params):
     from vsim_tpu_torch.engine.generate import InferenceEngine
     from vsim_tpu_torch.ops import _build
 
+    k4 = f32_prefill_k4_rows(cfg)
     eng = InferenceEngine(cfg.replace(compute_dtype="float32"), params)
     rng = torch.Generator().manual_seed(20)
     out = {}
@@ -2568,11 +2610,40 @@ def f32_prefill(cfg, params):
             prefill_ms=statistics.median(times), prefill_ms_runs=times,
             device_busy_ms=busy,
             k2_device_ms=None if by_group is None else by_group["q4_matmul_ps"],
-            device_ms_by_kernel=by_name, launches=counts)
+            device_ms_by_kernel=by_name, launches=counts,
+            k4=k4[f"prompt={T}"])
     launches = dict(_build.launch_counts)
     del eng
     torch.cuda.empty_cache()
     return out, launches
+
+
+def f32_prefill_k4_rows(cfg, strict: bool = True):
+    """K4 (``k4_row``) at the f32 prefill's attention shapes: B=1, the
+    config's heads and head dim, T = S = 20 and 100, f32.  {prompt: row}."""
+    import torch
+
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rows = {}
+    for T in (20, 100):  # noqa: N806
+        q, k, v = (torch.randn((1, cfg.n_head, T, cfg.head_dim), generator=g,
+                               device="cuda") for _ in range(3))
+        rows[f"prompt={T}"] = k4_row(
+            peaks, q, k, v, f"prefill T={T} H={cfg.n_head} D={cfg.head_dim} "
+            "float32", strict)
+    return rows
+
+
+def k4_line(r):
+    """One line of a ``k4_row``."""
+    tf = r.get("bound_3xtf32_ms")
+    return (f"  K4 {r['shape']} [{r['instance']}]: {r['ms']:.4g} ms, bound "
+            f"{r['bound_ms']:.3g} ({r['bound_by']})"
+            + ("" if tf is None else f", 3xTF32 bound {tf:.3g}")
+            + f", plain {r['plain_ms']:.4g}, SDPA {r['library_ms']:.4g} "
+            f"({r['ms'] / r['library_ms']:.2f}x), rel err {r['rel_err']:.2g}"
+            f" (lse {r['rel_err_lse']:.2g})")
 
 
 def f32xf_margin(cfg, params):
@@ -2640,12 +2711,13 @@ def f32xf_margin(cfg, params):
 
 def f32_prefill_lines(prefill):
     """One line a prompt of ``f32_prefill``'s numbers."""
-    return [f"  f32 compute (the chat CLI's engine) prefill {k}: "
-            f"{v['prefill_ms']:.2f} ms (runs "
-            + ", ".join(f"{t:.2f}" for t in v["prefill_ms_runs"])
-            + f"), device busy {v['device_busy_ms']} ms, K2 "
-            f"{v['k2_device_ms']} ms; launches {json.dumps(v['launches'])}"
-            for k, v in prefill.items()]
+    return [line for k, v in prefill.items() for line in (
+        f"  f32 compute (the chat CLI's engine) prefill {k}: "
+        f"{v['prefill_ms']:.2f} ms (runs "
+        + ", ".join(f"{t:.2f}" for t in v["prefill_ms_runs"])
+        + f"), device busy {v['device_busy_ms']} ms, K2 "
+        f"{v['k2_device_ms']} ms; launches {json.dumps(v['launches'])}",
+        k4_line(v["k4"]))]
 
 
 def phase_pythia(peaks):
@@ -5018,6 +5090,57 @@ def main_bwd(dtype: str) -> None:
           flush=True)
 
 
+def main_fwd_f32() -> None:
+    """``chip_smoke.py --fwd-f32``: K4's f32 rows alone -- phase 2's (T=16
+    and 512 at H=16, D=256, and every f32 shape of FLASH_BWD_SHAPES) and
+    phase 7's f32 prefill's (Pythia-12B's H=40, D=128 at T=20 and 100) --
+    and phase 6's three f32 training runs (Pythia-410M whole, GPT-J-6B's
+    and CodeGen-2B's widths at depth 2), their instance checks off, so that
+    the same numbers can be taken on an earlier tree (this script copied
+    into it)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from vsim_tpu_torch.models.config import PRESETS
+    from vsim_tpu_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all(["flash_attention", "flash_attention_bwd"])
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    rows = []
+    for B, H, T, D, dname in ((1, 16, 16, 256, "float32"),  # noqa: N806
+                              (1, 16, 512, 256, "float32"),
+                              *(s for s in FLASH_BWD_SHAPES
+                                if s[4] == "float32")):
+        q, k, v = (torch.randn((B, H, T, D), generator=g, device="cuda")
+                   for _ in range(3))
+        rows.append(k4_row(peaks, q, k, v, f"B={B} T={T} H={H} D={D} {dname}",
+                           strict=False))
+        del q, k, v
+        torch.cuda.empty_cache()
+    rows += f32_prefill_k4_rows(PRESETS["pythia-12b"], strict=False).values()
+    for r in rows:
+        print(k4_line(r), flush=True)
+    pythia, _ = train_run("pythia-410m f32", PRESETS["pythia-410m"], 4, 5,
+                          peaks[2], strict=False)
+    train, _ = dtype_training(peaks, "float32", strict=False)
+    train = {"pythia-410m f32": pythia, **train}
+    for line in training_lines(train):
+        print(line, flush=True)
+    print(json.dumps({"k4_f32_rows": rows, "train_f32": train}))
+    print(f"chip_smoke --fwd-f32: pass in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         rank_main(sys.argv[2])
@@ -5027,6 +5150,8 @@ if __name__ == "__main__":
         main_bwd("bfloat16")
     elif sys.argv[1:] == ["--bwd-f32"]:
         main_bwd("float32")
+    elif sys.argv[1:] == ["--fwd-f32"]:
+        main_fwd_f32()
     elif sys.argv[1:2] == ["--parallel"] and sys.argv[2:] in ([], ["nccl"]):
         main_parallel(nccl_only=sys.argv[2:] == ["nccl"])
     else:

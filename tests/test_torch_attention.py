@@ -229,7 +229,18 @@ def test_decode_attention_ragged_n_past():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n_past,alibi", [(0, False), (32, False), (32, True)])
 def test_flash_plain_matches_kernel(dtype, n_past, alibi):
-    B, H, T, D = 1, 2, 64, 64  # noqa: N806
+    _flash_plain_vs_jax(dtype, n_past, alibi, 64)
+
+
+@pytest.mark.parametrize("n_past,alibi", [(0, False), (32, True)])
+def test_flash_plain_matches_kernel_f32_d80(n_past, alibi):
+    """test_flash_plain_matches_kernel at f32 and D = 80, a head dim K4
+    zero-pads in shared memory (to 80 from 72, 76 and 80)."""
+    _flash_plain_vs_jax("float32", n_past, alibi, 80)
+
+
+def _flash_plain_vs_jax(dtype, n_past, alibi, D):  # noqa: N803
+    B, H, T = 1, 2, 64  # noqa: N806
     S = n_past + T  # noqa: N806
     rng = np.random.default_rng(n_past + alibi)
     q = rng.standard_normal((B, T, H, D)).astype(np.float32)

@@ -33,6 +33,7 @@ from vsim_tpu_torch.ops.attention import (
     flash_attention_bwd_plain,
     flash_attention_bwd_route,
     flash_attention_fwd,
+    flash_attention_fwd_route,
     flash_attention_plain,
 )
 from vsim_tpu_torch.ops.decode_attention import (
@@ -679,16 +680,19 @@ def test_scatter_rows_one_layer(dev, kv, D, H, il):
 @pytest.mark.parametrize("D", [64, 72, 80, 96, 128, 256])
 @pytest.mark.parametrize("T", [1, 63, 65, 300])
 def test_flash_attention_fwd(dev, dtype, tol, D, T):
-    """K4 at the edges of both designs: head dims padded in shared memory
-    (72, 80 to 80; bf16 tiles of 64 queries, f32 tiles of 32), query
-    counts around a tile, n_past = 0 with S = T and n_past > 0 with key
-    rows no query sees (S > n_past + T), ALiBi, lse, one launch a call,
-    and the same bits from run to run."""
+    """K4 at the edges of both instances (``flash_attention_fwd_route``:
+    "mma_bf16", "mma_3xtf32"): head dims padded in shared memory (72 to
+    80), query counts around a tile, n_past = 0 with S = T and n_past > 0
+    with key rows no query sees (S > n_past + T), ALiBi, lse, one launch a
+    call, and the same bits from run to run; n_past = -5 leaves the first
+    five rows no key: out 0 and lse -FLT_MAX there."""
     B, H = 2, 3  # noqa: N806
+    want = {torch.bfloat16: "mma_bf16", torch.float32: "mma_3xtf32"}[dtype]
+    assert flash_attention_fwd_route(dtype, D) == want
     g = torch.Generator(device=dev).manual_seed(D * T)
     slopes = torch.linspace(0.01, 0.1, H, device=dev)
-    for n_past, extra in ((0, 0), (17, 9)):
-        S = n_past + T + extra  # noqa: N806
+    for n_past, extra in ((0, 0), (17, 9), (-5, 8)):
+        S = max(n_past, 0) + T + extra  # noqa: N806
         q = torch.randn((B, H, T, D), generator=g, device=dev).to(dtype)
         k = torch.randn((B, H, S, D), generator=g, device=dev).to(dtype)
         v = torch.randn((B, H, S, D), generator=g, device=dev).to(dtype)
@@ -699,7 +703,11 @@ def test_flash_attention_fwd(dev, dtype, tol, D, T):
         ref, lse_ref = flash_attention_plain(q, k, v, **kw)
         assert out.dtype == dtype and torch.isfinite(out).all()
         assert _rel(out, ref) < tol
-        assert _rel(lse, lse_ref) < 1e-4
+        blind = max(0, min(-n_past, T))  # rows that see no key
+        assert not out[:, :, :blind].any()
+        assert (lse[:, :, :blind] == NEG_INF).all()
+        if blind < T:
+            assert _rel(lse[:, :, blind:], lse_ref[:, :, blind:]) < 1e-4
         again, lse2 = flash_attention_fwd(q, k, v, **kw)
         assert torch.equal(out, again) and torch.equal(lse, lse2)
 

@@ -125,8 +125,19 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
   small = tf32_rna(x - __uint_as_float(big));
 }
 
+// The cheaper split of K4's f32 instance: big = x truncated to TF32 (one
+// mask), small = x - big (exact in f32) passed as it stands.  The tensor
+// cores read only a TF32 operand's top 19 bits, so small enters the product
+// cut to TF32, within 2^-10 of itself, and big + small is x to 2^-20
+// relative: one integer operation a value where split_tf32 takes four.
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& big,
+                                                 uint32_t& small) {
+  big = __float_as_uint(x) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
 // A fragment of m16n8k8 (a0 row g col t, a1 row g+8 col t, a2 row g col
-// t+4, a3 row g+8 col t+4), split
+// t+4, a3 row g+8 col t+4), split (set_trunc: by split_tf32_trunc)
 struct FragA3 {
   uint32_t big[4], small[4];
   __device__ __forceinline__ void set(float a0, float a1, float a2, float a3) {
@@ -135,14 +146,25 @@ struct FragA3 {
     split_tf32(a2, big[2], small[2]);
     split_tf32(a3, big[3], small[3]);
   }
+  __device__ __forceinline__ void set_trunc(float a0, float a1, float a2,
+                                            float a3) {
+    split_tf32_trunc(a0, big[0], small[0]);
+    split_tf32_trunc(a1, big[1], small[1]);
+    split_tf32_trunc(a2, big[2], small[2]);
+    split_tf32_trunc(a3, big[3], small[3]);
+  }
 };
 
-// B fragment of m16n8k8 (b0 k t, b1 k t+4; column g), split
+// B fragment of m16n8k8 (b0 k t, b1 k t+4; column g), split likewise
 struct FragB3 {
   uint32_t big[2], small[2];
   __device__ __forceinline__ void set(float b0, float b1) {
     split_tf32(b0, big[0], small[0]);
     split_tf32(b1, big[1], small[1]);
+  }
+  __device__ __forceinline__ void set_trunc(float b0, float b1) {
+    split_tf32_trunc(b0, big[0], small[0]);
+    split_tf32_trunc(b1, big[1], small[1]);
   }
 };
 

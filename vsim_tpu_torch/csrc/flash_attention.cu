@@ -28,12 +28,52 @@
 // room, so Q fragments are read from shared memory at each k-step.  Query
 // tiles are scheduled longest first.
 //
-// f32, on the FMA units (the tensor cores have no exact f32 product, and
-// TF32 would break the f32 contract): the geometry of K7/K8
-// (flash_attention_bwd.cu).  256 threads, 32-row query tiles and 32-key
-// tiles, rows padded to D + 4 floats and read as float4; in the score pass a
-// warp takes 4 query rows and a lane one key, in the p.v pass a thread owns
-// one query row and D/8 of its columns.
+// f32, on the tensor cores as "mma_3xtf32" (the instance of K7/K8's f32
+// backward): each f32 product is three mma.sync m16n8k8 TF32 products,
+// small.big + big.small + big.big into an f32 accumulator, of operands split
+// by common.cuh:split_tf32_trunc: big = x cut to TF32 by a mask, small = x -
+// big passed whole (the tensor cores read its top 19 bits), so big + small
+// is x to 2^-20 and the dropped small.small is below 2^-20 of |a| |b|.  That
+// keeps the f32 contract where one TF32 product would not
+// (tests/test_torch_flash_fwd_tf32.py emulates both: ~1e-6 of max|plain|
+// against ~1e-3), at one integer operation a value where K7/K8's rounded
+// split takes four.  A block takes 16 query rows a warp and walks key tiles
+// through a ring of 16-byte cp.async copies (element copies where rows are
+// not 16-byte multiples); shared rows are f32, padded to D + 4 floats so
+// that both fragment patterns (row g col t; row 2t col g) hit 32 distinct
+// banks, and head dims are zero-padded to 64, 80, 96, 128 or 256 as in the
+// bf16 instance.  S = Q K^T has the head dim as its k index on both sides.
+// The online softmax stays in the accumulator registers (row max and sum
+// over each row's quad), with p unrounded.  O += P V takes p as its A
+// operand with no shuffle or staging: the m16n8 accumulator holds keys 2t
+// and 2t+1 of a row where the A fragment wants k slots t and t+4, so the
+// product relabels its k index (slot t is key 2t, slot t+4 key 2t+1) and
+// its B fragment reads value rows 2t and 2t+1 to match.  The tensor cores'
+// sums keep no guard bits, so S takes a fresh fragment a 128 dims and each
+// output n-tile one a 32 keys, each added in f32.  Bound on the H100: three
+// TF32 products per f32 product at the dense TF32 peak; what holds it back
+// is the instruction stream around the MMAs (the splits, the shared loads
+// of each fragment, the softmax), at 4.2-7.0x that bound at T = 2048.
+// fwd_plan's geometries (tools/bwd_plans.py --fwd on an NVIDIA H100 80GB
+// HBM3 at a 700 W power limit: the fastest candidate at the main path's
+// shapes, none spilling; ptxas registers a thread):
+//   T > 32: 4 warps, 64 queries, 32-key tiles at D = 64 (one stage, 4
+//     blocks an SM, 128 registers), 80 (one stage, 3 blocks, 159) and 96
+//     (two stages, 3 blocks, 168); 8 warps, two a row tile splitting the
+//     head dim, at D = 128 (64-key tiles, 202) and 256 (32-key tiles,
+//     207), one block an SM.
+//   T <= 32 (a short prompt; at most two 16-query tiles): 16 queries a
+//     block and the head dim over 4 (D = 64, 96, 128), 5 (80) or 8 (256)
+//     warps, each a short chain of dependent products: 32-key tiles, 16 at
+//     D = 128 and 256 (89-95 registers).  At T = 16, D = 256 it runs 6.5
+//     us where the long geometry took 13.5 (chip_smoke.py --fwd-f32).
+// Tried and dropped: two m16 tiles a warp sharing each key and value
+// fragment (255 registers, spilling from D = 80; at D = 64 4% faster at B =
+// 4 and 7% slower at B = 1); q, k
+// and v split once into big and small planes of shared memory (1.2-2.0x
+// slower: twice the shared loads); float2 loads of the score operands by
+// relabelling the head dim within a k-step (1.5-16% slower); the rounded
+// split of K7/K8 (1.10-1.21x slower, across two sweeps).
 
 #include "common.cuh"
 
@@ -284,177 +324,364 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// f32: FMA units, K7/K8's geometry
+// f32: tensor cores, three TF32 products per f32 product ("mma_3xtf32")
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Threads = 256;  // 8 warps
-constexpr int kF32BQ = 32;        // query rows per tile, 4 per warp
-constexpr int kF32BS = 32;        // keys per tile, one per lane
-constexpr int kRowsPerWarp = kF32BQ / (kF32Threads / 32);
-constexpr int kPS = kF32BS + 1;   // padded row of the p tile
+// Each padded head dim's geometry, one for T > kFewRows and one (``few``)
+// for the few query rows of a short prompt, where a block's chain of
+// dependent products, not the card's rate, sets the time: rt row tiles of
+// 16 query rows a block; cs warps a row tile, which split the head dim for
+// the scores (each its slice of q.k over every key of the tile, the slices
+// added in slice order through shared memory, so that every warp of the
+// row tile holds the same scores) and the columns of the output; keys a
+// tile; stages of the key/value ring (1 or 2); and the blocks an SM the
+// register budget is set for (__launch_bounds__).  Picked by measurement
+// (tools/bwd_plans.py --fwd; see the header).
+constexpr int kFewRows = 32;
+struct FwdPlan {
+  int rt, cs, tile, stages, min_blocks;
+};
+__host__ __device__ constexpr FwdPlan fwd_plan(int dpad, bool few) {
+  return few ? (dpad <= 64    ? FwdPlan{1, 4, 32, 1, 2}
+                : dpad <= 80  ? FwdPlan{1, 5, 32, 1, 1}
+                : dpad <= 96  ? FwdPlan{1, 4, 32, 1, 2}
+                : dpad <= 128 ? FwdPlan{1, 4, 16, 1, 2}
+                              : FwdPlan{1, 8, 16, 1, 1})
+             : (dpad <= 64    ? FwdPlan{4, 1, 32, 1, 4}
+                : dpad <= 80  ? FwdPlan{4, 1, 32, 1, 3}
+                : dpad <= 96  ? FwdPlan{4, 1, 32, 2, 3}
+                : dpad <= 128 ? FwdPlan{4, 2, 64, 2, 1}
+                              : FwdPlan{4, 2, 32, 2, 1});
+}
+__host__ __device__ constexpr int fwd_threads(int dpad, bool few) {
+  return 32 * fwd_plan(dpad, few).rt * fwd_plan(dpad, few).cs;
+}
+// q rows and the key and value ring (rows padded to dpad + 4 floats), and
+// with cs > 1 the score slices [cs][16 rt][tile + 8]
+__host__ __device__ constexpr size_t fwd_smem_bytes(int dpad, bool few) {
+  const FwdPlan P = fwd_plan(dpad, few);
+  const int rows = 16 * P.rt;
+  return sizeof(float) *
+         ((rows + 2 * P.stages * P.tile) * static_cast<size_t>(dpad + 4) +
+          (P.cs > 1 ? P.cs * rows * static_cast<size_t>(P.tile + 8) : 0));
+}
 
 // Rows [row0, row0 + n) of one head's [rows, D] f32 matrix into sm[n][DP],
-// columns up to D4 (D rounded up to 4) with zeros past D and past ``rows``.
-__device__ __forceinline__ void load_tile_f32(float* sm, const float* g,
+// columns [0, D); rows past ``rows`` read as zeros.  ``vec``: D % 4 == 0 and
+// 16-byte aligned rows, copied by cp.async; otherwise element by element
+// (synchronous).
+template <int DP, int NTHR>
+__device__ __forceinline__ void fwd_load_rows(float* sm, const float* g,
                                               int row0, int n, int rows,
-                                              int D, int D4, int DP, bool vec) {
-  if (vec) {  // D % 4 == 0, 16-byte aligned rows
-    const int d4 = D / 4;
-    for (int idx = threadIdx.x; idx < n * d4; idx += kF32Threads) {
-      const int r = idx / d4, d = (idx % d4) * 4;
+                                              int D, bool vec) {
+  if (vec) {
+    const int c4 = D / 4;
+    for (int idx = threadIdx.x; idx < n * c4; idx += NTHR) {
+      const int r = idx / c4, c = (idx % c4) * 4;
       const int row = row0 + r;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row < rows)
-        val = *reinterpret_cast<const float4*>(g + static_cast<size_t>(row) * D + d);
-      *reinterpret_cast<float4*>(sm + r * DP + d) = val;
+      const bool ok = row < rows;
+      cp_async16(sm + r * DP + c, g + static_cast<size_t>(ok ? row : 0) * D + c,
+                 ok);
     }
   } else {
-    for (int idx = threadIdx.x; idx < n * D4; idx += kF32Threads) {
-      const int r = idx / D4, d = idx % D4;
+    for (int idx = threadIdx.x; idx < n * D; idx += NTHR) {
+      const int r = idx / D, c = idx % D;
       const int row = row0 + r;
-      sm[r * DP + d] = row < rows && d < D ? g[static_cast<size_t>(row) * D + d] : 0.f;
+      sm[r * DP + c] = row < rows ? g[static_cast<size_t>(row) * D + c] : 0.f;
     }
   }
 }
 
-// One block per (b, h, 32-query tile); NG = D4 / 32 rounded up (2, 4, 8).
-template <int NG>
-__global__ void __launch_bounds__(kF32Threads)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     float* __restrict__ lse, const float* __restrict__ slopes,
-                     int H, int T, int S, int D, int n_past, float scale,
-                     int vec) {
-  extern __shared__ __align__(16) float sm[];
-  const int D4 = (D + 3) / 4 * 4, DP = D4 + 4;
-  float* qs = sm;                    // [kF32BQ][DP]
-  float* ks = qs + kF32BQ * DP;      // [kF32BS][DP]
-  float* vs = ks + kF32BS * DP;      // [kF32BS][DP]
-  float* ps = vs + kF32BS * DP;      // [kF32BQ][kPS]
-  float* a_s = ps + kF32BQ * kPS;    // [kF32BQ] rescale of the tile
-  float* m_s = a_s + kF32BQ;         // [kF32BQ]
-  float* l_s = m_s + kF32BQ;         // [kF32BQ]
+// One warp's scores over KS k-steps of the head dim: sa = Q K^T for its 16
+// query rows (qr at row g, column t of the first k-step) and the NS * 8
+// keys of the tile (kr at key g, column t).  A fresh fragment a 128 dims,
+// added in f32, so that the tensor cores' own sums span at most 16 k-steps.
+template <int KS, int NS, int DP>
+__device__ __forceinline__ void fwd_scores(float (&sa)[NS][4], const float* qr,
+                                           const float* kr) {
+  constexpr int KC = KS < 16 ? KS : 16;
+  static_assert(KS % KC == 0, "whole 128-dim parts");
+#pragma unroll
+  for (int c = 0; c < KS; c += KC) {
+    float f[NS][4];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) f[i][0] = f[i][1] = f[i][2] = f[i][3] = 0.f;
+#pragma unroll
+    for (int kk = c; kk < c + KC; ++kk) {
+      const float* p = qr + kk * 8;
+      FragA3 qa;
+      qa.set_trunc(p[0], p[8 * DP], p[4], p[8 * DP + 4]);
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+        const float* b = kr + nt * 8 * DP + kk * 8;
+        FragB3 kb;
+        kb.set_trunc(b[0], b[4]);
+        mma_3xtf32(f[nt], qa, kb);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sa[i][e] = c == 0 ? f[i][e] : sa[i][e] + f[i][e];
+  }
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+// One block per (b, h, 16 rt queries), warps by fwd_plan.  Walks the key
+// tiles up to the block's causal horizon, longest walks first.
+template <int DPAD, bool FEW>
+__global__ void __launch_bounds__(fwd_threads(DPAD, FEW),
+                                  fwd_plan(DPAD, FEW).min_blocks)
+flash_fwd_3xtf32_kernel(const float* __restrict__ q,   // [B, H, T, D]
+                        const float* __restrict__ k,   // [B, H, S, D]
+                        const float* __restrict__ v,   // [B, H, S, D]
+                        float* __restrict__ out,       // [B, H, T, D]
+                        float* __restrict__ lse,       // [B, H, T]
+                        const float* __restrict__ slopes,  // [H] or null
+                        int H, int T, int S, int D, int n_past, float scale,
+                        int vec) {
+  constexpr FwdPlan P = fwd_plan(DPAD, FEW);
+  constexpr int NTHR = fwd_threads(DPAD, FEW);
+  constexpr int R = 16 * P.rt;      // query rows of the block
+  constexpr int BS = P.tile;        // keys a tile
+  constexpr int DP = DPAD + 4;      // shared row: 32 distinct banks
+  constexpr int PS = BS + 8;        // a score slice's row
+  constexpr int KS = DPAD / 8 / P.cs;  // k-steps of a warp's score slice
+  constexpr int NS = BS / 8;        // 8-key n-tiles of a score tile
+  constexpr int ND = DPAD / 8 / P.cs;  // a warp's 8-column output n-tiles
+  constexpr int G = NS < 4 ? NS : 4;   // k-steps a P V fragment
+  static_assert((DPAD / 8) % P.cs == 0 && NS % G == 0, "whole fragments");
+  static_assert(P.stages == 1 || P.stages == 2, "one or two stages");
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;                        // [R][DP]
+  float* ks = qs + R * DP;               // [stages][BS][DP]
+  float* vs = ks + P.stages * BS * DP;   // [stages][BS][DP]
+  float* part = vs + P.stages * BS * DP;  // cs > 1: [cs][R][PS]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;  // mma row group, lane in quad
+  const int r0 = (warp % P.rt) * 16;      // this warp's rows of the block
+  const int cw = warp / P.rt;             // its slice of the head dim
   const int bh = blockIdx.y, h = bh % H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kF32BQ;  // longest first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;  // longest first
   const float* qg = q + static_cast<size_t>(bh) * T * D;
   const float* kg = k + static_cast<size_t>(bh) * S * D;
   const float* vg = v + static_cast<size_t>(bh) * S * D;
   const float slope = slopes ? slopes[h] : 0.f;
 
-  load_tile_f32(qs, qg, q0, kF32BQ, T, D, D4, DP, vec);
-  const int last_t = min(q0 + kF32BQ, T) - 1;
-  const int n_keys = min(S, n_past + last_t + 1);
-
-  const int r0 = warp * kRowsPerWarp;
-  float m[kRowsPerWarp], l[kRowsPerWarp];  // the same in every lane
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m[i] = VSIM_NEG_INF;
-    l[i] = 0.f;
+  if (DPAD != D) {  // zero pad columns of every row; loads never touch them
+    const int np = DPAD - D;
+    for (int idx = threadIdx.x; idx < (R + 2 * P.stages * BS) * np;
+         idx += NTHR)
+      sm[(idx / np) * DP + D + idx % np] = 0.f;
   }
-  const int row = tid / 8, c = tid % 8;
-  float acc[4 * NG];
-#pragma unroll
-  for (int j = 0; j < 4 * NG; ++j) acc[j] = 0.f;
+  const int last_t = min(q0 + R, T) - 1;
+  const int n_keys = min(S, n_past + last_t + 1);
+  const int n_tiles = n_keys > 0 ? (n_keys + BS - 1) / BS : 0;
+  auto load_tile = [&](int st, int it) {
+    fwd_load_rows<DP, NTHR>(ks + st * BS * DP, kg, it * BS, BS, S, D, vec);
+    fwd_load_rows<DP, NTHR>(vs + st * BS * DP, vg, it * BS, BS, S, D, vec);
+  };
+  fwd_load_rows<DP, NTHR>(qs, qg, q0, R, T, D, vec);
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();
 
-  for (int s0 = 0; s0 < n_keys; s0 += kF32BS) {
-    __syncthreads();  // q staged / previous tile consumed
-    load_tile_f32(ks, kg, s0, kF32BS, S, D, D4, DP, vec);
-    load_tile_f32(vs, vg, s0, kF32BS, S, D, D4, DP, vec);
+  // this thread's rows: t_lo (accumulator elements 0, 1) and t_lo + 8 (2, 3)
+  const int t_lo = q0 + r0 + g;
+  const bool warp_live = q0 + r0 < T;
+  const int horizon = n_past + min(q0 + r0 + 15, T - 1);  // last key seen
+  const int col0 = cw * ND * 8;  // this warp's output columns
+  float o[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m[2] = {VSIM_NEG_INF, VSIM_NEG_INF};  // row max
+  float l[2] = {0.f, 0.f};  // this lane's share of the row sum
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = P.stages == 2 ? (it & 1) : 0;
+    if (P.stages == 2) {
+      if (it + 1 < n_tiles) load_tile(st ^ 1, it + 1);  // prefetch
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      if (it > 0) load_tile(0, it);  // the last tile was consumed
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    float sd[kRowsPerWarp];
+    const float* kt = ks + st * BS * DP;
+    const float* vt = vs + st * BS * DP;
+    const int s0 = it * BS;
+    const bool live = warp_live && s0 <= horizon;  // the same a row tile
+    float sa[NS][4];
+    if (live) {
+      const int k0 = cw * KS * 8;
+      fwd_scores<KS, NS, DP>(sa, qs + (r0 + g) * DP + t4 + k0,
+                             kt + g * DP + t4 + k0);
+      if (P.cs > 1) {
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) sd[i] = 0.f;
-    const float* kr = ks + lane * DP;
-    for (int d = 0; d < D4; d += 4) {
-      const float4 kk = *reinterpret_cast<const float4*>(kr + d);
+        for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float4 qq = *reinterpret_cast<const float4*>(qs + (r0 + i) * DP + d);
-        sd[i] = fmaf(qq.x, kk.x, sd[i]);
-        sd[i] = fmaf(qq.y, kk.y, sd[i]);
-        sd[i] = fmaf(qq.z, kk.z, sd[i]);
-        sd[i] = fmaf(qq.w, kk.w, sd[i]);
+          for (int half = 0; half < 2; ++half)
+            *reinterpret_cast<float2*>(
+                part + (cw * R + r0 + g + 8 * half) * PS + nt * 8 + 2 * t4) =
+                make_float2(sa[nt][2 * half], sa[nt][2 * half + 1]);
       }
     }
-    const int s = s0 + lane;
+    if (P.cs > 1) {
+      __syncthreads();  // every slice is in
+      if (live) {  // the slices added in slice order, the same in each warp
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int t = n_past + q0 + r0 + i;
-      float sc = sd[i] * scale + slope * static_cast<float>(s);
-      if (s >= S || s > t) sc = VSIM_NEG_INF;
-      const float m_new = fmaxf(m[i], warp_max(sc));
-      const float p = sc == VSIM_NEG_INF ? 0.f : expf(sc - m_new);
-      const float alpha = m[i] == VSIM_NEG_INF ? 0.f : expf(m[i] - m_new);
-      l[i] = alpha * l[i] + warp_sum(p);
-      m[i] = m_new;
-      ps[(r0 + i) * kPS + lane] = p;
-      if (lane == 0) a_s[r0 + i] = alpha;
+        for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float2 x = make_float2(0.f, 0.f);
+#pragma unroll
+            for (int c = 0; c < P.cs; ++c) {
+              const float2 y = *reinterpret_cast<const float2*>(
+                  part + (c * R + r0 + g + 8 * half) * PS + nt * 8 + 2 * t4);
+              x = c == 0 ? y : make_float2(x.x + y.x, x.y + y.y);
+            }
+            sa[nt][2 * half] = x.x;
+            sa[nt][2 * half + 1] = x.y;
+          }
+      }
     }
-    __syncthreads();
-    const float alpha = a_s[row];
+    if (live) {
+      // scale, ALiBi, mask; keys s0 + 8 nt + 2 t4 + (e & 1).  The mask is
+      // tested only where a row of the warp misses a key of the tile
+      const bool full = s0 + BS - 1 <= n_past + q0 + r0 && s0 + BS <= S;
+      float mx[2] = {VSIM_NEG_INF, VSIM_NEG_INF};
 #pragma unroll
-    for (int j = 0; j < 4 * NG; ++j) acc[j] *= alpha;
-    for (int j = 0; j < kF32BS; ++j) {
-      const float p = ps[row * kPS + j];
-      const float* vr = vs + j * DP;
+      for (int nt = 0; nt < NS; ++nt) {
 #pragma unroll
-      for (int gi = 0; gi < NG; ++gi) {
-        const int col = gi * 32 + c * 4;
-        if (col < D4) {
-          const float4 vv = *reinterpret_cast<const float4*>(vr + col);
-          acc[4 * gi + 0] = fmaf(p, vv.x, acc[4 * gi + 0]);
-          acc[4 * gi + 1] = fmaf(p, vv.y, acc[4 * gi + 1]);
-          acc[4 * gi + 2] = fmaf(p, vv.z, acc[4 * gi + 2]);
-          acc[4 * gi + 3] = fmaf(p, vv.w, acc[4 * gi + 3]);
+        for (int e = 0; e < 4; ++e) {
+          const int s = s0 + nt * 8 + 2 * t4 + (e & 1);
+          const int t = t_lo + 8 * (e >> 1);
+          float sv = sa[nt][e] * scale + slope * static_cast<float>(s);
+          if (!full && (s >= S || s > n_past + t)) sv = VSIM_NEG_INF;
+          sa[nt][e] = sv;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+        }
+      }
+      float al[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+          mx[half] =
+              fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], off));
+        const float mn = fmaxf(m[half], mx[half]);
+        al[half] = m[half] == VSIM_NEG_INF ? 0.f : expf(m[half] - mn);
+        m[half] = mn;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float sv = sa[nt][e];
+          const float p = sv == VSIM_NEG_INF ? 0.f : expf(sv - m[e >> 1]);
+          sa[nt][e] = p;
+          sum[e >> 1] += p;
+        }
+      }
+      l[0] = al[0] * l[0] + sum[0];  // quads sum at the end
+      l[1] = al[1] * l[1] + sum[1];
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        o[i][0] *= al[0];
+        o[i][1] *= al[0];
+        o[i][2] *= al[1];
+        o[i][3] *= al[1];
+      }
+      // O += P V over 8 keys a k-step: k slot t is key 2 t and slot t + 4
+      // key 2 t + 1, so the score accumulator is the A fragment as it
+      // stands, and the B fragment reads value rows 2 t and 2 t + 1.  Each
+      // n-tile's products over G k-steps go into a fresh fragment, added to
+      // o in f32
+      const float* vr = vt + 2 * t4 * DP + col0 + g;
+#pragma unroll
+      for (int j0 = 0; j0 < NS; j0 += G) {
+        FragA3 pa[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+          pa[j].set_trunc(sa[j0 + j][0], sa[j0 + j][2], sa[j0 + j][1],
+                          sa[j0 + j][3]);
+#pragma unroll
+        for (int dn = 0; dn < ND; ++dn) {
+          float f[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            const float* b = vr + (j0 + j) * 8 * DP + dn * 8;
+            FragB3 vb;
+            vb.set_trunc(b[0], b[DP]);
+            mma_3xtf32(f, pa[j], vb);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[dn][e] += f[e];
         }
       }
     }
+    __syncthreads();  // this stage and the slices are refilled next
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      m_s[r0 + i] = m[i];
-      l_s[r0 + i] = l[i];
-    }
-  }
-  __syncthreads();
+  cp_async_wait<0>();
 
-  const int t = q0 + row;
-  if (t >= T) return;
-  const float lr = l_s[row], mr = m_s[row];
-  float* orow = out + (static_cast<size_t>(bh) * T + t) * D;
 #pragma unroll
-  for (int gi = 0; gi < NG; ++gi) {
+  for (int half = 0; half < 2; ++half) {
+    float lr = l[half];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = gi * 32 + c * 4 + e;
-      if (col < D) orow[col] = lr > 0.f ? acc[4 * gi + e] / lr : 0.f;
+    for (int off = 1; off < 4; off <<= 1)
+      lr += __shfl_xor_sync(0xffffffffu, lr, off);
+    const int t = t_lo + 8 * half;
+    if (t >= T) continue;
+    float* orow = out + (static_cast<size_t>(bh) * T + t) * D;
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn) {
+      const int col = col0 + dn * 8 + 2 * t4;
+      if (col >= D) continue;  // the head dim's padding is never stored
+      const float x0 = lr > 0.f ? o[dn][2 * half] / lr : 0.f;
+      const float x1 = lr > 0.f ? o[dn][2 * half + 1] / lr : 0.f;
+      if ((D & 1) == 0) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(x0, x1);
+      } else {
+        orow[col] = x0;
+        if (col + 1 < D) orow[col + 1] = x1;
+      }
     }
+    if (cw == 0 && t4 == 0)
+      lse[static_cast<size_t>(bh) * T + t] =
+          lr > 0.f ? m[half] + logf(lr) : VSIM_NEG_INF;
   }
-  if (c == 0)
-    lse[static_cast<size_t>(bh) * T + t] = lr > 0.f ? mr + logf(lr) : VSIM_NEG_INF;
 }
 
-template <int NG>
+template <int DPAD, bool FEW>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                float* lse, const float* slopes, int B, int H, int T, int S,
                int D, int n_past, float scale, int vec, cudaStream_t st) {
-  auto kern = flash_fwd_f32_kernel<NG>;
-  const size_t dp = (D + 3) / 4 * 4 + 4;
-  const size_t smem = sizeof(float) * ((kF32BQ + 2 * kF32BS) * dp +
-                                       kF32BQ * kPS + 3 * kF32BQ);
+  auto kern = flash_fwd_3xtf32_kernel<DPAD, FEW>;
+  constexpr size_t smem = fwd_smem_bytes(DPAD, FEW);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kF32BQ - 1) / kF32BQ, B * H);
-  kern<<<grid, kF32Threads, smem, st>>>(
+  constexpr int R = 16 * fwd_plan(DPAD, FEW).rt;
+  const dim3 grid((T + R - 1) / R, B * H);
+  kern<<<grid, fwd_threads(DPAD, FEW), smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, slopes, H,
       T, S, D, n_past, scale, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DPAD>
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, const float* slopes, int B, int H, int T, int S,
+               int D, int n_past, float scale, int vec, cudaStream_t st) {
+  return T <= kFewRows
+             ? launch_f32<DPAD, true>(q, k, v, out, lse, slopes, B, H, T, S,
+                                      D, n_past, scale, vec, st)
+             : launch_f32<DPAD, false>(q, k, v, out, lse, slopes, B, H, T, S,
+                                       D, n_past, scale, vec, st);
 }
 
 bool aligned16(const void* p) {
@@ -482,7 +709,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return launch_bf16<256, 32>(q, k, v, out, lp, sl, B, H, T, S, D, n_past, scale, vec, st);
   }
   const int vec = al && D % 4 == 0;
-  if (D <= 64) return launch_f32<2>(q, k, v, out, lp, sl, B, H, T, S, D, n_past, scale, vec, st);
-  if (D <= 128) return launch_f32<4>(q, k, v, out, lp, sl, B, H, T, S, D, n_past, scale, vec, st);
-  return launch_f32<8>(q, k, v, out, lp, sl, B, H, T, S, D, n_past, scale, vec, st);
+  if (D <= 64) return launch_f32<64>(q, k, v, out, lp, sl, B, H, T, S, D, n_past, scale, vec, st);
+  if (D <= 80) return launch_f32<80>(q, k, v, out, lp, sl, B, H, T, S, D, n_past, scale, vec, st);
+  if (D <= 96) return launch_f32<96>(q, k, v, out, lp, sl, B, H, T, S, D, n_past, scale, vec, st);
+  if (D <= 128) return launch_f32<128>(q, k, v, out, lp, sl, B, H, T, S, D, n_past, scale, vec, st);
+  return launch_f32<256>(q, k, v, out, lp, sl, B, H, T, S, D, n_past, scale, vec, st);
 }

@@ -5,7 +5,11 @@ K4 ``flash_attention_fwd`` (csrc/flash_attention.cu, replaces
 ``_fwd_kernel``) takes head-major q [B, H, T, D] and k/v [B, H, S, D], bf16
 or f32 (all one dtype); query t sees key s iff s <= n_past + t; optional
 ALiBi slopes [H].  It returns ``out`` [B, H, T, D] in q's dtype and ``lse``
-[B, H, T] f32.
+[B, H, T] f32.  ``flash_attention_fwd_route`` names its instance: both run
+on the tensor cores at every head dim up to 256, zero-padded in shared
+memory to 64, 80, 96, 128 or 256 -- bf16 as bf16 products with p rounded to
+bf16 ("mma_bf16"), f32 as three TF32 products per f32 product of operands
+split by ``tf32_round``, as K7/K8's f32 instance ("mma_3xtf32").
 
 The backward recomputes p from q, k and lse, as ``_flash_core_bwd`` does:
 K7 ``flash_attention_bwd_dq`` (replaces ``_bwd_dq_kernel``) and K8
@@ -116,6 +120,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   int(q.dtype == torch.bfloat16), B, H, T, S, D, int(n_past),
                   float(scale), _build.stream_ptr(q.device))
     return out, lse
+
+
+def flash_attention_fwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The K4 instance a call with q of ``dtype`` and head dim ``head_dim``
+    (up to 256) takes on the card: "mma_3xtf32" for f32, "mma_bf16" for
+    bf16."""
+    if not 0 < head_dim <= _MAX_D:
+        raise ValueError(f"flash_attention_fwd: head dim {head_dim} is not "
+                         f"in 1..{_MAX_D}")
+    return {torch.float32: "mma_3xtf32", torch.bfloat16: "mma_bf16"}[dtype]
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,

@@ -1,24 +1,29 @@
-"""K7/K8's tensor-core instances under candidate geometries, beside the ones
-``csrc/flash_attention_bwd.cu`` takes: "mma_bf16" (``bf_plan``) or, with
-``--f32``, the zero-padded "mma_3xtf32" instances (``tf_plan``, f32 at head
-dims other than 64 and 128).
+"""K7/K8's and K4's tensor-core instances under candidate geometries, beside
+the ones the sources take: K7/K8's "mma_bf16" (``bf_plan`` in
+``csrc/flash_attention_bwd.cu``), with ``--f32`` their zero-padded
+"mma_3xtf32" instances (``tf_plan``, f32 at head dims other than 64 and
+128), with ``--fwd`` K4's f32 instance ("mma_3xtf32", ``fwd_plan`` in
+``csrc/flash_attention.cu``).
 
-    python -m vsim_tpu_torch.tools.bwd_plans [--f32] [--out FILE]
+    python -m vsim_tpu_torch.tools.bwd_plans [--f32 | --fwd] [--out FILE]
 
 A plan is compiled into the kernel (``BfPlan`` / ``TfPlan``: resident row
 tiles, warps a row tile splitting the streamed rows -- with ``TfPlan``'s
 ``ks``, the head dim -- and the gradient columns, streamed rows a tile, the
-blocks an SM the register budget is set for), so each round of candidates
-is a copy of ``csrc/`` whose plan function returns the round's candidate
-for every (pass, padded head dim) that has one and the source's own plan
-otherwise, built with ``nvcc`` into ``build/kernels/bwd_plans/``, all
-rounds at once.  Each build's ``ptxas -v`` registers and spills are
-printed for every instance of the mode; then, at
-the mode's shapes, each round's K7 and K8 are held to the plain backward
+blocks an SM the register budget is set for; ``FwdPlan``: 16-query row
+tiles, warps a row tile splitting the head dim, keys a tile, ring stages,
+blocks an SM, for T > 32 and for short prompts), so
+each round of candidates is a copy of ``csrc/`` whose plan function returns
+the round's candidate for every (pass, padded head dim) that has one and
+the source's own plan otherwise, built with ``nvcc`` into
+``build/kernels/bwd_plans/``, all rounds at once.  Each build's ``ptxas
+-v`` registers and spills are printed for every instance of the mode; then,
+at the mode's shapes, each round's kernels are held to their plain version
 (bf16: every element within 2^-8 of max|plain|, at most 2% of the bf16
-elements differing; f32: each of dq, dk, dv within 1e-4 of its max|plain|;
-a round that fails is reported and not timed) and timed (``timing.timed``,
-best of two).  Runs on the CUDA card only.
+elements differing; f32: each of dq, dk, dv -- K4: out and lse -- within
+1e-4 of its max|plain|; a round that fails is reported and not timed) and
+timed (``timing.timed``, best of two; K4 beside scaled_dot_product_attention
+on the same inputs).  Runs on the CUDA card only.
 """
 
 from __future__ import annotations
@@ -34,9 +39,10 @@ import subprocess
 import torch
 
 from vsim_tpu_torch.ops import _build
-from vsim_tpu_torch.ops.attention import (_BWD_DKV_ARGS, _BWD_DQ_ARGS,
+from vsim_tpu_torch.ops.attention import (_ARGS, _BWD_DKV_ARGS, _BWD_DQ_ARGS,
                                           _INSTANCES, flash_attention_bwd_plain,
-                                          flash_attention_fwd)
+                                          flash_attention_fwd,
+                                          flash_attention_plain)
 from vsim_tpu_torch.timing import timed
 
 # (pass, padded head dim) -> candidate (rt, cs, tile, min_blocks), one a
@@ -79,14 +85,62 @@ CANDIDATES_F32 = {
 # (B, H, T, D): phase 6's and phase 2's f32 shapes at D other than 64, 128
 SHAPES_F32 = ((1, 16, 2048, 256), (1, 16, 512, 256), (1, 32, 2048, 80),
               (1, 64, 2048, 96))
+# K4's f32 instance (fwd_plan): ("fwd", padded head dim) -> candidate (rt,
+# cs, tile, stages, min_blocks): rt row tiles of 16 queries, cs warps a row
+# tile splitting the head dim, keys a tile, 1 or 2 ring stages, the blocks
+# an SM of __launch_bounds__; ("few", padded head dim) the same for T <=
+# FEW_ROWS (round 0: fwd_plan's own)
+CANDIDATES_FWD = {
+    ("fwd", 64): [(4, 1, 32, 1, 4), (4, 1, 32, 2, 4), (4, 1, 32, 2, 3),
+                  (8, 1, 32, 2, 2), (4, 1, 64, 2, 2), (4, 1, 16, 2, 4)],
+    ("fwd", 80): [(4, 1, 32, 1, 3), (4, 1, 32, 2, 3), (4, 1, 32, 1, 4),
+                  (8, 1, 32, 2, 2), (4, 1, 64, 2, 2), (4, 2, 32, 2, 2)],
+    ("fwd", 96): [(4, 1, 32, 2, 3), (4, 1, 32, 1, 3), (4, 1, 32, 1, 4),
+                  (8, 1, 32, 2, 2), (4, 1, 64, 2, 2), (4, 2, 32, 2, 2)],
+    ("fwd", 128): [(4, 2, 64, 2, 1), (4, 1, 32, 2, 2), (4, 1, 32, 1, 3),
+                   (4, 2, 32, 1, 2), (8, 1, 32, 2, 1), (4, 1, 64, 1, 2)],
+    ("fwd", 256): [(4, 2, 32, 2, 1), (4, 2, 32, 1, 1), (4, 4, 32, 1, 1),
+                   (2, 4, 32, 2, 1), (4, 2, 16, 2, 1), (4, 4, 16, 2, 1)],
+    ("few", 64): [(1, 4, 32, 1, 2), (2, 2, 32, 1, 2), (1, 4, 16, 1, 2),
+                  (1, 2, 16, 1, 2), (1, 8, 16, 1, 1), (2, 4, 16, 1, 1)],
+    ("few", 80): [(1, 5, 32, 1, 1), (2, 2, 32, 1, 2), (1, 2, 16, 1, 2),
+                  (1, 5, 16, 1, 1), (1, 2, 32, 1, 2), (2, 2, 16, 1, 2)],
+    ("few", 96): [(1, 4, 32, 1, 2), (2, 2, 32, 1, 2), (1, 4, 16, 1, 2),
+                  (1, 3, 16, 1, 2), (1, 6, 16, 1, 1), (2, 2, 16, 1, 2)],
+    ("few", 128): [(1, 4, 16, 1, 2), (4, 2, 32, 1, 2), (1, 8, 16, 1, 1),
+                   (2, 2, 16, 1, 2), (1, 2, 32, 1, 2), (2, 4, 32, 1, 1)],
+    ("few", 256): [(1, 8, 16, 1, 1), (1, 4, 16, 1, 1), (1, 2, 16, 1, 2),
+                   (1, 4, 32, 1, 1), (2, 4, 16, 1, 1), (1, 8, 32, 1, 1)],
+}
+FEW_ROWS = 32  # csrc/flash_attention.cu kFewRows
+# (B, H, T, D): K4's f32 shapes on the main path -- Pythia-410M's training
+# (B=4) and perplexity (B=1) at D=64, phase 2's T=512 and T=16 at D=256,
+# GPT-J-6B's and CodeGen-2B's widths in training, GPT-NeoX-20B's D=96,
+# Pythia-12B's width at T=2048 and at the chat CLI's f32 prefill of 100 and
+# 20 tokens -- and a 20-token prompt at Pythia-410M's, CodeGen-2B's and
+# GPT-NeoX-20B's heads (the short-prompt plans at D = 64, 80, 96)
+SHAPES_FWD = ((4, 16, 2048, 64), (1, 16, 2048, 64), (1, 16, 512, 256),
+              (1, 16, 16, 256), (1, 16, 2048, 256), (1, 32, 2048, 80),
+              (1, 64, 2048, 96), (1, 40, 2048, 128), (1, 40, 100, 128),
+              (1, 40, 20, 128), (1, 16, 20, 64), (1, 32, 20, 80),
+              (1, 64, 20, 96))
 _DPADS = (64, 80, 96, 128, 256)
-# per mode: candidates, shapes, the plan function and its type, the kernel
-# names in ptxas's report, the dtype and the instance launched
+# per mode: candidates, shapes, the source, the plan function and its type,
+# its threads function, the dtype, the K7/K8 instance launched, and the
+# plan function's bool argument with the candidate kind that sets it
 MODES = {
     "bf16": dict(candidates=CANDIDATES, shapes=SHAPES, fn="bf_plan",
-                 plan="BfPlan", dtype=torch.bfloat16, instance="mma_bf16"),
+                 plan="BfPlan", dtype=torch.bfloat16, instance="mma_bf16",
+                 source="flash_attention_bwd", threads="bf_threads",
+                 flag="dkv", flag_on="dkv"),
     "f32": dict(candidates=CANDIDATES_F32, shapes=SHAPES_F32, fn="tf_plan",
-                plan="TfPlan", dtype=torch.float32, instance="mma_3xtf32"),
+                plan="TfPlan", dtype=torch.float32, instance="mma_3xtf32",
+                source="flash_attention_bwd", threads="tf_threads",
+                flag="dkv", flag_on="dkv"),
+    "fwd": dict(candidates=CANDIDATES_FWD, shapes=SHAPES_FWD, fn="fwd_plan",
+                plan="FwdPlan", dtype=torch.float32, instance="mma_3xtf32",
+                source="flash_attention", threads="fwd_threads",
+                flag="few", flag_on="few"),
 }
 TOL_F32 = 1e-4  # chip_smoke.py TOL_BWD_F32
 
@@ -99,16 +153,16 @@ def _round_source(src: str, rnd: int, mode: str = "bf16") -> str:
     """flash_attention_bwd.cu with the mode's plan function returning round
     ``rnd``'s candidates."""
     m = MODES[mode]
-    fn, plan = m["fn"], m["plan"]
-    head = f"constexpr {plan} {fn}(int dpad, bool dkv) {{"
+    fn, plan, flag, on = m["fn"], m["plan"], m["flag"], m["flag_on"]
+    head = f"constexpr {plan} {fn}(int dpad, bool {flag}) {{"
     src = src.replace(head, head.replace(f"{fn}(", f"{fn}_default("))
     cases = "".join(
-        f"  if (dpad == {d} && dkv == {str(k == 'dkv').lower()}) "
+        f"  if (dpad == {d} && {flag} == {str(k == on).lower()}) "
         f"return {plan}{{{', '.join(map(str, c[rnd]))}}};\n"
         for (k, d), c in m["candidates"].items() if rnd < len(c))
     body = (f"__host__ __device__ {head}\n" + cases
-            + f"  return {fn}_default(dpad, dkv);\n}}\n")
-    at = src.index(f"__host__ __device__ constexpr int {fn[:2]}_threads(")
+            + f"  return {fn}_default(dpad, {flag});\n}}\n")
+    at = src.index(f"__host__ __device__ constexpr int {m['threads']}(")
     return src[:at] + body + src[at:]
 
 
@@ -120,15 +174,16 @@ def _plan_of(rnd: int, kind: str, dpad: int, mode: str = "bf16"):
 def build_rounds(mode: str = "bf16"):
     """One library a round, built in parallel: [(path, ptxas report)]."""
     rounds = max(len(c) for c in MODES[mode]["candidates"].values())
+    source = MODES[mode]["source"]
     root = _build.BUILD_DIR / "bwd_plans"
     shutil.rmtree(root, ignore_errors=True)
     procs = []
     for rnd in range(rounds):
         d = root / f"r{rnd}"
         shutil.copytree(_build.CSRC, d / "csrc")
-        cu = d / "csrc" / "flash_attention_bwd.cu"
+        cu = d / "csrc" / f"{source}.cu"
         cu.write_text(_round_source(cu.read_text(), rnd, mode))
-        lib = d / "libflash_attention_bwd.so"
+        lib = d / f"lib{source}.so"
         procs.append((lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -147,6 +202,9 @@ def _entry(line: str, mode: str):
     if mode == "bf16":
         m = re.search(r"flash_bwd_(dq|dkv)_bf16_kernelILi(\d+)E", line)
         return m and (m.group(1), int(m.group(2)))
+    if mode == "fwd":
+        m = re.search(r"flash_fwd_3xtf32_kernelILi(\d+)ELb([01])E", line)
+        return m and ("few" if m.group(2) == "1" else "fwd", int(m.group(1)))
     m = re.search(r"flash_bwd_(dq|dkv)_3xtf32_pad_kernelILi(\d+)E", line)
     return m and (m.group(1), int(m.group(2)))
 
@@ -204,6 +262,8 @@ def run(mode: str = "bf16", shapes=None):
         print(f"round {rnd}: " + ", ".join(
             f"{k}<{d}> {_plan_of(rnd, k, d, mode)} {v[0]} regs, {v[1]} B "
             "spilled" for (k, d), v in sorted(r.items())), flush=True)
+    if mode == "fwd":
+        return _run_fwd(libs, regs, shapes or m["shapes"])
     rows = []
     g = torch.Generator(device="cuda").manual_seed(0)
     p = _build.ptr
@@ -248,16 +308,72 @@ def run(mode: str = "bf16", shapes=None):
     return rows
 
 
+def _run_fwd(libs, regs, shapes):
+    """K4's f32 rounds at ``shapes``: out and lse within 1e-4 of their
+    max|plain|, then each round timed beside SDPA on the same inputs."""
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = _build.ptr
+    for B, H, T, D in shapes:  # noqa: N806
+        sc = 1.0 / math.sqrt(D)
+        q, k, v = (torch.randn((B, H, T, D), generator=g, device="cuda")
+                   for _ in range(3))
+        ref = flash_attention_plain(q, k, v, scale=sc)
+        lib_ms = min(timed(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               q, k, v, is_causal=True, scale=sc))
+                     for _ in range(2))
+        for rnd, lib in enumerate(libs):
+            out = torch.empty_like(q)
+            lse = torch.empty((B, H, T), device="cuda")
+            fn = lib.flash_attention_launch
+            fn.argtypes, fn.restype = list(_ARGS), ctypes.c_int
+
+            def call(fn=fn, out=out, lse=lse):
+                err = fn(p(q), p(k), p(v), p(out), p(lse), p(None), 0, B, H,
+                         T, T, D, 0, sc, _build.stream_ptr(q.device))
+                if err:
+                    raise RuntimeError(f"fwd: CUDA error {err}")
+
+            try:
+                call()
+                torch.cuda.synchronize()
+                worst = _check("f32", rnd, (B, H, T, D), (out, lse), ref)
+            except RuntimeError as exc:  # a refused or wrong candidate is
+                # reported and not timed
+                print(f"B={B} H={H} T={T} D={D} round {rnd}: FAILED {exc}",
+                      flush=True)
+                rows.append(dict(mode="fwd", shape=[B, H, T, D], round=rnd,
+                                 failed=str(exc)))
+                continue
+            ms = min(timed(call), timed(call))
+            kind = "few" if T <= FEW_ROWS else "fwd"
+            plan = _plan_of(rnd, kind, _dpad(D), "fwd")
+            reg = regs[rnd].get((kind, _dpad(D)))
+            rows.append(dict(mode="fwd", shape=[B, H, T, D], kind=kind,
+                             round=rnd, plan=plan, ms=ms, regs=reg,
+                             rel_err=worst, library_ms=lib_ms))
+            print(f"B={B} H={H} T={T} D={D} {kind} round {rnd} {plan}: "
+                  f"{ms:.4f} ms ({ms / lib_ms:.2f}x SDPA {lib_ms:.4f}) "
+                  f"{reg}, worst {worst:.3g}", flush=True)
+        del q, k, v, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--f32", action="store_true",
-                    help="the padded mma_3xtf32 instances (tf_plan)")
+    kind = ap.add_mutually_exclusive_group()
+    kind.add_argument("--f32", action="store_true",
+                      help="the padded mma_3xtf32 instances (tf_plan)")
+    kind.add_argument("--fwd", action="store_true",
+                      help="K4's f32 instance (fwd_plan)")
     ap.add_argument("--out", default=None, help="write the rows as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bwd_plans: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = run("f32" if args.f32 else "bf16")
+    rows = run("f32" if args.f32 else "fwd" if args.fwd else "bf16")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)
