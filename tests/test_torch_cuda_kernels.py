@@ -795,8 +795,9 @@ def test_flash_attention_bwd_refuses_a_missing_instance(dev):
         lse, dsum = (torch.zeros((1, 1, 32), device=dev) for _ in range(2))
         dq = torch.empty_like(q)
         p = _build.ptr
-        err = _build.function("flash_attention_bwd",
-                              "flash_attention_bwd_dq_launch", _BWD_DQ_ARGS)(
+        err = _build.function("flash_attention_bwd_dq",
+                              "flash_attention_bwd_dq_launch",
+                              _BWD_DQ_ARGS)(
             p(q), p(k), p(v), p(do), p(lse), p(dsum), p(dq), p(None),
             int(dtype == torch.bfloat16), _INSTANCES[inst], 1, 1, 32, 32, D,
             0, 0.125, _build.stream_ptr(dev))

@@ -2009,6 +2009,9 @@ int dispatch(const Args& a, int is_bf16, int inst) {
 
 }  // namespace
 
+// VSIM_BWD_PASS 0 or 1 builds one pass's entry (and so its instances)
+// alone: ops/_build.py builds the two as two libraries at once.
+#if !defined(VSIM_BWD_PASS) || VSIM_BWD_PASS == 0
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* do_,
     const void* lse, const void* dsum, void* dq, const void* slopes,
@@ -2020,7 +2023,9 @@ extern "C" int flash_attention_bwd_dq_launch(
                static_cast<cudaStream_t>(stream)};
   return dispatch<false>(a, is_bf16, inst);
 }
+#endif
 
+#if !defined(VSIM_BWD_PASS) || VSIM_BWD_PASS == 1
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* do_,
     const void* lse, const void* dsum, void* dk, void* dv, const void* slopes,
@@ -2032,3 +2037,4 @@ extern "C" int flash_attention_bwd_dkv_launch(
                static_cast<cudaStream_t>(stream)};
   return dispatch<true>(a, is_bf16, inst);
 }
+#endif

@@ -47,18 +47,47 @@ def _dims(cfg: ModelConfig) -> Dict[str, int]:
     return {"E": cfg.n_embd, "F": cfg.n_ff, "V": cfg.n_vocab}
 
 
+def _device_generator(rng: str, seed: int, dev: torch.device):
+    """None for ``rng="numpy"``; for ``"device"`` a torch generator on
+    ``dev`` seeded with ``seed``."""
+    if rng == "numpy":
+        return None
+    if rng != "device":
+        raise ValueError(f"rng must be 'numpy' or 'device', not {rng!r}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _stack(parts):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.stack(parts)
+    return np.stack(parts)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, quantize: bool = False,
-                device: DeviceLike = None) -> Dict[str, Any]:
+                device: DeviceLike = None, rng: str = "numpy"
+                ) -> Dict[str, Any]:
     """Gaussian-init (std 0.02) f32 parameters, layer-stacked, optionally
-    Q4_0-quantized with bf16 scales."""
+    Q4_0-quantized with bf16 scales.  ``rng="device"`` draws the same tree
+    with torch's generator on the device, not numpy's on the host: seconds
+    less at full size, but not the JAX package's values, and not
+    quantized."""
     dev = resolve_device(device)
     pdt, std = torch.float32, 0.02
-    rng = np.random.default_rng(seed)
+    gen = _device_generator(rng, seed, dev)
+    if gen is not None and quantize:
+        raise ValueError("rng='device' draws dense weights only")
+    np_rng = np.random.default_rng(seed)
     dims = _dims(cfg)
 
+    def normal(shape):
+        if gen is not None:
+            return torch.randn(shape, generator=gen, device=dev) * std
+        return (np_rng.standard_normal(shape) * std).astype(np.float32)
+
     def w(shape_names):
-        shape = tuple(dims[s] for s in shape_names)
-        return (rng.standard_normal(shape) * std).astype(np.float32)
+        return normal(tuple(dims[s] for s in shape_names))
 
     def wrap2d(mat):
         if quantize and mat.shape[-1] % QK == 0:
@@ -67,6 +96,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, quantize: bool = False,
         return mat, None
 
     def dense(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(dev, pdt)
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, pdt)
 
     layer_packed = {k: [] for k in _WEIGHT_SHAPES}
@@ -87,7 +118,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, quantize: bool = False,
 
     layers: Dict[str, Any] = {}
     for k in _WEIGHT_SHAPES:
-        stacked = np.stack(layer_packed[k])
+        stacked = _stack(layer_packed[k])
         if layer_scales[k][0] is not None:
             layers[k] = Q4Tensor(
                 packed=tensor_from_np(stacked, dev),
@@ -95,10 +126,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, quantize: bool = False,
         else:
             layers[k] = dense(stacked)
     for k in _VEC_SHAPES:
-        layers[k] = dense(np.stack(layer_vecs[k]))
+        layers[k] = dense(_stack(layer_vecs[k]))
 
     def big(shape):
-        p, s = wrap2d((rng.standard_normal(shape) * std).astype(np.float32))
+        p, s = wrap2d(normal(shape))
         if s is not None:
             return Q4Tensor(packed=tensor_from_np(p, dev),
                             scales=tensor_from_np(s, dev))
@@ -113,8 +144,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, quantize: bool = False,
         "lm_head": big((cfg.n_vocab, E)),
     }
     if cfg.learned_pos:
-        params["wpe"] = dense(
-            (rng.standard_normal((cfg.n_ctx, E)) * std).astype(np.float32))
+        params["wpe"] = dense(normal((cfg.n_ctx, E)))
     if cfg.arch == "bloom":
         params["emb_ln_w"] = torch.ones(E, dtype=pdt, device=dev)
         params["emb_ln_b"] = torch.zeros(E, dtype=pdt, device=dev)
@@ -124,18 +154,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, quantize: bool = False,
 
 
 def random_q4_params(cfg: ModelConfig, seed: int = 0,
-                     device: DeviceLike = None) -> Dict[str, Any]:
+                     device: DeviceLike = None, *, rng: str = "numpy"
+                     ) -> Dict[str, Any]:
     """Benchmark-grade Q4 params: random packed bytes and bf16 scales
     drawn directly (no float weights, no quantization pass), byte-identical
-    to the JAX package's (stacked) ones for one seed."""
+    to the JAX package's (stacked) ones for one seed.  ``rng="device"``
+    draws the same tree with torch's generator on the device: seconds less
+    at full size, but not the JAX package's bytes."""
     dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
+    gen = _device_generator(rng, seed, dev)
+    np_rng = np.random.default_rng(seed)
     dims = _dims(cfg)
     L = cfg.n_layer  # noqa: N806
 
     def q4_draw(shape_packed, shape_scales):
-        packed = rng.integers(0, 256, size=shape_packed, dtype=np.uint8)
-        scales = rng.random(shape_scales, dtype=np.float32) * 0.01
+        if gen is not None:
+            packed = torch.randint(0, 256, shape_packed, generator=gen,
+                                   device=dev, dtype=torch.uint8)
+            scales = torch.rand(shape_scales, generator=gen, device=dev)
+            return Q4Tensor(packed=packed,
+                            scales=(scales * 0.01).to(DEFAULT_SCALE_DTYPE))
+        packed = np_rng.integers(0, 256, size=shape_packed, dtype=np.uint8)
+        scales = np_rng.random(shape_scales, dtype=np.float32) * 0.01
         return Q4Tensor(packed=tensor_from_np(packed, dev),
                         scales=tensor_from_np(
                             _cast_scales_np(scales, DEFAULT_SCALE_DTYPE), dev))

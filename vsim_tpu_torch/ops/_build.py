@@ -11,7 +11,9 @@ Every kernel wrapper counts its launches in ``launch_counts`` under the
 kernel's name in ``KERNELS`` (one per kernel launch, nowhere else), so a run
 can show which kernels it went through.  A source may hold more than one
 kernel: K3 and K5 are two modes of ``decode_attention.cu``, K7 and K8 the
-two passes of ``flash_attention_bwd.cu``, K9 and K10 the single-weight and
+two passes of ``flash_attention_bwd.cu`` (built as two libraries, each with
+its own pass's instances: the source's whole build takes the longest of
+any), K9 and K10 the single-weight and
 the stacked-layer calls of the one kernel of ``q4_matmul_i.cu``, K12-K14 the three lab kernels
 of ``q4_lab.cu``; K15 (``q4_batch_lab.cu``) and K16 (``attn_lab.cu``) are
 the batch and attention labs'.  ``read_designs.cu`` holds the reads K13 is held against
@@ -27,28 +29,38 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-# kernel (its launch-count name) -> the csrc/<source>.cu it is built from
+# kernel (its launch-count name) -> the library it is built into: the
+# csrc/<library>.cu, or a unit of UNITS
 KERNELS = {"q4_gemv_ps": "q4_gemv_ps", "q4_matmul_ps": "q4_matmul_ps",
            "decode_attention": "decode_attention",
            "decode_attention_fresh": "decode_attention",
            "flash_attention": "flash_attention",
            "scatter_rows": "kv_scatter_rows",
-           "flash_attention_bwd_dq": "flash_attention_bwd",
-           "flash_attention_bwd_dkv": "flash_attention_bwd",
+           "flash_attention_bwd_dq": "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv": "flash_attention_bwd_dkv",
            "q4_matmul_i": "q4_matmul_i", "q4_matmul_stacked": "q4_matmul_i",
            "q4_mlp_ps": "q4_mlp_ps", "q4_lab_gemv": "q4_lab",
            "q4_lab_dma": "q4_lab", "pair_bitcast": "q4_lab",
            "q4_batch_lab": "q4_batch_lab", "attn_lab": "attn_lab"}
+# library -> (its csrc/<source>.cu, the defines it is built with)
+UNITS = {"flash_attention_bwd_dq": ("flash_attention_bwd",
+                                    ("-DVSIM_BWD_PASS=0",)),
+         "flash_attention_bwd_dkv": ("flash_attention_bwd",
+                                     ("-DVSIM_BWD_PASS=1",))}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
+# the lab's libraries (K12-K16): no path but the lab's runs them
+LAB_SOURCES = ("q4_lab", "q4_batch_lab", "attn_lab")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts: collections.Counter = collections.Counter()
+build_seconds: Dict[str, float] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -66,18 +78,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _unit(name: str):
+    return UNITS.get(name, (name, ()))
+
+
 def _lib_path(name: str) -> Path:
+    source, defines = _unit(name)
     h = hashlib.sha256()
-    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for p in [CSRC / f"{source}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + defines).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile every named source that is not built yet, all in parallel.
-    Returns each source's ``ptxas -v`` report; raises if any build fails."""
+def start_builds(names: Iterable[str] = SOURCES) -> Dict[str, tuple]:
+    """Start one ``nvcc`` for every named library that is not built yet,
+    all at once; ``finish_builds`` waits for them."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -85,22 +102,48 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         out = _lib_path(name)
         if out.exists():
             continue
+        source, defines = _unit(name)
         tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        log = open(tmp.with_suffix(".log"), "w+")
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(CSRC / f"{source}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT), log, tmp,
+                       out)
+    return procs
+
+
+def finish_builds(procs: Dict[str, tuple]) -> Dict[str, str]:
+    """Wait for ``start_builds``' compiles.  Returns each library's ``ptxas
+    -v`` report; raises if any build failed.  ``build_seconds`` gets each
+    library's seconds from this call to its end."""
+    t0 = time.perf_counter()
+    pending = dict(procs)
+    while pending:
+        for name in [n for n, v in pending.items() if v[0].poll() is not None]:
+            build_seconds[name] = time.perf_counter() - t0
+            del pending[name]
+        time.sleep(0.05)
     reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        reports[name] = log
+    for name, (proc, log, tmp, out) in procs.items():
+        log.seek(0)
+        reports[name] = log.read()
+        log.close()
+        os.remove(log.name)
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{name}:\n{reports[name]}")
         else:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return reports
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every named library that is not built yet, all in parallel.
+    Returns each library's ``ptxas -v`` report; raises if any build
+    fails."""
+    return finish_builds(start_builds(names))
 
 
 def load(name: str) -> ctypes.CDLL:
