@@ -35,14 +35,17 @@ token 42, a near-tie that equality cannot tell from a fault):
      K9-K11 at the
      Pythia-12B shapes phase 7 gives them (K1 at 1 and 8 rows, K2 at 1 and
      8 rows with f32 planes and at 100 with bf16 planes, K3 on layer 35 of
-     a 36-layer int8 and int4 cache, K4 at the prompt lengths; K9 and K11 at GPT-J's
+     a 36-layer int8 and int4 cache, K4 at the prompt lengths; K3 at the
+     batched benchmark's shapes: GPT-J-6B B=128 int4 S=512 at n_past 8 and
+     200, GPT-NeoX-20B's H=64 D=96 at B=8 with f32 q, int8 and int4; K9 and K11 at GPT-J's
      too; K10 at every stacked shape of both models at n = 1 and fc at 8,
      100 and 128 rows under both plane contracts; K1, K11, K9 and K10 with
      their ratio to the flat read of their bytes); K4 also at codegen-2b's
      D=80 and at D=72, K3 and K5 with f32 q (round_q=False) at its D=80,
      H=32; K6's two instances (every layer of the B=8 serving
      cache, and one layer at B=1 of GPT-J-6B's and Pythia-12B's, as the
-     graphed one-token step calls it), byte for byte; each against its
+     graphed one-token step calls it, and at B=128 of the batched
+     benchmark's int4 step at S=512), byte for byte; each against its
      plain PyTorch version on the card
      (K1, K2-K5 and K9-K11 also against a second run of themselves, bit
      for bit), its device time (CUDA events, the calls held back to back)
@@ -98,8 +101,10 @@ token 42, a near-tie that equality cannot tell from a fault):
      build on, beside the earlier phases): GPT-J width at depth
      1, f32 greedy streams must be identical (InferenceEngine, 3 tokens,
      and ServingEngine, 3 prompts on 2 slots, card vs CPU vs the card's
-     InferenceEngine, 2 tokens), bf16 return_logits must agree within the
-     stated tolerance; SpeculativeEngine at the same widths, f32, int8 KV,
+     InferenceEngine, 2 tokens), the batched engine's tokens (12 rows, a
+     distinct prompt each, ``_prefill`` + ``_decode_many``, 2 steps,
+     replayed from a graph on the card) identical, bf16 return_logits
+     must agree within the stated tolerance; SpeculativeEngine at the same widths, f32, int8 KV,
      with NgramDrafter(3, 4) and with a ModelDrafter of pythia-70m's widths
      at depth 2 (gamma 4): each stream (3 tokens) equal on the card and
      the CPU and equal to the card's InferenceEngine greedy stream;
@@ -218,6 +223,15 @@ token 42, a near-tie that equality cannot tell from a fault):
      e^2, Q4's <= 1.05x f32's, each cache's ppl within MINI_KV_RATIO of
      the float32 cache's, and each run launched its kernels.
      ``chip_smoke.py --minipythia`` runs it alone.
+ 13. the batched benchmark's headline path (run right after phase 10's
+     GPT-J-6B parts, on phase 3's params): ``vsim_tpu_torch.bench``'s
+     measuring function on GPT-J-6B, int4 KV, n_ctx 512, B=128, its loop
+     pair cut to HEADLINE_STEPS steps and HEADLINE_REPS reps, each step
+     replayed from the engine's batched graph; its JSON line printed;
+     K2, K3, K4 and K6 launched; then one more batched run whose tokens
+     must lie in the vocabulary, and its step alone, replayed and eager
+     (``decode_step_report``): K2 4 a layer + 1, K3 and K6 once a layer,
+     the same in both modes, device ms by kernel.
 ``chip_smoke.py --bwd-bf16`` runs phase 2's bf16 K7/K8 rows and phase 6's
 bf16 training runs alone, their instance checks off, to take the same
 numbers on an earlier tree; ``--bwd-f32`` likewise phase 2's f32 K7/K8 rows
@@ -280,14 +294,6 @@ TOL_TRAIN_LOSS = 1e-4
 # devices' sum orders propagates through the 2-layer stack.
 TOL_LOGITS_BF16 = 5e-2
 
-# Card peaks by name (NVIDIA data sheets, dense): bytes/s, bf16 FLOP/s,
-# f32 (non-tensor) FLOP/s.
-PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12),
-         "H100": (3.35e12, 989e12, 67e12),
-         "H200": (4.8e12, 989e12, 67e12)}
-# dense TF32 FLOP/s (NVIDIA data sheets): the second bound of K7/K8's
-# "mma_3xtf32" instance, three TF32 products per f32 product
-TF32_PEAKS = {"H100 PCIe": 378e12, "H100": 494.7e12, "H200": 494.7e12}
 
 
 def fail(msg: str) -> None:
@@ -296,10 +302,20 @@ def fail(msg: str) -> None:
 
 
 def card_peaks(name: str):
-    for key, peaks in PEAKS.items():
-        if key in name:
-            return peaks
-    fail(f"no peak table for card {name!r}")
+    """The card's peaks from the package's table (vsim_tpu_torch/
+    device.py:PEAKS)."""
+    from vsim_tpu_torch import device
+
+    try:
+        return device.card_peaks(name)
+    except ValueError as e:
+        fail(str(e))
+
+
+def card_tf32_peak(name: str) -> float:
+    from vsim_tpu_torch.device import TF32_PEAKS
+
+    return next(v for key, v in TF32_PEAKS.items() if key in name)
 
 
 # ---------------------------------------------------------------------------
@@ -478,6 +494,27 @@ def phase_kernels(peaks):
                           * 0.05).to(torch.bfloat16)) for _ in range(2))
     q = torch.randn((B, H, D), generator=gg, device=dev)
     rows.append(k3_row("int8", k_store, v_store, q, 1500, False))
+    # K3 at the batched benchmark's shapes (vsim_tpu_torch/bench.py): the
+    # GPT-J-6B headline step, B=128, int4, S = n_ctx 512, at n_past 8 (its
+    # first step) and 200; GPT-NeoX-20B's H=64, D=96 at B=8 with f32 q
+    # (D % 128 != 0), int8 and int4 (bench_matrix's gpt-neox-20b-b8)
+    for kv, Bk, Hk, Dk, n_list, round_q in (
+            ("int4", 128, 16, 256, (8, 200), True),
+            ("int8", 8, 64, 96, (100,), False),
+            ("int4", 8, 64, 96, (100,), False)):
+        Dp = Dk // 2 if kv == "int4" else Dk  # noqa: N806
+        vdt = torch.uint8 if kv == "int4" else torch.int8
+        lo, hi = (0, 256) if kv == "int4" else (-127, 128)
+        k_store, v_store = ((torch.randint(lo, hi, (L, Bk, Hk, 512, Dp),
+                                           generator=gg, device=dev,
+                                           dtype=vdt),
+                             (torch.rand((L, Bk, Hk, 512), generator=gg,
+                                         device=dev) * 0.05).to(
+                                 torch.bfloat16)) for _ in range(2))
+        q = torch.randn((Bk, Hk, Dk), generator=gg, device=dev)
+        for n_past in n_list:
+            rows.append(k3_row(kv, k_store, v_store, q, n_past, round_q))
+        del k_store, v_store
     H, D = 16, 256  # noqa: N806
     scale = 1.0 / math.sqrt(D)
 
@@ -638,6 +675,25 @@ def phase_kernels(peaks):
                     f"Dp={Dp} S={S} n_past=1500")
             del k_store, v_store, new
             torch.cuda.empty_cache()
+    # and at the batched benchmark's step: GPT-J-6B, int4, B=128, S=512,
+    # every row at n_past 200, the last of 28 layers
+    Bk, Sk = 128, 512  # noqa: N806
+
+    def side4(shape):
+        vals = torch.randint(0, 256, shape, generator=g, device=dev,
+                             dtype=torch.uint8)
+        sc = (torch.rand(shape[:-1], generator=g, device=dev)
+              * 0.05).to(torch.bfloat16)
+        return vals, sc
+
+    k_store, v_store = (side4((28, Bk, H, Sk, D // 2)) for _ in range(2))
+    new = (*side4((Bk, H, D // 2)), *side4((Bk, H, D // 2)))
+    npk = torch.full((Bk,), 200, dtype=torch.int32, device=dev)
+    k6_rows(k_store, v_store, new, npk, 27, list(range(Bk)),
+            f"one-layer gpt-j-6b int4 il=27 of 28 B={Bk} H={H} Dp={D // 2} "
+            f"S={Sk} n_past=200")
+    del k_store, v_store, new
+    torch.cuda.empty_cache()
 
     # K4: prefill flash attention, H=16, D=256
     for dt in (torch.bfloat16, torch.float32):
@@ -714,8 +770,7 @@ def k4_row(peaks, q, k, v, shape: str, strict: bool = True):
     ops = 4 * D * B * H * T * (T + 1) // 2
     b_ms = (4 * B * H * T * D * q.element_size() + B * H * T * 4) / bw * 1e3
     o_ms = ops / (f32_peak if f32 else bf16_peak) * 1e3
-    tf32_peak = next(p for key, p in TF32_PEAKS.items()
-                     if key in torch.cuda.get_device_name(0))
+    tf32_peak = card_tf32_peak(torch.cuda.get_device_name(0))
     return dict(kernel="flash_attention_fwd", shape=shape, max_abs_err=err,
                 rel_err=rel, rel_err_lse=rel_lse, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(b_ms, o_ms),
@@ -778,8 +833,7 @@ def flash_bwd_rows(peaks, bound, g, shapes, strict: bool = True):
     dev = torch.device("cuda")
     _, bf16_peak, f32_peak = peaks
     f32, bf16 = torch.float32, torch.bfloat16
-    tf32_peak = next(v for key, v in TF32_PEAKS.items()
-                     if key in torch.cuda.get_device_name(0))
+    tf32_peak = card_tf32_peak(torch.cuda.get_device_name(0))
     rows = []
     for B, H, T, D, dname in shapes:  # noqa: N806
         dt = getattr(torch, dname)
@@ -931,7 +985,7 @@ def k2_tf32_rows(peaks):
 
     bw, _, f32_peak = peaks
     name = torch.cuda.get_device_name(0)
-    tf32_peak = next(v for key, v in TF32_PEAKS.items() if key in name)
+    tf32_peak = card_tf32_peak(name)
     g = torch.Generator(device="cuda")
     g.manual_seed(20)
     rows = []
@@ -1524,7 +1578,7 @@ def lab_bound(peaks, nbytes, ops, peak):
     t_b = nbytes / bw * 1e3
     if peak == "tf32":
         name = torch.cuda.get_device_name(0)
-        rate = next(v for key, v in TF32_PEAKS.items() if key in name)
+        rate = card_tf32_peak(name)
     else:
         rate = bf16_peak if peak == "bf16" else f32_peak
     t_o = ops / rate * 1e3
@@ -1833,6 +1887,77 @@ def phase_model(peaks):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the batched benchmark's headline path
+# ---------------------------------------------------------------------------
+
+HEADLINE_B = 128
+# the benchmark's loop pair cut from (96, 192) steps and 3 reps
+HEADLINE_STEPS, HEADLINE_REPS = (32, 64), 2
+
+
+def phase_headline(params):
+    """Phase 13: ``vsim_tpu_torch.bench``'s measuring function on GPT-J-6B
+    (phase 3's params, shared), int4 KV, n_ctx 512, B=128, at cut loop
+    lengths; then one more batched run whose tokens [32, B] must all lie in
+    the vocabulary, and its step alone (``decode_step_report``): K2 4 a
+    layer + 1, K3 and K6 once a layer, replayed as eager.  Returns (the
+    numbers, the launches of the measured run)."""
+    import torch
+
+    from vsim_tpu_torch import bench
+    from vsim_tpu_torch.models.init import param_bytes
+    from vsim_tpu_torch.ops import _build
+
+    args = bench.parse_args(
+        ["--model", "gpt-j-6b", "--batch", str(HEADLINE_B), "--kv", "int4",
+         "--n-ctx", "512", "--decode-chunk", str(HEADLINE_STEPS[0]),
+         "--tokens", str(HEADLINE_STEPS[1])])
+    t0 = time.perf_counter()
+    cfg, eng, _ = bench.build(args, params=params)
+    wbytes = param_bytes(eng.params)
+    _build.reset_launch_counts()
+    line = bench.measure(args, cfg, eng, wbytes, reps=HEADLINE_REPS,
+                         extras=False)
+    launches = dict(_build.launch_counts)
+    measure_s = time.perf_counter() - t0
+    if not (math.isfinite(line["value"]) and line["value"] > 0):
+        fail(f"phase 13: the bench's value {line['value']}")
+    for name in ("q4_matmul_ps", "decode_attention", "scatter_rows",
+                 "flash_attention"):
+        if launches.get(name, 0) == 0:
+            fail(f"phase 13: the batched run never launched {name}: "
+                 f"{launches}")
+
+    B, dev = HEADLINE_B, eng.device  # noqa: N806
+    prompt = list(range(1, args.prompt_len + 1))
+    cache = eng.new_cache(B)
+    logits, _ = eng._prefill(torch.tensor([prompt] * B, device=dev), cache)
+    tok = logits[:, -1].argmax(-1)
+    del logits
+    last = torch.full((B, bench.WINDOW), -1, dtype=torch.long, device=dev)
+    n = HEADLINE_STEPS[0]
+    toks = eng._decode_many(tok, cache, len(prompt), last, n, bench.GREEDY)
+    if toks.shape != (n, B) or not bool(((toks >= 0)
+                                         & (toks < cfg.n_vocab)).all()):
+        fail(f"phase 13: batched tokens {list(toks.shape)} outside the "
+             "vocabulary")
+    st = eng._state(bench.WINDOW, B, cache, n)
+    report = decode_step_report(eng._step(bench.GREEDY, st))
+    st.cache = None
+    row_write_check("phase 13 B=128", report, cfg.n_layer)
+    want = {"q4_matmul_ps": 4 * cfg.n_layer + 1,
+            "decode_attention": cfg.n_layer, "scatter_rows": cfg.n_layer}
+    for mode in ("eager", "graphed"):
+        if report[mode]["launches_per_step"] != want:
+            fail(f"phase 13 B=128 {mode} step launches "
+                 f"{report[mode]['launches_per_step']}, not {want}")
+    del cache, eng
+    torch.cuda.empty_cache()
+    return dict(bench=line, step=report, measure_s=measure_s,
+                tokens_first_row=toks[:, 0].tolist()), launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: ServingEngine at full width
 # ---------------------------------------------------------------------------
 
@@ -2013,6 +2138,8 @@ def gptj_runs(dev: str, clock: PartTimer):
         eng = InferenceEngine(cfg, params, kv_dtype="int8", device=dev)
         out["single"] = [eng.generate(p, 2, greedy).token_ids
                          for p in GPTJ_SERVE_PROMPTS]
+    out["batched"] = clock("gpt-j batched", dev, lambda: batched_tokens(
+        cfg, params, dev))
     bf16 = base.replace(compute_dtype="bfloat16")
     out["bf16 logits"] = clock(
         "gpt-j bf16 logits", dev, lambda: InferenceEngine(
@@ -2020,6 +2147,33 @@ def gptj_runs(dev: str, clock: PartTimer):
                 GPTJ_PROMPT, 1, return_logits=True).logits)
     out["speculative"] = spec_runs(dev, clock, base, params)
     return out
+
+
+# the batched engine at GPT-J-6B's width, depth 1: 12 rows, a distinct
+# 8-token prompt each, through _prefill + _decode_many (2 steps)
+GPTJ_BATCH_PROMPTS = [[(997 * b + 31 * i + 5) % 50400 for i in range(8)]
+                      for b in range(12)]
+
+
+def batched_tokens(cfg, params, dev: str):
+    """The first token of each row (from the prefill) and the tokens [2,
+    B] of two batched steps (replayed from a graph on the card), f32
+    greedy, int8 KV."""
+    import torch
+
+    from vsim_tpu_torch.engine.generate import InferenceEngine
+    from vsim_tpu_torch.engine.sampling import SamplingParams
+
+    eng = InferenceEngine(cfg, params, kv_dtype="int8", device=dev)
+    B = len(GPTJ_BATCH_PROMPTS)  # noqa: N806
+    cache = eng.new_cache(B)
+    logits, _ = eng._prefill(torch.tensor(GPTJ_BATCH_PROMPTS, device=dev),
+                             cache)
+    tok = logits[:, -1].argmax(-1)
+    last = torch.full((B, 64), -1, dtype=torch.long, device=dev)
+    toks = eng._decode_many(tok, cache, 8, last, 2,
+                            SamplingParams(greedy=True))
+    return [tok.tolist()] + toks.tolist()
 
 
 # f32 speculative streams at GPT-J width, depth 1, seed-1 weights: SPEC_PROMPT
@@ -2268,6 +2422,9 @@ def gptj_compare(card, cpu):
     if not card["serving"] == cpu["serving"] == card["single"]:
         fail(f"f32 serving streams differ: card {card['serving']} cpu "
              f"{cpu['serving']} card InferenceEngine {card['single']}")
+    if card["batched"] != cpu["batched"]:
+        fail(f"f32 batched tokens [1 + 2, 12] differ: card {card['batched']}"
+             f" cpu {cpu['batched']}")
     err, rel = check_logits("gpt-j", card["bf16 logits"], cpu["bf16 logits"])
     spec_c, spec_p = card["speculative"], cpu["speculative"]
     want = spec_c["plain"]
@@ -2280,6 +2437,7 @@ def gptj_compare(card, cpu):
         spec[name] = dict(tokens=got_c, cycles=cycles)
     return dict(f32_greedy_tokens=card["f32 stream"],
                 f32_serving_tokens=card["serving"],
+                f32_batched_tokens=card["batched"],
                 bf16_logits_max_abs_err=err, bf16_logits_rel_err=rel,
                 speculative=spec)
 
@@ -2568,8 +2726,10 @@ def phase_training(peaks):
 # tools/train_small.py's recipe (vsim_tpu_torch/tools/train_small.py) cut to
 # MINI_STEPS steps, its schedule sized to them; the ppl table over the first
 # MINI_EVAL_TOKENS held-out bytes; kv_ppl at MINI_KV = (windows, bytes); the
-# card against the CPU's plain versions at MINI_VS_CPU = (windows, positions)
-MINI_STEPS = 600
+# card against the CPU's plain versions at MINI_VS_CPU = (windows, positions).
+# 400 steps (600 before phase 13 took their time; 600 steps ended at loss
+# 1.212 on an H100, under the 2-nat gate by 0.8)
+MINI_STEPS = 400
 MINI_EVAL_TOKENS = 50_000
 MINI_KV = (16, 512)
 MINI_VS_CPU = (2, 64)
@@ -5254,9 +5414,9 @@ def main() -> None:
         fail("no CUDA device")
     from vsim_tpu_torch.ops import _build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    from vsim_tpu_torch.device import card_label
+
+    smi = card_label()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
@@ -5369,6 +5529,20 @@ def main() -> None:
     spec["gpt-j-6b serving"], spec_launches["gpt-j-6b serving"] = p10(
         "gpt-j-6b serving", "cuda", lambda: spec_serving(
             cfg, params, serving["int8"]["streams"]))
+    # phase 13, on phase 3's params
+    t0 = time.perf_counter()
+    headline, headline_launches = phase_headline(params)
+    print(f"batched bench (phase 13) in {time.perf_counter() - t0:.1f} s "
+          f"(measure {headline['measure_s']:.1f} s): GPT-J-6B int4 KV, "
+          f"B={HEADLINE_B}, loops of {HEADLINE_STEPS} steps x "
+          f"{HEADLINE_REPS}", flush=True)
+    print(json.dumps(headline["bench"]), flush=True)
+    print(step_line(f"B={HEADLINE_B} step", headline["step"]), flush=True)
+    print(f"  B={HEADLINE_B} step: launches "
+          f"{json.dumps(headline['step']['graphed']['launches_per_step'])}, "
+          "graphed device ms by kernel " + json.dumps(
+              {k: round(v, 4) for k, v in (headline["step"]["graphed"][
+                  "device_ms_by_kernel"] or {}).items()}), flush=True)
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5485,6 +5659,7 @@ def main() -> None:
     total.update(pythia_total)
     total.update(lab_launches)
     total.update(load_launches)
+    total.update(headline_launches)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernel_rows=rows, model=model,
@@ -5498,6 +5673,8 @@ def main() -> None:
                        launches_archs=arch_launches, speculative=spec,
                        launches_speculative=spec_launches,
                        parallel=parallel, launches_parallel=par_launches,
+                       headline=headline,
+                       launches_headline=headline_launches,
                        timings_unheld=UNHELD[0], ptxas=reports,
                        sass_k9_k10=sass, sass_k15=sass_batch,
                        sass_k12=sass_lab, sass_k2_tf32=sass_k2,
@@ -5585,9 +5762,9 @@ def main_minipythia() -> None:
         fail("no CUDA device")
     from vsim_tpu_torch.ops import _build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    from vsim_tpu_torch.device import card_label
+
+    smi = card_label()
     print(smi, flush=True)
     peaks = card_peaks(torch.cuda.get_device_name(0))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5617,9 +5794,9 @@ def main_k2_tf32() -> None:
     from vsim_tpu_torch.models.init import random_q4_params
     from vsim_tpu_torch.ops import _build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    from vsim_tpu_torch.device import card_label
+
+    smi = card_label()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
@@ -5663,9 +5840,9 @@ def main_bwd(dtype: str) -> None:
         fail("no CUDA device")
     from vsim_tpu_torch.ops import _build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    from vsim_tpu_torch.device import card_label
+
+    smi = card_label()
     print(smi, flush=True)
     peaks = card_peaks(torch.cuda.get_device_name(0))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5718,9 +5895,9 @@ def main_fwd_f32() -> None:
     from vsim_tpu_torch.models.config import PRESETS
     from vsim_tpu_torch.ops import _build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    from vsim_tpu_torch.device import card_label
+
+    smi = card_label()
     print(smi, flush=True)
     peaks = card_peaks(torch.cuda.get_device_name(0))
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -162,7 +162,7 @@ def test_engine_step_matches_int_route(port_model, kv, sampled):
     got = eng.generate(PROMPT, 8, sp, streaming_token_hook=seen.append)
     assert got.token_ids == seen == want
     assert _same_bytes(eng.cache, cache)
-    st = eng._states[max(sp.repeat_last_n, 1)]
+    st = eng._states[(max(sp.repeat_last_n, 1), 1)]
     assert int(st.n_past) == len(PROMPT) + 7 and int(st.pos) == 7 % 3
     assert all(s.graph is None for s in eng._steps.values())  # CPU: eager
 

@@ -13,17 +13,26 @@ from an index built once here).
 ``generate`` prefills the whole prompt (attending over its own
 full-precision k/v) into the engine's one batch-1 cache, made once, then
 decodes in chunks of ``decode_chunk`` tokens.  A decode step
-(``_decode_step``) keeps its state in static device buffers, updated in
-place: the token, an int32 n_past (so the step writes its cache row and runs
-K3 with no Python int in it, ``forward(write_first=True)``), the repeat
-window and a ring of the chunk's tokens.  On the card the step is captured
-once as a CUDA graph per dequant math, sampling setting and KV dtype, after
-one eager step, and replayed (engine/graph.py): the JAX engine's
-``_decode_many`` chunk, one dispatch a step.  The host syncs once per
-chunk, to read the ring; tokens computed past a stop token are discarded.
-``cuda_graph=False`` runs the same step eagerly on the card; the CPU always
-runs it eagerly.  The JAX engine's recompile buckets (prompt padding to a
-power of two, kv length buckets) have no counterpart.
+(``_decode_step``) keeps its state in static device buffers of B rows,
+updated in place: the tokens, an int32 n_past (so the step writes its cache
+rows and runs K3 with no Python int in it, ``forward(write_first=True)``),
+the repeat window and a ring of the steps' tokens.  On the card the step is
+captured once as a CUDA graph per dequant math, sampling setting, window,
+KV dtype and B, after one eager step, and replayed (engine/graph.py): the
+JAX engine's ``_decode_many`` chunk, one dispatch a step.  The host syncs
+once per chunk, to read the ring; tokens computed past a stop token are
+discarded.  ``cuda_graph=False`` runs the same step eagerly on the card;
+the CPU always runs it eagerly.
+
+The JAX engine's batched internals keep their names: ``_prefill`` runs
+[B, T] prompts into a cache from ``new_cache(B)``, and ``_decode_many``
+runs ``n_steps`` steps over B rows of that cache and returns their tokens
+[n_steps, B] (the benchmarks drive these).  A graph holds the addresses of
+the cache and the ring it was captured on: a call with a cache elsewhere
+in memory, or with more steps than the ring holds, drops the graphs of
+that (window, B) state and captures anew.  The JAX engine's recompile
+buckets (prompt padding to a power of two, kv length buckets) and cache
+donation have no counterpart.
 """
 
 from __future__ import annotations
@@ -126,13 +135,25 @@ def graph_maker(device: torch.device, cuda_graph: Optional[bool],
 
 @dataclasses.dataclass
 class DecodeState:
-    """A decode step's static device buffers, for one repeat window W."""
+    """A decode step's static device buffers, for one repeat window W and
+    B rows, and the cache its steps run on."""
 
-    tok: torch.Tensor  # [1] int64: the token the next step feeds
-    n_past: torch.Tensor  # [1] int32: cache rows before it
-    last: torch.Tensor  # [1, W] int64: the repeat window, -1 padded
-    ring: torch.Tensor  # [decode_chunk, 1] int64: the chunk's tokens
-    pos: torch.Tensor  # [1] int64: the ring slot of the next token
+    tok: torch.Tensor  # [B] int64: the tokens the next step feeds
+    n_past: torch.Tensor  # [B] int32: cache rows before them
+    last: torch.Tensor  # [B, W] int64: the repeat windows, -1 padded
+    ring: torch.Tensor  # [R, B] int64: the steps' tokens
+    pos: torch.Tensor  # [1] int64: the ring slot of the next tokens
+    cache: Optional[dict] = None  # set for the steps of one call
+    cache_at: tuple = ()  # the addresses its graphs were captured on
+
+
+def cache_addresses(cache) -> tuple:
+    """The data pointers of a cache's tensors: where a captured step reads
+    and writes it."""
+    leaves = []
+    for side in (cache["k"], cache["v"]):
+        leaves += list(side) if isinstance(side, tuple) else [side]
+    return tuple(t.data_ptr() for t in leaves)
 
 
 class InferenceEngine:
@@ -166,48 +187,66 @@ class InferenceEngine:
         self._make_graph = graph_maker(self.device, cuda_graph,
                                        self.generator)
         self.cache = None  # the decode cache, made at first use
-        self._states: dict = {}  # W -> DecodeState
-        self._steps: dict = {}  # (math, sampling, W, kv dtype) -> GraphedStep
+        self._states: dict = {}  # (W, B) -> DecodeState
+        # (math, sampling, W, kv dtype, B) -> GraphedStep
+        self._steps: dict = {}
 
     def new_cache(self, batch: int = 1):
         return init_cache(self.cfg, batch, n_ctx=self.n_ctx,
                           dtype=self.kv_dtype, device=self.device)
 
-    def _state(self, W: int) -> DecodeState:  # noqa: N803
-        st = self._states.get(W)
+    def _state(self, W: int, B: int = 1, cache=None,  # noqa: N803
+               ring: Optional[int] = None) -> DecodeState:
+        """The buffers of window W over B rows, set to run on ``cache``
+        (the engine's own by default) with a ring of at least ``ring``
+        rows (``decode_chunk`` by default).  A ring too short, or a cache
+        at other addresses than the state's graphs were captured on, drops
+        those graphs and their state: the next step captures anew."""
+        cache = self.cache if cache is None else cache
+        ring = ring or self.decode_chunk
+        at = cache_addresses(cache)
+        st = self._states.get((W, B))
+        if st is not None and (st.ring.shape[0] < ring
+                               or st.cache_at != at):
+            self._steps = {k: v for k, v in self._steps.items()
+                           if (k[2], k[4]) != (W, B)}
+            st = None
         if st is None:
             dev = self.device
-            st = self._states[W] = DecodeState(
-                tok=torch.zeros(1, dtype=torch.long, device=dev),
-                n_past=torch.zeros(1, dtype=torch.int32, device=dev),
-                last=torch.full((1, W), -1, dtype=torch.long, device=dev),
-                ring=torch.zeros((self.decode_chunk, 1), dtype=torch.long,
-                                 device=dev),
-                pos=torch.zeros(1, dtype=torch.long, device=dev))
+            st = self._states[(W, B)] = DecodeState(
+                tok=torch.zeros(B, dtype=torch.long, device=dev),
+                n_past=torch.zeros(B, dtype=torch.int32, device=dev),
+                last=torch.full((B, W), -1, dtype=torch.long, device=dev),
+                ring=torch.zeros((ring, B), dtype=torch.long, device=dev),
+                pos=torch.zeros(1, dtype=torch.long, device=dev),
+                cache_at=at)
+        st.cache = cache
         return st
 
     def _decode_step(self, st: DecodeState, kw: dict) -> None:
         """One decode step on the static buffers: the forward at device
-        n_past (row written, then K3), sampling, the window shift, n_past
-        + 1 and the token into ring slot ``pos``."""
+        n_past (rows written, then K3), sampling, the window shift, n_past
+        + 1 and the tokens into ring slot ``pos``."""
         logits, _ = forward(self.cfg, self.params, st.tok[:, None],
-                            self.cache, st.n_past, write_first=True,
+                            st.cache, st.n_past, write_first=True,
                             slopes=self.slopes)
         tok = sample_torch(logits[:, -1, :], st.last, self.generator, **kw)
         st.last.copy_(torch.cat([st.last[:, 1:], tok[:, None]], dim=1))
         st.tok.copy_(tok)
         st.n_past.add_(1)
         st.ring.index_copy_(0, st.pos, tok[None])
-        st.pos.add_(1).remainder_(self.decode_chunk)
+        st.pos.add_(1).remainder_(st.ring.shape[0])
 
-    def _step(self, sp: SamplingParams, W: int) -> GraphedStep:  # noqa: N803
-        """The step of this dequant math, sampling setting and window: a
-        graph captured under one math never replays under another."""
+    def _step(self, sp: SamplingParams, st: DecodeState) -> GraphedStep:
+        """The step of this dequant math, sampling setting, window, KV
+        dtype and batch on ``st``: a graph captured under one math, or for
+        one B, never replays under another."""
         kw = sampling_kw(sp)
-        key = (get_dequant_math(), tuple(kw.values()), W, str(self.kv_dtype))
+        B, W = st.last.shape  # noqa: N806
+        key = (get_dequant_math(), tuple(kw.values()), W, str(self.kv_dtype),
+               B)
         step = self._steps.get(key)
         if step is None:
-            st = self._state(W)
             # through a weak proxy: the engine's steps hold no reference
             # cycle, so a dropped engine frees its cache and graphs at once
             step = self._steps[key] = GraphedStep(
@@ -216,14 +255,55 @@ class InferenceEngine:
                 self._make_graph)
         return step
 
+    def _prefill(self, token_ids: torch.Tensor, cache) -> tuple:
+        """Prompts [B, T] into ``cache`` (from ``new_cache(B)``) at n_past
+        = 0, attending over their own full-precision k/v: (logits [B, T,
+        n_vocab] f32, cache)."""
+        return forward(self.cfg, self.params, token_ids, cache, 0,
+                       fresh_kv=True, slopes=self.slopes)
+
+    def _decode_many(self, tok: torch.Tensor, cache, n_past,
+                     last: torch.Tensor, n_steps: int,
+                     sampling: SamplingParams) -> torch.Tensor:
+        """``n_steps`` decode steps over the B rows of ``cache``: ``tok``
+        [B] are the tokens the first step feeds, at ``n_past`` (an int, or
+        an int [B] tensor) cache rows; ``last`` [B, W] the repeat windows,
+        updated in place.  Sampled steps draw from ``self.generator``.
+        Returns the tokens [n_steps, B] (int64, on the host), read once
+        after the last step."""
+        B, W = last.shape  # noqa: N806
+        if tok.shape != (B,):
+            raise ValueError(f"tok must be [{B}], got {list(tok.shape)}")
+        if n_steps < 1:
+            raise ValueError("n_steps must be >= 1")
+        if not isinstance(n_past, torch.Tensor) and \
+                n_past + n_steps > self.n_ctx:
+            raise ValueError(f"n_past({n_past}) + n_steps({n_steps}) "
+                             f"exceeds n_ctx={self.n_ctx}")
+        st = self._state(W, B, cache, n_steps)
+        step = self._step(sampling, st)
+        st.tok.copy_(tok)
+        if isinstance(n_past, torch.Tensor):
+            st.n_past.copy_(n_past)
+        else:
+            st.n_past.fill_(n_past)
+        st.last.copy_(last)
+        st.pos.zero_()
+        try:
+            for _ in range(n_steps):
+                step()
+            last.copy_(st.last)
+            return st.ring[:n_steps].to("cpu", copy=True)
+        finally:
+            st.cache = None  # the caller's cache is the caller's to free
+
     def prefill(self, prompt_ids: List[int]) -> torch.Tensor:
         """The prompt into the decode cache (made at first use); returns
         the logits [1, T, n_vocab]."""
         if self.cache is None:
             self.cache = self.new_cache(batch=1)
         ids = torch.tensor([prompt_ids], dtype=torch.long, device=self.device)
-        logits, _ = forward(self.cfg, self.params, ids, self.cache, 0,
-                            fresh_kv=True, slopes=self.slopes)
+        logits, _ = self._prefill(ids, self.cache)
         return logits
 
     def start(self, prompt_ids: List[int], last_logits: torch.Tensor,
@@ -236,8 +316,8 @@ class InferenceEngine:
         W = max(sp.repeat_last_n, 1)  # noqa: N806
         window = torch.tensor([([-1] * W + prompt_ids)[-W:]],
                               dtype=torch.long, device=self.device)
-        step = self._step(sp, W)
         st = self._state(W)
+        step = self._step(sp, st)
         tok = sample_torch(last_logits, window, self.generator,
                            **sampling_kw(sp))
         st.last.copy_(torch.cat([window[:, 1:], tok[:, None]], dim=1))
@@ -288,13 +368,12 @@ class InferenceEngine:
             while True:
                 steps = max(min(self.decode_chunk, n_predict - n_dispatched,
                                 self.n_ctx - 1 - n_past), 0)
+                st.pos.zero_()
                 for _ in range(steps):
                     step()
                 n_past += steps
                 n_dispatched += steps
-                # one sync per chunk; every chunk but the last is full, so
-                # each starts at ring slot 0
-                toks = st.ring[:steps, 0]
+                toks = st.ring[:steps, 0]  # one sync per chunk
                 if first is not None:
                     toks, first = torch.cat([first, toks]), None
                 done = steps <= 0

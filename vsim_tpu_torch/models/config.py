@@ -41,9 +41,9 @@ class ModelConfig:
     # weight matmul, as the reference does in the matmul INIT phase
     # (ggml.c:5030-5038) — for bit-width-matched logits/ppl comparisons
     act_quant: bool = False
-    # blockwise (flash) attention for prefill.  Kept for config parity with
-    # the JAX package; the PyTorch port runs every prefill through its
-    # flash kernel on CUDA (ops/attention.py) whatever this says.
+    # blockwise (flash) attention for a prefill over its own k/v and the
+    # cache-free forward: K4 (ops/attention.py) at any T; False attends
+    # through the plain einsum (models/transformer.py:_attend_plain)
     use_flash: bool = True
     # fuse wq/wk/wv into one head-interleaved w_qkv at engine load
     # (models/init.py:fuse_qkv_params) — one weight stream per layer

@@ -28,7 +28,9 @@ Attention routes:
     once (one launch a step, not one a layer);
   * a prefill over its own full-precision k/v (``fresh_kv``, or no cache:
     training and perplexity) → ``flash_attention`` (ops/attention.py), K4
-    forward and K7/K8 backward, for every T;
+    forward and K7/K8 backward, for every T; with ``cfg.use_flash`` False
+    the plain einsum over that k/v instead (the JAX package's switch; its
+    T >= 256 and S % 128 gates have no counterpart);
   * anything else (a float cache, a multi-token step over the cache) →
     the plain einsum over the dequantized cache: all S rows, masked, for
     a one-token step or a ragged n_past, rows < n_past + T otherwise.
@@ -394,10 +396,14 @@ def attention(cfg: ModelConfig, lp: Params, h: torch.Tensor,
             ctx = ctx.to(cdt).reshape(B, 1, E)
             return _out_linear(ctx, lp["wo"], lp.get("bo"), cdt, aq, red, par)
     if k_all is None or fresh_kv:  # attend over this chunk's own k/v
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), n_past=n_past, scale=scale,
-                              slopes=slopes)
-        ctx = out.transpose(1, 2).to(cdt).reshape(B, T, E)
+        if cfg.use_flash:
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), n_past=n_past,
+                                  scale=scale, slopes=slopes)
+            ctx = out.transpose(1, 2).to(cdt).reshape(B, T, E)
+        else:
+            ctx = _attend_plain(q, k.transpose(1, 2), v.transpose(1, 2),
+                                n_past, slopes, cdt).reshape(B, T, E)
     else:
         # a ragged step reads every row (n_past is on the device); so does
         # a uniform one-token step, so that the two give the same bits
