@@ -38,7 +38,8 @@ token 42, a near-tie that equality cannot tell from a fault):
      a 36-layer int8 and int4 cache, K4 at the prompt lengths; K3 at the
      batched benchmark's shapes: GPT-J-6B B=128 int4 S=512 at n_past 8 and
      200, GPT-NeoX-20B's H=64 D=96 at B=8 with f32 q, int8 and int4; K9 and K11 at GPT-J's
-     too; K10 at every stacked shape of both models at n = 1 and fc at 8,
+     too; K1's 9-32-row instance at GPT-J's qkv and fc at 16 and 32 rows,
+     each beside K2 with bf16 planes on the same rows; K10 at every stacked shape of both models at n = 1 and fc at 8,
      100 and 128 rows under both plane contracts; K1, K11, K9 and K10 with
      their ratio to the flat read of their bytes); K4 also at codegen-2b's
      D=80 and at D=72, K3 and K5 with f32 q (round_q=False) at its D=80,
@@ -65,7 +66,11 @@ token 42, a near-tie that equality cannot tell from a fault):
      batch touches at GPT-J-6B's four shapes at n = 64 and 128 and
      Pythia-12B's at n = 64; attn_lab runs K16 (vpu3d, mxu) beside K3 and
      the einsum route over a whole L-layer int8 cache for GPT-J-6B at
-     B=32 x 128 and B=8 x 2048 and Pythia-12B at B=1 x 2048; prints each
+     B=32 x 128 and B=8 x 2048 and Pythia-12B at B=1 x 2048;
+     gi_batch_probe runs K1 at 16 and 32 rows beside K2 at GPT-J-6B's qkv,
+     fc and proj, and attn_gate_probe K3 beside the einsum route at the
+     zoo's six head dims, int8 and int4 (each checked against its plain
+     version first; the probes must launch K1, K2 and K3); prints each
      math's GB/s by shape, each shape's K13 rate with K9's, K1's and K2's
      share of it, each batch_lab variant's GB/s by shape with its ratio to
      the bound and the library and K15's plan, and each attn_lab
@@ -221,7 +226,13 @@ token 42, a near-tie that equality cannot tell from a fault):
      K6, K10 and K9 against their plain versions at the phase's shapes.
      It fails unless the last step's loss is <= 2 nats, the f32 ppl <=
      e^2, Q4's <= 1.05x f32's, each cache's ppl within MINI_KV_RATIO of
-     the float32 cache's, and each run launched its kernels.
+     the float32 cache's, and each run launched its kernels.  Then
+     tools/ref_baseline.py's export of the trained checkpoint to ggml f32
+     and Q4_0 (read back: the lm head equal to the trained one and to the
+     Q4 codec's bytes) and its ``ours_nll`` on 2 held-out windows of 256
+     (finite, Q4 within 1.05x f32); the reference binary's steps are
+     reported as not run where its tree (``reference/`` in the checkout)
+     is absent.
      ``chip_smoke.py --minipythia`` runs it alone.
  13. the batched benchmark's headline path (run right after phase 10's
      GPT-J-6B parts, on phase 3's params): ``vsim_tpu_torch.bench``'s
@@ -1160,6 +1171,29 @@ def q4_layout_rows(peaks, bound, q4_weight):
             lambda w: w, lambda i, K=K, O=O: q4_weight(K, O, 7 * K + O + i),
             round_planes, "gi" if kname == "q4_gemv_ps" else None)
 
+    # K1's 9-32-row instance at GPT-J-6B's qkv and fc (tools/
+    # gi_batch_probe.py's shapes), each beside K2 on the same rows with the
+    # bf16 planes the router's gi route gives it there
+    for sname in ("qkv", "fc"):
+        K, O, _ = GPTJ_STACKED[sname]  # noqa: N806
+        for n in (16, 32):
+            for kname in ("q4_gemv_ps", "q4_matmul_ps"):
+                if kname == "q4_gemv_ps":
+                    fn, plain = q4_gemv_ps, q4_gemv_ps_plain
+                else:
+                    fn, plain = (functools.partial(f, round_planes=True)
+                                 for f in (q4_matmul_ps, q4_matmul_ps_plain))
+                matmul_case(
+                    kname, sname, n, K, O, False, torch.bfloat16,
+                    lambda x, w, b, f=fn: f(x, w.packed, w.scales, b),
+                    lambda x, w, b, f=plain: f(x, w.packed, w.scales, b),
+                    lambda w: w,
+                    lambda i, K=K, O=O: q4_weight(K, O, 5 * K + O + i),
+                    True, "gi" if kname == "q4_gemv_ps" else None)
+                rows[-1]["shape"] = rows[-1]["shape"].replace("pythia-12b",
+                                                              "gpt-j-6b")
+            rows[-2]["k2_ms"] = rows[-1]["ms"]
+
     # K9 at the lm heads of the stacked engine: Pythia-12B and GPT-J
     for model, K, O, has_bias in (("pythia-12b", 5120, 51200, False),  # noqa: N806
                                   ("gpt-j-6b", 4096, 51200, True)):
@@ -1383,7 +1417,7 @@ ATTN_LAB_CASES = (("gpt-j-6b", 32, 128), ("gpt-j-6b", 8, 2048),
 
 
 def phase_labs(peaks):
-    """The lab's path: the eight tools' ``run`` as a user calls them, each
+    """The lab's path: the ten tools' ``run`` as a user calls them, each
     holding every variant against its plain version (and K12/K13/K15/K16
     against a second run, bit for bit) before timing it.  K12 under every
     math and layout at GPT-J-6B's five weight shapes at n = 1 and 8, K13
@@ -1391,14 +1425,18 @@ def phase_labs(peaks):
     n = 1, the tools' defaults, and K14; K12's "v2" beside K10 and K9 on
     GPT-J-6B's stacked groups at n = 1 and 8; K15 and K13's batch touches
     at GPT-J-6B's four shapes at n = 64 and 128 and Pythia-12B's at 64; K16
-    beside K3 at ``ATTN_LAB_CASES``.  Returns (rows, launch counts of the
-    path)."""
+    beside K3 at ``ATTN_LAB_CASES``; the root probes: K1's 9-32-row
+    instance beside K2 at GPT-J-6B's three shapes at ``GI_PROBE_NS``
+    (gi_batch_probe) and K3 beside the einsum route at the zoo's six head
+    dims, int8 and int4 (attn_gate_probe, its defaults).  Returns (rows,
+    launch counts of the path)."""
     import torch
 
     from vsim_tpu_torch.ops import _build
-    from vsim_tpu_torch.tools import (attn_lab, batch_lab, decode_lab,
-                                      gi_sweep, kernel_lab, pair_lab,
-                                      pair_probe, pair_sweep)
+    from vsim_tpu_torch.tools import (attn_gate_probe, attn_lab, batch_lab,
+                                      decode_lab, gi_batch_probe, gi_sweep,
+                                      kernel_lab, pair_lab, pair_probe,
+                                      pair_sweep)
 
     rows = []
     seconds = collections.Counter()  # by tool
@@ -1435,6 +1473,17 @@ def phase_labs(peaks):
     tag("pythia-12b batch", batch_lab.run(64, batch_lab.SHAPES["pythia12b"]))
     for model, b, kv_len in ATTN_LAB_CASES:
         tag("attn_lab", attn_lab.run(model, b, kv_len))
+    # the root probes: K1 (9-32 rows) beside K2 at GPT-J-6B's shapes, and
+    # K3 beside the einsum route at every head dim of the zoo
+    before = collections.Counter(_build.launch_counts)
+    tag("gpt-j-6b", [probe_row(r) for r in gi_batch_probe.run(
+        gi_batch_probe.SHAPES["gptj"], GI_PROBE_NS)])
+    tag("attn_gate", [gate_row(r) for r in attn_gate_probe.run()])
+    probes = collections.Counter(_build.launch_counts)
+    probes.subtract(before)
+    for kname in ("q4_gemv_ps", "q4_matmul_ps", "decode_attention"):
+        if probes[kname] <= 0:
+            fail(f"the root probes launched no {kname}")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print("lab path, seconds by tool: " + json.dumps(
@@ -1447,6 +1496,53 @@ def phase_labs(peaks):
     k12_flat_ratios(rows)
     _build.reset_launch_counts()
     return rows, launches
+
+
+GI_PROBE_NS = (16, 32)  # gi_batch_probe's rows past K1's n <= 8 instance
+
+
+def probe_row(r):
+    """A tools/gi_batch_probe.py row as a lab row (``tag``'s keys)."""
+    O, K = r["shape"]  # noqa: N806
+    n = r["n"]
+    return dict(r, tool="gi_batch_probe", K=K, O=O,
+                shape=f"{r['variant']} n={n} {K}->{O}",
+                nbytes=O * K // 2 + O * K // 32 * 2 + n * K * 2 + n * O * 4,
+                ops=2 * n * K * O, peak="bf16")
+
+
+def gate_row(r):
+    """A tools/attn_gate_probe.py row (its K3 pass) as a lab row."""
+    L, B, H, D, S = (r[k] for k in "LBHDS")  # noqa: N806
+    return dict(r, tool="attn_gate_probe", kernel="decode_attention_q",
+                variant="kernel", n=B, ms=r["kernel_ms"],
+                gbs=r["kernel_gbs"], plain_ms=None, library_ms=None,
+                shape=f"{r['model']} {r['kv']} L={L} B={B} H={H} D={D} "
+                      f"S={S} n_past={S - 2}",
+                # the cache rows s <= n_past, q read and out written
+                nbytes=r["nbytes"] * (S - 1) // S + L * B * H * D * 6,
+                ops=4 * L * B * H * (S - 1) * D, peak="f32")
+
+
+def probe_lines(rows):
+    """The root probes' lines: K1 and K2 by GPT-J-6B shape and n (ms, GB/s,
+    x bound, K1 over K2), K3 and the einsum by zoo row."""
+    lines = []
+    for r in rows:
+        if r["tool"] == "gi_batch_probe":
+            lines.append(
+                f"  gi_batch_probe {r['shape']}: {r['ms']:.4f} ms, "
+                f"{r['gbs']:.0f} GB/s, {r['ms'] / r['bound_ms']:.2f}x bound, "
+                f"plain {r['plain_ms']:.3f}, library {r['library_ms']:.4f}, "
+                f"{r['vs_k2']:.2f}x K2")
+        elif r["tool"] == "attn_gate_probe":
+            lines.append(
+                f"  attn_gate_probe {r['shape']}: K3 {r['ms']:.4f} ms "
+                f"({r['gbs']:.0f} GB/s, {r['ms'] / r['bound_ms']:.2f}x bound), "
+                f"einsum {r['einsum_ms']:.4f} ms "
+                f"({r['einsum_gbs']:.0f} GB/s), einsum / K3 "
+                f"{r['einsum_ms'] / r['ms']:.2f}x")
+    return lines
 
 
 # K12's times under its earlier FMA design (a GEMV of f32 multiply-adds
@@ -2727,9 +2823,10 @@ def phase_training(peaks):
 # MINI_STEPS steps, its schedule sized to them; the ppl table over the first
 # MINI_EVAL_TOKENS held-out bytes; kv_ppl at MINI_KV = (windows, bytes); the
 # card against the CPU's plain versions at MINI_VS_CPU = (windows, positions).
-# 400 steps (600 before phase 13 took their time; 600 steps ended at loss
-# 1.212 on an H100, under the 2-nat gate by 0.8)
-MINI_STEPS = 400
+# 300 steps (600 before phase 13 took their time, 400 before the root
+# probes took theirs; 600 steps ended at loss 1.212 on an H100, 400 at 1.498,
+# 200 of 400 at 1.670: under the 2-nat gate)
+MINI_STEPS = 300
 MINI_EVAL_TOKENS = 50_000
 MINI_KV = (16, 512)
 MINI_VS_CPU = (2, 64)
@@ -3074,6 +3171,10 @@ def phase_minipythia(peaks):
     vs_cpu_s = time.perf_counter() - a
 
     a = time.perf_counter()
+    ref = ref_baseline_part(path, cfg, loaded, eval_b)
+    ref["seconds"] = time.perf_counter() - a
+
+    a = time.perf_counter()
     rows = minipythia_kernel_rows(peaks, cfg, qparams)
     rows_s = time.perf_counter() - a
 
@@ -3099,9 +3200,60 @@ def phase_minipythia(peaks):
                kv=kv, kv_table=kv_tab, card_vs_cpu=vs_cpu,
                profiled_step=profiled, card_vs_cpu_s=vs_cpu_s,
                cpu_side_s=cpu_res["seconds"], cpu_side_wait_s=vs_cpu_wait_s,
-               kernel_rows_s=rows_s,
+               kernel_rows_s=rows_s, ref_baseline=ref,
                launches=launches, seconds=time.perf_counter() - t_start)
     return out, rows, dict(total)
+
+
+MINI_REF_WINDOWS = (2, 256)  # ref_baseline's windows in phase 12
+
+
+def ref_baseline_part(path, cfg, params, eval_b):
+    """Phase 12's part of tools/ref_baseline.py on the trained checkpoint at
+    ``path``: its export to ggml f32 and Q4_0 files (the f32 file read back
+    equal to the trained leaves, the Q4 file's lm head equal to the Q4
+    codec's bytes) and ``ours_nll`` on the card over MINI_REF_WINDOWS of
+    held-out bytes (finite, Q4 within MINI_Q4_RATIO of f32).  The binary's
+    steps need the reference tree inside the checkout (``reference/``, built
+    under ``build/ref_smoke``); where it is absent they are reported as not
+    run (an absent input, not a failure)."""
+    import numpy as np
+
+    from vsim_tpu_torch.convert.ggml_file import read_ggml
+    from vsim_tpu_torch.quant.q4 import quantize_q4_0_np, to_ggml_q4_0_bytes
+    from vsim_tpu_torch.tools import ref_baseline as rb
+
+    gdir = os.path.join(HERE, "build", "ref_smoke")
+    os.makedirs(gdir, exist_ok=True)
+    f32_bin, q4_bin = (os.path.join(gdir, f"mini_{k}.bin")
+                       for k in ("f32", "q4"))
+    exported = rb.export_checkpoint(path, f32_bin, q4_bin)
+    if exported["n_layer"] != cfg.n_layer:
+        fail(f"phase 12: the export's config {exported} is not {cfg}")
+    _, _, t32 = read_ggml(f32_bin, "gptneox")
+    _, _, tq4 = read_ggml(q4_bin, "gptneox")
+    lm = params["lm_head"].detach().cpu().float().numpy()
+    if not np.array_equal(t32["embed_out.weight"].to_numpy(), lm):
+        fail("phase 12: the exported f32 lm head differs from the trained")
+    want = to_ggml_q4_0_bytes(*quantize_q4_0_np(lm, scale_dtype="float32"))
+    if not np.array_equal(tq4["embed_out.weight"].raw, want):
+        fail("phase 12: the exported Q4_0 lm head is not the codec's bytes")
+    windows = rb.eval_windows(eval_b, *MINI_REF_WINDOWS)
+    ours = rb.ours_nll(path, windows, "cuda")
+    if not all(math.isfinite(ours[k]) for k in ("f32", "q4_0",
+                                                  "q4_0_act_quant")) or (
+            ours["q4_0"] > MINI_Q4_RATIO * ours["f32"]):
+        fail(f"phase 12: ref_baseline's ours_nll {ours}")
+    tree = os.path.join(HERE, "reference")
+    if os.path.isdir(tree):
+        binary = rb.build_binary(tree, os.path.join(gdir, "ref_build"))
+        perf = rb.perf_run(binary, q4_bin, windows[0][:8], 16, 1)
+    else:
+        perf = f"not run: reference tree {tree} not found"
+    return dict(files_mb=[round(os.path.getsize(f) / 1e6, 3)
+                          for f in (f32_bin, q4_bin)],
+                windows=list(MINI_REF_WINDOWS), ours_nll=ours,
+                binary_perf=perf)
 
 
 def minipythia_lines(mp):
@@ -3130,6 +3282,11 @@ def minipythia_lines(mp):
             {k: float(f"{r['rel']:.3e}") for k, r in mp["card_vs_cpu"].items()}),
         "  launches: " + json.dumps(mp["launches"]),
         "  one recipe step profiled: " + json.dumps(mp["profiled_step"]),
+        f"  ref_baseline ({mp['ref_baseline']['seconds']:.1f} s): export "
+        f"{mp['ref_baseline']['files_mb']} MB (f32, Q4_0), ours_nll on "
+        f"{mp['ref_baseline']['windows']} windows "
+        + json.dumps(mp["ref_baseline"]["ours_nll"]) + "; the binary: "
+        + json.dumps(mp["ref_baseline"]["binary_perf"]),
     ]
 
 
@@ -5441,11 +5598,13 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for r in rows:  # the redesigned kernels, with their ratio to the library
         if r["kernel"] in CORE_ROWS:
+            k2 = ("" if r.get("k2_ms") is None else
+                  f", K2 {r['k2_ms']:.4g} ({r['ms'] / r['k2_ms']:.2f}x)")
             print(f"  {r['kernel']} {r['shape']}: {r['ms']:.4g} ms, bound "
                   f"{r['bound_ms']:.2g}, flat read {r['flat_ms']:.4g} "
                   f"({r['vs_flat']:.2f}x), plain {r['plain_ms']:.4g}, "
                   f"library {r['library_ms']:.4g} "
-                  f"({r['ms'] / r['library_ms']:.2f}x)", flush=True)
+                  f"({r['ms'] / r['library_ms']:.2f}x){k2}", flush=True)
         if r["kernel"] in ("decode_attention_q", "flash_attention_fwd",
                            "decode_attention_fresh", "q4_matmul_ps",
                            "flash_attention_bwd_dq",
@@ -5486,7 +5645,8 @@ def main() -> None:
     lab_rows, lab_launches = phase_labs(peaks)
     print(f"lab phase: {len(lab_rows)} cases pass in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in lab_summary(lab_rows, peaks) + k12_lines(lab_rows):
+    for line in (lab_summary(lab_rows, peaks) + k12_lines(lab_rows)
+                 + probe_lines(lab_rows)):
         print(line, flush=True)
     rows += lab_rows
     floor_ms = launch_floor_ms()

@@ -131,6 +131,83 @@ def test_q4_gemv_ps_plans(dev, plan, K, O):
                                                    plan))
 
 
+@pytest.mark.parametrize("n", [9, 12, 16, 17, 24, 31, 32])
+@pytest.mark.parametrize("K,O", [(512, 1024), (1344, 1028), (64, 1028),
+                                 (2048, 4100)])
+def test_q4_gemv_ps_9_to_32_rows(dev, n, K, O):
+    """K1's 9-32-row instance (2 or 4 n-tiles of 8 rows): O = 1024, and O
+    = 1028 / 4100 no multiple of its 64-column warp tile or of 8 (4-byte
+    loads, a ragged last tile); 21 groups; with and without a bias, one
+    launch a call under K1's name, the same bits run to run."""
+    packed, scales = _weight(K, O, dev, 100 + n)
+    x = torch.randn((n, K), device=dev).to(torch.bfloat16)
+    for bias in (None, torch.randn((O,), device=dev)):
+        before = _build.launch_counts["q4_gemv_ps"]
+        got = q4_gemv_ps(x, packed, scales, bias)
+        assert _build.launch_counts["q4_gemv_ps"] == before + 1
+        ref = q4_gemv_ps_plain(x, packed, scales, bias)
+        assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
+        assert torch.equal(got, q4_gemv_ps(x, packed, scales, bias))
+
+
+@pytest.mark.parametrize("plan", [(2, 1), (2, 3), (2, 8), (4, 1), (4, 5),
+                                  (4, 8)])
+@pytest.mark.parametrize("K,O", [(1344, 1028), (4096, 2048)])
+def test_q4_gemv_ps_rows_plans(dev, plan, K, O):
+    """Every (nt, cluster) of the 9-32-row instance, at the least and most
+    rows each n-tile count holds, each within the tolerance and the same
+    bits run to run."""
+    from vsim_tpu_torch.ops.q4_cuda import q4_gemv_ps_planned
+
+    packed, scales = _weight(K, O, dev, sum(plan))
+    bias = torch.randn((O,), device=dev)
+    nt = plan[0]
+    for n in (8 * nt - 7, 8 * nt):
+        x = torch.randn((n, K), device=dev).to(torch.bfloat16)
+        got = q4_gemv_ps_planned(x, packed, scales, bias, plan)
+        ref = q4_gemv_ps_plain(x, packed, scales, bias)
+        assert torch.isfinite(got).all() and _rel(got, ref) < 1e-4
+        assert torch.equal(got, q4_gemv_ps_planned(x, packed, scales, bias,
+                                                   plan))
+
+
+def test_q4_gemv_ps_refuses_more_than_32_rows(dev):
+    packed, scales = _weight(128, 64, dev, 0)
+    with pytest.raises(ValueError, match=r"1\.\.32"):
+        q4_gemv_ps(torch.zeros((33, 128), device=dev, dtype=torch.bfloat16),
+                   packed, scales)
+
+
+def test_router_keeps_9_to_32_rows_on_k2(dev):
+    """K1 takes 9-32 rows when called, but the router's gi route stays at n
+    <= 8 (GEMV_MAX_ROWS): 16 rows of bf16 x launch K2, 8 rows K1."""
+    from vsim_tpu_torch.ops.matmul import q4_matmul
+    from vsim_tpu_torch.quant.q4 import Q4Tensor
+
+    packed, scales = _weight(512, 1024, dev, 7)
+    w = Q4Tensor(packed, scales, "ps")
+    for n, kernel in ((16, "q4_matmul_ps"), (32, "q4_matmul_ps"),
+                      (8, "q4_gemv_ps")):
+        x = torch.randn((n, 512), device=dev).to(torch.bfloat16)
+        before = dict(_build.launch_counts)
+        q4_matmul(x, w, compute_dtype=torch.bfloat16)
+        after = dict(_build.launch_counts)
+        changed = {k for k in after if after[k] != before.get(k, 0)}
+        assert changed == {kernel}, (n, changed)
+
+
+def test_k1_compare_this_tree_against_itself(dev, tmp_path):
+    """tools/k1_compare.py, which holds K1's n <= 8 instance against
+    another checkout's build bit for bit, finds no word differing when the
+    other checkout is this one."""
+    from vsim_tpu_torch.tools import k1_compare
+
+    rows = k1_compare.compare(k1_compare.ROOT, shapes=((1024, 1024),),
+                              ns=(1, 8), build_dir=str(tmp_path))
+    assert len(rows) == 4
+    assert all(r["differ"] == 0 and r["finite"] for r in rows)
+
+
 def test_q4_gemv_ps_unaligned_x(dev):
     """x that starts off a 16-byte boundary (a row of a larger tensor) is
     taken as it is by the wrapper."""

@@ -14,7 +14,12 @@ spread over 2^-20 .. 2^20.  The three-piece split is exact for every
 normal f32 from 2^-110 up to bf16's largest finite value; below, the
 residual is under bf16's smallest subnormal step.  ``core_plan`` is held to
 one wave of clusters with the most blocks at every Q4 weight shape of
-GPT-J-6B and Pythia-12B.
+GPT-J-6B and Pythia-12B.  K1's 9-32-row instance is emulated in its own
+order (``emulate_rows``: n-tiles of 8 rows, each rank of the cluster
+summing its groups in turn, the ranks' partials summed in rank order, the
+bias last) against the Pallas giw kernel with its n <= 8 gate lifted, and
+its plan (``k1_rows_plan``) is held to one wave that takes each of the K/64
+groups once.
 """
 
 import jax.numpy as jnp
@@ -22,10 +27,12 @@ import numpy as np
 import pytest
 import torch
 
-from vsim_tpu.ops.pallas_q4 import pallas_q4_matmul_ps, pallas_q4_mlp_ps
+from vsim_tpu.ops.pallas_q4 import (_pallas_q4_matmul_ps_giw,
+                                    pallas_q4_matmul_ps, pallas_q4_mlp_ps)
 from vsim_tpu.quant import q4 as jq4
 from vsim_tpu_torch.ops.q4_cuda import (CORE_MAX_CLUSTER, CORE_TILE_O,
-                                        CORE_WARPS, core_plan,
+                                        CORE_WARPS, K1_ROWS_TILE_O,
+                                        core_plan, k1_rows_plan,
                                         mlp_activation)
 
 TOL_Q4 = 1e-4
@@ -203,3 +210,116 @@ def test_core_plan_one_wave(K, O, blocks_per_sm):  # noqa: N803
     assert 2 * clusters * c >= 3 * sm
     work = -(-groups // splits) * clusters * c * CORE_WARPS
     assert tiles * groups <= work <= 1.1 * tiles * groups
+
+
+def emulate_rows(x, packed, scales, bias, cluster):
+    """K1's 9-32-row instance (csrc/q4_gemv_ps.cu, rows::kernel): x in
+    n-tiles of 8 rows (2 up to 16 rows, else 4; rows past n zero); rank r
+    of the cluster takes groups r, r + C, ... in turn, each adding s_lo *
+    lo + s_hi * hi (the group's fresh f32 sums of exact products) to its
+    partial; the partials are summed in rank order, then the bias."""
+    n, K = x.shape  # noqa: N806
+    half, G = K // 2, K // 64  # noqa: N806
+    nt = 2 if n <= 16 else 4
+    xp = torch.zeros((8 * nt, K), dtype=torch.float32)
+    xp[:n] = x.to(torch.float32)
+    s = scales.to(torch.float32)
+    vlo = (packed & 0x0F).to(torch.float32) - 8.0
+    vhi = (packed >> 4).to(torch.float32) - 8.0
+    tiles = []
+    for t in range(nt):
+        xt = xp[8 * t:8 * t + 8]
+        parts = []
+        for r in range(cluster):
+            acc = torch.zeros((8, packed.shape[1]), dtype=torch.float32)
+            for g in range(r, G, cluster):
+                rows = slice(32 * g, 32 * g + 32)
+                lo = xt[:, rows] @ vlo[rows]
+                hi = xt[:, half + 32 * g:half + 32 * g + 32] @ vhi[rows]
+                acc = acc + s[g] * lo
+                acc = acc + s[G + g] * hi
+            parts.append(acc)
+        y = parts[0]
+        for p in parts[1:]:
+            y = y + p
+        tiles.append(y if bias is None else y + bias)
+    return torch.cat(tiles)[:n]
+
+
+@pytest.mark.parametrize("fill,spread", [(None, False), (None, True),
+                                         (0xFF, True), (0x00, False)])
+@pytest.mark.parametrize("n,cluster", [(9, 1), (16, 3), (24, 5), (32, 8)])
+def test_k1_rows_sums_match_pallas_giw(fill, spread, n, cluster):
+    """bf16 x at 9-32 rows against ``_pallas_q4_matmul_ps_giw`` (the TPU
+    kernel the JAX tool runs past its n <= 8 gate), under clusters that
+    divide the 8 groups or not; the bias added last."""
+    K, O = 512, 256  # noqa: N806
+    jw, packed, scales = _weight(K, O, 30 + n, fill)
+    x = _x(n, K, 40 + n, spread)
+    b = np.random.default_rng(6).standard_normal(O).astype(np.float32)
+    ref = _pallas_q4_matmul_ps_giw(
+        jnp.asarray(x, jnp.bfloat16), jw.packed, jw.scales,
+        jnp.asarray(b).reshape(1, O), block_kh=256, ochunk=O,
+        interpret=True, has_bias=True)
+    got = emulate_rows(torch.from_numpy(x).to(torch.bfloat16), packed,
+                       scales, torch.from_numpy(b), cluster)
+    _close(got, ref)
+
+
+def rows_kernel_groups(rank, C, groups):  # noqa: N803
+    """The groups rank ``rank`` of a C-block cluster computes in
+    rows::kernel's double-buffered loop (csrc/q4_gemv_ps.cu): ``gb`` from
+    the rank in steps of 2C, ``g1 = gb + C`` beside it while in range."""
+    seen, gb = [], rank
+    while gb < groups:
+        seen.append(gb)
+        if gb + C < groups:
+            seen.append(gb + C)
+        gb += 2 * C
+    return seen
+
+
+def test_rows_kernel_groups_cover_each_group_once_for_any_cluster():
+    for groups in (1, 5, 8, 63, 64, 80, 256, 320):
+        for c in range(1, CORE_MAX_CLUSTER + 1):
+            ranks = [rows_kernel_groups(r, c, groups) for r in range(c)]
+            assert sorted(g for gs in ranks for g in gs) == list(range(groups))
+            assert max(map(len, ranks)) == -(-groups // c)
+
+
+@pytest.mark.parametrize("K,O", [  # noqa: N803
+    (4096, 12288), (4096, 4096), (4096, 16384), (16384, 4096), (4096, 51200),
+    (5120, 15360), (5120, 5120), (5120, 20480), (20480, 5120), (5120, 51200)])
+@pytest.mark.parametrize("n", [9, 16, 17, 32])
+def test_k1_rows_plan_one_wave_each_group_once(K, O, n):  # noqa: N803
+    """At every Q4 weight shape of GPT-J-6B and Pythia-12B, on an H100's 132
+    SMs holding two blocks of the instance each: 2 n-tiles up to 16 rows,
+    else 4; every cluster resident at once; the kernel's loop over the plan's
+    C ranks covers the K/64 groups once, every rank busy and the busiest
+    rank's groups times the blocks within 10% of the ideal (the weight's
+    groups spread evenly); at most 8 blocks a cluster."""
+    sm = 132
+
+    def max_clusters(nt, c):
+        assert nt in (2, 4)
+        return 2 * sm // c
+
+    nt, c = k1_rows_plan(n, K, O, sm, max_clusters)
+    assert nt == (2 if n <= 16 else 4)
+    assert 1 <= c <= CORE_MAX_CLUSTER
+    tiles = -(-O // K1_ROWS_TILE_O)
+    clusters = -(-tiles // CORE_WARPS)
+    assert clusters <= max_clusters(nt, c)
+    groups = K // 64
+    ranks = [rows_kernel_groups(r, c, groups) for r in range(c)]
+    assert sorted(g for gs in ranks for g in gs) == list(range(groups))
+    assert min(map(len, ranks)) >= 1
+    work = max(map(len, ranks)) * clusters * c * CORE_WARPS
+    assert tiles * groups <= work <= 1.1 * tiles * groups
+
+
+def test_k1_rows_plan_refuses_rows_outside_its_domain():
+    with pytest.raises(ValueError):
+        k1_rows_plan(8, 4096, 4096, 132, lambda nt, c: 264 // c)
+    with pytest.raises(ValueError):
+        k1_rows_plan(33, 4096, 4096, 132, lambda nt, c: 264 // c)

@@ -13,7 +13,11 @@ next is made), and ``_decode_many`` runs ``decode_chunk`` and
 ``max(tokens, 2 * decode_chunk)`` steps (greedy), each loop three times;
 the step is the difference of the two loops' median seconds over the
 difference of their lengths, which cancels what a call costs beside its
-steps (the prefill's wait, the one read of the tokens).  On the card the
+steps (the prefill's wait, the one read of the tokens).  The difference is
+guarded (``timing.differenced``): unless every long rep took longer than
+every short rep, the pair is measured again with the long loop doubled (at
+most up to n_ctx), and if it is still unresolved the bench exits non-zero
+with each rep's seconds and prints no line.  On the card the
 step replays one CUDA graph (engine/generate.py), captured in the loops
 run once before the timed ones; the line says how many captures fell in
 the timed loops (0 unless a cache came back at other addresses).
@@ -51,6 +55,7 @@ from vsim_tpu_torch.engine.sampling import SamplingParams, sample_torch
 from vsim_tpu_torch.models.config import PRESETS
 from vsim_tpu_torch.models.init import param_bytes, random_q4_params
 from vsim_tpu_torch.ops import q4_cuda
+from vsim_tpu_torch.timing import UnresolvedDifference, differenced
 
 KV_DTYPES = ("bfloat16", "float32", "int8", "int4")
 WINDOW = 64  # the repeat window of the timed loops, as the JAX bench's
@@ -113,33 +118,47 @@ def timed_loop(engine: InferenceEngine, prompt: List[int], B: int,  # noqa: N803
 
 def steady(engine: InferenceEngine, prompt: List[int], B: int,  # noqa: N803
            n_short: int, n_long: int, reps: int = 3) -> Dict:
-    """The step's seconds at batch B from the loop pair: {"step_s",
-    "short_s", "long_s" (each rep's seconds), "step_s_range" (the
-    smallest and largest difference any two reps give),
-    "captures_in_timed_reps"}."""
-    if n_long <= n_short:
-        raise ValueError("the long loop must be longer than the short one")
-    timed_loop(engine, prompt, B, n_short, 1)  # capture at the short ring
-    timed_loop(engine, prompt, B, n_long, 1)  # and at the long one
-    captures = [0]
+    """The step's seconds at batch B from the loop pair, guarded by
+    ``timing.differenced`` (the long loop grown up to the cache's n_ctx
+    while a long rep takes no longer than a short one; raises
+    ``UnresolvedDifference`` if that never resolves): {"step_s",
+    "short_s", "long_s" (each rep's seconds), "steps" (the loops' lengths),
+    "step_s_range" (the smallest and largest difference any two reps give;
+    the smallest is > 0), "tries", "captures_in_timed_reps"}.  Each loop
+    length runs once untimed first (its ring's capture)."""
+    captures, timing_reps, warmed = [0], [False], set()
     make = engine._make_graph
+
+    def run(n):
+        if n not in warmed:
+            timed_loop(engine, prompt, B, n, 1)  # capture at this ring
+            warmed.add(n)
+        timing_reps[0] = True
+        try:
+            return timed_loop(engine, prompt, B, n, reps)
+        finally:
+            timing_reps[0] = False
+
     if make is not None:
         def counting():
-            captures[0] += 1
+            if timing_reps[0]:
+                captures[0] += 1
             return make()
 
         engine._make_graph = counting
     try:
-        short = timed_loop(engine, prompt, B, n_short, reps)
-        long_ = timed_loop(engine, prompt, B, n_long, reps)
+        d = differenced(run, n_short, n_long, engine.n_ctx - len(prompt),
+                        what=f"the decode step at B={B}")
     finally:
         engine._make_graph = make
-    dn = n_long - n_short
+    short, long_ = d["short_s"], d["long_s"]
+    dn = d["n_long"] - d["n_short"]
     step_s = (float(np.median(long_)) - float(np.median(short))) / dn
-    return dict(step_s=max(step_s, 1e-9), short_s=short, long_s=long_,
+    return dict(step_s=step_s, short_s=short, long_s=long_,
+                steps=[d["n_short"], d["n_long"]],
                 step_s_range=[(min(long_) - max(short)) / dn,
                               (max(long_) - min(short)) / dn],
-                captures_in_timed_reps=captures[0])
+                tries=d["tries"], captures_in_timed_reps=captures[0])
 
 
 def build(args: argparse.Namespace, params=None):
@@ -213,7 +232,7 @@ def measure(args: argparse.Namespace, cfg, engine: InferenceEngine,
                                            for x in run["step_s_range"]],
             "reps_s": {"short": [round(x, 5) for x in run["short_s"]],
                        "long": [round(x, 5) for x in run["long_s"]],
-                       "steps": [n_short, n_long]},
+                       "steps": run["steps"], "tries": run["tries"]},
             "captures_in_timed_reps": run["captures_in_timed_reps"],
             "e2e_tokens_per_s_b1": (round(tps, 3)
                                     if tps is not None and tps == tps
@@ -236,7 +255,7 @@ def main(argv=None) -> int:
         cfg, engine, wbytes = build(args)
         result = measure(args, cfg, engine, wbytes)
         if args.verbose:
-            n_long = max(args.tokens, 2 * args.decode_chunk)
+            n_long = result["extra"]["reps_s"]["steps"][1]
             monitor.reset()
             phases = _phase_attribution(
                 cfg, engine.params, args.batch, args.prompt_len + n_long + 1,
@@ -245,6 +264,9 @@ def main(argv=None) -> int:
                                            for k, v in phases.items()}
             print(monitor.report(), file=sys.stderr)
             print(json.dumps(result, indent=2), file=sys.stderr)
+    except UnresolvedDifference as e:
+        print(f"bench: {e}", file=sys.stderr, flush=True)
+        return 1
     finally:
         q4_cuda.set_dequant_math(math_was)
     print(json.dumps(result), flush=True)

@@ -117,7 +117,7 @@ record = _GLOBAL.record
 
 
 def chain_time(step_fn, params, init, reps: int = 8, n_short: int = 2,
-               n_long: int = 10) -> float:
+               n_long: int = 10, n_max: Optional[int] = None) -> float:
     """Median seconds a step of ``step_fn(params, carry) -> carry`` (a
     tuple of tensors), the JAX package's chain_time (vsim_tpu/monitor.py):
     the step chained ``n`` times, each carry the next step's input (so the
@@ -125,16 +125,22 @@ def chain_time(step_fn, params, init, reps: int = 8, n_short: int = 2,
     ``n_long`` steps and differenced, which cancels the constant of a run.
     On the card each chain is captured once as a CUDA graph after one
     eager run, and each replay is timed with CUDA events: device time.  On
-    the CPU the chain runs eagerly under the host clock.  ``init`` is read,
-    not consumed; a step that writes one of its tensors in place (a cache)
-    writes it again on every run.  Kernel launches made here are taken
-    back out of the launch counts: they measure, they serve nothing."""
+    the CPU the chain runs eagerly under the host clock.  The pair is
+    guarded by ``timing.differenced``: while a long rep takes no longer
+    than a short one the long chain is doubled (to at most ``n_max`` steps:
+    a chain that moves a cache position must stay inside the cache), and a
+    difference that never resolves raises ``timing.UnresolvedDifference`` (no time is
+    returned).  ``init`` is read, not consumed; a step that writes one of
+    its tensors in place (a cache) writes it again on every run.  Kernel
+    launches made here are taken back out of the launch counts: they
+    measure, they serve nothing."""
     import collections
 
     import torch
 
     from vsim_tpu_torch.engine.graph import CudaGraph
     from vsim_tpu_torch.ops import _build
+    from vsim_tpu_torch.timing import differenced
 
     def chain(n):
         carry = tuple(init)
@@ -153,7 +159,7 @@ def chain_time(step_fn, params, init, reps: int = 8, n_short: int = 2,
                     t0 = time.perf_counter()
                     chain(n)
                     times.append(time.perf_counter() - t0)
-                return sorted(times)[len(times) // 2]
+                return times
             chain(n)  # builds, plans, allocator warm-up
             graph = CudaGraph()
             graph.capture(lambda: chain(n))
@@ -167,9 +173,14 @@ def chain_time(step_fn, params, init, reps: int = 8, n_short: int = 2,
                 end.record()
                 end.synchronize()
                 times.append(start.elapsed_time(end) / 1e3)
+            return times
+
+        def median(times):
             return sorted(times)[len(times) // 2]
 
-        return max((t(n_long) - t(n_short)) / (n_long - n_short), 1e-9)
+        d = differenced(t, n_short, n_long, n_max, what="chain_time")
+        return ((median(d["long_s"]) - median(d["short_s"]))
+                / (d["n_long"] - d["n_short"]))
     finally:
         _build.launch_counts.clear()
         _build.launch_counts.update(saved)

@@ -1,9 +1,12 @@
 """Q4_0 matmul kernels (counterpart of vsim_tpu/ops/pallas_q4.py).
 
-K1 ``q4_gemv_ps`` (csrc/q4_gemv_ps.cu): n <= 8 rows of bf16 x, the
+K1 ``q4_gemv_ps`` (csrc/q4_gemv_ps.cu): n <= 32 rows of bf16 x, the
 grouped-integer math of ``_kernel_ps_giw`` / ``_kernel_ps_gi[_bias]``, on
 the Q4 core of csrc/q4_core.cuh (mma.sync on conversion-free nibbles, K
-split over a thread-block cluster, ``core_plan``).
+split over a thread-block cluster, ``core_plan``) at n <= 8, and at 9-32
+rows (the giw kernel's own domain) a second instance that reads the weight
+once for 2 or 4 n-tiles of 8 rows (``k1_rows_plan``).  The router
+(ops/matmul.py) sends K1 n <= 8 rows only.
 K2 ``q4_matmul_ps`` (csrc/q4_matmul_ps.cu): n <= 128 rows, the per-element
 dequant math of ``_kernel_ps[_bias]``: planes (v - 8)·s rounded to bf16 (x
 too) or kept in f32, as ``round_planes`` says (ops/matmul.py decides it
@@ -45,6 +48,7 @@ from vsim_tpu_torch.ops import _build
 from vsim_tpu_torch.quant.q4 import QK
 
 GEMV_MAX_ROWS = 8
+K1_MAX_ROWS = 32  # K1's own domain (the giw kernel's N <= 32)
 MATMUL_MAX_ROWS = 128
 MLP_MAX_ROWS = 8
 _GEMV_TILE_O = 1024  # output columns per block of K2's GEMV (n <= 8)
@@ -54,6 +58,8 @@ _MLP_F_MULTIPLE = 128  # K11's contract since its first port: F % 128 == 0
 CORE_WARPS = 4  # warps a block
 CORE_TILE_O = 128  # output columns a warp
 CORE_MAX_CLUSTER = 8  # blocks a cluster (the portable limit)
+# K1's 9-32-row instance (csrc/q4_gemv_ps.cu, rows::): 64 columns a warp
+K1_ROWS_TILE_O = 64
 # K9/K10 (csrc/q4_matmul_i.cu): instances by 8-row n-tiles of x
 I_TILES = (1, 2, 4, 8, 16)
 
@@ -364,6 +370,34 @@ def i_plan(n: int, K: int, O: int, sm_count: int,  # noqa: N803
                            wcs=(CORE_WARPS,)))
 
 
+def k1_rows_plan(n: int, K: int, O: int, sm_count: int,  # noqa: N803
+                 max_clusters: Callable[[int, int], int]) -> Tuple[int, int]:
+    """(nt, cluster) of K1's 9-32-row instance for n rows of x and a
+    [K/2, O] weight: 2 n-tiles of 8 rows up to 16 rows, else 4, then
+    ``core_plan`` on that instance's clusters (``max_clusters(nt,
+    cluster)``) with every warp of a block on its own 64 columns of the same
+    groups (wc = 4): only the cluster splits K."""
+    if not GEMV_MAX_ROWS < n <= K1_MAX_ROWS:
+        raise ValueError(f"k1_rows_plan: n={n} is not in 9..{K1_MAX_ROWS}")
+    nt = 2 if n <= 16 else 4
+    _, c = core_plan(K, O, sm_count, functools.partial(max_clusters, nt),
+                     tile_o=K1_ROWS_TILE_O, wcs=(CORE_WARPS,))
+    return nt, c
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_rows_max_clusters(index: int, nt: int, cluster: int) -> int:
+    with torch.cuda.device(index):
+        return _build.function("q4_gemv_ps", "q4_gemv_ps_rows_max_clusters",
+                               (_I, _I))(nt, cluster)
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_rows_plan(index: int, n: int, K: int, O: int) -> Tuple[int, int]:  # noqa: N803
+    return k1_rows_plan(n, K, O, _sm_count(index),
+                        functools.partial(_k1_rows_max_clusters, index))
+
+
 @functools.lru_cache(maxsize=None)
 def _i_max_clusters(index: int, x_bf16: bool, round_planes: bool, nt: int,
                     cluster: int) -> int:
@@ -389,7 +423,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def q4_gemv_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1: y [n, O] f32 for n <= 8 rows of bf16 x."""
+    """K1: y [n, O] f32 for n <= 32 rows of bf16 x."""
     if x.device.type == "cpu":
         return q4_gemv_ps_plain(x, packed, scales, bias)
     return q4_gemv_ps_planned(x, packed, scales, bias, None)
@@ -398,18 +432,27 @@ def q4_gemv_ps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
 def q4_gemv_ps_planned(x: torch.Tensor, packed: torch.Tensor,
                        scales: torch.Tensor, bias: Optional[torch.Tensor],
                        plan: Optional[Tuple[int, int]]) -> torch.Tensor:
-    """K1 on the card under ``plan`` (wc, cluster), or ``core_plan``'s when
-    None: the card tests run every kind of plan on small shapes."""
-    n, K, O = _check(x, packed, scales, bias, GEMV_MAX_ROWS,  # noqa: N806
+    """K1 on the card.  At n <= 8 under ``plan`` (wc, cluster), or
+    ``core_plan``'s when None; at 9-32 rows under (nt, cluster), or
+    ``k1_rows_plan``'s: the card tests run every kind of plan on small
+    shapes.  One launch."""
+    n, K, O = _check(x, packed, scales, bias, K1_MAX_ROWS,  # noqa: N806
                      (torch.bfloat16,), "q4_gemv_ps")
     _check_quads("q4_gemv_ps", O, packed, scales)
-    wc, cluster = plan or _plan("q4_gemv_ps", x.device.index, K, O)
     x = _aligned(x)
     out = torch.empty((n, O), dtype=torch.float32, device=x.device)
-    _build.launch("q4_gemv_ps", "q4_gemv_ps_launch", _GEMV_ARGS,
+    if n <= GEMV_MAX_ROWS:
+        wc, cluster = plan or _plan("q4_gemv_ps", x.device.index, K, O)
+        _build.launch("q4_gemv_ps", "q4_gemv_ps_launch", _GEMV_ARGS,
+                      _build.ptr(x), _build.ptr(packed),
+                      _build.ptr(scales), _build.ptr(bias), _build.ptr(out),
+                      n, K, O, wc, cluster, _build.stream_ptr(x.device))
+        return out
+    nt, cluster = plan or _k1_rows_plan(x.device.index, n, K, O)
+    _build.launch("q4_gemv_ps", "q4_gemv_ps_rows_launch", _GEMV_ARGS,
                   _build.ptr(x), _build.ptr(packed),
                   _build.ptr(scales), _build.ptr(bias), _build.ptr(out),
-                  n, K, O, wc, cluster, _build.stream_ptr(x.device))
+                  n, K, O, nt, cluster, _build.stream_ptr(x.device))
     return out
 
 

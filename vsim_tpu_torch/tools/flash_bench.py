@@ -37,6 +37,7 @@ import torch
 from vsim_tpu_torch import monitor
 from vsim_tpu_torch.device import card_label, resolve_device
 from vsim_tpu_torch.models.config import PRESETS, ModelConfig
+from vsim_tpu_torch.timing import UnresolvedDifference
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -145,39 +146,44 @@ def main(argv=None) -> int:
                                       kv_dtype="int4", n_ctx=2048)
     device = card_label() if dev.type == "cuda" else "cpu"
     print(f"device={device} model={args.model}", flush=True)
-    result = {"model": args.model, "device": device, "micro": {},
-              "prefill": {}, "long_decode": {}}
-    for T in MICRO_T:  # noqa: N806
-        row = {}
-        for name, fl in (("einsum", False), ("flash", True)):
-            t = attn_micro(cfg, T, fl, dev)
-            row[name + "_ms"] = round(t * 1e3, 3)
-            print(f"micro T={T} {name}: {t * 1e3:.3f} ms "
-                  f"({cfg.n_layer} layers)", flush=True)
-        row["flash_speedup"] = round(row["einsum_ms"] / row["flash_ms"], 3)
-        result["micro"][str(T)] = row
-
-    if not args.skip_model:
-        from vsim_tpu_torch.engine.generate import engine_params
-        from vsim_tpu_torch.models.init import random_q4_params
-
-        params = engine_params(cfg, random_q4_params(
-            cfg, seed=0, device=dev,
-            rng="device" if dev.type == "cuda" else "numpy"), dev)
-        for T in PREFILL_T:  # noqa: N806
+    try:
+        result = {"model": args.model, "device": device, "micro": {},
+                  "prefill": {}, "long_decode": {}}
+        for T in MICRO_T:  # noqa: N806
             row = {}
             for name, fl in (("einsum", False), ("flash", True)):
-                t = model_prefill(cfg, params, T, fl, dev)
-                row[name + "_s"] = round(t, 4)
-                row[name + "_tok_per_s"] = round(T / t, 1)
-                print(f"prefill T={T} {name}: {t * 1e3:.1f} ms = "
-                      f"{T / t:.0f} tok/s", flush=True)
-            row["flash_speedup"] = round(row["einsum_s"] / row["flash_s"], 3)
-            result["prefill"][str(T)] = row
-        result["long_decode"] = long_decode(cfg, params, dev)
-        print(f"long-context decode: {result['long_decode']['step_ms_b1']}"
-              " ms/step", flush=True)
+                t = attn_micro(cfg, T, fl, dev)
+                row[name + "_ms"] = round(t * 1e3, 3)
+                print(f"micro T={T} {name}: {t * 1e3:.3f} ms "
+                      f"({cfg.n_layer} layers)", flush=True)
+            row["flash_speedup"] = round(row["einsum_ms"] / row["flash_ms"], 3)
+            result["micro"][str(T)] = row
 
+        if not args.skip_model:
+            from vsim_tpu_torch.engine.generate import engine_params
+            from vsim_tpu_torch.models.init import random_q4_params
+
+            params = engine_params(cfg, random_q4_params(
+                cfg, seed=0, device=dev,
+                rng="device" if dev.type == "cuda" else "numpy"), dev)
+            for T in PREFILL_T:  # noqa: N806
+                row = {}
+                for name, fl in (("einsum", False), ("flash", True)):
+                    t = model_prefill(cfg, params, T, fl, dev)
+                    row[name + "_s"] = round(t, 4)
+                    row[name + "_tok_per_s"] = round(T / t, 1)
+                    print(f"prefill T={T} {name}: {t * 1e3:.1f} ms = "
+                          f"{T / t:.0f} tok/s", flush=True)
+                row["flash_speedup"] = round(row["einsum_s"]
+                                             / row["flash_s"], 3)
+                result["prefill"][str(T)] = row
+            result["long_decode"] = long_decode(cfg, params, dev)
+            print(f"long-context decode: {result['long_decode']['step_ms_b1']}"
+                  " ms/step", flush=True)
+
+    except UnresolvedDifference as e:
+        print(f"flash_bench: {e}", file=sys.stderr, flush=True)
+        return 1
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

@@ -7,7 +7,7 @@ tools/gi_sweep.py).
 On the "ps" repack of a random weight: "dma" is K13 in the "ps" layout
 (``_k_giw_dma``: whole-x touch, both scale planes, ``block_kh`` 256, the
 TPU sweep's first geometry), "gi" K2 (``q4_matmul_ps``, bf16 planes) and
-"giw" K1 (``q4_gemv_ps``, n <= 8).  Prints what tools/lab.py says.  The
+"giw" K1 (``q4_gemv_ps``, n <= 32).  Prints what tools/lab.py says.  The
 TPU's geometry sweep does not carry over, and a failure raises instead of
 being printed and passed over.
 """

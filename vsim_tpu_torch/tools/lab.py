@@ -15,7 +15,7 @@ the 50 MB L2.  Variants:
   dma        K13 (its layout: "i", or "ps" for gi_sweep), a read of every byte
   cur        K9 ``q4_matmul_i``: the main path's "i"-layout matmul
   gi         K2 ``q4_matmul_ps`` with bf16 planes, on the "ps" repack
-  giw        K1 ``q4_gemv_ps`` (n <= 8), on the "ps" repack
+  giw        K1 ``q4_gemv_ps`` (n <= 32), on the "ps" repack
 
 Every run times K13 too, so each row carries its ratio to K13's rate
 at its shape.  A row's GB/s counts the weight's bytes (packed and scales).

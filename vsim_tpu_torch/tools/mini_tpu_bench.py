@@ -8,7 +8,11 @@ by that tool's ``quantize_params``, bf16 compute, int8 KV, B=1 greedy.
 
 The step is the JAX tool's: ``_prefill`` of an 8-byte prompt, then
 ``_decode_many`` of 32 and of ``--tokens`` steps, the best of three runs
-each, differenced over the difference of their lengths.  One cache serves
+each, differenced over the difference of their lengths.  The difference
+is guarded (``timing.differenced``): unless every long run took longer
+than every short run, both are measured again with the long loop doubled
+(at most up to n_ctx), and if it is still unresolved the tool exits
+non-zero with each run's seconds and writes no row.  One cache serves
 every run (a prefill rewrites its first rows; a step reads the rows up to
 its n_past).  Where REF_BASELINE.json holds the reference binary's row
 (``perf.q4_0_t1``: the C program on a CPU, on the same trained model) it is
@@ -29,6 +33,7 @@ from typing import Dict, Optional
 import torch
 
 from vsim_tpu_torch.device import card_label, resolve_device
+from vsim_tpu_torch.timing import UnresolvedDifference, differenced
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -63,11 +68,18 @@ def measure(ckpt: str, tokens: int, device) -> Dict:
         eng._decode_many(tok, cache, len(PROMPT), last, n_steps, greedy)
         return time.perf_counter() - t0
 
-    timed(SHORT)
-    timed(tokens)  # the ring's capture at each length
-    t_short = min(timed(SHORT) for _ in range(3))
-    t_long = min(timed(tokens) for _ in range(3))
-    per_tok = (t_long - t_short) / (tokens - SHORT)
+    warmed = set()
+
+    def runs(n_steps):
+        if n_steps not in warmed:
+            timed(n_steps)  # the ring's capture at this length
+            warmed.add(n_steps)
+        return [timed(n_steps) for _ in range(3)]
+
+    d = differenced(runs, SHORT, tokens, eng.n_ctx - len(PROMPT),
+                    what="mini_tpu_bench's decode step")
+    per_tok = ((min(d["long_s"]) - min(d["short_s"]))
+               / (d["n_long"] - d["n_short"]))
     return {"tokens_per_s": round(1.0 / per_tok, 1),
             "ms_per_token": round(per_tok * 1e3, 4),
             "device": card_label() if device.type == "cuda" else "cpu",
@@ -98,7 +110,11 @@ def main(argv=None) -> int:
                          "plain versions")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    row = measure(args.ckpt, args.tokens, dev)
+    try:
+        row = measure(args.ckpt, args.tokens, dev)
+    except UnresolvedDifference as e:
+        print(f"mini_tpu_bench: {e}", file=sys.stderr, flush=True)
+        return 1
     doc = {"ours_q4_0_b1": row}
     ref = reference_row(args.reference)
     if ref:
